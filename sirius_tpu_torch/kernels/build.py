@@ -1,0 +1,129 @@
+"""Build and load the hand-written CUDA kernels of the port.
+
+Each source under ``sirius_tpu_torch/csrc/`` is compiled by its own ``nvcc``
+into a shared library with a plain C interface, loaded with ``ctypes``. The
+libraries go into ``sirius_tpu_torch/_build/`` (listed in ``.gitignore``),
+named by a hash of the source and the flags, so an edited source rebuilds
+and an unchanged one is reused. Nothing is built at import: the first
+launch on a CUDA tensor builds its library, and ``build_all`` builds every
+library at once with the compilers running in parallel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+PKG = Path(__file__).resolve().parent.parent
+CSRC = PKG / "csrc"
+BUILD_DIR = PKG / "_build"
+SOURCES = ("local_hpsi", "davidson_residual", "density_accumulate", "lda_xc")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_LL = ctypes.c_longlong
+_D = ctypes.c_double
+# argtypes of every exported function: pointers and the stream as void*,
+# so ctypes never truncates a pointer to a 32-bit int
+SIGNATURES = {
+    "local_hpsi": {
+        "pw_to_box": (_P, _P, _P, _P, _I, _I, _I, _LL, _I, _P),
+        "box_to_pw": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _LL, _I, _P),
+    },
+    "davidson_residual": {
+        "davidson_residual": (_P, _P, _P, _P, _P, _P, _D, _P, _P, _P,
+                              _I, _I, _I, _P),
+    },
+    "density_accumulate": {
+        "density_accumulate": (_P, _P, _P, _I, _I, _LL, _D, _P),
+    },
+    "lda_xc": {
+        "lda_xc": (_P, _P, _P, _P, _P, _LL, _I, _P),
+    },
+}
+
+_LOADED: dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    """The CUDA compiler: $CUDA_HOME/bin/nvcc, else nvcc on PATH, else the
+    toolkit's default location."""
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    for cand in ([os.path.join(home, "bin", "nvcc")] if home else []) + [
+            shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"]:
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the port's CUDA kernels are built "
+                       "from source at first use and need the CUDA toolkit")
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{key}.so"
+
+
+def build_all(names=SOURCES) -> dict[str, float]:
+    """Compile every missing library, one nvcc per source, all started
+    together. Returns {name: seconds} for the libraries it compiled."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = None
+    procs = {}
+    t0 = time.perf_counter()
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            continue
+        nvcc = nvcc or nvcc_path()
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT), tmp, out)
+    times = {}
+    failed = []
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        times[name] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            failed.append(f"{name}: {log.decode(errors='replace')}")
+            continue
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return times
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of one kernel source, built first if needed."""
+    lib = _LOADED.get(name)
+    if lib is None:
+        path = library_path(name)
+        if not path.exists():
+            build_all((name,))
+        lib = ctypes.CDLL(str(path))
+        for fn, argtypes in SIGNATURES[name].items():
+            f = getattr(lib, fn)
+            f.argtypes = list(argtypes)
+            f.restype = ctypes.c_int
+        _LOADED[name] = lib
+    return lib
+
+
+def check(rc: int, what: str) -> None:
+    """Raise on a non-zero cudaError_t returned by a kernel's C function."""
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA error {rc} at launch")
+
+
+def stream_of(t) -> int:
+    """The raw cudaStream_t of the current stream on a tensor's device."""
+    import torch
+
+    return torch.cuda.current_stream(t.device).cuda_stream
