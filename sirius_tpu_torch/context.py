@@ -28,6 +28,7 @@ from sirius_tpu_torch.dft.radial_tables import (
     structure_factors,
     vloc_ff,
 )
+from sirius_tpu_torch.ops.augmentation import Augmentation
 from sirius_tpu_torch.ops.beta import BetaProjectors
 
 
@@ -43,7 +44,7 @@ class SimulationContext:
     gkvec: GkVec
     kweights: np.ndarray
     beta: BetaProjectors
-    aug: None  # augmentation (ultrasoft/PAW) is not in this slice
+    aug: Augmentation | None  # ultrasoft/PAW augmentation, None without
     vloc_g: np.ndarray  # (ng_fine,) local potential
     rho_core_g: np.ndarray  # (ng_fine,)
     rho_atomic_g: np.ndarray  # (ng_fine,) superposition of free atoms
@@ -98,11 +99,15 @@ class SimulationContext:
 
         beta = BetaProjectors.build(uc, gkvec, qmax=p.gk_cutoff + 1e-9)
         aug = None
-        if any(t.augmentation or t.pseudo_type in ("US", "PAW")
-               for t in uc.atom_types):
-            raise NotImplementedError(
-                "ultrasoft/PAW species need ops/augmentation.py and kernels "
-                "K4/K5 (ROADMAP queue 2); this port slice is norm-conserving")
+        if any(t.augmentation for t in uc.atom_types):
+            aug = Augmentation.build(uc, gvec)
+            # assemble the block-diagonal S-operator integrals q_mtrx
+            qmat = np.zeros_like(beta.dion)
+            for ia, off, nbf in beta.atom_blocks(uc):
+                at = aug.per_type[uc.type_of_atom[ia]]
+                if at is not None:
+                    qmat[off : off + nbf, off : off + nbf] = at.q_mtrx
+            beta = dataclasses.replace(beta, qmat=qmat)
         sfact = structure_factors(uc, gvec)
         vloc_g = make_periodic_function(
             uc, gvec, vloc_ff(cfg.settings.pseudo_grid_cutoff), sfact

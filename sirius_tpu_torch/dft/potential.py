@@ -3,7 +3,8 @@ Potential::generate): Poisson -> XC -> V_eff assembly, plus the energy
 integrals the reference reports (energy.hpp:280).
 
 Mirrors the unpolarized LDA branch of sirius_tpu/dft/potential.py::
-generate_potential (:76-228) on device tensors; the XC evaluation is K7.
+generate_potential (:76-228) on device tensors; the XC evaluation is K7,
+the space-group symmetrization of V_eff(G) (:167-170) K6.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ import torch
 
 from sirius_tpu_torch.context import SimulationContext
 from sirius_tpu_torch.core.fftgrid import g_to_r, r_to_g
-from sirius_tpu_torch.dft.density import GridTables
+from sirius_tpu_torch.dft.density import GridTables, symmetrize_pw
 from sirius_tpu_torch.dft.poisson import hartree_potential_g
 from sirius_tpu_torch.dft.xc import XCFunctional
 
@@ -56,6 +57,8 @@ def generate_potential(
 
     vxc_g = r_to_g(vxc_r, tables.fft_index, dims)
     veff_g = tables.vloc_g + vha_g + vxc_g
+    if tables.sym is not None:
+        veff_g = symmetrize_pw(tables.sym, veff_g)
     veff_r_coarse = g_to_r(veff_g[tables.coarse_to_fine],
                            tables.fft_index_coarse, tables.dims_coarse).real
 

@@ -1,10 +1,11 @@
 """SCF ground-state driver (reference: src/dft/dft_ground_state.cpp find
 :178-427 and the sirius.scf mini-app output JSON).
 
-Mirrors the main path of sirius_tpu/dft/scf.py::_run_scf_inner for the
-configuration of this port slice: collinear-free (unpolarized),
-norm-conserving plane-wave pseudopotentials on a k-mesh, no symmetry, LDA
-(X + PZ), linear or Anderson mixing. Orchestration is host Python; the
+Mirrors the host path of sirius_tpu/dft/scf.py::_run_scf_inner for the
+configurations of the port: unpolarized, norm-conserving or ultrasoft
+plane-wave pseudopotentials on a k-mesh, with or without the space group
+(irreducible k-mesh, symmetrized density and potential), LDA (X + PZ),
+linear or Anderson mixing. Orchestration is host Python; the
 band solve, density, mixing and potential run on tensors on ``device``,
 which is the GPU unless the caller asks for the CPU.
 """
@@ -20,20 +21,29 @@ from sirius_tpu_torch.config.schema import Config
 from sirius_tpu_torch.context import SimulationContext
 from sirius_tpu_torch.device import resolve_device
 from sirius_tpu_torch.dft.density import (
+    build_dm_sym_tables,
     density_from_coarse_acc,
     grid_tables,
     initial_density_g,
     rho_real_space,
+    symmetrize_density_matrix_device,
+    symmetrize_pw,
 )
 from sirius_tpu_torch.dft.mixer import Mixer, schedule_res_tol
 from sirius_tpu_torch.dft.occupation import find_fermi
 from sirius_tpu_torch.dft.potential import generate_potential
 from sirius_tpu_torch.dft.xc import XCFunctional
 from sirius_tpu_torch.ops.atomic import atomic_orbitals
+from sirius_tpu_torch.ops.augmentation import (
+    build_aug_device_tables,
+    d_operator_device,
+    rho_aug_g_device,
+)
 from sirius_tpu_torch.parallel.batched import (
     compute_h_diag,
     davidson_kset,
     density_kset,
+    density_matrix_kset,
     initialize_subspace_kset,
     make_hkset_params,
 )
@@ -55,10 +65,6 @@ def check_supported(cfg: Config) -> None:
             "(ROADMAP queue 1, after K9); this slice runs fp64")
     if p.precision_wf != "fp64":
         raise ValueError(f"precision_wf must be fp32 or fp64, got '{p.precision_wf}'")
-    if p.use_symmetry:
-        raise NotImplementedError(
-            "use_symmetry=True needs PW symmetrization (kernel K6, ROADMAP "
-            "queue 2) and the ultrasoft + symmetry slice")
     if p.num_mag_dims > 0:
         raise NotImplementedError(
             "magnetism (num_mag_dims > 0) comes with ROADMAP queue 1, slice 6 "
@@ -75,11 +81,10 @@ def check_supported(cfg: Config) -> None:
 
 def check_context(cfg: Config, ctx: SimulationContext) -> None:
     """The context-level half of check_supported: species and k-set."""
-    if ctx.aug is not None or any(
-            t.augmentation or t.pseudo_type in ("US", "PAW") or t.paw
-            for t in ctx.unit_cell.atom_types):
+    if any(t.pseudo_type == "PAW" or t.paw for t in ctx.unit_cell.atom_types):
         raise NotImplementedError(
-            "ultrasoft/PAW species need kernels K4/K5 (ROADMAP queue 2)")
+            "PAW species need the on-site PAW terms (ROADMAP queue 1, "
+            "slice 4); ultrasoft and norm-conserving species run")
     gamma_only = (ctx.gkvec.num_kpoints == 1 and float(
         np.abs(ctx.gkvec.kpoints[0]).max()) < 1e-12)
     if gamma_only and cfg.control.reduce_gvec:
@@ -173,10 +178,32 @@ def run_scf(cfg: Config, ctx: SimulationContext | None = None,
     psi = None
     mixer = Mixer(cfg.mixer, ctx.gvec.glen2, omega=omega, device=device)
     x_mix = rho_g
-    # constant tables uploaded once; only veff_r and h_diag follow the
+    # constant tables uploaded once; veff_r, D and h_diag follow the
     # potential (norm-conserving: D is the bare D_ion)
     ps = make_hkset_params(ctx, pot.veff_r_coarse.cpu().numpy(),
                            v0=pot.veff_g[0].real, device=device)
+    aug_tables = dm_sym = None
+    if ctx.aug is not None:
+        aug_tables = build_aug_device_tables(ctx.unit_cell, ctx.gvec, ctx.aug,
+                                             ctx.beta, device)
+        dion = torch.as_tensor(ctx.beta.dion, dtype=torch.float64,
+                               device=device)
+        if tables.sym is not None:
+            dm_sym = build_dm_sym_tables(ctx, device)
+
+    def refresh(pot):
+        """The potential's leaves of the band solve: veff_r, the screened D
+        from the current potential (K5, one channel per spin) and h_diag,
+        which reads both."""
+        ps.veff_r = pot.veff_r_coarse
+        if aug_tables is not None:
+            d = d_operator_device(pot.veff_g, dion, aug_tables, omega)
+            ps.dion = d.to(torch.complex128).expand(ns, -1, -1).contiguous()
+        ps.h_diag = compute_h_diag(ps.ekin, ps.mask, ps.beta, ps.dion,
+                                   pot.veff_g[0].real)
+
+    if aug_tables is not None:
+        refresh(pot)
 
     counters = {"num_loc_op_applied": 0}
     etot_history, rms_history, iter_seconds, band_seconds = [], [], [], []
@@ -216,7 +243,16 @@ def run_scf(cfg: Config, ctx: SimulationContext | None = None,
         occ_w = occ * kweights[:, None, None]
         rho_spin = density_from_coarse_acc(ctx, density_kset(ps, psi, occ_w),
                                            tables)
+        if aug_tables is not None:
+            # beta density matrix -> its space-group average -> rho_aug (K4)
+            dm = density_matrix_kset(ps.beta, psi, occ_w)
+            if dm_sym is not None:
+                dm = symmetrize_density_matrix_device(dm, dm_sym)
+            rho_spin += rho_aug_g_device(dm.contiguous(), aug_tables,
+                                         ctx.gvec.num_gvec)
         rho_new = rho_spin.sum(dim=0)
+        if tables.sym is not None:
+            rho_new = symmetrize_pw(tables.sym, rho_new)
         if not (bool(torch.all(torch.isfinite(evals))) and bool(
                 torch.all(torch.isfinite(torch.view_as_real(rho_new))))):
             raise FloatingPointError(
@@ -241,9 +277,7 @@ def run_scf(cfg: Config, ctx: SimulationContext | None = None,
         if not bool(torch.all(torch.isfinite(pot.veff_r_coarse))):
             raise FloatingPointError(
                 f"non-finite effective potential at SCF iteration {it + 1}")
-        ps.veff_r = pot.veff_r_coarse
-        ps.h_diag = compute_h_diag(ps.ekin, ps.mask, ps.beta, ps.dion,
-                                   pot.veff_g[0].real)
+        refresh(pot)
         scf_correction = _epot(rho_new, pot) - e1 if p.use_scf_correction else 0.0
         eval_sum = float(torch.sum(kweights[:, None, None] * occ * evals))
         e = pot.energies

@@ -22,7 +22,8 @@ from pathlib import Path
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
-SOURCES = ("local_hpsi", "davidson_residual", "density_accumulate", "lda_xc")
+SOURCES = ("local_hpsi", "davidson_residual", "density_accumulate", "lda_xc",
+           "veff_multiply", "augmentation", "symmetrize_pw")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -46,6 +47,17 @@ SIGNATURES = {
     },
     "lda_xc": {
         "lda_xc": (_P, _P, _P, _P, _P, _LL, _I, _P),
+    },
+    "veff_multiply": {
+        "veff_multiply": (_P, _P, _I, _I, _I, _LL, _P),
+    },
+    "augmentation": {
+        "rho_aug": (_P, _P, _P, _P, _P, _P, _P, _I, _LL, _I, _I, _LL, _I, _P),
+        "d_operator": (_P, _P, _P, _P, _P, _I, _LL, _P, _P, _P, _D, _P, _I,
+                       _I, _LL, _P),
+    },
+    "symmetrize_pw": {
+        "symmetrize_pw": (_P, _P, _P, _P, _P, _P, _P, _I, _LL, _I, _I, _I, _P),
     },
 }
 

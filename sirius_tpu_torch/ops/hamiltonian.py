@@ -31,6 +31,9 @@ class HkParams:
     fft_index: torch.Tensor  # [B, ngk] int32
     beta: torch.Tensor  # [B, nbeta, ngk] complex128, zero on padded lanes
     dion: torch.Tensor  # [B, nbeta, nbeta] complex128 (real values)
+    # [nbeta, nbeta] complex128 S-operator integrals q_mtrx (ultrasoft);
+    # None for norm-conserving species, where S = 1
+    qmat: torch.Tensor | None = None
 
     @property
     def dims(self) -> tuple[int, int, int]:
@@ -39,9 +42,10 @@ class HkParams:
 
 def make_hk_params(ctx, ik: int, veff_r_coarse, dmat=None,
                    device=None) -> HkParams:
-    """One k-point as a batch of one (norm-conserving: D is the bare D_ion
-    unless dmat is given). veff_r_coarse: [n1, n2, n3] or [1, n1, n2, n3].
-    device=None is the GPU and raises without CUDA."""
+    """One k-point as a batch of one (D is the bare D_ion unless dmat is
+    given; Q is the context's q_mtrx, None without augmentation).
+    veff_r_coarse: [n1, n2, n3] or [1, n1, n2, n3]. device=None is the GPU
+    and raises without CUDA."""
     device = resolve_device(device)
     nbeta = ctx.beta.num_beta_total
     mask = np.asarray(ctx.gkvec.mask[ik:ik + 1])
@@ -59,13 +63,16 @@ def make_hk_params(ctx, ik: int, veff_r_coarse, dmat=None,
         beta=torch.tensor(beta * mask[:, None, :], device=device),
         dion=torch.tensor(np.asarray(d, dtype=np.complex128)[None],
                              device=device),
+        qmat=(None if ctx.beta.qmat is None else torch.tensor(
+            np.asarray(ctx.beta.qmat, dtype=np.complex128), device=device)),
     )
 
 
 def apply_h_s(params: HkParams, psi: torch.Tensor):
-    """(H psi, S psi) for a block psi [B, R, ngk] (S = 1 for norm-conserving
-    species)."""
+    """(H psi, S psi) for a block psi [B, R, ngk]; S = 1 + beta Q beta^+
+    (S = 1 for norm-conserving species, qmat None)."""
     from sirius_tpu_torch.kernels.local_hpsi import box_to_pw_hpsi, pw_to_box
+    from sirius_tpu_torch.kernels.veff_multiply import veff_multiply
 
     b, r, ngk = psi.shape
     dims = params.dims
@@ -74,8 +81,8 @@ def apply_h_s(params: HkParams, psi: torch.Tensor):
     box = pw_to_box(psi, params.fft_index, params.mask, n)
     fr = torch.fft.ifftn(box.view((b, r) + dims), dim=(-3, -2, -1))
     del box
-    # V(r) psi(r) in place; K1c in ROADMAP queue 2 fuses this multiply
-    fr.view((b // ns, ns, r) + dims).mul_(params.veff_r[None, :, None])
+    # V(r) psi(r) in place (K1c)
+    veff_multiply(fr.view(b, r, n), params.veff_r.view(ns, n))
     vbox = torch.fft.fftn(fr, dim=(-3, -2, -1)).view(b, r, n)
     del fr
     hpsi, spsi = box_to_pw_hpsi(vbox, psi, params.ekin, params.mask,
@@ -84,4 +91,8 @@ def apply_h_s(params: HkParams, psi: torch.Tensor):
         # H psi += beta D <beta|psi>; spsi is the masked psi
         bp = torch.matmul(spsi, params.beta.mH)
         hpsi = torch.baddbmm(hpsi, torch.matmul(bp, params.dion), params.beta)
+        if params.qmat is not None:
+            # S psi += beta Q <beta|psi> (projectors are zero on padding)
+            spsi = torch.baddbmm(spsi, torch.matmul(bp, params.qmat),
+                                 params.beta)
     return hpsi, spsi

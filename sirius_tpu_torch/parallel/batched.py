@@ -30,7 +30,9 @@ class HkSetParams:
     fft_index: torch.Tensor  # [nk, ngk] int32
     beta: torch.Tensor  # [nk, nbeta, ngk] complex128, zero on padded lanes
     dion: torch.Tensor  # [ns, nbeta, nbeta] complex128 screened D per spin
-    qmat: torch.Tensor  # [nbeta, nbeta], zero for norm-conserving species
+    # [nbeta, nbeta] complex128 S-operator integrals; None where Q is all
+    # zero (norm-conserving species)
+    qmat: torch.Tensor | None
     h_diag: torch.Tensor  # [nk, ns, ngk]
     o_diag: torch.Tensor  # [nk, ngk]
 
@@ -47,7 +49,8 @@ class HkSetParams:
                 "(ROADMAP queue 1, slice 6)")
         return HkParams(veff_r=self.veff_r, ekin=self.ekin, mask=self.mask,
                         fft_index=self.fft_index, beta=self.beta,
-                        dion=self.dion.expand(self.ekin.shape[0], -1, -1))
+                        dion=self.dion.expand(self.ekin.shape[0], -1, -1),
+                        qmat=self.qmat)
 
 
 def compute_h_diag(ekin, mask, beta, dion, v0):
@@ -109,13 +112,10 @@ def make_hkset_params(ctx, veff_r_coarse, d_full=None, v0: float = 0.0,
 
 def hkset_from_arrays(a: dict, device, v0: float = 0.0) -> HkSetParams:
     """HkSetParams from host arrays (complex ``beta``). The projectors are
-    masked and D made complex here, once; ``h_diag``, where ``a`` holds
-    none, is computed on the device by compute_h_diag with v0."""
+    masked and D and Q made complex here, once (Q becomes None where it is
+    all zero); ``h_diag``, where ``a`` holds none, is computed on the device
+    by compute_h_diag with v0."""
     device = resolve_device(device)
-    if np.any(np.asarray(a["qmat"]) != 0):
-        raise NotImplementedError(
-            "a non-zero S-operator Q (ultrasoft/PAW) comes with kernels K4/K5 "
-            "(ROADMAP queue 2)")
 
     # the kernels trust fft_index: check it against the box once, here
     nbox = int(np.prod(np.shape(a["veff_r"])[-3:]))
@@ -135,7 +135,9 @@ def hkset_from_arrays(a: dict, device, v0: float = 0.0) -> HkSetParams:
     return HkSetParams(
         veff_r=t(a["veff_r"], f64), ekin=ekin, mask=mask,
         fft_index=t(a["fft_index"], torch.int32), beta=beta, dion=dion,
-        qmat=t(a["qmat"], f64), h_diag=h_diag, o_diag=t(a["o_diag"], f64))
+        qmat=(t(a["qmat"], c128) if np.any(np.asarray(a["qmat"]) != 0)
+              else None),
+        h_diag=h_diag, o_diag=t(a["o_diag"], f64))
 
 
 def initialize_subspace_kset(params: HkSetParams, psi, nb: int):
@@ -183,3 +185,16 @@ def density_kset(params: HkSetParams, psi, occ_w):
         density_accumulate(acc, fr.view(ns, nb, n), occ_w[ik], float(n) ** 2)
     return acc.view((ns,) + dims)
 
+
+def density_matrix_kset(beta, psi, occ_w):
+    """Non-local density matrix n^s_{xi xi'} = sum_{k,b} occ_w
+    conj(<beta_xi|psi>) <beta_xi'|psi> over the whole k-set (reference
+    add_k_point_contribution_dm_pwpp, density.cpp:847-901; the JAX package's
+    density_matrix_kset, batched.py:346-367). Two batched matrix products.
+
+    beta [nk, nbeta, ngk] complex128 (zero on padded lanes), psi
+    [nk, ns, nb, ngk], occ_w [nk, ns, nb] occupation x k-weight. Returns
+    [ns, nbeta, nbeta] complex128."""
+    bp = torch.matmul(psi, beta.mH[:, None])  # [nk, ns, nb, nbeta]
+    dm = torch.matmul((bp.conj() * occ_w[..., None].to(bp.dtype)).mT, bp)
+    return dm.sum(dim=0)

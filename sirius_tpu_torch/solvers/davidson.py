@@ -45,9 +45,16 @@ def _herm(a):
     return 0.5 * (a + a.mH)
 
 
-def _rayleigh_ritz(hsub, ssub, nev: int, big: float = 1e6):
+def _rayleigh_ritz(hsub, ssub, nev: int):
     """Lowest-nev gen-EVP of a possibly rank-deficient batched subspace pair
-    [B, m, m]. Returns (e [B, nev], c [B, m, nev])."""
+    [B, m, m]. Returns (e [B, nev], c [B, m, nev]).
+
+    The dropped (near-dependent) directions are zero rows and columns of
+    the reduced matrix; each gets a diagonal shift above the Gershgorin
+    bound of the kept block, so the kept block's eigenpairs come first, as
+    with the JAX package's fixed 1e6. The bound keeps the matrix's norm at
+    the scale of H: cuSOLVER's eigh on the card is accurate relative to that
+    norm, and a 1e6 entry cost the ultrasoft parity deck ~1e-8 Ha."""
     s, u = torch.linalg.eigh(ssub)
     smax = torch.amax(s.abs(), dim=-1, keepdim=True)
     eps = torch.finfo(s.dtype).eps
@@ -55,7 +62,8 @@ def _rayleigh_ritz(hsub, ssub, nev: int, big: float = 1e6):
     scale = torch.where(good, torch.rsqrt(torch.where(good, s, 1.0)), 0.0)
     t = u * scale[..., None, :].to(u.dtype)
     at = t.mH @ hsub @ t
-    at = at + torch.diag_embed(torch.where(good, 0.0, big).to(at.dtype))
+    shift = 1.0 + torch.amax(at.abs().sum(dim=-1), dim=-1, keepdim=True)
+    at = at + torch.diag_embed(torch.where(good, 0.0, shift).to(at.dtype))
     e, y = torch.linalg.eigh(at)
     c = t @ y
     return e[..., :nev], c[..., :nev]

@@ -1,6 +1,7 @@
 """Port parity: the host tables of sirius_tpu_torch's SimulationContext
 against the JAX package's, on the small deck and on the full-width 2-atom
-deck (norm-conserving, no symmetry). Host numpy code ported by copy must
+deck (norm-conserving, no symmetry), and the ultrasoft species' S
+integrals. Host numpy code ported by copy must
 give bit-equal tables; where jnp became numpy the bound is 1e-14 relative."""
 
 import jax.numpy as jnp
@@ -11,6 +12,7 @@ from sirius_tpu.core.sbessel import spherical_jn_jax
 from sirius_tpu.testing import synthetic_silicon_context as jax_context
 from sirius_tpu_torch.convert import context_arrays
 from sirius_tpu_torch.core.sbessel import spherical_jn_recurrence
+from sirius_tpu_torch.dft.scf import check_context
 from sirius_tpu_torch.testing import synthetic_silicon_context as port_context
 
 DECKS = {
@@ -56,5 +58,16 @@ def test_spherical_jn_recurrence_matches_jax():
 
 
 def test_ultrasoft_species_raise():
-    with pytest.raises(NotImplementedError, match="K4/K5"):
-        port_context(ultrasoft=True, use_symmetry=False, **DECKS["small"])
+    # ultrasoft species build: the augmentation tables and the block-diagonal
+    # S integrals are there, equal to the JAX package's; a PAW species is
+    # still refused where the SCF checks its context
+    kw = dict(ultrasoft=True, use_symmetry=False, **DECKS["small"])
+    ctx = port_context(**kw)
+    assert ctx.aug is not None and ctx.aug.per_type[0] is not None
+    nbeta = ctx.beta.num_beta_total
+    assert ctx.beta.qmat.shape == (nbeta, nbeta)
+    assert np.any(ctx.beta.qmat != 0)
+    np.testing.assert_array_equal(ctx.beta.qmat, jax_context(**kw).beta.qmat)
+    ctx.unit_cell.atom_types[0].pseudo_type = "PAW"
+    with pytest.raises(NotImplementedError, match="PAW"):
+        check_context(ctx.cfg, ctx)

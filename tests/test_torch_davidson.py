@@ -136,3 +136,31 @@ def test_davidson_residual_plain_semantics():
 
 def test_num_applies():
     assert num_applies(20, 8) == 8 * (20 + 8)
+
+
+@pytest.mark.parametrize("ndrop", [0, 3])
+def test_rayleigh_ritz_matches_jax_when_rank_deficient(ndrop):
+    # a subspace with ndrop exactly dependent vectors: the kept block's
+    # lowest Ritz pairs equal the JAX package's (fixed 1e6 shift) although
+    # the port shifts the dropped directions only above the kept block's
+    # Gershgorin bound
+    from sirius_tpu.solvers.davidson import _rayleigh_ritz as jax_rr
+    from sirius_tpu_torch.solvers.davidson import _rayleigh_ritz
+
+    rng = np.random.default_rng(60 + ndrop)
+    n, m, nev = 40, 12, 5
+    a = rng.standard_normal((n, n)) + 1j * rng.standard_normal((n, n))
+    h = a + a.conj().T + 8.0 * np.eye(n)
+    v = rng.standard_normal((m, n)) + 1j * rng.standard_normal((m, n))
+    if ndrop:
+        v[-ndrop:] = rng.standard_normal((ndrop, m - ndrop)) @ v[:m - ndrop]
+    hsub = v.conj() @ h @ v.T
+    ssub = v.conj() @ v.T
+    hsub, ssub = 0.5 * (hsub + hsub.conj().T), 0.5 * (ssub + ssub.conj().T)
+    je, jc = (np.asarray(x) for x in jax_rr(jnp.asarray(hsub), jnp.asarray(ssub), nev))
+    e, c = (x[0].numpy() for x in _rayleigh_ritz(
+        torch.as_tensor(hsub)[None], torch.as_tensor(ssub)[None], nev))
+    assert np.max(np.abs(e - je)) <= 1e-12 * np.max(np.abs(je))
+    # the same Ritz vectors up to a phase each: |<x_port|S|x_jax>| = 1
+    overlap = np.abs(np.einsum("mi,mn,ni->i", c.conj(), ssub, jc))
+    assert np.max(np.abs(overlap - 1.0)) <= 1e-10

@@ -1,7 +1,8 @@
-"""Port parity: H*psi and S*psi (K1 path: masked scatter, cuFFT, gather
-fused with the kinetic term) and the G<->r transforms against the JAX
-package, complex128, on the small deck. On the CPU the wrappers take the
-kernels' plain PyTorch versions. Bound: 1e-12 relative."""
+"""Port parity: H*psi and S*psi (K1 path: masked scatter, cuFFT, the K1c
+potential multiply, gather fused with the kinetic term) and the G<->r
+transforms against the JAX package, complex128, on the small deck. On the
+CPU the wrappers take the kernels' plain PyTorch versions. Bound: 1e-12
+relative."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -16,6 +17,7 @@ from sirius_tpu.testing import synthetic_silicon_context as jax_context
 from sirius_tpu_torch.convert import HKSET_KEYS, hkset_from_numpy, psi_from_numpy
 from sirius_tpu_torch.core import fftgrid as tfft
 from sirius_tpu_torch.kernels.local_hpsi import box_to_pw_hpsi, pw_to_box
+from sirius_tpu_torch.kernels.veff_multiply import veff_multiply
 from sirius_tpu_torch.ops.hamiltonian import apply_h_s, make_hk_params
 from sirius_tpu_torch.parallel.batched import make_hkset_params
 from sirius_tpu_torch.testing import synthetic_silicon_context as port_context
@@ -134,11 +136,46 @@ def test_kernel_wrappers_reject_bad_input():
 
 
 def test_hkset_with_ultrasoft_q_raises(setup):
-    _, _, arrays, _ = setup
-    bad = dict(arrays)
-    bad["qmat"] = np.eye(arrays["qmat"].shape[0])
-    with pytest.raises(NotImplementedError, match="K4/K5"):
-        hkset_from_numpy(bad, "cpu")
+    # a non-zero Q is carried (S psi = psi + beta Q <beta|psi>); what is
+    # still refused is a spin-polarized k-set
+    _, _, arrays, rng = setup
+    us = dict(arrays)
+    nbeta = arrays["qmat"].shape[0]
+    us["qmat"] = np.eye(nbeta)
+    ps = hkset_from_numpy(us, "cpu")
+    assert ps.qmat is not None and ps.qmat.dtype == torch.complex128
+    np.testing.assert_array_equal(ps.qmat.numpy(), np.eye(nbeta))
+    assert hkset_from_numpy(arrays, "cpu").qmat is None
+    nk, ngk = arrays["mask"].shape
+    psi = rng.standard_normal((nk, 3, ngk)) + 1j * rng.standard_normal((nk, 3, ngk))
+    psi = psi * arrays["mask"][:, None, :]
+    _, sp = apply_h_s(ps.hk(), psi_from_numpy(psi, "cpu"))
+    beta = ps.beta.numpy()
+    want = psi + np.einsum("kxg,kbx->kbg", beta,
+                           np.einsum("kxg,kbg->kbx", beta.conj(), psi))
+    assert rel(sp.numpy(), want) <= 1e-12
+    ps.veff_r = torch.cat([ps.veff_r, ps.veff_r])
+    with pytest.raises(NotImplementedError, match="polarized"):
+        ps.hk()
+
+
+@pytest.mark.parametrize("ns", [1, 2])
+def test_veff_multiply_plain_matches_jax_product(ns):
+    # K1c's plain version is the JAX package's fr * veff_r with batch entry
+    # b = ik * ns + ispn taking the potential of its spin
+    rng = np.random.default_rng(40 + ns)
+    nk, r, n = 3, 4, 60
+    fr = rng.standard_normal((nk * ns, r, n)) + 1j * rng.standard_normal((nk * ns, r, n))
+    veff = rng.standard_normal((ns, n))
+    want = fr * np.tile(veff, (nk, 1))[:, None, :]
+    got = veff_multiply(torch.as_tensor(fr), torch.as_tensor(veff))
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert veff_multiply.launches == 0
+    with pytest.raises(ValueError):
+        veff_multiply(torch.as_tensor(fr), torch.as_tensor(veff[:, :-1]))
+    with pytest.raises(ValueError):
+        veff_multiply(torch.as_tensor(fr).to(torch.complex64),
+                      torch.as_tensor(veff))
 
 
 def test_hkset_with_index_outside_the_box_raises(setup):

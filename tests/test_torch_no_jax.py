@@ -36,4 +36,6 @@ def test_port_imports_no_jax():
     assert res["bad"] == []
     assert "sirius_tpu_torch.dft.scf" in res["modules"]
     assert "sirius_tpu_torch.kernels.local_hpsi" in res["modules"]
+    assert "sirius_tpu_torch.ops.augmentation" in res["modules"]
+    assert "sirius_tpu_torch.ops.hubbard" in res["modules"]
     assert len(res["modules"]) >= 30

@@ -1,10 +1,11 @@
-"""Port parity for the whole slice: the small deck's SCF (norm-conserving,
-no symmetry, 2x2x2 k-mesh, LDA X + PZ, Anderson, Gaussian smearing, tight
-tolerances) on the CPU against the JAX package's recorded result in
-sirius_tpu_torch/data/jax_reference.json (recomputed by the slow test
+"""Port parity for the whole path: the small decks' SCF (2x2x2 k-mesh, LDA
+X + PZ, Anderson, Gaussian smearing, tight tolerances; norm-conserving
+without symmetry, and ultrasoft with the space group and the irreducible
+k-mesh) on the CPU against the JAX package's recorded results in
+sirius_tpu_torch/data/jax_reference.json (recomputed by the slow tests
 below). Bounds: every energy term and E_F to 1e-8 Ha, the same iteration
 count. Also the entry points' device rule and the NotImplementedError
-branches of what the slice leaves out."""
+branches of what the port leaves out."""
 
 import importlib.util
 import json
@@ -27,6 +28,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REF_PATH = os.path.join(ROOT, "sirius_tpu_torch", "data", "jax_reference.json")
 SMALL = dict(gk_cutoff=3.0, pw_cutoff=7.0, ngridk=(2, 2, 2), num_bands=8)
 TIGHT = {"num_dft_iter": 40, "density_tol": 5e-9, "energy_tol": 1e-10}
+US_SYM = dict(ultrasoft=True, use_symmetry=True)
 
 
 def _load_reference_tool():
@@ -46,16 +48,12 @@ def reference():
 def context(extra=None, **kw):
     params = dict(TIGHT)
     params.update(extra or {})
-    spec = dict(SMALL)
+    spec = dict(SMALL, ultrasoft=False, use_symmetry=False)
     spec.update(kw)
-    return synthetic_silicon_context(ultrasoft=False, use_symmetry=False,
-                                     extra_params=params, **spec)
+    return synthetic_silicon_context(extra_params=params, **spec)
 
 
-def test_small_deck_matches_jax(reference):
-    ref = reference["small"]
-    ctx = context()
-    res = run_scf(ctx.cfg, ctx=ctx, device="cpu")
+def assert_matches(res, ref, ctx):
     assert res["converged"]
     assert res["num_scf_iterations"] == ref["num_scf_iterations"]
     assert abs(res["efermi"] - ref["efermi"]) <= 1e-8
@@ -67,11 +65,30 @@ def test_small_deck_matches_jax(reference):
     assert abs(nel - 8.0) <= 1e-10
 
 
+def test_small_us_sym_deck_matches_jax(reference):
+    ref = reference["small_us_sym"]
+    assert ref["num_scf_iterations"] == 13
+    ctx = context(**US_SYM)
+    assert ctx.gkvec.num_kpoints == 3 and ctx.symmetry.num_ops == 48
+    res = run_scf(ctx.cfg, ctx=ctx, device="cpu")
+    assert_matches(res, ref, ctx)
+
+
+def test_small_deck_matches_jax(reference):
+    ref = reference["small"]
+    ctx = context()
+    assert_matches(run_scf(ctx.cfg, ctx=ctx, device="cpu"), ref, ctx)
+
+
 def test_reference_file_names_its_command(reference):
     with open(REF_PATH) as f:
         rec = json.load(f)
     assert rec["command"] == _load_reference_tool().COMMAND
-    assert set(reference) == {"small", "full_width_2atom"}
+    assert set(reference) == {"small", "full_width_2atom", "small_us_sym",
+                              "full_width_2atom_us_sym"}
+    for name in ("small_us_sym", "full_width_2atom_us_sym"):
+        assert reference[name]["deck"]["ultrasoft"]
+        assert reference[name]["deck"]["use_symmetry"]
 
 
 def test_default_device_without_cuda_raises(monkeypatch):
@@ -102,7 +119,7 @@ def test_entry_points_default_to_cuda(monkeypatch, entry):
 
 @pytest.mark.parametrize("section,key,value,match", [
     ("parameters", "precision_wf", "fp32", "fp32"),
-    ("parameters", "use_symmetry", True, "K6"),
+    ("parameters", "so_correction", True, "spin-orbit"),
     ("parameters", "num_mag_dims", 1, "magnetism"),
     ("parameters", "hubbard_correction", True, "Hubbard"),
     ("parameters", "xc_functionals", ["XC_GGA_X_PBE", "XC_GGA_C_PBE"], "GGA"),
@@ -131,8 +148,33 @@ def test_gamma_only_without_reduce_gvec_runs():
 
 
 def test_ultrasoft_context_raises():
-    with pytest.raises(NotImplementedError, match="K4/K5"):
-        synthetic_silicon_context(ultrasoft=True, use_symmetry=False, **SMALL)
+    # an ultrasoft deck without symmetry runs (D refreshed from the
+    # potential, rho_aug added, S carried by the band solve) and keeps its
+    # electrons; a PAW species is refused
+    ctx = context({"num_dft_iter": 2}, ultrasoft=True)
+    res = run_scf(ctx.cfg, ctx=ctx, device="cpu")
+    assert res["num_scf_iterations"] == 2
+    assert np.isfinite(res["energy"]["total"])
+    nel = float(res["_state"]["rho_g"][0].real) * ctx.unit_cell.omega
+    assert abs(nel - 8.0) <= 1e-10
+    ctx.unit_cell.atom_types[0].pseudo_type = "PAW"
+    with pytest.raises(NotImplementedError, match="PAW"):
+        run_scf(ctx.cfg, ctx=ctx, device="cpu")
+
+
+def test_symmetry_deck_first_iteration():
+    # use_symmetry=True on the norm-conserving cell: the irreducible k-mesh
+    # and the symmetrized density and potential (K6); one iteration, the
+    # electron count exact and the energy equal to the full-mesh deck's
+    # first iteration within the symmetrization's rounding
+    sym = context({"num_dft_iter": 1}, use_symmetry=True)
+    full = context({"num_dft_iter": 1})
+    assert sym.gkvec.num_kpoints < full.gkvec.num_kpoints
+    r_sym = run_scf(sym.cfg, ctx=sym, device="cpu")
+    r_full = run_scf(full.cfg, ctx=full, device="cpu")
+    nel = float(r_sym["_state"]["rho_g"][0].real) * sym.unit_cell.omega
+    assert abs(nel - 8.0) <= 1e-10
+    assert abs(r_sym["energy"]["total"] - r_full["energy"]["total"]) <= 1e-6
 
 
 def test_linear_mixer_runs():
@@ -141,6 +183,14 @@ def test_linear_mixer_runs():
     res = run_scf(ctx.cfg, ctx=ctx, device="cpu")
     assert res["num_scf_iterations"] == 3
     assert res["rms_history"][-1] < res["rms_history"][0]
+
+
+@pytest.mark.slow
+def test_small_us_sym_deck_matches_live_jax():
+    """The small ultrasoft + symmetry deck against a JAX run made now."""
+    want = _load_reference_tool().run_deck("small_us_sym")
+    ctx = context(**US_SYM)
+    assert_matches(run_scf(ctx.cfg, ctx=ctx, device="cpu"), want, ctx)
 
 
 @pytest.mark.slow

@@ -1,14 +1,16 @@
 """Where the time goes in one SCF iteration of the PyTorch port on the GPU.
 
-Runs the 16-atom Si supercell deck of chip_smoke.py (norm-conserving, no
-symmetry, 2x2x2 k-mesh, gk 6 / pw 20) for a few SCF iterations with
-unreachable tolerances, profiles the last ones with torch.profiler, and
-prints one JSON object: device time by kernel and by category (cuFFT,
-cuBLAS GEMM, cuSOLVER eigh, the port's hand kernels, other torch
-elementwise/reduction kernels, copies), the wall time of the profiled
+Runs the 16-atom Si supercell deck of chip_smoke.py (2x2x2 k-mesh, gk 6 /
+pw 20; norm-conserving without symmetry, or with --ultrasoft the ultrasoft
+species with the 384-op space group and the irreducible k-mesh) for a few
+SCF iterations with unreachable tolerances, profiles the last ones with
+torch.profiler, and prints one JSON object: device time by kernel and by
+category (cuFFT, cuBLAS GEMM, cuSOLVER eigh, the port's hand kernels, other
+torch elementwise/reduction kernels, copies), the wall time of the profiled
 iterations and the device's busy share of it.
 
-    python3 tools/torch_port_profile.py [--iters 3] [--profiled 2] [--out FILE]
+    python3 tools/torch_port_profile.py [--ultrasoft] [--iters 3]
+        [--profiled 2] [--out FILE]
 
 Needs a CUDA card; exits non-zero without one.
 """
@@ -26,7 +28,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 PROFILER_RECORDS = ("Buffer Flush", "Activity Buffer Request")
 HAND_KERNELS = ("zero_fill", "scatter_valid", "gather_hpsi", "residual_rows",
-                "accumulate", "lda_xc_points")
+                "accumulate", "lda_xc_points", "veff_multiply_kernel",
+                "rho_aug_kernel", "d_operator_partial_kernel",
+                "d_operator_finish_kernel", "symmetrize_pw_kernel")
 
 
 def category(name: str) -> str:
@@ -53,6 +57,9 @@ def main(argv=None) -> int:
                     help="SCF iterations in all (the first is not profiled)")
     ap.add_argument("--profiled", type=int, default=2,
                     help="trailing iterations inside the profiler")
+    ap.add_argument("--ultrasoft", action="store_true",
+                    help="the ultrasoft + symmetry deck instead of the "
+                    "norm-conserving one")
     ap.add_argument("--out", default="", help="also write the JSON here")
     args = ap.parse_args(argv)
 
@@ -72,7 +79,7 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     ctx = synthetic_silicon_context(
         gk_cutoff=6.0, pw_cutoff=20.0, ngridk=(2, 2, 2), supercell=2,
-        ultrasoft=False, use_symmetry=False,
+        ultrasoft=args.ultrasoft, use_symmetry=args.ultrasoft,
         extra_params={"num_dft_iter": args.iters, "density_tol": 0.0,
                       "energy_tol": 0.0})
     first = args.iters - args.profiled
@@ -129,7 +136,8 @@ def main(argv=None) -> int:
     out = {
         "tool": "tools/torch_port_profile.py",
         "gpu": torch.cuda.get_device_name(0), "nvidia_smi": smi,
-        "deck": "si16_supercell2",
+        "deck": ("si16_supercell2_us_sym" if args.ultrasoft
+                 else "si16_supercell2"),
         # 0-based SCF iterations inside the profiler, and the band solves
         # they made (one each unless a residual-health retry ran)
         "profiled_iterations": profiled, "profiled_band_solves": state["solves"],

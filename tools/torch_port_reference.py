@@ -2,9 +2,11 @@
 held to, into sirius_tpu_torch/data/jax_reference.json.
 
 The port's CPU tests and chip_smoke.py compare against this file (the
-machine with the GPU has no JAX). Both decks are the synthetic diamond-Si
-cell, norm-conserving, no symmetry, LDA (X + PZ), Anderson mixing, Gaussian
-smearing, with tight SCF tolerances.
+machine with the GPU has no JAX). Every deck is the synthetic diamond-Si
+cell with LDA (X + PZ), Anderson mixing, Gaussian smearing and tight SCF
+tolerances, at two shapes: norm-conserving without symmetry ("small",
+"full_width_2atom") and ultrasoft with the space group and the irreducible
+k-mesh ("small_us_sym", "full_width_2atom_us_sym").
 
 Run from the repository root (CPU, fp64):
 
@@ -24,9 +26,16 @@ OUT = os.path.join(ROOT, "sirius_tpu_torch", "data", "jax_reference.json")
 COMMAND = "python tools/torch_port_reference.py"
 
 TIGHT = {"num_dft_iter": 40, "density_tol": 5e-9, "energy_tol": 1e-10}
+SMALL = dict(gk_cutoff=3.0, pw_cutoff=7.0, ngridk=(2, 2, 2), num_bands=8)
+FULL_2ATOM = dict(gk_cutoff=6.0, pw_cutoff=20.0, ngridk=(2, 2, 2))
+NC = dict(ultrasoft=False, use_symmetry=False)
+US_SYM = dict(ultrasoft=True, use_symmetry=True)
+# deck name -> (shape, species and symmetry)
 DECKS = {
-    "small": dict(gk_cutoff=3.0, pw_cutoff=7.0, ngridk=(2, 2, 2), num_bands=8),
-    "full_width_2atom": dict(gk_cutoff=6.0, pw_cutoff=20.0, ngridk=(2, 2, 2)),
+    "small": (SMALL, NC),
+    "full_width_2atom": (FULL_2ATOM, NC),
+    "small_us_sym": (SMALL, US_SYM),
+    "full_width_2atom_us_sym": (FULL_2ATOM, US_SYM),
 }
 
 
@@ -39,15 +48,14 @@ def run_deck(name: str) -> dict:
     from sirius_tpu.dft.scf import run_scf
     from sirius_tpu.testing import synthetic_silicon_context
 
-    ctx = synthetic_silicon_context(
-        ultrasoft=False, use_symmetry=False, extra_params=dict(TIGHT),
-        **DECKS[name])
+    shape, kind = DECKS[name]
+    ctx = synthetic_silicon_context(extra_params=dict(TIGHT), **kind, **shape)
     ctx.cfg.control.device_scf = "off"
     res = run_scf(ctx.cfg, ctx=ctx, devices=jax.devices()[:1])
     return {
         "deck": {**{k: (list(v) if isinstance(v, tuple) else v)
-                    for k, v in DECKS[name].items()},
-                 **TIGHT, "ultrasoft": False, "use_symmetry": False},
+                    for k, v in shape.items()},
+                 **TIGHT, **kind},
         "num_bands": int(ctx.num_bands),
         "ngk_max": int(ctx.gkvec.ngk_max),
         "num_scf_iterations": int(res["num_scf_iterations"]),
