@@ -10,23 +10,33 @@ imports nothing of JAX or of sirius_tpu. Phases, each printing JSON lines:
    once;
 2. kernels against their plain PyTorch versions on the card, at the shapes
    of the parity decks and of the full-width decks (norm-conserving: K1,
-   K2, K3, K7; ultrasoft + symmetry: K1c, K4, K5, K6): error, kernel time
-   (CUDA events, median of 21 samples of 5 launches after warm-up), the
-   plain version's time, a one-call PyTorch yardstick where one exists
-   (library_ms), and the least time the card could take (bound_ms);
+   K2, K3, K7; ultrasoft + symmetry: K1c, K4, K5, K6; Gamma packed-real:
+   K8a, K8b, K1c in real mode, K2 on float64 blocks; chunked projectors:
+   K9): error, kernel time (CUDA events, median of 21 samples of 5
+   launches after warm-up), the plain version's time, a one-call PyTorch
+   yardstick where one exists (library_ms), and the least time the card
+   could take (bound_ms);
 3. parity SCF: the 2-atom full-width decks, norm-conserving without
    symmetry (parity_scf) and ultrasoft with the space group
-   (parity_scf_us), against the JAX package's recorded energies
+   (parity_scf_us), and the Gamma-only 2-atom decks of the single-k band
+   solves (parity_scf_gamma_nc, parity_scf_gamma_us,
+   parity_scf_chunked_us), against the JAX package's recorded energies
    (sirius_tpu_torch/data/jax_reference.json);
-4. full-width runs: the 16-atom Si supercell, norm-conserving (full_width,
-   3 SCF iterations) and ultrasoft with its 384 space-group ops
-   (full_width_us, 6 iterations), with tolerances that cannot be met, so
-   every iteration runs; kernel launches per iteration, peak device memory,
-   electron count, finite energies.
+4. full-width runs with tolerances that cannot be met, so every iteration
+   runs: the 16-atom Si supercell, norm-conserving (full_width, 3 SCF
+   iterations) and ultrasoft with its 384 space-group ops (full_width_us,
+   6 iterations); the 54-atom Gamma-only supercell, ultrasoft with its
+   1296 space-group ops, through the packed-real Gamma solve
+   (full_width_gamma_us, 4 iterations) and through the chunked projectors
+   with 16 atoms a chunk (full_width_chunked_us, 4 iterations); kernel
+   launches per iteration, peak device memory, electron count, finite
+   energies.
 
 Every SCF phase sets the launch counts to 0 just before its run and reads
-them just after; the kernels summary takes its launches from full_width_us,
-which runs every kernel.
+them just after, and fails if a kernel of its path was not launched. The
+kernels summary takes each kernel's launches from the full-width run of its
+path: full_width_us for K1-K7, full_width_gamma_us for K8a, K8b, K1c real
+and K2 float64, full_width_chunked_us for K9.
 
 The last three lines are the kernels summary, the nvidia-smi name/power
 line and {"ok": true, "device": {...}}. Any failure exits non-zero before
@@ -51,10 +61,22 @@ FP64_FLOPS_PER_S = 34e12
 TIGHT = {"num_dft_iter": 40, "density_tol": 5e-9, "energy_tol": 1e-10}
 PARITY = dict(gk_cutoff=6.0, pw_cutoff=20.0, ngridk=(2, 2, 2))
 FULL = dict(gk_cutoff=6.0, pw_cutoff=20.0, ngridk=(2, 2, 2), supercell=2)
+GAMMA2 = dict(gk_cutoff=6.0, pw_cutoff=20.0, ngridk=(1, 1, 1))
+GAMMA54 = dict(gk_cutoff=6.0, pw_cutoff=20.0, ngridk=(1, 1, 1), supercell=3)
 NC = dict(ultrasoft=False, use_symmetry=False)
 US_SYM = dict(ultrasoft=True, use_symmetry=True)
-FULL_ITERS = {"full_width": 3, "full_width_us": 6}
-FULL_ELECTRONS = 64.0
+FULL_ITERS = {"full_width": 3, "full_width_us": 6, "full_width_gamma_us": 4,
+              "full_width_chunked_us": 4}
+RUN_TO_END = {"density_tol": 0.0, "energy_tol": 0.0}
+# the 2-atom single-k parity decks: species, SCF parameters (gamma_nc runs
+# a fixed 14 iterations, see tools/torch_port_reference.py), control
+SINGLE_K = {
+    "gamma_nc": (NC, {"num_dft_iter": 14, **RUN_TO_END}, {}),
+    "gamma_us_sym": (US_SYM, TIGHT, {}),
+    "chunked_us_sym": (US_SYM, TIGHT,
+                       {"beta_chunked": True, "beta_chunk_size": 1}),
+}
+CHUNK54 = 16
 # relative tolerance of each kernel against its plain version on the card:
 # K1/K2 are a store/gather and three fixed-order row sums (rounding only);
 # K3 sums |psi|^2 over bands and K7 evaluates pow/cbrt/log in closed form
@@ -62,11 +84,16 @@ FULL_ELECTRONS = 64.0
 # K1c multiplies (rounding only); K4/K5 sum over atoms, pairs and G with
 # sincospi phases against dense exp() phases; K6 sums the ops in the same
 # order as its plain version, phases again sincospi against exp()
+# K8a/K8b/K1c real are stores, gathers and products in the plain version's
+# order (rounding only); K2 float64 as K2; K9 evaluates sincospi phases
+# against exp() of the rounded angle
 TOL = {"local_hpsi.pw_to_box": 1e-12, "local_hpsi.box_to_pw_hpsi": 1e-12,
        "davidson_residual": 1e-12, "density_accumulate": 1e-11,
        "lda_xc": 1e-11, "veff_multiply": 1e-12,
        "augmentation.rho_aug": 1e-12, "augmentation.d_operator": 1e-12,
-       "symmetrize_pw": 1e-13}
+       "symmetrize_pw": 1e-13, "gamma_pack.unpack_to_box": 1e-12,
+       "gamma_pack.box_to_packed_hx": 1e-12, "veff_multiply.real": 1e-12,
+       "davidson_residual.f64": 1e-12, "beta_chunk": 1e-12}
 SOURCE = {
     "local_hpsi.pw_to_box": "sirius_tpu_torch/csrc/local_hpsi.cu",
     "local_hpsi.box_to_pw_hpsi": "sirius_tpu_torch/csrc/local_hpsi.cu",
@@ -77,6 +104,11 @@ SOURCE = {
     "augmentation.rho_aug": "sirius_tpu_torch/csrc/augmentation.cu",
     "augmentation.d_operator": "sirius_tpu_torch/csrc/augmentation.cu",
     "symmetrize_pw": "sirius_tpu_torch/csrc/symmetrize_pw.cu",
+    "gamma_pack.unpack_to_box": "sirius_tpu_torch/csrc/gamma_pack.cu",
+    "gamma_pack.box_to_packed_hx": "sirius_tpu_torch/csrc/gamma_pack.cu",
+    "veff_multiply.real": "sirius_tpu_torch/csrc/veff_multiply.cu",
+    "davidson_residual.f64": "sirius_tpu_torch/csrc/davidson_residual.cu",
+    "beta_chunk": "sirius_tpu_torch/csrc/beta_chunk.cu",
 }
 REPLACES = {
     "local_hpsi.pw_to_box": "sirius_tpu/ops/hamiltonian.py:76",
@@ -88,6 +120,11 @@ REPLACES = {
     "augmentation.rho_aug": "sirius_tpu/ops/augmentation.py:250",
     "augmentation.d_operator": "sirius_tpu/ops/augmentation.py:266",
     "symmetrize_pw": "sirius_tpu/dft/density.py:348",
+    "gamma_pack.unpack_to_box": "sirius_tpu/ops/gamma.py:222",
+    "gamma_pack.box_to_packed_hx": "sirius_tpu/ops/gamma.py:236",
+    "veff_multiply.real": "sirius_tpu/ops/gamma.py:230",
+    "davidson_residual.f64": "sirius_tpu/ops/gamma.py:277",
+    "beta_chunk": "sirius_tpu/ops/beta_chunked.py:295",
 }
 
 
@@ -400,61 +437,224 @@ def check_kernels_us(deck: str, ctx, dev, gpu: str) -> dict:
     return out
 
 
+def check_kernels_gamma(deck: str, ctx, dev, gpu: str) -> dict:
+    """K8a, K8b, K1c in real mode and K2 on float64 blocks against their
+    plain versions at a Gamma deck's main-path shapes: one application to
+    the packed [X; P] block of the band solve (R = 2 nb) and one residual
+    of the nb-row block. Returns {kernel: record}."""
+    import numpy as np
+    import torch
+
+    from sirius_tpu_torch.dft.density import grid_tables, initial_density_g
+    from sirius_tpu_torch.dft.potential import generate_potential
+    from sirius_tpu_torch.dft.xc import XCFunctional
+    from sirius_tpu_torch.kernels import davidson_residual as k2
+    from sirius_tpu_torch.kernels import gamma_pack as k8
+    from sirius_tpu_torch.kernels import veff_multiply as k1c
+    from sirius_tpu_torch.ops.gamma import (apply_h_s_gamma, build_gamma_map,
+                                            make_gamma_params)
+
+    nb, ngk = ctx.num_bands, ctx.gkvec.ngk_max
+    dims = tuple(ctx.fft_coarse.dims)
+    n = int(np.prod(dims))
+    rng = np.random.default_rng(13)
+    out = {}
+    record = functools.partial(record_kernel, out, deck, gpu)
+    tables = grid_tables(ctx, dev)
+    rho0 = torch.as_tensor(initial_density_g(ctx), device=dev)
+    pot = generate_potential(ctx, rho0, XCFunctional(["XC_LDA_X", "XC_LDA_C_PZ"]),
+                             tables)
+    gm = build_gamma_map(np.asarray(ctx.gkvec.millers[0]),
+                         np.asarray(ctx.gkvec.mask[0]))
+    gp = make_gamma_params(ctx, pot.veff_r_coarse.cpu().numpy(), gm,
+                           device=dev)
+    npair = int(gp.rep_box.shape[0])
+    rows = 2 * nb
+    x = torch.as_tensor(rng.standard_normal((1, rows, ngk)), device=dev)
+    utabs = (gp.mask_p, gp.slot_re, gp.slot_im, gp.im_sign, gp.scale,
+             gp.fft_index)
+
+    # K8a: packed real -> complex box (zero fill and scatter)
+    box = k8.unpack_to_box(x, *utabs, n)
+    record("gamma_pack.unpack_to_box", [box],
+           [k8.unpack_to_box_plain(x, *utabs, n)],
+           lambda: k8.unpack_to_box(x, *utabs, n),
+           lambda: k8.unpack_to_box_plain(x, *utabs, n), None,
+           nbytes=rows * ngk * 8 + ngk * 36 + rows * n * 16,
+           flops=rows * ngk * 3.0)
+
+    # K1c real mode on the inverse transform of that box
+    fr0 = torch.fft.ifftn(box.view((1, rows) + dims),
+                          dim=(-3, -2, -1)).view(1, rows, n)
+    del box
+    veff = gp.veff_r.view(1, n)
+    fr_k = k1c.veff_multiply_real(fr0.clone(), veff)
+    fr_t = fr0.clone()
+    # library yardstick: one in-place multiply of the (re, im) pairs by
+    # (veff, 0), the pair table built once outside the timing
+    vz = torch.stack([veff, torch.zeros_like(veff)], dim=-1)
+    fr_v = torch.view_as_real(fr_t)
+    record("veff_multiply.real", [fr_k],
+           [k1c.veff_multiply_real_plain(fr0, veff)],
+           lambda: k1c.veff_multiply_real(fr_t, veff),
+           lambda: k1c.veff_multiply_real_plain(fr_t, veff),
+           lambda: fr_v.mul_(vz),
+           nbytes=rows * n * (8 + 16) + n * 8, flops=rows * n * 1.0)
+    del fr0, fr_t, fr_v, vz
+
+    # K8b: the forward transform gathered back into the packed slots
+    vbox = torch.fft.fftn(fr_k.view((1, rows) + dims),
+                          dim=(-3, -2, -1)).view(1, rows, n)
+    del fr_k
+    pargs = (gp.ekin_p, gp.mask_p, gp.rep_box, gp.par_box, gp.zero_box)
+    record("gamma_pack.box_to_packed_hx",
+           list(k8.box_to_packed_hx(vbox, x, *pargs)),
+           list(k8.box_to_packed_hx_plain(vbox, x, *pargs)),
+           lambda: k8.box_to_packed_hx(vbox, x, *pargs),
+           lambda: k8.box_to_packed_hx_plain(vbox, x, *pargs), None,
+           nbytes=(rows * (2 * npair + 1) * 16 + rows * ngk * (8 + 16)
+                   + ngk * 16 + npair * 8),
+           flops=rows * ngk * 6.0)
+    del vbox
+
+    # K2 on float64 blocks: x, H x, S x of the packed operator; row 0 an
+    # exact eigenpair so the converged branch is exercised
+    xs = x[:, :nb] * gp.mask_p
+    hx, sx = apply_h_s_gamma(gp, xs)
+    hx[:, 0] = 2.0 * sx[:, 0]
+    hd = torch.as_tensor(rng.uniform(1.0, 3.0, (1, ngk)), device=dev)
+    od = torch.ones((1, ngk), dtype=torch.float64, device=dev)
+    mask = gp.mask_p[None]
+    r_k = k2.davidson_residual(xs, hx, sx, hd, od, mask, 1e-6)
+    if not bool((r_k[1][:, 0] < 1e-6).all()):
+        raise AssertionError("davidson_residual.f64: eigenpair row not converged")
+    record("davidson_residual.f64", list(r_k),
+           list(k2.davidson_residual_plain(xs, hx, sx, hd, od, mask, 1e-6)),
+           lambda: k2.davidson_residual(xs, hx, sx, hd, od, mask, 1e-6),
+           lambda: k2.davidson_residual_plain(xs, hx, sx, hd, od, mask, 1e-6),
+           None, nbytes=nb * ngk * (24 + 8) + ngk * 24 + nb * 16,
+           flops=nb * ngk * 15.0)
+    return out
+
+
+def check_kernel_chunk(deck: str, ctx, chunk: int, dev, gpu: str) -> dict:
+    """K9 against its plain version for the first chunk step of a
+    chunked-projector deck (chunk atoms a step). Returns {kernel: record}."""
+    import torch
+
+    from sirius_tpu_torch.kernels import beta_chunk as k9
+    from sirius_tpu_torch.ops.beta_chunked import make_chunked_hk
+
+    prm = make_chunked_hk(ctx, 0, chunk=chunk, device=dev)
+    args = (prm.pos[0], prm.xi_rf[0], prm.xi_lm[0], prm.cph[0], prm.rlm,
+            prm.q, prm.mk, prm.ri_grid, prm.dq, prm.pref, prm.mask[0])
+    c, nxi = prm.xi_rf.shape[1:]
+    ngk, lmmax = prm.rlm.shape
+    nrf, nq = prm.ri_grid.shape
+    # the radial-table entries this step reads: the two neighbours of each
+    # G's grid point, per radial function
+    i0 = torch.clamp(prm.q / prm.dq, 0.0, nq - 1.001).long()
+    nread = int(torch.unique(torch.cat([i0, i0 + 1])).numel())
+    out = {}
+    record_kernel(out, deck, gpu, "beta_chunk", [k9.beta_chunk(*args)],
+                  [k9.beta_chunk_plain(*args)],
+                  lambda: k9.beta_chunk(*args),
+                  lambda: k9.beta_chunk_plain(*args), None,
+                  nbytes=(c * nxi * ngk * 16 + ngk * (8 + 8 + 24 + lmmax * 8)
+                          + nrf * nread * 8 + c * (24 + nxi * 24)),
+                  flops=c * nxi * ngk * 14.0 + c * ngk * 7.0 + ngk * 3.0)
+    return out
+
+
 def wrappers() -> dict:
-    """The kernel wrappers by summary name; each carries a launch count."""
+    """The kernel wrappers by summary name, each with the attribute that
+    holds its launch count (K2 counts its float64 launches apart)."""
     from sirius_tpu_torch.kernels import augmentation as k45
+    from sirius_tpu_torch.kernels import beta_chunk as k9
     from sirius_tpu_torch.kernels import davidson_residual as k2
     from sirius_tpu_torch.kernels import density_accumulate as k3
+    from sirius_tpu_torch.kernels import gamma_pack as k8
     from sirius_tpu_torch.kernels import lda_xc as k7
     from sirius_tpu_torch.kernels import local_hpsi as k1
     from sirius_tpu_torch.kernels import symmetrize_pw as k6
     from sirius_tpu_torch.kernels import veff_multiply as k1c
 
-    return {"local_hpsi.pw_to_box": k1.pw_to_box,
-            "local_hpsi.box_to_pw_hpsi": k1.box_to_pw_hpsi,
-            "davidson_residual": k2.davidson_residual,
-            "density_accumulate": k3.density_accumulate,
-            "lda_xc": k7.lda_xc,
-            "veff_multiply": k1c.veff_multiply,
-            "augmentation.rho_aug": k45.rho_aug,
-            "augmentation.d_operator": k45.d_operator,
-            "symmetrize_pw": k6.symmetrize_pw}
+    n = "launches"
+    return {"local_hpsi.pw_to_box": (k1.pw_to_box, n),
+            "local_hpsi.box_to_pw_hpsi": (k1.box_to_pw_hpsi, n),
+            "davidson_residual": (k2.davidson_residual, n),
+            "density_accumulate": (k3.density_accumulate, n),
+            "lda_xc": (k7.lda_xc, n),
+            "veff_multiply": (k1c.veff_multiply, n),
+            "augmentation.rho_aug": (k45.rho_aug, n),
+            "augmentation.d_operator": (k45.d_operator, n),
+            "symmetrize_pw": (k6.symmetrize_pw, n),
+            "gamma_pack.unpack_to_box": (k8.unpack_to_box, n),
+            "gamma_pack.box_to_packed_hx": (k8.box_to_packed_hx, n),
+            "veff_multiply.real": (k1c.veff_multiply_real, n),
+            "davidson_residual.f64": (k2.davidson_residual, "launches_f64"),
+            "beta_chunk": (k9.beta_chunk, n)}
 
 
-# the kernels each SCF path must launch: the norm-conserving path runs K1,
-# K1c, K2, K3 and K7; ultrasoft + symmetry adds K4, K5 and K6
+# the kernels each SCF path must launch: the norm-conserving k-set path runs
+# K1, K1c, K2, K3 and K7; ultrasoft + symmetry adds K4, K5 and K6. The Gamma
+# path applies H through K8a, K1c real, K8b and solves with K2 float64 (the
+# density keeps K1's scatter and K3); the chunked path adds K9 to the k-set
+# path's kernels
 NC_KERNELS = ("local_hpsi.pw_to_box", "local_hpsi.box_to_pw_hpsi",
               "davidson_residual", "density_accumulate", "lda_xc",
               "veff_multiply")
 US_KERNELS = NC_KERNELS + ("augmentation.rho_aug", "augmentation.d_operator",
                            "symmetrize_pw")
+GAMMA_KERNELS = ("local_hpsi.pw_to_box", "density_accumulate", "lda_xc",
+                 "gamma_pack.unpack_to_box", "gamma_pack.box_to_packed_hx",
+                 "veff_multiply.real", "davidson_residual.f64")
+GAMMA_US_KERNELS = GAMMA_KERNELS + ("augmentation.rho_aug",
+                                    "augmentation.d_operator", "symmetrize_pw")
+CHUNKED_US_KERNELS = US_KERNELS + ("beta_chunk",)
+# the band solve each single-k deck takes, and the kernels it must launch
+SINGLE_K_PATH = {"gamma_nc": ("gamma", GAMMA_KERNELS),
+                 "gamma_us_sym": ("gamma", GAMMA_US_KERNELS),
+                 "chunked_us_sym": ("chunked", CHUNKED_US_KERNELS)}
 
 
 def reset_launches() -> None:
-    for f in wrappers().values():
-        f.launches = 0
+    for f, attr in wrappers().values():
+        setattr(f, attr, 0)
 
 
 def read_launches() -> dict:
-    return {name: f.launches for name, f in wrappers().items()}
+    return {name: getattr(f, attr) for name, (f, attr) in wrappers().items()}
 
 
-def check_launched(phase: str, dev, launches: dict, required) -> None:
+def check_launched(phase: str, dev, launches: dict, required,
+                   path: str = "kset", iters: int = 0) -> None:
     """Fail unless every kernel of the path launched in this run. On the
-    CPU the wrappers take their plain versions and count nothing."""
+    Gamma path H is applied without K1's gather: the run's gathers are the
+    r -> G transforms only, one per potential (iters + 1) and one per
+    density (iters). On the CPU the wrappers take their plain versions and
+    count nothing."""
+    if dev.type != "cuda":
+        return
     zero = [k for k in required if launches[k] <= 0]
-    if dev.type == "cuda" and zero:
+    if zero:
         raise AssertionError(f"{phase}: kernels never launched: {zero}")
+    gathers = launches["local_hpsi.box_to_pw_hpsi"]
+    if path == "gamma" and gathers != 2 * iters + 1:
+        raise AssertionError(
+            f"{phase}: {gathers} K1 gathers, want {2 * iters + 1} (r -> G "
+            "only): H psi went through K1")
 
 
 def parity_scf(ctx, dev, ref: dict, gpu: str, phase: str = "parity_scf",
-               deck: str = "full_width_2atom",
-               required=NC_KERNELS) -> None:
+               deck: str = "full_width_2atom", required=NC_KERNELS,
+               path: str = "kset") -> None:
     from sirius_tpu_torch.dft.scf import run_scf
 
     reset_launches()
     res = run_scf(ctx.cfg, ctx=ctx, device=dev)
     launches = read_launches()
+    nel = float(res["_state"]["rho_g"][0].real) * ctx.unit_cell.omega
     d_total = res["energy"]["total"] - ref["energy"]["total"]
     terms = {k: res["energy"][k] - v for k, v in ref["energy"].items()}
     emit({"phase": phase, "gpu": gpu, "deck": deck,
@@ -463,9 +663,13 @@ def parity_scf(ctx, dev, ref: dict, gpu: str, phase: str = "parity_scf",
           "e_total": res["energy"]["total"], "d_total": d_total,
           "max_term_err": max(abs(v) for v in terms.values()),
           "efermi": res["efermi"], "efermi_err": res["efermi"] - ref["efermi"],
+          "electrons": nel,
           "iteration_seconds": res["iteration_seconds"],
           "band_solve_seconds": res["band_solve_seconds"],
           "launches": launches})
+    if "electrons" in ref and abs(nel - ref["electrons"]) > 1e-8:
+        raise AssertionError(f"{phase}: electron count {nel}, recorded "
+                             f"{ref['electrons']}")
     if abs(d_total) > 1e-8:
         raise AssertionError(f"{phase}: |dE_total| = {abs(d_total)} > 1e-8 Ha")
     bad = {k: v for k, v in terms.items() if abs(v) > 1e-8}
@@ -473,11 +677,13 @@ def parity_scf(ctx, dev, ref: dict, gpu: str, phase: str = "parity_scf",
         raise AssertionError(f"{phase}: energy terms off by > 1e-8 Ha: {bad}")
     if abs(res["num_scf_iterations"] - ref["num_scf_iterations"]) > 1:
         raise AssertionError(f"{phase}: iteration count differs by more than 1")
-    check_launched(phase, dev, launches, required)
+    check_launched(phase, dev, launches, required, path,
+                   res["num_scf_iterations"])
 
 
 def full_width(ctx, dev, gpu: str, phase: str = "full_width",
-               required=NC_KERNELS) -> dict:
+               required=NC_KERNELS, deck: str = "si16_supercell2",
+               path: str = "kset") -> dict:
     import torch
 
     from sirius_tpu_torch.dft.scf import run_scf
@@ -488,8 +694,9 @@ def full_width(ctx, dev, gpu: str, phase: str = "full_width",
     launches = read_launches()
     iters = res["num_scf_iterations"]
     nel = float(res["_state"]["rho_g"][0].real) * ctx.unit_cell.omega
+    want_nel = float(ctx.unit_cell.num_valence_electrons)
     e_ok = all(math.isfinite(v) for v in res["energy"].values())
-    emit({"phase": phase, "gpu": gpu, "deck": "si16_supercell2",
+    emit({"phase": phase, "gpu": gpu, "deck": deck,
           "ultrasoft": ctx.aug is not None,
           "num_symmetry_ops": (0 if ctx.symmetry is None
                                else ctx.symmetry.num_ops),
@@ -510,10 +717,19 @@ def full_width(ctx, dev, gpu: str, phase: str = "full_width",
                              f"{FULL_ITERS[phase]}")
     if not e_ok:
         raise AssertionError(f"{phase}: non-finite energy")
-    if abs(nel - FULL_ELECTRONS) > 1e-8:
-        raise AssertionError(f"{phase}: electron count {nel}")
-    check_launched(phase, dev, launches, required)
+    if abs(nel - want_nel) > 1e-8:
+        raise AssertionError(f"{phase}: electron count {nel}, want {want_nel}")
+    check_launched(phase, dev, launches, required, path, iters)
     return launches
+
+
+def single_k_context(name: str, spec: dict = GAMMA2):
+    """The context of a 2-atom single-k parity deck (SINGLE_K)."""
+    kind, params, control = SINGLE_K[name]
+    ctx = make_context(spec, params, kind)
+    for key, value in control.items():
+        setattr(ctx.cfg.control, key, value)
+    return ctx
 
 
 def main() -> int:
@@ -550,19 +766,27 @@ def main() -> int:
                            "jax_reference.json")) as f:
         refs = json.load(f)["decks"]
     t0 = time.perf_counter()
-    run_to_end = {"density_tol": 0.0, "energy_tol": 0.0}
     ctx2 = make_context(PARITY, TIGHT)
     ctx16 = make_context(FULL, {"num_dft_iter": FULL_ITERS["full_width"],
-                                **run_to_end})
+                                **RUN_TO_END})
     ctx2us = make_context(PARITY, TIGHT, US_SYM)
     ctx16us = make_context(FULL, {"num_dft_iter": FULL_ITERS["full_width_us"],
-                                  **run_to_end}, US_SYM)
+                                  **RUN_TO_END}, US_SYM)
+    single = {name: single_k_context(name) for name in SINGLE_K}
+    # one 54-atom context for both single-k runs (~15 s on the host)
+    ctx54 = make_context(GAMMA54, {"num_dft_iter": FULL_ITERS[
+        "full_width_gamma_us"], **RUN_TO_END}, US_SYM)
     emit({"phase": "contexts", "seconds": time.perf_counter() - t0})
 
     check_kernels("full_width_2atom", ctx2, dev, gpu)
     kern16 = check_kernels("si16_supercell2", ctx16, dev, gpu)
     check_kernels_us("full_width_2atom_us_sym", ctx2us, dev, gpu)
     kern16.update(check_kernels_us("si16_supercell2_us_sym", ctx16us, dev, gpu))
+    check_kernels_gamma("gamma_us_sym", single["gamma_us_sym"], dev, gpu)
+    kern54 = check_kernels_gamma("si54_supercell3_gamma", ctx54, dev, gpu)
+    check_kernel_chunk("chunked_us_sym", single["chunked_us_sym"], 1, dev, gpu)
+    kern54.update(check_kernel_chunk("si54_supercell3_chunk16", ctx54, CHUNK54,
+                                     dev, gpu))
     torch.cuda.empty_cache()
     parity_scf(ctx2, dev, refs["full_width_2atom"], gpu)
     full_width(ctx16, dev, gpu)
@@ -571,15 +795,32 @@ def main() -> int:
                required=US_KERNELS)
     launches = full_width(ctx16us, dev, gpu, phase="full_width_us",
                           required=US_KERNELS)
+    for name, ctx in single.items():
+        path, required = SINGLE_K_PATH[name]
+        parity_scf(ctx, dev, refs[name], gpu,
+                   phase="parity_scf_" + name.replace("_sym", ""), deck=name,
+                   required=required, path=path)
+    torch.cuda.empty_cache()
+    launches54 = full_width(ctx54, dev, gpu, phase="full_width_gamma_us",
+                            required=GAMMA_US_KERNELS,
+                            deck="si54_supercell3_gamma", path="gamma")
+    ctx54.cfg.control.beta_chunked = True
+    ctx54.cfg.control.beta_chunk_size = CHUNK54
+    torch.cuda.empty_cache()
+    launches54.update(beta_chunk=full_width(
+        ctx54, dev, gpu, phase="full_width_chunked_us",
+        required=CHUNKED_US_KERNELS, deck="si54_supercell3_gamma",
+        path="chunked")["beta_chunk"])
 
     summary = []
-    for name, rec in kern16.items():
-        summary.append({
-            "name": name, "route": "cuda", "source": SOURCE[name],
-            "replaces": REPLACES[name], "launches": launches[name],
-            "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
-            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
-            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]})
+    for records, runs in ((kern16, launches), (kern54, launches54)):
+        for name, rec in records.items():
+            summary.append({
+                "name": name, "route": "cuda", "source": SOURCE[name],
+                "replaces": REPLACES[name], "launches": runs[name],
+                "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+                "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+                "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]})
     emit({"kernels": summary})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -12,21 +12,56 @@ import numpy as np
 import torch
 
 from sirius_tpu_torch.device import resolve_device
+from sirius_tpu_torch.ops.beta_chunked import (ChunkedParams,
+                                               chunked_params_from_arrays)
+from sirius_tpu_torch.ops.gamma import GammaParams, gamma_params_from_arrays
 from sirius_tpu_torch.parallel.batched import HkSetParams, hkset_from_arrays
 
 HKSET_KEYS = ("veff_r", "ekin", "mask", "fft_index", "beta_re", "beta_im",
               "dion", "qmat", "h_diag", "o_diag")
+GAMMA_KEYS = ("veff_r", "ekin_p", "mask_p", "fft_index", "slot_re",
+              "slot_im", "im_sign", "scale", "zero_idx", "beta_p", "dion",
+              "qmat")
+CHUNKED_KEYS = ("ekin", "mask", "fft_index", "veff_r", "dmat", "qmat_c",
+                "pos", "xi_rf", "xi_lm", "cph_re", "cph_im", "rlm", "q", "mk",
+                "ri_grid", "dq", "pref")
+
+
+def _take(arrays: dict, keys, what: str) -> dict:
+    missing = [k for k in keys if k not in arrays]
+    if missing:
+        raise KeyError(f"missing {what} leaves: {missing}")
+    return {k: np.asarray(arrays[k]) for k in keys}
 
 
 def hkset_from_numpy(arrays: dict, device) -> HkSetParams:
     """The port's batched H parameters from the JAX HkSetParams leaves
     (numpy arrays under HKSET_KEYS; beta as its (re, im) pair)."""
-    missing = [k for k in HKSET_KEYS if k not in arrays]
-    if missing:
-        raise KeyError(f"missing HkSetParams leaves: {missing}")
-    a = {k: np.asarray(arrays[k]) for k in HKSET_KEYS}
+    a = _take(arrays, HKSET_KEYS, "HkSetParams")
     a["beta"] = a.pop("beta_re") + 1j * a.pop("beta_im")
     return hkset_from_arrays(a, device)
+
+
+def gamma_params_from_numpy(arrays: dict, device) -> GammaParams:
+    """The port's packed-real H parameters from the JAX GammaParams leaves
+    (numpy arrays under GAMMA_KEYS)."""
+    return gamma_params_from_arrays(_take(arrays, GAMMA_KEYS, "GammaParams"),
+                                    device)
+
+
+def chunked_params_from_numpy(arrays: dict, device) -> ChunkedParams:
+    """The port's chunked-projector H parameters from the JAX
+    make_chunked_hk dict (numpy arrays under CHUNKED_KEYS; the (-i)^l
+    prefactors as their (re, im) pair)."""
+    a = _take(arrays, CHUNKED_KEYS, "make_chunked_hk")
+    a["cph"] = a.pop("cph_re") + 1j * a.pop("cph_im")
+    return chunked_params_from_arrays(a, device)
+
+
+def packed_from_numpy(x: np.ndarray, device) -> torch.Tensor:
+    """A packed-real Gamma block [..., ngk] as a float64 tensor."""
+    return torch.as_tensor(np.asarray(x, dtype=np.float64),
+                           device=resolve_device(device))
 
 
 def context_arrays(ctx) -> dict:

@@ -6,9 +6,16 @@
 // convergence mask) with _precondition (:100-104), and the exit values of
 // the same function (:209-213).
 //
+// Two element types from one template: complex128 blocks (the k-point
+// path) and float64 blocks (the Gamma packed-real path of
+// sirius_tpu/ops/gamma.py::davidson_gamma :270-281, where the same solver
+// runs on packed real vectors). A real element is read as a complex one
+// with a zero imaginary part, so both share every line of arithmetic.
+//
 // Bound on the H100: bytes. Per element of a [B*nb, ngk] row it reads x,
-// hx, sx (48 bytes), h_diag, o_diag and mask (24 bytes, shared by the nb
-// rows of a batch), writes w (16 bytes), and does about 30 flops.
+// hx, sx (48 bytes complex, 24 real), h_diag, o_diag and mask (24 bytes,
+// shared by the nb rows of a batch), writes w (16 bytes complex, 8 real),
+// and does about 30 flops (complex) or 15 (real).
 //
 // Design: one block per (batch, band) row. Three passes over the row:
 // (1) <x|H x> and <x|S x>, (2) |r|^2 with r rebuilt from hx - eps*sx (the
@@ -27,6 +34,22 @@ namespace {
 
 constexpr int kThreads = 256;
 
+// element access: a real element is a complex one with imaginary part 0
+__device__ inline double2 load(const cuDoubleComplex* p, long long i) {
+    const cuDoubleComplex z = p[i];
+    return make_double2(z.x, z.y);
+}
+__device__ inline double2 load(const double* p, long long i) {
+    return make_double2(p[i], 0.0);
+}
+__device__ inline void store(cuDoubleComplex* p, long long i, double re,
+                             double im) {
+    p[i] = make_cuDoubleComplex(re, im);
+}
+__device__ inline void store(double* p, long long i, double re, double) {
+    p[i] = re;
+}
+
 __device__ double block_sum(double v, double* sh) {
     sh[threadIdx.x] = v;
     __syncthreads();
@@ -42,15 +65,15 @@ __device__ double block_sum(double v, double* sh) {
 // x, hx, sx, w: [nrows_total, ngk]; h_diag, o_diag, mask: [nrows_total/nb, ngk].
 // mask may be null (exit values: no mask, as davidson.py:209-213); w may be
 // null (exit values: no preconditioned block).
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-residual_rows(const cuDoubleComplex* __restrict__ x,
-              const cuDoubleComplex* __restrict__ hx,
-              const cuDoubleComplex* __restrict__ sx,
+residual_rows(const T* __restrict__ x, const T* __restrict__ hx,
+              const T* __restrict__ sx,
               const double* __restrict__ h_diag,
               const double* __restrict__ o_diag,
               const double* __restrict__ mask, double res_tol,
               double* __restrict__ evals, double* __restrict__ rnorm,
-              cuDoubleComplex* __restrict__ w, int nb, int ngk) {
+              T* __restrict__ w, int nb, int ngk) {
     __shared__ double sh[kThreads];
     const long long row = blockIdx.x;
     const long long off = row * (long long)ngk;
@@ -58,9 +81,9 @@ residual_rows(const cuDoubleComplex* __restrict__ x,
 
     double num = 0.0, den = 0.0;
     for (int g = threadIdx.x; g < ngk; g += kThreads) {
-        const cuDoubleComplex xv = x[off + g];
-        const cuDoubleComplex hv = hx[off + g];
-        const cuDoubleComplex sv = sx[off + g];
+        const double2 xv = load(x, off + g);
+        const double2 hv = load(hx, off + g);
+        const double2 sv = load(sx, off + g);
         num += xv.x * hv.x + xv.y * hv.y;  // Re(conj(x) * hx)
         den += xv.x * sv.x + xv.y * sv.y;
     }
@@ -71,8 +94,8 @@ residual_rows(const cuDoubleComplex* __restrict__ x,
     double r2 = 0.0;
     for (int g = threadIdx.x; g < ngk; g += kThreads) {
         const double m = mask != nullptr ? mask[doff + g] : 1.0;
-        const cuDoubleComplex hv = hx[off + g];
-        const cuDoubleComplex sv = sx[off + g];
+        const double2 hv = load(hx, off + g);
+        const double2 sv = load(sx, off + g);
         const double rr = (hv.x - ev * sv.x) * m;
         const double ri = (hv.y - ev * sv.y) * m;
         r2 += rr * rr + ri * ri;
@@ -90,15 +113,27 @@ residual_rows(const cuDoubleComplex* __restrict__ x,
         const double m = mask != nullptr ? mask[doff + g] : 1.0;
         double wr = 0.0, wi = 0.0;
         if (!conv) {
-            const cuDoubleComplex hv = hx[off + g];
-            const cuDoubleComplex sv = sx[off + g];
+            const double2 hv = load(hx, off + g);
+            const double2 sv = load(sx, off + g);
             double p = h_diag[doff + g] - ev * o_diag[doff + g];
             p = 0.5 * (1.0 + p + sqrt(1.0 + (p - 1.0) * (p - 1.0)));
             wr = (hv.x - ev * sv.x) * m / p;
             wi = (hv.y - ev * sv.y) * m / p;
         }
-        w[off + g] = make_cuDoubleComplex(wr * m, wi * m);
+        store(w, off + g, wr * m, wi * m);
     }
+}
+
+template <typename T>
+int launch(const void* x, const void* hx, const void* sx, const double* h_diag,
+           const double* o_diag, const double* mask, double res_tol,
+           double* evals, double* rnorm, void* w, int nrows_total, int nb,
+           int ngk, void* stream) {
+    if (nrows_total > 0)
+        residual_rows<T><<<nrows_total, kThreads, 0, (cudaStream_t)stream>>>(
+            (const T*)x, (const T*)hx, (const T*)sx, h_diag, o_diag, mask,
+            res_tol, evals, rnorm, (T*)w, nb, ngk);
+    return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -109,10 +144,17 @@ extern "C" int davidson_residual(const void* x, const void* hx, const void* sx,
                                  double* evals, double* rnorm, void* w,
                                  int nrows_total, int nb, int ngk,
                                  void* stream) {
-    if (nrows_total > 0)
-        residual_rows<<<nrows_total, kThreads, 0, (cudaStream_t)stream>>>(
-            (const cuDoubleComplex*)x, (const cuDoubleComplex*)hx,
-            (const cuDoubleComplex*)sx, h_diag, o_diag, mask, res_tol, evals,
-            rnorm, (cuDoubleComplex*)w, nb, ngk);
-    return (int)cudaGetLastError();
+    return launch<cuDoubleComplex>(x, hx, sx, h_diag, o_diag, mask, res_tol,
+                                   evals, rnorm, w, nrows_total, nb, ngk,
+                                   stream);
+}
+
+extern "C" int davidson_residual_f64(const void* x, const void* hx,
+                                     const void* sx, const double* h_diag,
+                                     const double* o_diag, const double* mask,
+                                     double res_tol, double* evals,
+                                     double* rnorm, void* w, int nrows_total,
+                                     int nb, int ngk, void* stream) {
+    return launch<double>(x, hx, sx, h_diag, o_diag, mask, res_tol, evals,
+                          rnorm, w, nrows_total, nb, ngk, stream);
 }

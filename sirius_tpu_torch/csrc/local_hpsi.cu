@@ -11,7 +11,8 @@
 // is N/ngk (~27x at the production decks) larger than the sphere, so the
 // zero fill of pw_to_box dominates its traffic.
 //
-// Design: pw_to_box is a zero fill then a scatter of the valid lanes only.
+// Design: pw_to_box is a zero fill (cudaMemsetAsync) then a scatter of the
+// valid lanes only.
 // Padded G+k lanes all carry fft_index 0, which is also the G = 0 slot: a
 // plain store of every lane would clobber psi(G=0), so masked lanes are
 // skipped instead (valid indices are one-to-one: no atomics, deterministic).
@@ -25,12 +26,6 @@
 #include <cuComplex.h>
 
 namespace {
-
-__global__ void zero_fill(cuDoubleComplex* __restrict__ box, long long n) {
-    for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
-         i += (long long)gridDim.x * blockDim.x)
-        box[i] = make_cuDoubleComplex(0.0, 0.0);
-}
 
 // psi [nbatch, nrows, ngk] -> box [nbatch, nrows, nbox]; fft_index / mask
 // are [nbatch, ngk] when index_batched, else [ngk]; mask may be null.
@@ -98,8 +93,10 @@ extern "C" int pw_to_box(const void* psi, const int* fft_index,
     cudaStream_t s = (cudaStream_t)stream;
     const int threads = 256;
     const long long nfill = (long long)nbatch * nrows * nbox;
-    zero_fill<<<grid_for(nfill, threads), threads, 0, s>>>(
-        (cuDoubleComplex*)box, nfill);
+    // all-zero bits are a complex128 zero
+    const cudaError_t e =
+        cudaMemsetAsync(box, 0, nfill * sizeof(cuDoubleComplex), s);
+    if (e != cudaSuccess) return (int)e;
     const long long total = (long long)nbatch * nrows * ngk;
     if (total > 0)
         scatter_valid<<<grid_for(total, threads), threads, 0, s>>>(

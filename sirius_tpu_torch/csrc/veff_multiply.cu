@@ -7,6 +7,11 @@
 // blocks (b = ik * ns + ispn) and veff the float64 coarse-box potential
 // [ns, n].
 //
+// Real mode (veff_multiply_real) replaces `jnp.real(fr) * params.veff_r`
+// of sirius_tpu/ops/gamma.py::apply_h_s_gamma (:230-233): at Gamma the box
+// holds a Hermitian-symmetric field, so its rounding-level imaginary part
+// is dropped BEFORE the multiply, fr[b, r, i] = Re(fr[b, r, i]) * veff + 0i.
+//
 // Bound on the H100: bytes. Each element is read and written once (32
 // bytes) for two multiplies; veff is re-read per row but a row of it
 // (n * 8 bytes, <= 1.7 MB at a 60^3 box) stays in the 50 MB L2.
@@ -24,6 +29,7 @@
 
 namespace {
 
+template <bool kRealMode>
 __global__ void veff_multiply_kernel(cuDoubleComplex* __restrict__ fr,
                                      const double* __restrict__ veff,
                                      long long rows, int r_per_b, int ns,
@@ -37,16 +43,15 @@ __global__ void veff_multiply_kernel(cuDoubleComplex* __restrict__ fr,
             const double s = v[i];
             cuDoubleComplex z = f[i];
             z.x *= s;
-            z.y *= s;
+            z.y = kRealMode ? 0.0 : z.y * s;
             f[i] = z;
         }
     }
 }
 
-}  // namespace
-
-extern "C" int veff_multiply(void* fr, const double* veff, int nbatch,
-                             int r_per_b, int ns, long long n, void* stream) {
+template <bool kRealMode>
+int launch(void* fr, const double* veff, int nbatch, int r_per_b, int ns,
+           long long n, void* stream) {
     const int threads = 256;
     const long long rows = (long long)nbatch * r_per_b;
     if (rows <= 0 || n <= 0) return (int)cudaGetLastError();
@@ -56,7 +61,20 @@ extern "C" int veff_multiply(void* fr, const double* veff, int nbatch,
     if (bx > 1024) bx = 1024;
     const long long by = rows < 65535 ? rows : 65535;
     dim3 grid((unsigned)bx, (unsigned)by);
-    veff_multiply_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
+    veff_multiply_kernel<kRealMode><<<grid, threads, 0, (cudaStream_t)stream>>>(
         (cuDoubleComplex*)fr, veff, rows, r_per_b, ns, n);
     return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int veff_multiply(void* fr, const double* veff, int nbatch,
+                             int r_per_b, int ns, long long n, void* stream) {
+    return launch<false>(fr, veff, nbatch, r_per_b, ns, n, stream);
+}
+
+extern "C" int veff_multiply_real(void* fr, const double* veff, int nbatch,
+                                  int r_per_b, int ns, long long n,
+                                  void* stream) {
+    return launch<true>(fr, veff, nbatch, r_per_b, ns, n, stream);
 }

@@ -8,6 +8,13 @@ plane-wave pseudopotentials on a k-mesh, with or without the space group
 linear or Anderson mixing. Orchestration is host Python; the
 band solve, density, mixing and potential run on tensors on ``device``,
 which is the GPU unless the caller asks for the CPU.
+
+The band solve takes one of three paths, chosen as the JAX package chooses
+on one device (scf.py:676-713): the chunked-projector solve
+(ops/beta_chunked.py) for a single k-point whose dense projector table is
+over budget or when control.beta_chunked forces it, else the Gamma
+packed-real solve (ops/gamma.py) for a Gamma-only deck with
+control.reduce_gvec, else the batched k-set solve (parallel/batched.py).
 """
 
 from __future__ import annotations
@@ -39,15 +46,35 @@ from sirius_tpu_torch.ops.augmentation import (
     d_operator_device,
     rho_aug_g_device,
 )
+from sirius_tpu_torch.ops.beta_chunked import (
+    apply_h_s_chunked,
+    make_chunked_hk,
+    pack_dmat_chunks,
+)
+from sirius_tpu_torch.ops.gamma import (
+    apply_h_s_gamma,
+    build_gamma_map,
+    davidson_gamma,
+    make_gamma_params,
+    pack,
+    pack_diags,
+    unpack_device,
+)
 from sirius_tpu_torch.parallel.batched import (
     compute_h_diag,
+    compute_o_diag,
     davidson_kset,
     density_kset,
     density_matrix_kset,
     initialize_subspace_kset,
     make_hkset_params,
 )
-from sirius_tpu_torch.solvers.davidson import num_applies, residual_health
+from sirius_tpu_torch.solvers.davidson import (
+    davidson,
+    num_applies,
+    residual_health,
+    subspace_rotate,
+)
 
 
 def check_supported(cfg: Config) -> None:
@@ -85,13 +112,31 @@ def check_context(cfg: Config, ctx: SimulationContext) -> None:
         raise NotImplementedError(
             "PAW species need the on-site PAW terms (ROADMAP queue 1, "
             "slice 4); ultrasoft and norm-conserving species run")
-    gamma_only = (ctx.gkvec.num_kpoints == 1 and float(
-        np.abs(ctx.gkvec.kpoints[0]).max()) < 1e-12)
-    if gamma_only and cfg.control.reduce_gvec:
-        raise NotImplementedError(
-            "a Gamma-only deck with reduce_gvec=true takes the packed-real "
-            "path (kernel K8, ROADMAP queue 1, slice 7); set "
-            "control.reduce_gvec=false for the generic k-point path")
+
+
+def band_solve_path(cfg: Config, ctx: SimulationContext) -> str:
+    """"chunked", "gamma" or "kset": the band solve the JAX package takes
+    for this deck on one device (scf.py:676-713; Hubbard, PAW, mGGA and
+    spin polarization, which also decide there, are refused before this).
+    The chunked branch is tested first: a single unpolarized k-point with
+    projectors, taken when control.beta_chunked forces it or, on "auto",
+    when the dense [nbeta, ngk] complex table exceeds
+    control.beta_chunk_budget_bytes. Else a Gamma-only k-set with
+    control.reduce_gvec takes the packed-real path."""
+    c = cfg.control
+    nk = ctx.gkvec.num_kpoints
+    nbeta = ctx.beta.num_beta_total
+    flag = c.beta_chunked
+    if (flag not in (False, "false", "off") and nk == 1
+            and ctx.num_spins == 1 and nbeta):
+        foot = nbeta * ctx.gkvec.ngk_max * 16
+        if flag in (True, "force") or (
+                flag == "auto" and foot > c.beta_chunk_budget_bytes):
+            return "chunked"
+    if (c.reduce_gvec and nk == 1
+            and float(np.abs(np.asarray(ctx.gkvec.kpoints[0])).max()) < 1e-12):
+        return "gamma"
+    return "kset"
 
 
 def _initial_subspace(ctx: SimulationContext) -> np.ndarray:
@@ -174,35 +219,69 @@ def run_scf(cfg: Config, ctx: SimulationContext | None = None,
     rho_g = torch.as_tensor(initial_density_g(ctx), dtype=torch.complex128,
                             device=device)
     pot = generate_potential(ctx, rho_g, xc, tables)
-    psi_big = torch.as_tensor(_initial_subspace(ctx), device=device)
+    psi_big = _initial_subspace(ctx)
     psi = None
     mixer = Mixer(cfg.mixer, ctx.gvec.glen2, omega=omega, device=device)
     x_mix = rho_g
-    # constant tables uploaded once; veff_r, D and h_diag follow the
-    # potential (norm-conserving: D is the bare D_ion)
-    ps = make_hkset_params(ctx, pot.veff_r_coarse.cpu().numpy(),
-                           v0=pot.veff_g[0].real, device=device)
+    path = band_solve_path(cfg, ctx)
+    chunk = cfg.control.beta_chunk_size
+    prm = gm = gp = x_packed = None
+    if path == "chunked":
+        # H psi generates the projectors chunk by chunk (K9). The dense
+        # table is on the device all the same, as the JAX package's beta_dev
+        # is: it gives the preconditioner diagonals (the JAX _h_o_diag) and
+        # the ultrasoft density matrix. density_kset reads prm's veff_r,
+        # fft_index and mask as it reads HkSetParams'
+        prm = ps = make_chunked_hk(ctx, 0, chunk=chunk, device=device)
+        beta_dense = torch.as_tensor(
+            ctx.beta.beta_gk * ctx.gkvec.mask[:, None, :], device=device)
+        prm.o_diag = torch.as_tensor(compute_o_diag(ctx), device=device)
+    else:
+        # constant tables uploaded once; veff_r, D and h_diag follow the
+        # potential (norm-conserving: D is the bare D_ion)
+        ps = make_hkset_params(ctx, pot.veff_r_coarse.cpu().numpy(),
+                               v0=pot.veff_g[0].real, device=device)
+        beta_dense = ps.beta
+        if path == "gamma":
+            gm = build_gamma_map(np.asarray(ctx.gkvec.millers[0]),
+                                 np.asarray(ctx.gkvec.mask[0]))
+            gp = make_gamma_params(ctx, pot.veff_r_coarse.cpu().numpy(), gm,
+                                   device=device)
     aug_tables = dm_sym = None
+    dion = torch.as_tensor(ctx.beta.dion, dtype=torch.float64, device=device)
     if ctx.aug is not None:
         aug_tables = build_aug_device_tables(ctx.unit_cell, ctx.gvec, ctx.aug,
                                              ctx.beta, device)
-        dion = torch.as_tensor(ctx.beta.dion, dtype=torch.float64,
-                               device=device)
         if tables.sym is not None:
             dm_sym = build_dm_sym_tables(ctx, device)
 
     def refresh(pot):
         """The potential's leaves of the band solve: veff_r, the screened D
-        from the current potential (K5, one channel per spin) and h_diag,
-        which reads both."""
+        from the current potential (K5, one channel per spin; the bare D
+        of norm-conserving species) and h_diag, which reads both."""
+        v0 = pot.veff_g[0].real
+        d = (dion if aug_tables is None
+             else d_operator_device(pot.veff_g, dion, aug_tables, omega))
+        d_s = d.to(torch.complex128).expand(ns, -1, -1).contiguous()
+        if prm is not None:
+            prm.veff_r = pot.veff_r_coarse
+            if aug_tables is not None:
+                prm.dmat = torch.as_tensor(
+                    pack_dmat_chunks(ctx, d.cpu().numpy(), chunk),
+                    device=device)
+            prm.h_diag = compute_h_diag(prm.ekin, prm.mask, beta_dense, d_s,
+                                        v0)[0]
+            return
         ps.veff_r = pot.veff_r_coarse
-        if aug_tables is not None:
-            d = d_operator_device(pot.veff_g, dion, aug_tables, omega)
-            ps.dion = d.to(torch.complex128).expand(ns, -1, -1).contiguous()
-        ps.h_diag = compute_h_diag(ps.ekin, ps.mask, ps.beta, ps.dion,
-                                   pot.veff_g[0].real)
+        ps.dion = d_s
+        ps.h_diag = compute_h_diag(ps.ekin, ps.mask, ps.beta, ps.dion, v0)
+        if gp is not None:
+            gp.veff_r = pot.veff_r_coarse[0]
+            gp.dion = d.contiguous()
 
-    if aug_tables is not None:
+    if path == "chunked" or aug_tables is not None:
+        # the k-set and Gamma tables of a norm-conserving deck were built
+        # from this potential already
         refresh(pot)
 
     counters = {"num_loc_op_applied": 0}
@@ -215,24 +294,53 @@ def run_scf(cfg: Config, ctx: SimulationContext | None = None,
     for it in range(p.num_dft_iter):
         _sync(device)
         it_t0 = time.perf_counter()
-        # --- band solve over the whole (k, spin) set ---
-        if psi is None:
+        if psi_big is not None:
             # first iteration: rotate the full atomic-orbital block down to
             # the lowest nb Ritz vectors (reference initialize_subspace.hpp:279)
-            psi = initialize_subspace_kset(ps, psi_big, nb)
+            if path == "gamma":
+                xb = torch.as_tensor(pack(gm, psi_big[0]), device=device)
+                hx, sx = apply_h_s_gamma(gp, xb)
+                x_packed = subspace_rotate(xb, hx, sx, nb,
+                                           mask=gp.mask_p.expand(ns, -1))
+            else:
+                big = torch.as_tensor(psi_big, device=device)
+                if path == "chunked":
+                    xb = big[0] * prm.mask[:, None, :]
+                    hx, sx = apply_h_s_chunked(prm, xb)
+                    psi = subspace_rotate(xb, hx, sx, nb)[None]
+                else:
+                    psi = initialize_subspace_kset(ps, big, nb)
+                del big
             counters["num_loc_op_applied"] += nk * ns * psi_big.shape[2]
             psi_big = None
-        ev, psi, rn = davidson_kset(ps, psi, num_steps=itsol.num_steps,
-                                    res_tol=res_tol)
-        counters["num_loc_op_applied"] += nk * ns * num_applies(itsol.num_steps, nb)
-        _, rn_ok = residual_health(rn, blowup=cfg.control.band_residual_blowup)
-        if not rn_ok:
-            # one deeper retry, warm-started from the stagnated block
-            ev, psi, rn = davidson_kset(ps, psi, num_steps=2 * itsol.num_steps,
+        # --- band solve over the whole (k, spin) set ---
+        if path == "gamma":
+            # packed-real solve; the density takes the unpacked bands
+            hd_p, od_p = pack_diags(gm, ps.h_diag[0], ps.o_diag.expand(ns, -1))
+            ev, x_packed, rn = davidson_gamma(gp, x_packed, hd_p, od_p,
+                                              num_steps=itsol.num_steps,
+                                              res_tol=res_tol)
+            psi = unpack_device(gp, x_packed)[None]
+        elif path == "chunked":
+            ev, x, rn = davidson(apply_h_s_chunked, prm, psi[0], prm.h_diag,
+                                 prm.o_diag, prm.mask,
+                                 num_steps=itsol.num_steps, res_tol=res_tol)
+            psi = x[None]
+        else:
+            ev, psi, rn = davidson_kset(ps, psi, num_steps=itsol.num_steps,
                                         res_tol=res_tol)
-            counters["num_loc_op_applied"] += nk * ns * num_applies(
-                2 * itsol.num_steps, nb)
-        evals = ev
+        counters["num_loc_op_applied"] += nk * ns * num_applies(itsol.num_steps, nb)
+        if path == "kset":
+            _, rn_ok = residual_health(rn, blowup=cfg.control.band_residual_blowup)
+            if not rn_ok:
+                # one deeper retry, warm-started from the stagnated block (the
+                # JAX package retries on this path only)
+                ev, psi, rn = davidson_kset(ps, psi,
+                                            num_steps=2 * itsol.num_steps,
+                                            res_tol=res_tol)
+                counters["num_loc_op_applied"] += nk * ns * num_applies(
+                    2 * itsol.num_steps, nb)
+        evals = ev.reshape(nk, ns, nb)
         _sync(device)
         band_seconds.append(time.perf_counter() - it_t0)
 
@@ -245,7 +353,7 @@ def run_scf(cfg: Config, ctx: SimulationContext | None = None,
                                            tables)
         if aug_tables is not None:
             # beta density matrix -> its space-group average -> rho_aug (K4)
-            dm = density_matrix_kset(ps.beta, psi, occ_w)
+            dm = density_matrix_kset(beta_dense, psi, occ_w)
             if dm_sym is not None:
                 dm = symmetrize_density_matrix_device(dm, dm_sym)
             rho_spin += rho_aug_g_device(dm.contiguous(), aug_tables,

@@ -23,7 +23,8 @@ PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
 SOURCES = ("local_hpsi", "davidson_residual", "density_accumulate", "lda_xc",
-           "veff_multiply", "augmentation", "symmetrize_pw")
+           "veff_multiply", "augmentation", "symmetrize_pw", "gamma_pack",
+           "beta_chunk")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -41,6 +42,8 @@ SIGNATURES = {
     "davidson_residual": {
         "davidson_residual": (_P, _P, _P, _P, _P, _P, _D, _P, _P, _P,
                               _I, _I, _I, _P),
+        "davidson_residual_f64": (_P, _P, _P, _P, _P, _P, _D, _P, _P, _P,
+                                  _I, _I, _I, _P),
     },
     "density_accumulate": {
         "density_accumulate": (_P, _P, _P, _I, _I, _LL, _D, _P),
@@ -50,6 +53,7 @@ SIGNATURES = {
     },
     "veff_multiply": {
         "veff_multiply": (_P, _P, _I, _I, _I, _LL, _P),
+        "veff_multiply_real": (_P, _P, _I, _I, _I, _LL, _P),
     },
     "augmentation": {
         "rho_aug": (_P, _P, _P, _P, _P, _P, _P, _I, _LL, _I, _I, _LL, _I, _P),
@@ -58,6 +62,15 @@ SIGNATURES = {
     },
     "symmetrize_pw": {
         "symmetrize_pw": (_P, _P, _P, _P, _P, _P, _P, _I, _LL, _I, _I, _I, _P),
+    },
+    "gamma_pack": {
+        "unpack_to_box": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _LL, _P),
+        "box_to_packed_hx": (_P, _P, _P, _P, _P, _P, _LL, _I, _P, _P, _I, _I,
+                             _LL, _P),
+    },
+    "beta_chunk": {
+        "beta_chunk": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                       _I, _D, _D, _D, _P),
     },
 }
 

@@ -10,8 +10,11 @@ davidson_residual(x, hx, sx, h_diag, o_diag, mask, res_tol) on blocks
   w     = where(conv, 0, r / p) * mask
 
 With want_w=False it returns (evals, rnorm, None) with no mask applied: the
-exit values of davidson (davidson.py:209-213). A CPU tensor takes the plain
-PyTorch version; a CUDA tensor launches the kernel.
+exit values of davidson (davidson.py:209-213). The blocks are complex128
+(k-point path) or float64 (the Gamma packed-real path): the same kernel
+source, counted apart in davidson_residual.launches and
+davidson_residual.launches_f64. A CPU tensor takes the plain PyTorch
+version; a CUDA tensor launches the kernel.
 """
 
 from __future__ import annotations
@@ -41,9 +44,11 @@ def davidson_residual_plain(x, hx, sx, h_diag, o_diag, mask, res_tol,
 
 def davidson_residual(x, hx, sx, h_diag, o_diag, mask, res_tol: float,
                       want_w: bool = True):
+    if x.dtype not in (torch.complex128, torch.float64):
+        raise ValueError(f"x must be complex128 or float64, got {x.dtype}")
     for name, t in (("x", x), ("hx", hx), ("sx", sx)):
-        if t.dtype != torch.complex128 or t.dim() != 3:
-            raise ValueError(f"{name} must be complex128 [B, nb, ngk]")
+        if t.dtype != x.dtype or t.dim() != 3:
+            raise ValueError(f"{name} must be {x.dtype} [B, nb, ngk]")
         if t.shape != x.shape or t.device != x.device:
             raise ValueError(f"{name} does not match x {tuple(x.shape)}")
     b, nb, ngk = x.shape
@@ -63,8 +68,10 @@ def davidson_residual(x, hx, sx, h_diag, o_diag, mask, res_tol: float,
     rnorm = torch.empty_like(evals)
     w = torch.empty_like(x) if want_w else None
     tabs = [t.contiguous() for t in tables]
+    real = x.dtype == torch.float64
     lib = build.library("davidson_residual")
-    rc = lib.davidson_residual(
+    fn = lib.davidson_residual_f64 if real else lib.davidson_residual
+    rc = fn(
         x.data_ptr(), hx.data_ptr(), sx.data_ptr(),
         tabs[0].data_ptr() if want_w else None,
         tabs[1].data_ptr() if want_w else None,
@@ -72,9 +79,13 @@ def davidson_residual(x, hx, sx, h_diag, o_diag, mask, res_tol: float,
         float(res_tol), evals.data_ptr(), rnorm.data_ptr(),
         None if w is None else w.data_ptr(), b * nb, nb, ngk,
         build.stream_of(x))
-    davidson_residual.launches += 1
     build.check(rc, "davidson_residual")
+    if real:
+        davidson_residual.launches_f64 += 1
+    else:
+        davidson_residual.launches += 1
     return evals, rnorm, w
 
 
 davidson_residual.launches = 0
+davidson_residual.launches_f64 = 0

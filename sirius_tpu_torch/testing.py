@@ -5,6 +5,8 @@ shaped like a real ultrasoft silicon run."""
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 
 from sirius_tpu_torch.config.schema import Config
@@ -118,3 +120,14 @@ def synthetic_silicon_context(
     finally:
         ucm.UnitCell.from_config = orig
     return ctx
+
+
+def threads_per_test_worker() -> int:
+    """Torch intra-op threads for one process of a test run: the CPU cores
+    shared evenly among the pytest-xdist workers
+    (PYTEST_XDIST_WORKER_COUNT), all of them outside xdist. Torch's default
+    gives every worker every core; with 6 workers on 8 cores the port's CPU
+    tests ran 11x slower (589 s against 52 s)."""
+    workers = max(1, int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1")))
+    return max(1, (os.cpu_count() or 1) // workers)
+

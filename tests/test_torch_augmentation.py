@@ -24,6 +24,10 @@ from sirius_tpu_torch.ops import augmentation as taug
 from sirius_tpu_torch.ops.hamiltonian import apply_h_s, make_hk_params
 from sirius_tpu_torch.parallel.batched import density_matrix_kset
 from sirius_tpu_torch.testing import synthetic_silicon_context as port_context
+from sirius_tpu_torch.testing import threads_per_test_worker
+
+# torch's intra-op threads: one share of the cores per test worker
+torch.set_num_threads(threads_per_test_worker())
 
 SMALL_US = dict(gk_cutoff=3.0, pw_cutoff=7.0, ngridk=(2, 2, 2), num_bands=8,
                 ultrasoft=True, use_symmetry=True)

@@ -1,24 +1,37 @@
 """chip_smoke.py off the card: without CUDA it exits non-zero and prints no
 result, and its kernel and parity phases run end to end on the CPU at the
-small decks, norm-conserving and ultrasoft + symmetry (every wrapper then
-takes its plain version, so the checks compare the plain versions with
-themselves and no launch is counted)."""
+small decks, norm-conserving, ultrasoft + symmetry and Gamma-only (every
+wrapper then takes its plain version, so the checks compare the plain
+versions with themselves and no launch is counted). Its launch checks are
+held to what each band-solve path launches."""
 
 import json
 import os
 import subprocess
 import sys
 
+import pytest
 import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 import chip_smoke  # noqa: E402
+from sirius_tpu_torch.ops.gamma import apply_h_s_gamma  # noqa: E402
+from sirius_tpu_torch.testing import threads_per_test_worker
+
+# torch's intra-op threads: one share of the cores per test worker
+torch.set_num_threads(threads_per_test_worker())
 
 SMALL = dict(gk_cutoff=3.0, pw_cutoff=7.0, ngridk=(2, 2, 2), num_bands=8)
-# the kernels check_kernels_us holds against their plain versions
+SMALL_GAMMA = dict(SMALL, ngridk=(1, 1, 1))
+# the kernels check_kernels, check_kernels_us and check_kernels_gamma hold
+# against their plain versions
+NC_CHECKED = ("local_hpsi.pw_to_box", "local_hpsi.box_to_pw_hpsi",
+              "davidson_residual", "density_accumulate", "lda_xc")
 US_CHECKED = ("veff_multiply", "augmentation.rho_aug",
               "augmentation.d_operator", "symmetrize_pw")
+GAMMA_CHECKED = ("gamma_pack.unpack_to_box", "gamma_pack.box_to_packed_hx",
+                 "veff_multiply.real", "davidson_residual.f64")
 
 
 def reference(deck):
@@ -41,7 +54,9 @@ def test_phases_run_on_cpu(monkeypatch, capsys):
     dev = torch.device("cpu")
     ctx = chip_smoke.make_context(SMALL, chip_smoke.TIGHT)
     recs = chip_smoke.check_kernels("small", ctx, dev, "cpu")
-    assert sorted(recs) == sorted(set(chip_smoke.SOURCE) - set(US_CHECKED))
+    assert sorted(recs) == sorted(NC_CHECKED)
+    assert sorted(NC_CHECKED + US_CHECKED + GAMMA_CHECKED + ("beta_chunk",)) \
+        == sorted(chip_smoke.SOURCE)
     for rec in recs.values():
         assert rec["max_rel_err"] <= rec["tol_rel"]
         assert rec["bound_ms"] > 0 and rec["bound_by"] in ("bytes", "operations")
@@ -71,3 +86,47 @@ def test_us_phases_run_on_cpu(monkeypatch, capsys):
     assert parity["num_scf_iterations"] == ref["num_scf_iterations"]
     assert set(parity["launches"]) == set(chip_smoke.SOURCE)
     assert all(v == 0 for v in chip_smoke.read_launches().values())
+
+
+def test_single_k_phases_run_on_cpu(monkeypatch, capsys):
+    monkeypatch.setattr(chip_smoke, "time_ms", lambda fn, **kw: (fn(), 0.0)[1])
+    dev = torch.device("cpu")
+    ctx = chip_smoke.make_context(SMALL_GAMMA, chip_smoke.TIGHT,
+                                  chip_smoke.US_SYM)
+    recs = chip_smoke.check_kernels_gamma("small_gamma", ctx, dev, "cpu")
+    for chunk in (1, 16):
+        recs.update(chip_smoke.check_kernel_chunk("small_gamma", ctx, chunk,
+                                                  dev, "cpu"))
+    assert sorted(recs) == sorted(GAMMA_CHECKED + ("beta_chunk",))
+    for rec in recs.values():
+        assert rec["max_rel_err"] <= rec["tol_rel"]
+        assert rec["bound_ms"] > 0 and rec["bound_by"] in ("bytes", "operations")
+    name = "gamma_us_sym"
+    path, required = chip_smoke.SINGLE_K_PATH[name]
+    calls = apply_h_s_gamma.calls
+    chip_smoke.parity_scf(chip_smoke.single_k_context(name), dev,
+                          reference(name), "cpu", phase="parity_scf_gamma_us",
+                          deck=name, required=required, path=path)
+    lines = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
+    parity = [r for r in lines if r.get("phase") == "parity_scf_gamma_us"][0]
+    assert parity["num_scf_iterations"] == reference(name)["num_scf_iterations"]
+    assert apply_h_s_gamma.calls > calls
+    assert all(v == 0 for v in chip_smoke.read_launches().values())
+
+
+def test_launch_checks_follow_the_band_solve_path():
+    # on the card: a path's kernels must each launch, and on the Gamma path
+    # K1's gather serves only the r -> G transforms (2 iters + 1)
+    cuda = torch.device("cuda")
+    launches = {name: 1 for name in chip_smoke.SOURCE}
+    launches["local_hpsi.box_to_pw_hpsi"] = 7
+    chip_smoke.check_launched("gamma", cuda, launches,
+                              chip_smoke.GAMMA_US_KERNELS, "gamma", 3)
+    with pytest.raises(AssertionError, match="H psi went through K1"):
+        chip_smoke.check_launched("gamma", cuda, launches,
+                                  chip_smoke.GAMMA_US_KERNELS, "gamma", 4)
+    launches["beta_chunk"] = 0
+    with pytest.raises(AssertionError, match="beta_chunk"):
+        chip_smoke.check_launched("chunked", cuda, launches,
+                                  chip_smoke.CHUNKED_US_KERNELS, "chunked", 3)
+    chip_smoke.check_launched("kset", cuda, launches, chip_smoke.US_KERNELS)

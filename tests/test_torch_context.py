@@ -14,6 +14,7 @@ from sirius_tpu_torch.convert import context_arrays
 from sirius_tpu_torch.core.sbessel import spherical_jn_recurrence
 from sirius_tpu_torch.dft.scf import check_context
 from sirius_tpu_torch.testing import synthetic_silicon_context as port_context
+from sirius_tpu_torch.testing import threads_per_test_worker
 
 DECKS = {
     "small": dict(gk_cutoff=3.0, pw_cutoff=7.0, ngridk=(2, 2, 2), num_bands=8),
@@ -71,3 +72,15 @@ def test_ultrasoft_species_raise():
     ctx.unit_cell.atom_types[0].pseudo_type = "PAW"
     with pytest.raises(NotImplementedError, match="PAW"):
         check_context(ctx.cfg, ctx)
+
+
+@pytest.mark.parametrize("workers", [None, "1", "3", "1000"])
+def test_threads_per_test_worker(monkeypatch, workers):
+    # the cores shared evenly among pytest-xdist workers, at least one each
+    monkeypatch.setattr("os.cpu_count", lambda: 8)
+    if workers is None:
+        monkeypatch.delenv("PYTEST_XDIST_WORKER_COUNT", raising=False)
+    else:
+        monkeypatch.setenv("PYTEST_XDIST_WORKER_COUNT", workers)
+    want = {None: 8, "1": 8, "3": 2, "1000": 1}[workers]
+    assert threads_per_test_worker() == want

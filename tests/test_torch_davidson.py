@@ -28,6 +28,10 @@ from sirius_tpu_torch.ops.hamiltonian import apply_h_s
 from sirius_tpu_torch.parallel.batched import davidson_kset, initialize_subspace_kset
 from sirius_tpu_torch.solvers.davidson import num_applies, residual_health
 from sirius_tpu_torch.testing import synthetic_silicon_context as port_context
+from sirius_tpu_torch.testing import threads_per_test_worker
+
+# torch's intra-op threads: one share of the cores per test worker
+torch.set_num_threads(threads_per_test_worker())
 
 SMALL = dict(gk_cutoff=3.0, pw_cutoff=7.0, ngridk=(2, 2, 2), num_bands=8,
              ultrasoft=False, use_symmetry=False)

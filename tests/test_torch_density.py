@@ -27,6 +27,10 @@ from sirius_tpu_torch.dft.occupation import find_fermi
 from sirius_tpu_torch.kernels.density_accumulate import density_accumulate
 from sirius_tpu_torch.parallel.batched import density_kset
 from sirius_tpu_torch.testing import synthetic_silicon_context as port_context
+from sirius_tpu_torch.testing import threads_per_test_worker
+
+# torch's intra-op threads: one share of the cores per test worker
+torch.set_num_threads(threads_per_test_worker())
 
 SMALL = dict(gk_cutoff=3.0, pw_cutoff=7.0, ngridk=(2, 2, 2), num_bands=8,
              ultrasoft=False, use_symmetry=False)

@@ -19,6 +19,10 @@ from sirius_tpu_torch.dft import density as tden
 from sirius_tpu_torch.kernels.symmetrize_pw import symmetrize_pw as k6
 from sirius_tpu_torch.ops.hubbard import rlm_rotation_matrix
 from sirius_tpu_torch.testing import synthetic_silicon_context as port_context
+from sirius_tpu_torch.testing import threads_per_test_worker
+
+# torch's intra-op threads: one share of the cores per test worker
+torch.set_num_threads(threads_per_test_worker())
 
 SMALL_US = dict(gk_cutoff=3.0, pw_cutoff=7.0, ngridk=(2, 2, 2), num_bands=8,
                 ultrasoft=True, use_symmetry=True)

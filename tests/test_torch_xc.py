@@ -11,6 +11,10 @@ import torch
 from sirius_tpu.dft.xc import XCFunctional as JaxXC
 from sirius_tpu_torch.dft.xc import XCFunctional
 from sirius_tpu_torch.kernels.lda_xc import lda_xc, lda_xc_unpolarized
+from sirius_tpu_torch.testing import threads_per_test_worker
+
+# torch's intra-op threads: one share of the cores per test worker
+torch.set_num_threads(threads_per_test_worker())
 
 NAMES = ["XC_LDA_X", "XC_LDA_C_PZ"]
 

@@ -1,16 +1,21 @@
 """Where the time goes in one SCF iteration of the PyTorch port on the GPU.
 
-Runs the 16-atom Si supercell deck of chip_smoke.py (2x2x2 k-mesh, gk 6 /
-pw 20; norm-conserving without symmetry, or with --ultrasoft the ultrasoft
-species with the 384-op space group and the irreducible k-mesh) for a few
-SCF iterations with unreachable tolerances, profiles the last ones with
-torch.profiler, and prints one JSON object: device time by kernel and by
-category (cuFFT, cuBLAS GEMM, cuSOLVER eigh, the port's hand kernels, other
-torch elementwise/reduction kernels, copies), the wall time of the profiled
-iterations and the device's busy share of it.
+Runs a full-width deck of chip_smoke.py for a few SCF iterations with
+unreachable tolerances, profiles the last ones with torch.profiler, and
+prints one JSON object: device time by kernel and by category (cuFFT,
+cuBLAS GEMM, cuSOLVER eigh, the port's hand kernels, other torch
+elementwise/reduction kernels, copies), the wall time of the profiled
+iterations and the device's busy share of it. The decks:
 
-    python3 tools/torch_port_profile.py [--ultrasoft] [--iters 3]
-        [--profiled 2] [--out FILE]
+- default: the 16-atom Si supercell (2x2x2 k-mesh, gk 6 / pw 20),
+  norm-conserving without symmetry; --ultrasoft: the same cell with the
+  ultrasoft species, its 384-op space group and the irreducible k-mesh;
+- --gamma: the 54-atom Gamma-only supercell (ultrasoft, 1296-op space
+  group) through the packed-real Gamma band solve; --chunked: the same
+  deck through the chunked projectors, 16 atoms a chunk.
+
+    python3 tools/torch_port_profile.py [--ultrasoft | --gamma | --chunked]
+        [--iters 3] [--profiled 2] [--out FILE]
 
 Needs a CUDA card; exits non-zero without one.
 """
@@ -27,10 +32,14 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 PROFILER_RECORDS = ("Buffer Flush", "Activity Buffer Request")
-HAND_KERNELS = ("zero_fill", "scatter_valid", "gather_hpsi", "residual_rows",
+# K1's and K8a's zero fill is a cudaMemsetAsync: it counts under copies
+HAND_KERNELS = ("scatter_valid", "gather_hpsi", "residual_rows",
                 "accumulate", "lda_xc_points", "veff_multiply_kernel",
                 "rho_aug_kernel", "d_operator_partial_kernel",
-                "d_operator_finish_kernel", "symmetrize_pw_kernel")
+                "d_operator_finish_kernel", "symmetrize_pw_kernel",
+                "unpack_scatter", "pack_gather", "beta_chunk_kernel")
+# the band-solve entry point of each path, as dft/scf.py calls it
+SOLVES = ("davidson_kset", "davidson_gamma", "davidson")
 
 
 def category(name: str) -> str:
@@ -57,9 +66,15 @@ def main(argv=None) -> int:
                     help="SCF iterations in all (the first is not profiled)")
     ap.add_argument("--profiled", type=int, default=2,
                     help="trailing iterations inside the profiler")
-    ap.add_argument("--ultrasoft", action="store_true",
-                    help="the ultrasoft + symmetry deck instead of the "
-                    "norm-conserving one")
+    deck = ap.add_mutually_exclusive_group()
+    deck.add_argument("--ultrasoft", action="store_true",
+                      help="the 16-atom ultrasoft + symmetry deck instead of "
+                      "the norm-conserving one")
+    deck.add_argument("--gamma", action="store_true",
+                      help="the 54-atom Gamma-only ultrasoft + symmetry deck "
+                      "(packed-real band solve)")
+    deck.add_argument("--chunked", action="store_true",
+                      help="the 54-atom deck through the chunked projectors")
     ap.add_argument("--out", default="", help="also write the JSON here")
     args = ap.parse_args(argv)
 
@@ -77,11 +92,21 @@ def main(argv=None) -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
+    single_k = args.gamma or args.chunked
+    us = args.ultrasoft or single_k
     ctx = synthetic_silicon_context(
-        gk_cutoff=6.0, pw_cutoff=20.0, ngridk=(2, 2, 2), supercell=2,
-        ultrasoft=args.ultrasoft, use_symmetry=args.ultrasoft,
+        gk_cutoff=6.0, pw_cutoff=20.0,
+        ngridk=(1, 1, 1) if single_k else (2, 2, 2),
+        supercell=3 if single_k else 2, ultrasoft=us, use_symmetry=us,
         extra_params={"num_dft_iter": args.iters, "density_tol": 0.0,
                       "energy_tol": 0.0})
+    if args.chunked:
+        ctx.cfg.control.beta_chunked = True
+        ctx.cfg.control.beta_chunk_size = 16
+    deck_name = ("si54_supercell3_chunk16" if args.chunked
+                 else "si54_supercell3_gamma" if args.gamma
+                 else "si16_supercell2_us_sym" if args.ultrasoft
+                 else "si16_supercell2")
     first = args.iters - args.profiled
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                    acc_events=True)
@@ -89,29 +114,34 @@ def main(argv=None) -> int:
     # open the profiler at the start of iteration `first`: find_fermi runs
     # once per SCF iteration, after the band solve and its retry if any, so
     # the first band solve after `first` find_fermi calls starts it
-    orig_solve, orig_fermi = scf_mod.davidson_kset, scf_mod.find_fermi
+    orig = {name: getattr(scf_mod, name) for name in SOLVES + ("find_fermi",)}
 
-    def hooked_solve(*a, **kw):
-        if state["t0"] is None and state["fermi"] == first:
-            torch.cuda.synchronize()
-            prof.__enter__()
-            state["t0"] = time.perf_counter()
-        if state["t0"] is not None:
-            state["solves"] += 1
-        return orig_solve(*a, **kw)
+    def hooked(name):
+        def solve(*a, **kw):
+            if state["t0"] is None and state["fermi"] == first:
+                torch.cuda.synchronize()
+                prof.__enter__()
+                state["t0"] = time.perf_counter()
+            if state["t0"] is not None:
+                state["solves"] += 1
+            return orig[name](*a, **kw)
+        return solve
 
     def hooked_fermi(*a, **kw):
         state["fermi"] += 1
-        return orig_fermi(*a, **kw)
+        return orig["find_fermi"](*a, **kw)
 
-    scf_mod.davidson_kset, scf_mod.find_fermi = hooked_solve, hooked_fermi
+    for name in SOLVES:
+        setattr(scf_mod, name, hooked(name))
+    scf_mod.find_fermi = hooked_fermi
     try:
         res = scf_mod.run_scf(ctx.cfg, ctx=ctx, device=dev)
         torch.cuda.synchronize()
         wall = time.perf_counter() - state["t0"]
         prof.__exit__(None, None, None)
     finally:
-        scf_mod.davidson_kset, scf_mod.find_fermi = orig_solve, orig_fermi
+        for name, fn in orig.items():
+            setattr(scf_mod, name, fn)
     profiled = list(range(first, res["num_scf_iterations"]))
 
     kernels = []
@@ -136,8 +166,7 @@ def main(argv=None) -> int:
     out = {
         "tool": "tools/torch_port_profile.py",
         "gpu": torch.cuda.get_device_name(0), "nvidia_smi": smi,
-        "deck": ("si16_supercell2_us_sym" if args.ultrasoft
-                 else "si16_supercell2"),
+        "deck": deck_name,
         # 0-based SCF iterations inside the profiler, and the band solves
         # they made (one each unless a residual-health retry ran)
         "profiled_iterations": profiled, "profiled_band_solves": state["solves"],
@@ -147,6 +176,8 @@ def main(argv=None) -> int:
         "by_category_ms": dict(sorted(by_cat.items(), key=lambda kv: -kv[1])),
         "top_kernels": kernels[:25],
         "iteration_seconds": res["iteration_seconds"],
+        "band_solve_seconds": res["band_solve_seconds"],
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
     }
     text = json.dumps(out)
     if args.out:
