@@ -12,7 +12,10 @@ imports nothing of JAX or of sirius_tpu. Phases, each printing JSON lines:
    of the parity decks and of the full-width decks (norm-conserving: K1,
    K2, K3, K7; ultrasoft + symmetry: K1c, K4, K5, K6; Gamma packed-real:
    K8a, K8b, K1c in real mode, K2 on float64 blocks; chunked projectors:
-   K9): error, kernel time (CUDA events, median of 21 samples of 5
+   K9; the XC kernels at the fine boxes of the 16- and 54-atom cells: K7b
+   for X + PW92 and X + VWN5, K7g for PBE and PBEsol, each polarized and
+   unpolarized, on densities with dead channels and fully polarized points,
+   K10a and K10b, and K6 on an axial field): error, kernel time (CUDA events, median of 21 samples of 5
    launches after warm-up), the plain version's time, a one-call PyTorch
    yardstick where one exists (library_ms), and the least time the card
    could take (bound_ms);
@@ -20,23 +23,33 @@ imports nothing of JAX or of sirius_tpu. Phases, each printing JSON lines:
    symmetry (parity_scf) and ultrasoft with the space group
    (parity_scf_us), and the Gamma-only 2-atom decks of the single-k band
    solves (parity_scf_gamma_nc, parity_scf_gamma_us,
-   parity_scf_chunked_us), against the JAX package's recorded energies
-   (sirius_tpu_torch/data/jax_reference.json);
+   parity_scf_chunked_us), and the decks of other functionals and
+   collinear spin (parity_scf_pbe_us: PBE on the k-point US + symmetry
+   deck; parity_scf_pw_us_afm: X + PW92, moments +0.5 / -0.5, 8 ops of
+   which 4 flip the spin; parity_scf_gamma_pbe_us_fm: Gamma, PBE, moments
+   +0.5 / +0.5; parity_scf_gamma_nc_vwn and parity_scf_gamma_nc_pbesol:
+   Gamma, NC, a fixed 14 iterations), against the JAX package's recorded
+   energies and moments (sirius_tpu_torch/data/jax_reference.json);
 4. full-width runs with tolerances that cannot be met, so every iteration
    runs: the 16-atom Si supercell, norm-conserving (full_width, 3 SCF
    iterations) and ultrasoft with its 384 space-group ops (full_width_us,
    6 iterations); the 54-atom Gamma-only supercell, ultrasoft with its
    1296 space-group ops, through the packed-real Gamma solve
    (full_width_gamma_us, 4 iterations) and through the chunked projectors
-   with 16 atoms a chunk (full_width_chunked_us, 4 iterations); kernel
-   launches per iteration, peak device memory, electron count, finite
-   energies.
+   with 16 atoms a chunk (full_width_chunked_us, 4 iterations), and the
+   same cell spin-polarized with PBE and +0.5 on every atom through the
+   packed-real solve, one spin at a time (full_width_gamma_pbe_fm, 4
+   iterations); kernel launches per iteration, peak device memory, electron
+   count, total moment, finite energies.
 
 Every SCF phase sets the launch counts to 0 just before its run and reads
 them just after, and fails if a kernel of its path was not launched. The
 kernels summary takes each kernel's launches from the full-width run of its
 path: full_width_us for K1-K7, full_width_gamma_us for K8a, K8b, K1c real
-and K2 float64, full_width_chunked_us for K9.
+and K2 float64, full_width_chunked_us for K9, full_width_gamma_pbe_fm for
+K7g (PBE), K10a, K10b and K6 on axial fields; K7b's X + PW92 and X + VWN5
+rows and K7g's PBEsol row take theirs from the parity decks that run them
+(parity_scf_pw_us_afm, parity_scf_gamma_nc_vwn, parity_scf_gamma_nc_pbesol).
 
 The last three lines are the kernels summary, the nvidia-smi name/power
 line and {"ok": true, "device": {...}}. Any failure exits non-zero before
@@ -77,6 +90,41 @@ SINGLE_K = {
                        {"beta_chunked": True, "beta_chunk_size": 1}),
 }
 CHUNK54 = 16
+PBE = ["XC_GGA_X_PBE", "XC_GGA_C_PBE"]
+SPIN = {"num_mag_dims": 1}
+FM = [[0.0, 0.0, 0.5], [0.0, 0.0, 0.5]]
+AFM = [[0.0, 0.0, 0.5], [0.0, 0.0, -0.5]]
+# the 2-atom decks of other functionals and collinear spin (the same decks
+# as tools/torch_port_reference.py): shape, species, SCF parameters,
+# starting moments
+XC_DECKS = {
+    "pbe_us_sym": (PARITY, US_SYM, dict(TIGHT, xc_functionals=PBE), None),
+    "pw_us_sym_afm": (PARITY, US_SYM,
+                      dict(TIGHT, xc_functionals=["XC_LDA_X", "XC_LDA_C_PW"],
+                           **SPIN), AFM),
+    "gamma_pbe_us_sym_fm": (GAMMA2, US_SYM,
+                            dict(TIGHT, xc_functionals=PBE, **SPIN), FM),
+    "gamma_nc_vwn": (GAMMA2, NC,
+                     {"num_dft_iter": 14, **RUN_TO_END,
+                      "xc_functionals": ["XC_LDA_X", "XC_LDA_C_VWN"]}, None),
+    "gamma_nc_pbesol": (GAMMA2, NC,
+                        {"num_dft_iter": 14, **RUN_TO_END,
+                         "xc_functionals": ["XC_GGA_X_PBE_SOL",
+                                            "XC_GGA_C_PBE_SOL"]}, None),
+}
+FULL_ITERS["full_width_gamma_pbe_fm"] = 4
+# the XC kernel checks: functionals, polarized
+XC_CHECKS = {
+    "lda_xc.pw92": (["XC_LDA_X", "XC_LDA_C_PW"], True),
+    "lda_xc.pw92.unpolarized": (["XC_LDA_X", "XC_LDA_C_PW"], False),
+    "lda_xc.vwn": (["XC_LDA_X", "XC_LDA_C_VWN"], True),
+    "lda_xc.vwn.unpolarized": (["XC_LDA_X", "XC_LDA_C_VWN"], False),
+    "gga_xc.pbe": (PBE, True),
+    "gga_xc.pbe.unpolarized": (PBE, False),
+    "gga_xc.pbesol": (["XC_GGA_X_PBE_SOL", "XC_GGA_C_PBE_SOL"], True),
+    "gga_xc.pbesol.unpolarized": (["XC_GGA_X_PBE_SOL", "XC_GGA_C_PBE_SOL"],
+                                  False),
+}
 # relative tolerance of each kernel against its plain version on the card:
 # K1/K2 are a store/gather and three fixed-order row sums (rounding only);
 # K3 sums |psi|^2 over bands and K7 evaluates pow/cbrt/log in closed form
@@ -86,8 +134,13 @@ CHUNK54 = 16
 # order as its plain version, phases again sincospi against exp()
 # K8a/K8b/K1c real are stores, gathers and products in the plain version's
 # order (rounding only); K2 float64 as K2; K9 evaluates sincospi phases
-# against exp() of the rounded angle
-TOL = {"local_hpsi.pw_to_box": 1e-12, "local_hpsi.box_to_pw_hpsi": 1e-12,
+# against exp() of the rounded angle. K7b and K7g take the derivatives on
+# dual numbers against autograd of the same expressions (a different order
+# of the chain rule's products, a few ulp), normwise over the box; K10a and
+# K10b are products and sums in the plain version's order (rounding only)
+TOL = {**{name: 1e-11 for name in XC_CHECKS},
+       "xc_gradient.gradient_boxes": 1e-12,
+       "xc_gradient.divergence_pw": 1e-12, "symmetrize_pw.axial": 1e-13,"local_hpsi.pw_to_box": 1e-12, "local_hpsi.box_to_pw_hpsi": 1e-12,
        "davidson_residual": 1e-12, "density_accumulate": 1e-11,
        "lda_xc": 1e-11, "veff_multiply": 1e-12,
        "augmentation.rho_aug": 1e-12, "augmentation.d_operator": 1e-12,
@@ -109,6 +162,11 @@ SOURCE = {
     "veff_multiply.real": "sirius_tpu_torch/csrc/veff_multiply.cu",
     "davidson_residual.f64": "sirius_tpu_torch/csrc/davidson_residual.cu",
     "beta_chunk": "sirius_tpu_torch/csrc/beta_chunk.cu",
+    **{name: f"sirius_tpu_torch/csrc/{name.split('.')[0]}.cu"
+       for name in XC_CHECKS},
+    "xc_gradient.gradient_boxes": "sirius_tpu_torch/csrc/xc_gradient.cu",
+    "xc_gradient.divergence_pw": "sirius_tpu_torch/csrc/xc_gradient.cu",
+    "symmetrize_pw.axial": "sirius_tpu_torch/csrc/symmetrize_pw.cu",
 }
 REPLACES = {
     "local_hpsi.pw_to_box": "sirius_tpu/ops/hamiltonian.py:76",
@@ -125,7 +183,17 @@ REPLACES = {
     "veff_multiply.real": "sirius_tpu/ops/gamma.py:230",
     "davidson_residual.f64": "sirius_tpu/ops/gamma.py:277",
     "beta_chunk": "sirius_tpu/ops/beta_chunked.py:295",
+    **{name: "sirius_tpu/dft/xc.py:341" for name in XC_CHECKS},
+    "xc_gradient.gradient_boxes": "sirius_tpu/dft/potential.py:282",
+    "xc_gradient.divergence_pw": "sirius_tpu/dft/potential.py:285",
+    "symmetrize_pw.axial": "sirius_tpu/dft/density.py:348",
 }
+# the kernels summary: the new rows of K7b / K7g (a record at the 54-atom
+# box, in the mode its deck runs) and the run their launches come from
+SUMMARY_XC = {"lda_xc.pw92": "pw_us_sym_afm",
+              "lda_xc.vwn.unpolarized": "gamma_nc_vwn",
+              "gga_xc.pbe": "full_width_gamma_pbe_fm",
+              "gga_xc.pbesol.unpolarized": "gamma_nc_pbesol"}
 
 
 def emit(obj) -> None:
@@ -566,6 +634,148 @@ def check_kernel_chunk(deck: str, ctx, chunk: int, dev, gpu: str) -> dict:
     return out
 
 
+def xc_operations(names, polarized: bool) -> float:
+    """fp64 operations a point of K7b / K7g, by a stated rule: the torch
+    operations of one point's energy sum in the plain version (each
+    elementary function, pow, exp, log, sqrt, atan, counted as one), times
+    1 + the number of partial derivatives the kernel carries (5 polarized
+    GGA, 2 otherwise), plus the sigma and flux products of GGA."""
+    import torch
+    from torch.overrides import TorchFunctionMode
+
+    from sirius_tpu_torch.kernels.xc_functionals import GGA_FUNCS, energy
+
+    count = [0]
+
+    class Count(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            if not getattr(func, "__name__", "").startswith("__get"):
+                count[0] += 1
+            return func(*args, **(kwargs or {}))
+
+    x = [torch.full((1,), v, dtype=torch.float64)
+         for v in (0.31, 0.17, 0.05, 0.01, 0.04)]
+    with Count():
+        energy(list(names), *x)
+    gga = any(n in GGA_FUNCS for n in names)
+    partials = 5 if (gga and polarized) else 2
+    extra = (30.0 if polarized else 10.0) if gga else 0.0
+    return count[0] * (1.0 + partials) + extra
+
+
+def check_kernels_xc(deck: str, ctx, dev, gpu: str) -> dict:
+    """K7b, K7g (each functional sum polarized and unpolarized), K10a and
+    K10b against their plain versions on this deck's fine box: the initial
+    density with a random polarization, exactly fully polarized points
+    (one channel exactly 0) and dead points. Returns {kernel: record}."""
+    import numpy as np
+    import torch
+
+    from sirius_tpu_torch.core.fftgrid import g_to_r, r_to_g
+    from sirius_tpu_torch.dft.density import grid_tables, initial_density_g
+    from sirius_tpu_torch.dft.potential import gradient_r
+    from sirius_tpu_torch.kernels import gga_xc as k7g
+    from sirius_tpu_torch.kernels import lda_xc as k7
+    from sirius_tpu_torch.kernels import xc_gradient as k10
+
+    tables = grid_tables(ctx, dev)
+    dims = tables.dims
+    n = int(np.prod(dims))
+    ng = ctx.gvec.num_gvec
+    rng = np.random.default_rng(17)
+    out = {}
+    record = functools.partial(record_kernel, out, deck, gpu)
+    rho0 = torch.as_tensor(initial_density_g(ctx), device=dev)
+    rho = g_to_r(rho0, tables.fft_index, dims).real.reshape(-1).clone()
+    rho[:64] = 0.0
+    rho[64:128] = 1e-14
+    frac = torch.as_tensor(rng.uniform(-1.0, 1.0, n), device=dev)
+    frac[128:192] = 1.0
+    frac[192:256] = -1.0
+    m = rho * frac
+    nu, nd = 0.5 * (rho + m), 0.5 * (rho - m)
+    mag_g = r_to_g(m.view(dims), tables.fft_index, dims)
+    fields = torch.stack([0.5 * (rho0 + mag_g), 0.5 * (rho0 - mag_g)])
+    g = gradient_r(tables, fields)
+    gu, gd = g[0].view(3, n), g[1].view(3, n)
+    g1 = gradient_r(tables, rho0[None])[0].view(3, n)
+    del g
+
+    for name, (names, pol) in XC_CHECKS.items():
+        ops = xc_operations(names, pol)
+        if name.startswith("lda_xc"):
+            if pol:
+                kern = functools.partial(k7.lda_xc, nu, nd, names)
+                plain = functools.partial(k7.lda_xc_plain, nu, nd, names)
+            else:
+                kern = functools.partial(k7.lda_xc_unpolarized, rho, names)
+                plain = functools.partial(k7.lda_xc_unpolarized_plain, rho,
+                                          names)
+            nbytes = n * (40.0 if pol else 24.0)
+        else:
+            if pol:
+                kern = functools.partial(k7g.gga_xc, nu, nd, gu, gd, names)
+                plain = functools.partial(k7g.gga_xc_plain, nu, nd, gu, gd,
+                                          names)
+            else:
+                kern = functools.partial(k7g.gga_xc_unpolarized, rho, g1,
+                                         names)
+                plain = functools.partial(k7g.gga_xc_unpolarized_plain, rho,
+                                          g1, names)
+            nbytes = n * (136.0 if pol else 72.0)
+        # no single PyTorch call evaluates a functional: library_ms null
+        record(name, list(kern()), list(plain()), kern, plain, None,
+               nbytes=nbytes, flops=n * ops, slow_plain=True)
+    # K10b takes the forward FFT of the polarized PBE fluxes
+    _, _, _, fu, fd = k7g.gga_xc(nu, nd, gu, gd, PBE)
+    boxes = torch.fft.fftn(torch.stack([fu, fd]).view((2, 3) + dims).to(
+        torch.complex128), dim=(-3, -2, -1), norm="forward").view(2, 3, n)
+    del fu, fd, gu, gd, g1
+    gargs = (tables.gcart, tables.fft_index)
+    # no single PyTorch call forms i G_c f and scatters it, or gathers and
+    # sums it: library_ms null
+    record("xc_gradient.gradient_boxes",
+           [k10.gradient_boxes(fields, *gargs, n)],
+           [k10.gradient_boxes_plain(fields, *gargs, n)],
+           lambda: k10.gradient_boxes(fields, *gargs, n),
+           lambda: k10.gradient_boxes_plain(fields, *gargs, n), None,
+           nbytes=2 * ng * 16 + ng * 28 + 2 * 3 * n * 16,
+           flops=2 * ng * 6.0)
+    record("xc_gradient.divergence_pw", [k10.divergence_pw(boxes, *gargs)],
+           [k10.divergence_pw_plain(boxes, *gargs)],
+           lambda: k10.divergence_pw(boxes, *gargs),
+           lambda: k10.divergence_pw_plain(boxes, *gargs), None,
+           nbytes=2 * 3 * ng * 16 + ng * 28 + 2 * ng * 16,
+           flops=2 * ng * 12.0)
+    return out
+
+
+def check_kernel_axial(deck: str, ctx, dev, gpu: str) -> dict:
+    """K6 on an axial field (the op's spin sign applied) against its plain
+    version, on this deck's initial magnetization. Returns {kernel:
+    record}."""
+    import torch
+
+    from sirius_tpu_torch.dft.density import (build_sym_pw_tables,
+                                              initial_magnetization_g)
+    from sirius_tpu_torch.kernels import symmetrize_pw as k6
+
+    tb = build_sym_pw_tables(ctx, dev)
+    f = torch.as_tensor(initial_magnetization_g(ctx), device=dev)
+    sargs = (tb.millers, tb.lut, tb.rot, tb.trans, tb.dims, tb.sign)
+    ng, nops = f.shape[0], tb.num_ops
+    n1, n2, n3 = tb.dims
+    out = {}
+    record_kernel(out, deck, gpu, "symmetrize_pw.axial",
+                  [k6.symmetrize_pw(f, *sargs)],
+                  [k6.symmetrize_pw_plain(f, *sargs)],
+                  lambda: k6.symmetrize_pw(f, *sargs),
+                  lambda: k6.symmetrize_pw_plain(f, *sargs), None,
+                  nbytes=ng * (16 + 12 + 16) + n1 * n2 * n3 * 4 + nops * 68,
+                  flops=nops * ng * 16.0, slow_plain=True)
+    return out
+
+
 def wrappers() -> dict:
     """The kernel wrappers by summary name, each with the attribute that
     holds its launch count (K2 counts its float64 launches apart)."""
@@ -574,12 +784,18 @@ def wrappers() -> dict:
     from sirius_tpu_torch.kernels import davidson_residual as k2
     from sirius_tpu_torch.kernels import density_accumulate as k3
     from sirius_tpu_torch.kernels import gamma_pack as k8
+    from sirius_tpu_torch.kernels import gga_xc as k7g
     from sirius_tpu_torch.kernels import lda_xc as k7
     from sirius_tpu_torch.kernels import local_hpsi as k1
     from sirius_tpu_torch.kernels import symmetrize_pw as k6
     from sirius_tpu_torch.kernels import veff_multiply as k1c
+    from sirius_tpu_torch.kernels import xc_gradient as k10
 
     n = "launches"
+    # every functional sum counts on its kernel's wrapper: each summary row
+    # reads the count of the run that only launches its sum
+    xc = {name: (k7.lda_xc if name.startswith("lda") else k7g.gga_xc, n)
+          for name in XC_CHECKS}
     return {"local_hpsi.pw_to_box": (k1.pw_to_box, n),
             "local_hpsi.box_to_pw_hpsi": (k1.box_to_pw_hpsi, n),
             "davidson_residual": (k2.davidson_residual, n),
@@ -593,7 +809,11 @@ def wrappers() -> dict:
             "gamma_pack.box_to_packed_hx": (k8.box_to_packed_hx, n),
             "veff_multiply.real": (k1c.veff_multiply_real, n),
             "davidson_residual.f64": (k2.davidson_residual, "launches_f64"),
-            "beta_chunk": (k9.beta_chunk, n)}
+            "beta_chunk": (k9.beta_chunk, n),
+            **xc,
+            "xc_gradient.gradient_boxes": (k10.gradient_boxes, n),
+            "xc_gradient.divergence_pw": (k10.divergence_pw, n),
+            "symmetrize_pw.axial": (k6.symmetrize_pw, "launches_axial")}
 
 
 # the kernels each SCF path must launch: the norm-conserving k-set path runs
@@ -616,6 +836,28 @@ CHUNKED_US_KERNELS = US_KERNELS + ("beta_chunk",)
 SINGLE_K_PATH = {"gamma_nc": ("gamma", GAMMA_KERNELS),
                  "gamma_us_sym": ("gamma", GAMMA_US_KERNELS),
                  "chunked_us_sym": ("chunked", CHUNKED_US_KERNELS)}
+GGA_KERNELS = ("gga_xc.pbe", "xc_gradient.gradient_boxes",
+               "xc_gradient.divergence_pw")
+
+
+def xc_kernels(base, gga: bool, axial: bool) -> tuple:
+    """A path's kernels for a deck of other functionals or spin: GGA runs
+    K7g, K10a and K10b in place of K7; a polarized deck with symmetry runs
+    K6 on its axial fields too."""
+    out = tuple(k for k in base if not (gga and k == "lda_xc"))
+    return out + (GGA_KERNELS if gga else ()) + (
+        ("symmetrize_pw.axial",) if axial else ())
+
+
+# the band solve each deck of XC_DECKS takes, and the kernels it must launch
+XC_DECK_PATH = {
+    "pbe_us_sym": ("kset", xc_kernels(US_KERNELS, True, False)),
+    "pw_us_sym_afm": ("kset", xc_kernels(US_KERNELS, False, True)),
+    "gamma_pbe_us_sym_fm": ("gamma", xc_kernels(GAMMA_US_KERNELS, True, True)),
+    "gamma_nc_vwn": ("gamma", GAMMA_KERNELS),
+    "gamma_nc_pbesol": ("gamma", xc_kernels(GAMMA_KERNELS, True, False)),
+}
+FULL_GAMMA_PBE_FM_KERNELS = xc_kernels(GAMMA_US_KERNELS, True, True)
 
 
 def reset_launches() -> None:
@@ -628,27 +870,29 @@ def read_launches() -> dict:
 
 
 def check_launched(phase: str, dev, launches: dict, required,
-                   path: str = "kset", iters: int = 0) -> None:
+                   path: str = "kset", iters: int = 0,
+                   polarized: bool = False) -> None:
     """Fail unless every kernel of the path launched in this run. On the
     Gamma path H is applied without K1's gather: the run's gathers are the
-    r -> G transforms only, one per potential (iters + 1) and one per
-    density (iters). On the CPU the wrappers take their plain versions and
-    count nothing."""
+    r -> G transforms only, one per potential (two polarized: V_xc and
+    B_z) for iters + 1 potentials, and one per density (iters). On the CPU
+    the wrappers take their plain versions and count nothing."""
     if dev.type != "cuda":
         return
     zero = [k for k in required if launches[k] <= 0]
     if zero:
         raise AssertionError(f"{phase}: kernels never launched: {zero}")
     gathers = launches["local_hpsi.box_to_pw_hpsi"]
-    if path == "gamma" and gathers != 2 * iters + 1:
+    want = (2 if polarized else 1) * (iters + 1) + iters
+    if path == "gamma" and gathers != want:
         raise AssertionError(
-            f"{phase}: {gathers} K1 gathers, want {2 * iters + 1} (r -> G "
-            "only): H psi went through K1")
+            f"{phase}: {gathers} K1 gathers, want {want} (r -> G only): "
+            "H psi went through K1")
 
 
 def parity_scf(ctx, dev, ref: dict, gpu: str, phase: str = "parity_scf",
                deck: str = "full_width_2atom", required=NC_KERNELS,
-               path: str = "kset") -> None:
+               path: str = "kset") -> dict:
     from sirius_tpu_torch.dft.scf import run_scf
 
     reset_launches()
@@ -677,8 +921,21 @@ def parity_scf(ctx, dev, ref: dict, gpu: str, phase: str = "parity_scf",
         raise AssertionError(f"{phase}: energy terms off by > 1e-8 Ha: {bad}")
     if abs(res["num_scf_iterations"] - ref["num_scf_iterations"]) > 1:
         raise AssertionError(f"{phase}: iteration count differs by more than 1")
+    polarized = "magnetisation" in ref
+    if polarized:
+        got = res["magnetisation"]
+        d_mag = max([abs(got["total"][2] - ref["magnetisation"]["total"])]
+                    + [abs(a[2] - b) for a, b in zip(
+                        got["atoms"], ref["magnetisation"]["atoms"])])
+        emit({"phase": phase, "gpu": gpu, "deck": deck,
+              "total_moment": got["total"][2],
+              "atom_moments": [a[2] for a in got["atoms"]],
+              "max_moment_err": d_mag})
+        if not d_mag <= 1e-6:
+            raise AssertionError(f"{phase}: moments off by {d_mag} > 1e-6")
     check_launched(phase, dev, launches, required, path,
-                   res["num_scf_iterations"])
+                   res["num_scf_iterations"], polarized)
+    return launches
 
 
 def full_width(ctx, dev, gpu: str, phase: str = "full_width",
@@ -707,10 +964,14 @@ def full_width(ctx, dev, gpu: str, phase: str = "full_width",
           "num_beta": ctx.beta.num_beta_total, "num_scf_iterations": iters,
           "iteration_seconds": res["iteration_seconds"],
           "band_solve_seconds": res["band_solve_seconds"],
+          # after the first iteration, which carries the LCAO start
+          "band_solve_share": (sum(res["band_solve_seconds"][1:])
+                               / max(sum(res["iteration_seconds"][1:]), 1e-30)),
           "launches": launches,
           "launches_per_iteration": {k: v / iters for k, v in launches.items()},
           "max_memory_allocated": torch.cuda.max_memory_allocated(),
           "electrons": nel, "e_total": res["energy"]["total"],
+          "total_moment": res.get("magnetisation", {}).get("total", [0.0] * 3)[2],
           "energies_finite": e_ok})
     if iters != FULL_ITERS[phase]:
         raise AssertionError(f"{phase}: {iters} iterations, want "
@@ -719,8 +980,61 @@ def full_width(ctx, dev, gpu: str, phase: str = "full_width",
         raise AssertionError(f"{phase}: non-finite energy")
     if abs(nel - want_nel) > 1e-8:
         raise AssertionError(f"{phase}: electron count {nel}, want {want_nel}")
-    check_launched(phase, dev, launches, required, path, iters)
+    check_launched(phase, dev, launches, required, path, iters,
+                   ctx.num_mag_dims == 1)
     return launches
+
+
+def xc_context(name: str):
+    """The context of a 2-atom deck of XC_DECKS."""
+    import numpy as np
+
+    from sirius_tpu_torch.testing import synthetic_silicon_context
+
+    spec, kind, params, moments = XC_DECKS[name]
+    return synthetic_silicon_context(
+        extra_params=dict(params), **kind, **spec,
+        moments=None if moments is None else np.asarray(moments))
+
+
+def magnetic_supercell_context(n: int, spec: dict, extra: dict, kind: dict,
+                               moment: float):
+    """The n x n x n supercell of the synthetic 2-atom cell with the
+    starting moment (0, 0, moment) on every atom. synthetic_silicon_context
+    refuses moments with supercell > 1, so this tiles the positions and the
+    moments itself, as that helper tiles positions, and builds the context
+    the way the helper does."""
+    import numpy as np
+
+    import sirius_tpu_torch.context as cm
+    import sirius_tpu_torch.crystal.unit_cell as ucm
+    from sirius_tpu_torch.config.schema import Config
+    from sirius_tpu_torch.testing import synthetic_silicon_type
+
+    params = {"gk_cutoff": spec["gk_cutoff"], "pw_cutoff": spec["pw_cutoff"],
+              "ngridk": list(spec["ngridk"]),
+              "use_symmetry": kind["use_symmetry"], "num_bands": -1,
+              "xc_functionals": ["XC_LDA_X", "XC_LDA_C_PZ"],
+              "smearing_width": 0.025, **extra}
+    cfg = Config.from_dict({"parameters": params})
+    lattice = 10.26 / 2 * np.array([[0.0, 1, 1], [1, 0, 1], [1, 1, 0]]) * n
+    shifts = np.array([[i, j, k] for i in range(n) for j in range(n)
+                       for k in range(n)], dtype=np.float64)
+    base = np.array([[0.0, 0, 0], [0.25, 0.25, 0.25]])
+    positions = ((base[None] + shifts[:, None]) / n).reshape(-1, 3)
+    moments = np.zeros((len(positions), 3))
+    moments[:, 2] = moment
+    uc = ucm.UnitCell(
+        lattice=lattice,
+        atom_types=[synthetic_silicon_type(ultrasoft=kind["ultrasoft"])],
+        type_of_atom=np.zeros(len(positions), dtype=np.int32),
+        positions=positions, moments=moments)
+    orig = ucm.UnitCell.from_config
+    try:
+        ucm.UnitCell.from_config = staticmethod(lambda c, b=".": uc)
+        return cm.SimulationContext.create(cfg, ".")
+    finally:
+        ucm.UnitCell.from_config = orig
 
 
 def single_k_context(name: str, spec: dict = GAMMA2):
@@ -773,9 +1087,13 @@ def main() -> int:
     ctx16us = make_context(FULL, {"num_dft_iter": FULL_ITERS["full_width_us"],
                                   **RUN_TO_END}, US_SYM)
     single = {name: single_k_context(name) for name in SINGLE_K}
+    xc_decks = {name: xc_context(name) for name in XC_DECKS}
     # one 54-atom context for both single-k runs (~15 s on the host)
     ctx54 = make_context(GAMMA54, {"num_dft_iter": FULL_ITERS[
         "full_width_gamma_us"], **RUN_TO_END}, US_SYM)
+    ctx54fm = magnetic_supercell_context(
+        3, GAMMA54, {"num_dft_iter": FULL_ITERS["full_width_gamma_pbe_fm"],
+                     **RUN_TO_END, "xc_functionals": PBE, **SPIN}, US_SYM, 0.5)
     emit({"phase": "contexts", "seconds": time.perf_counter() - t0})
 
     check_kernels("full_width_2atom", ctx2, dev, gpu)
@@ -787,6 +1105,11 @@ def main() -> int:
     check_kernel_chunk("chunked_us_sym", single["chunked_us_sym"], 1, dev, gpu)
     kern54.update(check_kernel_chunk("si54_supercell3_chunk16", ctx54, CHUNK54,
                                      dev, gpu))
+    check_kernels_xc("si16_supercell2", ctx16, dev, gpu)
+    kern54xc = check_kernels_xc("si54_supercell3_gamma", ctx54, dev, gpu)
+    check_kernel_axial("pw_us_sym_afm", xc_decks["pw_us_sym_afm"], dev, gpu)
+    kern54xc.update(check_kernel_axial("si54_supercell3_gamma_fm", ctx54fm,
+                                       dev, gpu))
     torch.cuda.empty_cache()
     parity_scf(ctx2, dev, refs["full_width_2atom"], gpu)
     full_width(ctx16, dev, gpu)
@@ -811,13 +1134,32 @@ def main() -> int:
         ctx54, dev, gpu, phase="full_width_chunked_us",
         required=CHUNKED_US_KERNELS, deck="si54_supercell3_gamma",
         path="chunked")["beta_chunk"])
+    del ctx54
+    runs = {}
+    for name, ctx in xc_decks.items():
+        path, required = XC_DECK_PATH[name]
+        runs[name] = parity_scf(
+            ctx, dev, refs[name], gpu,
+            phase="parity_scf_" + name.replace("_sym", ""), deck=name,
+            required=required, path=path)
+    torch.cuda.empty_cache()
+    runs["full_width_gamma_pbe_fm"] = full_width(
+        ctx54fm, dev, gpu, phase="full_width_gamma_pbe_fm",
+        required=FULL_GAMMA_PBE_FM_KERNELS, deck="si54_supercell3_gamma_fm",
+        path="gamma")
+    launches_xc = {name: runs[deck][name] for name, deck in SUMMARY_XC.items()}
+    launches_xc.update({name: runs["full_width_gamma_pbe_fm"][name] for name in
+                        ("xc_gradient.gradient_boxes",
+                         "xc_gradient.divergence_pw", "symmetrize_pw.axial")})
+    kern54xc = {name: kern54xc[name] for name in launches_xc}
 
     summary = []
-    for records, runs in ((kern16, launches), (kern54, launches54)):
+    for records, counts in ((kern16, launches), (kern54, launches54),
+                            (kern54xc, launches_xc)):
         for name, rec in records.items():
             summary.append({
                 "name": name, "route": "cuda", "source": SOURCE[name],
-                "replaces": REPLACES[name], "launches": runs[name],
+                "replaces": REPLACES[name], "launches": counts[name],
                 "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
                 "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
                 "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]})

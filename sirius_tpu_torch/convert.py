@@ -36,7 +36,9 @@ def _take(arrays: dict, keys, what: str) -> dict:
 
 def hkset_from_numpy(arrays: dict, device) -> HkSetParams:
     """The port's batched H parameters from the JAX HkSetParams leaves
-    (numpy arrays under HKSET_KEYS; beta as its (re, im) pair)."""
+    (numpy arrays under HKSET_KEYS; beta as its (re, im) pair). A polarized
+    set carries its spin axis as the JAX one does: veff_r [ns, ...], dion
+    [ns, nbeta, nbeta], h_diag [nk, ns, ngk]."""
     a = _take(arrays, HKSET_KEYS, "HkSetParams")
     a["beta"] = a.pop("beta_re") + 1j * a.pop("beta_im")
     return hkset_from_arrays(a, device)
@@ -47,6 +49,21 @@ def gamma_params_from_numpy(arrays: dict, device) -> GammaParams:
     (numpy arrays under GAMMA_KEYS)."""
     return gamma_params_from_arrays(_take(arrays, GAMMA_KEYS, "GammaParams"),
                                     device)
+
+
+def gamma_spin_params_from_numpy(arrays: dict, veff_r, dion,
+                                 device) -> list[GammaParams]:
+    """One GammaParams per spin channel, as the JAX package's polarized
+    Gamma solve makes them (scf.py:1400-1403): the constant leaves of
+    ``arrays`` (GAMMA_KEYS) with that spin's potential veff_r[ispn] and
+    screened D dion[ispn] swapped in. veff_r [ns, n1, n2, n3], dion
+    [ns, nbeta, nbeta]."""
+    a = _take(arrays, GAMMA_KEYS, "GammaParams")
+    veff_r, dion = np.asarray(veff_r), np.asarray(dion)
+    if veff_r.shape[0] != dion.shape[0]:
+        raise ValueError("veff_r and dion disagree on the spin count")
+    return [gamma_params_from_arrays(dict(a, veff_r=v, dion=d), device)
+            for v, d in zip(veff_r, dion)]
 
 
 def chunked_params_from_numpy(arrays: dict, device) -> ChunkedParams:

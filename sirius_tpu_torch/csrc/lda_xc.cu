@@ -1,16 +1,23 @@
-// K7: pointwise LDA exchange-correlation, XC_LDA_X + XC_LDA_C_PZ.
+// K7 / K7b: pointwise LDA exchange-correlation, any sum of XC_LDA_X,
+// XC_LDA_C_PZ, XC_LDA_C_PW (PW92) and XC_LDA_C_VWN (VWN5).
 //
 // Replaces the XLA fusion of sirius_tpu/dft/xc.py::XCFunctional._eval
-// (:341-379) for the functional pair X + PZ (:33-66): the energy per volume
+// (:341-379) for the LDA functionals (:33-133): the energy per volume
 // e(n_up, n_dn) and its exact derivatives v_up, v_dn, which the JAX package
-// takes from jax.grad. Here they are the closed-form derivatives of the same
-// expressions, with the same libxc-style masking: a channel below
+// takes from jax.grad, with the same libxc-style masking: a channel below
 // _DENS_TH = 1e-13 is evaluated at the threshold and its potential is zero
 // (xc.py:350-371), after the _TINY = 1e-25 floor (xc.py:28,329-330).
+// The functional mask (bits of xc_dual.cuh) selects the sum, so one launch
+// evaluates a deck's whole LDA list. X + PZ alone (K7) keeps its
+// closed-form derivatives; every other sum (K7b) evaluates the energies of
+// xc_dual.cuh on Dual<2> numbers over (n_up, n_dn), which gives jax.grad's
+// derivatives of the same expressions.
 //
-// Bound on the H100: bytes. Per fine-box point it reads 16 bytes and writes
-// 24 (polarized) or reads 8 and writes 16 (unpolarized), against ~60 fp64
-// flops including cbrt/pow/log/sqrt, well under the fp64 rate.
+// Bound on the H100: bytes for X + PZ. Per fine-box point it reads 16 bytes
+// and writes 24 (polarized) or reads 8 and writes 16 (unpolarized), against
+// ~60 fp64 flops including cbrt/pow/log/sqrt. PW92 and VWN5 on duals take
+// some 300 fp64 operations a point (pow, log1p, atan on the value and three
+// numbers a step), near the line where the fp64 rate binds.
 //
 // Design: one thread per point, no shared state. The unpolarized form feeds
 // n_up = n_dn = rho/2 and returns e and v = (v_up + v_dn)/2 in place of
@@ -20,11 +27,13 @@
 // allocates nothing, returns cudaGetLastError().
 #include <cuda_runtime.h>
 
+#include "xc_dual.cuh"
+
 namespace {
 
-constexpr double kPi = 3.141592653589793;
-constexpr double kTiny = 1e-25;
-constexpr double kDensTh = 1e-13;
+using xc::kDensTh;
+using xc::kPi;
+using xc::kTiny;
 
 struct Pz {
     double eps, deps;  // eps_c(rs) and d eps_c / d rs
@@ -80,12 +89,23 @@ __device__ void x_pz(double nu, double nd, double* e, double* vu, double* vd) {
     *vd = vxd + common - (1.0 + zeta) * deps_dz;
 }
 
+// any LDA sum on duals (inputs already thresholded)
+__device__ void lda_dual(int mask, double nu, double nd, double* e, double* vu,
+                         double* vd) {
+    using D = xc::Dual<2>;
+    const D z = xc::constant<2>(0.0);
+    const D out = xc::energy<2>(mask, xc::seed<2>(nu, 0), xc::seed<2>(nd, 1), z, z, z);
+    *e = out.v;
+    *vu = out.d[0];
+    *vd = out.d[1];
+}
+
 __global__ void lda_xc_points(const double* __restrict__ nu_in,
                               const double* __restrict__ nd_in,
                               double* __restrict__ e_out,
                               double* __restrict__ vu_out,
                               double* __restrict__ vd_out, long long n,
-                              int unpolarized) {
+                              int unpolarized, int mask) {
     for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
          i += (long long)gridDim.x * blockDim.x) {
         double nu, nd;
@@ -99,7 +119,10 @@ __global__ void lda_xc_points(const double* __restrict__ nu_in,
         const bool up0 = nu < kDensTh;
         const bool dn0 = nd < kDensTh;
         double e, vu, vd;
-        x_pz(up0 ? kDensTh : nu, dn0 ? kDensTh : nd, &e, &vu, &vd);
+        if (mask == (xc::kLdaX | xc::kLdaCPz))
+            x_pz(up0 ? kDensTh : nu, dn0 ? kDensTh : nd, &e, &vu, &vd);
+        else
+            lda_dual(mask, up0 ? kDensTh : nu, dn0 ? kDensTh : nd, &e, &vu, &vd);
         if (up0) vu = 0.0;
         if (dn0) vd = 0.0;
         e_out[i] = e;
@@ -115,14 +138,18 @@ __global__ void lda_xc_points(const double* __restrict__ nu_in,
 }  // namespace
 
 // Polarized: nu, nd -> e, vu, vd. Unpolarized (unpolarized != 0): nu holds
-// rho, nd and vd are unused, vu receives v = (v_up + v_dn) / 2.
+// rho, nd and vd are unused, vu receives v = (v_up + v_dn) / 2. mask: the
+// functionals summed (LDA bits of xc_dual.cuh only; any other mask returns
+// cudaErrorInvalidValue without a launch).
 extern "C" int lda_xc(const double* nu, const double* nd, double* e, double* vu,
-                      double* vd, long long n, int unpolarized, void* stream) {
+                      double* vd, long long n, int unpolarized, int mask,
+                      void* stream) {
+    if (mask == 0 || (mask & ~xc::kLdaBits)) return (int)cudaErrorInvalidValue;
     const int threads = 256;
     long long blocks = (n + threads - 1) / threads;
     if (blocks > 65535LL * 16) blocks = 65535LL * 16;
     if (blocks > 0)
         lda_xc_points<<<(int)blocks, threads, 0, (cudaStream_t)stream>>>(
-            nu, nd, e, vu, vd, n, unpolarized);
+            nu, nd, e, vu, vd, n, unpolarized, mask);
     return (int)cudaGetLastError();
 }

@@ -1,8 +1,10 @@
-"""Charge density: initial guess and assembly from the coarse-box
-accumulation.
+"""Charge and magnetization density: initial guess and assembly from the
+coarse-box accumulation.
 
 Mirrors the parts of sirius_tpu/dft/density.py on this slice's path
-(reference src/density/density.cpp: initial_density :137, generate :1105).
+(reference src/density/density.cpp: initial_density :137, generate :1105),
+including the collinear initial magnetization and the per-atom moments
+(density.py:93-152, :295-318; host numpy, ported by copy).
 The occupation-weighted |psi(r)|^2 sum itself is parallel/batched.py::
 density_kset (K1 scatter + cuFFT + K3). The space-group symmetrization of
 PW coefficients is K6; that of the beta density matrix is batched matrix
@@ -18,6 +20,7 @@ import torch
 
 from sirius_tpu_torch.context import SimulationContext
 from sirius_tpu_torch.core.fftgrid import g_to_r, r_to_g
+from sirius_tpu_torch.core.radial import sbessel_integral
 from sirius_tpu_torch.device import resolve_device
 from sirius_tpu_torch.kernels.symmetrize_pw import (
     source_index,
@@ -34,8 +37,9 @@ class GridTables:
     dims: tuple[int, int, int]  # fine box
     dims_coarse: tuple[int, int, int]
     omega: float
-    fft_index: torch.Tensor  # [ng] int32, fine G -> fine box
+    fft_index: torch.Tensor  # [ng] int32, fine G -> fine box, one-to-one
     glen2: torch.Tensor  # [ng] float64
+    gcart: torch.Tensor  # [ng, 3] float64 Cartesian G (GGA gradients)
     fft_index_coarse: torch.Tensor  # [ngc] int32, coarse G -> coarse box
     coarse_to_fine: torch.Tensor  # [ngc] int64
     vloc_g: torch.Tensor  # [ng] complex128
@@ -52,6 +56,10 @@ def grid_tables(ctx: SimulationContext, device) -> GridTables:
                      (ctx.gvec_coarse.fft_index, ctx.fft_coarse)):
         if idx.min() < 0 or idx.max() >= fft.num_points:
             raise ValueError(f"fft_index outside the {fft.dims} box")
+    # the fine G set has no padded lanes: the gradient scatter (K10a) stores
+    # each G at its own box slot
+    if len(np.unique(ctx.gvec.fft_index)) != ctx.gvec.num_gvec:
+        raise ValueError("fine fft_index is not one-to-one on the G set")
     dims = tuple(ctx.gvec.fft.dims)
     # the JAX package's do_symmetrize
     symmetrizes = bool(ctx.cfg.parameters.use_symmetry
@@ -68,6 +76,8 @@ def grid_tables(ctx: SimulationContext, device) -> GridTables:
         omega=float(ctx.unit_cell.omega),
         fft_index=fidx,
         glen2=torch.as_tensor(ctx.gvec.glen2, device=device),
+        gcart=torch.as_tensor(np.asarray(ctx.gvec.gcart, dtype=np.float64),
+                              device=device),
         fft_index_coarse=torch.as_tensor(ctx.gvec_coarse.fft_index,
                                          device=device),
         coarse_to_fine=torch.as_tensor(ctx.coarse_to_fine, device=device),
@@ -90,6 +100,86 @@ def initial_density_g(ctx: SimulationContext) -> np.ndarray:
         raise ValueError("free-atom density missing in species files")
     rho_g *= nel / n0
     return rho_g
+
+
+def atomic_sphere_radii(uc, rmax: float = 2.0) -> np.ndarray:
+    """Per-atom non-overlapping sphere radii: half the nearest-neighbor
+    distance over periodic images (including an atom's own images, so
+    single-atom cells are covered), capped at rmax."""
+    pos = uc.positions_cart()
+    ts = np.array(
+        np.meshgrid(*[[-1, 0, 1]] * 3, indexing="ij")
+    ).reshape(3, -1).T @ uc.lattice
+    d = np.linalg.norm(
+        pos[:, None, None, :] - pos[None, :, None, :] - ts[None, None, :, :],
+        axis=-1,
+    )
+    d[d < 1e-8] = np.inf
+    return np.minimum(0.5 * d.min(axis=(1, 2)), rmax)
+
+
+def initial_magnetization_vec_g(ctx: SimulationContext) -> np.ndarray:
+    """[3, ng] initial (mx, my, mz) from per-atom starting moment vectors.
+    Two seeds, selected by settings.smooth_initial_mag (reference
+    density.cpp initial_density_pseudo): smooth, a per-atom Gaussian
+    exp(-G^2/(4 alpha)), alpha = 4; default, the compact normalized bump
+    w(R, x) = (1 - (x/R)^2) e^{x/R} / (3.18866 R^3) inside an atomic
+    sphere."""
+    uc = ctx.unit_cell
+    gv = ctx.gvec
+    out = np.zeros((3, gv.num_gvec), dtype=np.complex128)
+    if not np.any(np.abs(uc.moments) > 1e-12):
+        return out
+    smooth = bool(ctx.cfg.settings.smooth_initial_mag)
+    rad = atomic_sphere_radii(uc)
+    qshell = np.sqrt(gv.shell_g2)
+    for ia in range(uc.num_atoms):
+        mvec = uc.moments[ia]
+        if np.all(np.abs(mvec) < 1e-12):
+            continue
+        if smooth:
+            alpha = 4.0
+            ff = np.exp(-gv.shell_g2 / (4.0 * alpha))[gv.shell_idx]
+        else:
+            r = np.linspace(1e-8, rad[ia], 400)
+            w = (1 - (r / rad[ia]) ** 2) * np.exp(r / rad[ia]) / (
+                3.1886583903476735 * rad[ia] ** 3
+            )
+            ff = sbessel_integral(r, 4.0 * np.pi * w, 0, qshell, m=2)[gv.shell_idx]
+        phase = np.exp(-2j * np.pi * (gv.millers @ uc.positions[ia]))
+        for i in range(3):
+            if abs(mvec[i]) > 1e-12:
+                out[i] += (mvec[i] / uc.omega) * ff * phase
+    return out
+
+
+def initial_magnetization_g(ctx: SimulationContext) -> np.ndarray:
+    """Initial z-magnetization (collinear): z-component of the vector seed."""
+    return initial_magnetization_vec_g(ctx)[2]
+
+
+def atomic_moments(ctx: SimulationContext, mag_g: np.ndarray) -> np.ndarray:
+    """Integral of m_z inside each atom's non-overlapping sphere (reference
+    Density::get_magnetisation MT moments):
+    int_{|r-ra|<R} e^{iG.r} dr = e^{iG.ra} (4 pi / G^3)(sin GR - GR cos GR).
+    Spheres capped at control.rmt_max."""
+    gv = ctx.gvec
+    uc = ctx.unit_cell
+    glen = np.sqrt(gv.glen2)
+    radii = atomic_sphere_radii(uc, rmax=ctx.cfg.control.rmt_max)
+    out = np.empty(uc.num_atoms)
+    for ia in range(uc.num_atoms):
+        radius = float(radii[ia])
+        gr = glen * radius
+        w = np.empty_like(gr)
+        small = gr < 1e-8
+        w[~small] = 4.0 * np.pi / np.maximum(glen[~small], 1e-30) ** 3 * (
+            np.sin(gr[~small]) - gr[~small] * np.cos(gr[~small])
+        )
+        w[small] = 4.0 * np.pi * radius**3 / 3.0
+        phase = np.exp(2j * np.pi * (gv.millers @ uc.positions[ia]))
+        out[ia] = float(np.real(mag_g @ (w * phase)))
+    return out
 
 
 def density_from_coarse_acc(ctx: SimulationContext, acc: torch.Tensor,

@@ -3,7 +3,8 @@ G-space charge density, mixer.hpp:37-63, anderson_mixer.hpp).
 
 Mirrors sirius_tpu/dft/mixer.py::Mixer for the kinds of this slice,
 ``linear`` and ``anderson`` (``broyden1`` aliases Anderson), on device
-tensors: the mixed vector is rho(G) on the fine set, complex128. The
+tensors: the mixed vector is rho(G) on the fine set, followed by m_z(G) in
+a collinear run ([rho; m], complex128). The
 Anderson least-squares system is m x m (m <= max_history) and is solved on
 the host with numpy, exactly as the JAX package's host path does.
 
@@ -25,11 +26,14 @@ class Mixer:
     KNOWN = ("linear", "anderson", "broyden1")
     LATER = ("anderson_stable", "broyden2")
 
-    def __init__(self, cfg, glen2: np.ndarray, omega: float, device=None):
-        """Charge-only mixed vector (no trailing passive entries in this
-        slice). Channel metric (reference mixer_functions.cpp): the plain
-        inner product Omega sum_G f*(G) g(G), or with use_hartree
-        4 pi sum_{G!=0} f* g / G^2; the rms is inner / Omega."""
+    def __init__(self, cfg, glen2: np.ndarray, omega: float, device=None,
+                 num_components: int = 1):
+        """num_components G-sized components, charge first, then the
+        magnetization (no trailing passive entries in this slice). Channel
+        metric (reference mixer_functions.cpp): the plain inner product
+        Omega sum_G f*(G) g(G), or for the charge with use_hartree
+        4 pi sum_{G!=0} f* g / G^2; the rms is inner / Omega per channel,
+        so a magnetization channel has weight Omega and rms weight 1."""
         if cfg.type in self.LATER:
             raise NotImplementedError(
                 f"mixer type '{cfg.type}' comes with a later port slice "
@@ -55,8 +59,9 @@ class Mixer:
         def t(a):
             return torch.as_tensor(a, dtype=torch.float64, device=device)
 
-        self.weight = t(w_charge)
-        self.rms_weight = t(rms_charge)
+        extra = num_components - 1
+        self.weight = t(np.concatenate([w_charge] + [np.full(ng, omega)] * extra))
+        self.rms_weight = t(np.concatenate([rms_charge] + [np.ones(ng)] * extra))
         self._eha_w = t(eha_w)
         self._x: list[torch.Tensor] = []  # input history
         self._f: list[torch.Tensor] = []  # residual history f = x_out - x_in
@@ -65,7 +70,8 @@ class Mixer:
         """Hartree energy of the charge residual (mixed - new):
         2 pi Omega sum_{G!=0} |drho_G|^2 / G^2 (reference poisson.cpp
         density_residual_hartree_energy)."""
-        d = x_mixed - x_new
+        n = self._eha_w.shape[0]
+        d = x_mixed[:n] - x_new[:n]
         return float(torch.sum(self._eha_w * (d.conj() * d).real))
 
     def rms(self, x_in, x_out) -> float:

@@ -3,8 +3,9 @@
 Each source under ``sirius_tpu_torch/csrc/`` is compiled by its own ``nvcc``
 into a shared library with a plain C interface, loaded with ``ctypes``. The
 libraries go into ``sirius_tpu_torch/_build/`` (listed in ``.gitignore``),
-named by a hash of the source and the flags, so an edited source rebuilds
-and an unchanged one is reused. Nothing is built at import: the first
+named by a hash of the source, the shared headers (``csrc/*.cuh``) and the
+flags, so an edited source or header rebuilds and an unchanged one is
+reused. Nothing is built at import: the first
 launch on a CUDA tensor builds its library, and ``build_all`` builds every
 library at once with the compilers running in parallel.
 """
@@ -24,7 +25,7 @@ CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
 SOURCES = ("local_hpsi", "davidson_residual", "density_accumulate", "lda_xc",
            "veff_multiply", "augmentation", "symmetrize_pw", "gamma_pack",
-           "beta_chunk")
+           "beta_chunk", "gga_xc", "xc_gradient")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -49,7 +50,7 @@ SIGNATURES = {
         "density_accumulate": (_P, _P, _P, _I, _I, _LL, _D, _P),
     },
     "lda_xc": {
-        "lda_xc": (_P, _P, _P, _P, _P, _LL, _I, _P),
+        "lda_xc": (_P, _P, _P, _P, _P, _LL, _I, _I, _P),
     },
     "veff_multiply": {
         "veff_multiply": (_P, _P, _I, _I, _I, _LL, _P),
@@ -72,6 +73,13 @@ SIGNATURES = {
         "beta_chunk": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                        _I, _D, _D, _D, _P),
     },
+    "gga_xc": {
+        "gga_xc": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _P),
+    },
+    "xc_gradient": {
+        "gradient_boxes": (_P, _P, _P, _P, _I, _I, _LL, _P),
+        "divergence_pw": (_P, _P, _P, _P, _I, _I, _LL, _P),
+    },
 }
 
 _LOADED: dict[str, ctypes.CDLL] = {}
@@ -91,6 +99,8 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    for header in sorted(CSRC.glob("*.cuh")):
+        src += header.read_bytes()
     key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{key}.so"
 

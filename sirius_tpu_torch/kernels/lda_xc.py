@@ -1,75 +1,37 @@
-"""K7: pointwise LDA exchange-correlation, XC_LDA_X + XC_LDA_C_PZ
-(csrc/lda_xc.cu).
+"""K7 / K7b: pointwise LDA exchange-correlation for any sum of XC_LDA_X,
+XC_LDA_C_PZ, XC_LDA_C_PW and XC_LDA_C_VWN (csrc/lda_xc.cu).
 
-lda_xc(nu, nd) -> (e, v_up, v_dn) per point (energy per volume and its
-derivatives), and lda_xc_unpolarized(rho) -> (e, v) with n_up = n_dn =
-rho/2 and v = (v_up + v_dn)/2 (sirius_tpu/dft/xc.py:403-410). The plain
-PyTorch version is torch.autograd over the same energy expression as the
-JAX package's jax.grad (xc.py:33-66, :322-379); the kernel evaluates the
-closed-form derivatives. A CPU tensor takes the plain version; a CUDA
-tensor launches the kernel.
+lda_xc(nu, nd, names) -> (e, v_up, v_dn) per point (energy per volume and
+its derivatives), and lda_xc_unpolarized(rho, names) -> (e, v) with
+n_up = n_dn = rho/2 and v = (v_up + v_dn)/2 (sirius_tpu/dft/xc.py:399-415).
+names defaults to X + PZ. The plain PyTorch version is torch.autograd over
+the JAX package's energy expressions (kernels/xc_functionals.py); the
+kernel evaluates X + PZ in closed form and every other sum on dual numbers.
+A CPU tensor takes the plain version; a CUDA tensor launches the kernel.
 """
 
 from __future__ import annotations
 
-import math
-
 import torch
 
 from sirius_tpu_torch.kernels import build
+from sirius_tpu_torch.kernels.xc_functionals import (LDA_FUNCS, eval_plain,
+                                                    func_mask)
 
-TINY = 1e-25
-DENS_TH = 1e-13
-
-
-def lda_x_e(nu, nd):
-    """Slater exchange energy per volume, spin-scaled (xc.py:33-36)."""
-    cx = (3.0 / 4.0) * (3.0 / math.pi) ** (1.0 / 3.0)
-    return -cx / 2.0 * ((2 * nu) ** (4.0 / 3.0) + (2 * nd) ** (4.0 / 3.0))
+X_PZ = ("XC_LDA_X", "XC_LDA_C_PZ")
 
 
-def _pz_eps(rs, pol: bool):
-    if pol:
-        gamma, b1, b2 = -0.0843, 1.3981, 0.2611
-        a, b, c, d = 0.01555, -0.0269, 0.0007, -0.0048
-    else:
-        gamma, b1, b2 = -0.1423, 1.0529, 0.3334
-        a, b, c, d = 0.0311, -0.048, 0.002, -0.0116
-    lo = gamma / (1.0 + b1 * torch.sqrt(rs) + b2 * rs)
-    hi = a * torch.log(rs) + b + c * rs * torch.log(rs) + d * rs
-    return torch.where(rs >= 1.0, lo, hi)
+def _lda_mask(names) -> int:
+    bad = [n for n in names if n not in LDA_FUNCS]
+    if bad or not names:
+        raise ValueError(f"lda_xc evaluates LDA functionals only, got "
+                         f"{list(names)}")
+    return func_mask(names)
 
 
-def _zeta_f(zeta):
-    return ((1 + zeta) ** (4.0 / 3.0) + (1 - zeta) ** (4.0 / 3.0) - 2.0) / (
-        2.0 ** (4.0 / 3.0) - 2.0)
-
-
-def lda_c_pz_e(nu, nd):
-    """Perdew-Zunger 81 correlation energy per volume (xc.py:55-62)."""
-    n = nu + nd
-    zeta = torch.clamp((nu - nd) / n, -1.0, 1.0)
-    rs = (3.0 / (4.0 * math.pi * n)) ** (1.0 / 3.0)
-    eu = _pz_eps(rs, False)
-    ep = _pz_eps(rs, True)
-    return n * (eu + _zeta_f(zeta) * (ep - eu))
-
-
-def _energy(nu, nd):
-    nu = torch.clamp(nu, min=TINY)
-    nd = torch.clamp(nd, min=TINY)
-    return lda_x_e(nu, nd) + lda_c_pz_e(nu, nd)
-
-
-def lda_xc_plain(nu, nd):
-    up0 = nu < DENS_TH
-    dn0 = nd < DENS_TH
-    nu_s = torch.where(up0, DENS_TH, nu).detach().requires_grad_(True)
-    nd_s = torch.where(dn0, DENS_TH, nd).detach().requires_grad_(True)
-    with torch.enable_grad():
-        e = _energy(nu_s, nd_s)
-        vu, vd = torch.autograd.grad(e.sum(), (nu_s, nd_s))
-    return (e.detach(), torch.where(up0, 0.0, vu), torch.where(dn0, 0.0, vd))
+def lda_xc_plain(nu, nd, names=X_PZ):
+    e, vu, vd, *_ = eval_plain(list(names), nu, nd)
+    return e, vu, vd
 
 
 def _check(*ts):
@@ -80,7 +42,7 @@ def _check(*ts):
                              "on one device")
 
 
-def _launch(nu, nd, unpolarized: bool):
+def _launch(nu, nd, unpolarized: bool, mask: int):
     n = nu.shape[0]
     nu = nu.contiguous()
     nd = nu if nd is None else nd.contiguous()
@@ -90,38 +52,40 @@ def _launch(nu, nd, unpolarized: bool):
     lib = build.library("lda_xc")
     rc = lib.lda_xc(nu.data_ptr(), nd.data_ptr(), e.data_ptr(), vu.data_ptr(),
                     None if vd is None else vd.data_ptr(), n,
-                    int(unpolarized), build.stream_of(nu))
+                    int(unpolarized), mask, build.stream_of(nu))
     lda_xc.launches += 1
     build.check(rc, "lda_xc")
     return e, vu, vd
 
 
-def lda_xc(nu, nd):
-    """Polarized X + PZ: (e, v_up, v_dn) at each point."""
+def lda_xc(nu, nd, names=X_PZ):
+    """Polarized LDA sum: (e, v_up, v_dn) at each point."""
+    mask = _lda_mask(names)
     _check(nu, nd)
     if nu.device.type == "cpu":
-        return lda_xc_plain(nu, nd)
+        return lda_xc_plain(nu, nd, names)
     if nu.device.type != "cuda":
         raise RuntimeError(f"lda_xc: unsupported device {nu.device}")
-    return _launch(nu, nd, unpolarized=False)
+    return _launch(nu, nd, False, mask)
 
 
 lda_xc.launches = 0
 
 
-def lda_xc_unpolarized_plain(rho):
+def lda_xc_unpolarized_plain(rho, names=X_PZ):
     half = 0.5 * rho
-    e, vu, vd = lda_xc_plain(half, half)
+    e, vu, vd = lda_xc_plain(half, half, names)
     return e, 0.5 * (vu + vd)
 
 
-def lda_xc_unpolarized(rho):
-    """Unpolarized X + PZ: (e, v) with n_up = n_dn = rho/2. Launches the
+def lda_xc_unpolarized(rho, names=X_PZ):
+    """Unpolarized LDA sum: (e, v) with n_up = n_dn = rho/2. Launches the
     same kernel as lda_xc (counted on lda_xc.launches)."""
+    mask = _lda_mask(names)
     _check(rho)
     if rho.device.type == "cpu":
-        return lda_xc_unpolarized_plain(rho)
+        return lda_xc_unpolarized_plain(rho, names)
     if rho.device.type != "cuda":
         raise RuntimeError(f"lda_xc: unsupported device {rho.device}")
-    e, v, _ = _launch(rho, None, unpolarized=True)
+    e, v, _ = _launch(rho, None, True, mask)
     return e, v

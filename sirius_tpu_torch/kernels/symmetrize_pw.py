@@ -12,6 +12,8 @@ sirius_tpu/dft/density.py::symmetrize_pw_device (:348-358) and its host twin
 symmetrize_pw (:155-187). A CPU tensor takes the plain PyTorch version; a
 CUDA tensor launches the kernel. The kernel trusts rot and lut: the tables
 are checked once where they are built (dft/density.py::build_sym_pw_tables).
+Launches with a sign (an axial field, the z magnetization and B_z of a
+collinear run) are counted apart, on symmetrize_pw.launches_axial.
 """
 
 from __future__ import annotations
@@ -81,9 +83,13 @@ def symmetrize_pw(f, millers, lut, rot, trans, dims, sign=None):
                            None if sign is None else sign.data_ptr(),
                            out.data_ptr(), nops, ng, n1, n2, n3,
                            build.stream_of(f))
-    symmetrize_pw.launches += 1
+    if sign is None:
+        symmetrize_pw.launches += 1
+    else:
+        symmetrize_pw.launches_axial += 1
     build.check(rc, "symmetrize_pw")
     return out
 
 
 symmetrize_pw.launches = 0
+symmetrize_pw.launches_axial = 0

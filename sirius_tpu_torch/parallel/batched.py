@@ -41,16 +41,27 @@ class HkSetParams:
         return self.veff_r.shape[0]
 
     def hk(self) -> HkParams:
-        """The flattened batch (B = nk * ns) that apply_h_s takes: views of
-        the leaves, nothing computed."""
-        if self.num_spins != 1:
-            raise NotImplementedError(
-                "spin-polarized k-sets come with the polarized slice "
-                "(ROADMAP queue 1, slice 6)")
-        return HkParams(veff_r=self.veff_r, ekin=self.ekin, mask=self.mask,
-                        fft_index=self.fft_index, beta=self.beta,
-                        dion=self.dion.expand(self.ekin.shape[0], -1, -1),
-                        qmat=self.qmat)
+        """The flattened batch (B = nk * ns) that apply_h_s takes: batch
+        entry b = ik * ns + ispn reads the k tables of ik (shared by the
+        spins) and dion[ispn]. Unpolarized these are views of the leaves;
+        polarized the k tables are repeated per spin."""
+        ns = self.num_spins
+        nk = self.ekin.shape[0]
+        if ns == 1:
+            return HkParams(veff_r=self.veff_r, ekin=self.ekin,
+                            mask=self.mask, fft_index=self.fft_index,
+                            beta=self.beta,
+                            dion=self.dion.expand(nk, -1, -1),
+                            qmat=self.qmat)
+
+        def per_spin(t):
+            return t.repeat_interleave(ns, dim=0)
+
+        return HkParams(veff_r=self.veff_r, ekin=per_spin(self.ekin),
+                        mask=per_spin(self.mask),
+                        fft_index=per_spin(self.fft_index),
+                        beta=per_spin(self.beta),
+                        dion=self.dion.repeat(nk, 1, 1), qmat=self.qmat)
 
 
 def compute_h_diag(ekin, mask, beta, dion, v0):
@@ -162,7 +173,8 @@ def davidson_kset(params: HkSetParams, psi, num_steps: int = 20,
     hk = params.hk()
     ev, x, rn = davidson(
         apply_h_s, hk, psi.reshape(nk * ns, nb, ngk),
-        params.h_diag.reshape(nk * ns, ngk), params.o_diag, hk.mask,
+        params.h_diag.reshape(nk * ns, ngk),
+        params.o_diag.repeat_interleave(ns, dim=0), hk.mask,
         num_steps=num_steps, res_tol=res_tol)
     return (ev.reshape(nk, ns, nb), x.reshape(nk, ns, nb, ngk),
             rn.reshape(nk, ns, nb))

@@ -1,15 +1,19 @@
 """chip_smoke.py off the card: without CUDA it exits non-zero and prints no
 result, and its kernel and parity phases run end to end on the CPU at the
-small decks, norm-conserving, ultrasoft + symmetry and Gamma-only (every
-wrapper then takes its plain version, so the checks compare the plain
-versions with themselves and no launch is counted). Its launch checks are
-held to what each band-solve path launches."""
+small decks, norm-conserving, ultrasoft + symmetry, Gamma-only and the
+collinear GGA decks (every wrapper then takes its plain version, so the
+checks compare the plain versions with themselves and no launch is
+counted). Its launch checks are held to what each band-solve path
+launches, and its decks to the reference tool's."""
+
+import importlib.util
 
 import json
 import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -32,6 +36,8 @@ US_CHECKED = ("veff_multiply", "augmentation.rho_aug",
               "augmentation.d_operator", "symmetrize_pw")
 GAMMA_CHECKED = ("gamma_pack.unpack_to_box", "gamma_pack.box_to_packed_hx",
                  "veff_multiply.real", "davidson_residual.f64")
+XC_CHECKED = tuple(chip_smoke.XC_CHECKS) + ("xc_gradient.gradient_boxes",
+                                            "xc_gradient.divergence_pw")
 
 
 def reference(deck):
@@ -55,7 +61,8 @@ def test_phases_run_on_cpu(monkeypatch, capsys):
     ctx = chip_smoke.make_context(SMALL, chip_smoke.TIGHT)
     recs = chip_smoke.check_kernels("small", ctx, dev, "cpu")
     assert sorted(recs) == sorted(NC_CHECKED)
-    assert sorted(NC_CHECKED + US_CHECKED + GAMMA_CHECKED + ("beta_chunk",)) \
+    assert sorted(NC_CHECKED + US_CHECKED + GAMMA_CHECKED + ("beta_chunk",)
+                  + XC_CHECKED + ("symmetrize_pw.axial",)) \
         == sorted(chip_smoke.SOURCE)
     for rec in recs.values():
         assert rec["max_rel_err"] <= rec["tol_rel"]
@@ -114,6 +121,70 @@ def test_single_k_phases_run_on_cpu(monkeypatch, capsys):
     assert all(v == 0 for v in chip_smoke.read_launches().values())
 
 
+def test_xc_phases_run_on_cpu(monkeypatch, capsys):
+    monkeypatch.setattr(chip_smoke, "time_ms", lambda fn, **kw: (fn(), 0.0)[1])
+    dev = torch.device("cpu")
+    ctx = chip_smoke.make_context(SMALL_GAMMA, chip_smoke.TIGHT)
+    recs = chip_smoke.check_kernels_xc("small_gamma", ctx, dev, "cpu")
+    assert sorted(recs) == sorted(XC_CHECKED)
+    for rec in recs.values():
+        assert rec["max_rel_err"] <= rec["tol_rel"]
+        assert rec["library_ms"] is None
+        assert rec["bound_ms"] > 0 and rec["bound_by"] in ("bytes", "operations")
+    name = "small_gamma_pbe_fm"
+    ref = reference(name)
+    spec = dict(SMALL_GAMMA, ultrasoft=True, use_symmetry=True)
+    from sirius_tpu_torch.testing import synthetic_silicon_context
+
+    fm = synthetic_silicon_context(
+        extra_params=dict(chip_smoke.TIGHT, xc_functionals=chip_smoke.PBE,
+                          **chip_smoke.SPIN),
+        moments=np.asarray(chip_smoke.FM), **spec)
+    axial = chip_smoke.check_kernel_axial(name, fm, dev, "cpu")
+    assert axial["symmetrize_pw.axial"]["max_rel_err"] == 0.0
+    path, required = chip_smoke.XC_DECK_PATH["gamma_pbe_us_sym_fm"]
+    launches = chip_smoke.parity_scf(fm, dev, ref, "cpu",
+                                     phase="parity_scf_gamma_pbe_us_fm",
+                                     deck=name, required=required, path=path)
+    lines = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
+    moments = [r for r in lines if "max_moment_err" in r][0]
+    assert moments["max_moment_err"] <= 1e-6
+    assert set(launches) == set(chip_smoke.SOURCE)
+    assert all(v == 0 for v in launches.values())
+
+
+def test_decks_match_the_reference_tool():
+    spec = importlib.util.spec_from_file_location(
+        "torch_port_reference",
+        os.path.join(ROOT, "tools", "torch_port_reference.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    for name, (shape, kind, params, moments) in chip_smoke.XC_DECKS.items():
+        assert tool.deck_spec(name) == (shape, kind, {}, params, moments), name
+        assert chip_smoke.XC_DECK_PATH[name][0] == (
+            "gamma" if shape["ngridk"] == (1, 1, 1) else "kset")
+
+
+def test_magnetic_supercell_context_tiles_like_the_helper():
+    # at n = 1 the tiled cell is the helper's 2-atom cell with the moments
+    from sirius_tpu_torch.testing import synthetic_silicon_context
+
+    extra = {"num_mag_dims": 1, "xc_functionals": chip_smoke.PBE}
+    got = chip_smoke.magnetic_supercell_context(
+        1, SMALL_GAMMA, extra, chip_smoke.US_SYM, 0.5)
+    want = synthetic_silicon_context(extra_params=extra,
+                                     moments=np.asarray(chip_smoke.FM),
+                                     **chip_smoke.US_SYM,
+                                     **dict(SMALL_GAMMA, num_bands=None))
+    for a, b in ((got.unit_cell.positions, want.unit_cell.positions),
+                 (got.unit_cell.lattice, want.unit_cell.lattice),
+                 (got.unit_cell.moments, want.unit_cell.moments),
+                 (got.gvec.millers, want.gvec.millers)):
+        np.testing.assert_array_equal(a, b)
+    assert got.symmetry.num_ops == want.symmetry.num_ops
+    assert got.num_spins == 2 and got.num_bands == want.num_bands
+
+
 def test_launch_checks_follow_the_band_solve_path():
     # on the card: a path's kernels must each launch, and on the Gamma path
     # K1's gather serves only the r -> G transforms (2 iters + 1)
@@ -130,3 +201,14 @@ def test_launch_checks_follow_the_band_solve_path():
         chip_smoke.check_launched("chunked", cuda, launches,
                                   chip_smoke.CHUNKED_US_KERNELS, "chunked", 3)
     chip_smoke.check_launched("kset", cuda, launches, chip_smoke.US_KERNELS)
+    # polarized Gamma: two r -> G transforms a potential (V_xc, B_z)
+    launches["beta_chunk"] = 1
+    launches["local_hpsi.box_to_pw_hpsi"] = 2 * 4 + 3
+    chip_smoke.check_launched("gamma_fm", cuda, launches,
+                              chip_smoke.FULL_GAMMA_PBE_FM_KERNELS, "gamma", 3,
+                              polarized=True)
+    launches["symmetrize_pw.axial"] = 0
+    with pytest.raises(AssertionError, match="symmetrize_pw.axial"):
+        chip_smoke.check_launched("gamma_fm", cuda, launches,
+                                  chip_smoke.FULL_GAMMA_PBE_FM_KERNELS,
+                                  "gamma", 3, polarized=True)

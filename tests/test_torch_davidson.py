@@ -1,7 +1,9 @@
 """Port parity: the batched Davidson band solve (K2 residual and
 preconditioner) and the LCAO subspace initialization against the JAX
 package, from the same start block with the same num_steps, on the small
-deck. num_steps is 40, where residuals are ~1e-10 and the occupied
+deck, unpolarized and with two spin channels (the exchange-split
+potential of a collinear run, batch entry ik * 2 + ispn; also the density
+matrix of the two channels). num_steps is 40, where residuals are ~1e-10 and the occupied
 projector is therefore defined to 1e-10. Compared: eigenvalues and the projector onto the occupied subspace
 (the vectors' phases differ between LAPACK builds). Bound: 1e-10 Ha."""
 
@@ -15,7 +17,9 @@ from sirius_tpu.dft.potential import generate_potential
 from sirius_tpu.dft.scf import _initial_subspace as jax_initial_subspace
 from sirius_tpu.dft.xc import XCFunctional
 from sirius_tpu.ops.hamiltonian import apply_h_s as jax_apply_h_s
+from sirius_tpu.dft.density import initial_magnetization_g
 from sirius_tpu.parallel.batched import davidson_kset as jax_davidson_kset
+from sirius_tpu.parallel.batched import density_matrix_kset as jax_dm_kset
 from sirius_tpu.parallel.batched import hk_complex, hkset_slice_r
 from sirius_tpu.parallel.batched import initialize_subspace_kset as jax_init
 from sirius_tpu.parallel.batched import make_hkset_params as jax_hkset
@@ -25,7 +29,9 @@ from sirius_tpu_torch.convert import HKSET_KEYS, hkset_from_numpy, psi_from_nump
 from sirius_tpu_torch.dft.scf import _initial_subspace as port_initial_subspace
 from sirius_tpu_torch.kernels.davidson_residual import davidson_residual
 from sirius_tpu_torch.ops.hamiltonian import apply_h_s
-from sirius_tpu_torch.parallel.batched import davidson_kset, initialize_subspace_kset
+from sirius_tpu_torch.parallel.batched import (davidson_kset,
+                                               density_matrix_kset,
+                                               initialize_subspace_kset)
 from sirius_tpu_torch.solvers.davidson import num_applies, residual_health
 from sirius_tpu_torch.testing import synthetic_silicon_context as port_context
 from sirius_tpu_torch.testing import threads_per_test_worker
@@ -114,6 +120,63 @@ def test_davidson_kset_matches_jax(setup):
         assert np.max(np.abs(a - b)) <= 1e-10
     np.testing.assert_allclose(rn.numpy(), np.asarray(rn_j), rtol=0, atol=1e-9)
     assert residual_health(rn)[1]
+
+
+@pytest.fixture(scope="module")
+def polarized():
+    # ultrasoft species without symmetry, moments +0.5 / -0.5: two spin
+    # channels under V +- B_z of the first iteration's potential
+    spec = dict(SMALL, ultrasoft=True,
+                moments=np.array([[0.0, 0.0, 0.5], [0.0, 0.0, -0.5]]),
+                extra_params={"num_mag_dims": 1})
+    jctx = jax_context(**spec)
+    pot = generate_potential(jctx, initial_density_g(jctx),
+                             XCFunctional(["XC_LDA_X", "XC_LDA_C_PZ"]),
+                             initial_magnetization_g(jctx))
+    assert pot.veff_r_coarse.shape[0] == 2
+    rng = np.random.default_rng(14)
+    d = np.array([jctx.beta.dion + 0.01 * s * rng.standard_normal(
+        jctx.beta.dion.shape) for s in (1.0, -1.0)])
+    d = 0.5 * (d + d.transpose(0, 2, 1))
+    jps = jax_hkset(jctx, pot.veff_r_coarse, d,
+                    v0=float(pot.veff_g[0].real))
+    arrays = {k: np.asarray(getattr(jps, k)) for k in HKSET_KEYS}
+    return jctx, jps, hkset_from_numpy(arrays, "cpu"), jax_initial_subspace(jctx)
+
+
+def test_polarized_kset_matches_jax(polarized):
+    jctx, jps, ps, big = polarized
+    nb = 8
+    nk = jctx.gkvec.num_kpoints
+    assert big.shape[:2] == (nk, 2) and ps.num_spins == 2
+    assert ps.hk().ekin.shape[0] == 2 * nk
+    jr, ji = jax_init(jps, *map(jnp.asarray, split_cplx(big)), nb)
+    x0 = np.asarray(jr) + 1j * np.asarray(ji)
+    got0 = initialize_subspace_kset(ps, psi_from_numpy(big, "cpu"), nb)
+    assert np.max(np.abs(projector(got0.numpy(), nb) - projector(x0, nb))) \
+        <= 1e-10
+    ev_j, xr, xi, _ = jax_davidson_kset(jps, jnp.asarray(x0.real),
+                                        jnp.asarray(x0.imag), num_steps=40,
+                                        res_tol=1e-9)
+    ev, x, rn = davidson_kset(ps, psi_from_numpy(x0, "cpu"), num_steps=40,
+                              res_tol=1e-9)
+    ev_j = np.asarray(ev_j)
+    assert ev.shape == (nk, 2, nb)
+    assert np.max(np.abs(ev.numpy() - ev_j)) <= 1e-10
+    # the two channels see different potentials
+    assert np.max(np.abs(ev_j[:, 0] - ev_j[:, 1])) > 1e-4
+    assert residual_health(rn)[1]
+    # the beta density matrix of both channels from the same bands
+    xj = np.asarray(xr) + 1j * np.asarray(xi)
+    occ_w = np.random.default_rng(15).uniform(0.0, 0.1, (nk, 2, nb))
+    beta = np.asarray(jctx.beta.beta_gk) * np.asarray(jctx.gkvec.mask)[:, None]
+    dr, di = jax_dm_kset(*map(jnp.asarray, split_cplx(beta)),
+                         *map(jnp.asarray, split_cplx(xj)), jnp.asarray(occ_w))
+    want = np.asarray(dr) + 1j * np.asarray(di)
+    got = density_matrix_kset(torch.as_tensor(beta), psi_from_numpy(xj, "cpu"),
+                              torch.as_tensor(occ_w))
+    assert got.shape == want.shape == (2,) + jctx.beta.dion.shape
+    assert np.max(np.abs(got.numpy() - want)) <= 1e-12 * np.max(np.abs(want))
 
 
 def test_davidson_residual_plain_semantics():

@@ -12,13 +12,16 @@ import torch
 
 from sirius_tpu.dft.scf import _h_o_diag as jax_h_o_diag
 from sirius_tpu.ops import gamma as jg
+from sirius_tpu.solvers.davidson import subspace_rotate as subspace_rotate_jax
 from sirius_tpu.testing import synthetic_silicon_context as jax_context
 from sirius_tpu_torch.convert import (GAMMA_KEYS, gamma_params_from_numpy,
+                                      gamma_spin_params_from_numpy,
                                       packed_from_numpy)
 from sirius_tpu_torch.kernels import gamma_pack
 from sirius_tpu_torch.kernels.davidson_residual import davidson_residual
 from sirius_tpu_torch.kernels.veff_multiply import veff_multiply_real
 from sirius_tpu_torch.ops import gamma as tg
+from sirius_tpu_torch.solvers.davidson import subspace_rotate
 from sirius_tpu_torch.testing import synthetic_silicon_context as port_context
 from sirius_tpu_torch.testing import threads_per_test_worker
 
@@ -148,6 +151,40 @@ def test_davidson_gamma_matches_jax(deck):
     # the rotation eigh picks
     assert np.max(rn[0].numpy()) <= 10.0 * np.max(np.asarray(rn_j))
     assert davidson_residual.launches_f64 == 0
+
+
+def test_per_spin_gamma_solve_matches_jax(deck):
+    # the polarized Gamma solve: one GammaParams, veff_r and D swapped per
+    # spin, each spin's packed LCAO-like block rotated under its own
+    # operator and solved with its own diagonals (scf.py:1376-1440)
+    jctx, gm, rng = deck["jctx"], deck["gm"], deck["rng"]
+    veff = np.stack([deck["veff"] + 0.05, deck["veff"] - 0.05])
+    dion = np.stack([deck["d"], screened_d(jctx, rng)])
+    gps = gamma_spin_params_from_numpy(deck["arrays"], veff, dion, "cpu")
+    nb = jctx.num_bands
+    ngk = deck["arrays"]["mask_p"].shape[0]
+    big = rng.standard_normal((nb + 4, ngk)) * deck["arrays"]["mask_p"]
+    evs = []
+    for ispn, gp in enumerate(gps):
+        jgp = deck["jgp"]._replace(veff_r=jnp.asarray(veff[ispn]),
+                                   dion=jnp.asarray(dion[ispn]))
+        hx, sx = jg.apply_h_s_gamma(jgp, jnp.asarray(big))
+        x0_j = subspace_rotate_jax(jnp.asarray(big), hx, sx, nb,
+                                   mask=jgp.mask_p)
+        xb = packed_from_numpy(big[None], "cpu")
+        hxt, sxt = tg.apply_h_s_gamma(gp, xb)
+        x0 = subspace_rotate(xb, hxt, sxt, nb, mask=gp.mask_p[None])
+        h, o = jax_h_o_diag(jctx, 0, 0.3, dion[ispn])
+        hp, op = jg.pack_diags(gm, np.asarray(h), np.asarray(o))
+        ev_j, _, _ = jg.davidson_gamma(jgp, x0_j, jnp.asarray(hp),
+                                       jnp.asarray(op), num_steps=30,
+                                       res_tol=1e-6)
+        ev, _, _ = tg.davidson_gamma(gp, x0, torch.as_tensor(hp)[None],
+                                     torch.as_tensor(op)[None], num_steps=30,
+                                     res_tol=1e-6)
+        assert np.max(np.abs(ev[0].numpy() - np.asarray(ev_j))) <= 1e-10
+        evs.append(ev[0].numpy())
+    assert np.max(np.abs(evs[0] - evs[1])) > 1e-3
 
 
 def test_density_gamma_matches_jax(deck):

@@ -140,8 +140,8 @@ def test_kernel_wrappers_reject_bad_input():
 
 
 def test_hkset_with_ultrasoft_q_raises(setup):
-    # a non-zero Q is carried (S psi = psi + beta Q <beta|psi>); what is
-    # still refused is a spin-polarized k-set
+    # a non-zero Q is carried (S psi = psi + beta Q <beta|psi>); a
+    # spin-polarized k-set, once refused, is a batch of (k, spin) entries
     _, _, arrays, rng = setup
     us = dict(arrays)
     nbeta = arrays["qmat"].shape[0]
@@ -159,8 +159,18 @@ def test_hkset_with_ultrasoft_q_raises(setup):
                            np.einsum("kxg,kbg->kbx", beta.conj(), psi))
     assert rel(sp.numpy(), want) <= 1e-12
     ps.veff_r = torch.cat([ps.veff_r, ps.veff_r])
-    with pytest.raises(NotImplementedError, match="polarized"):
-        ps.hk()
+    ps.dion = torch.cat([ps.dion, 2.0 * ps.dion])
+    hk = ps.hk()
+    # batch entry b = ik * 2 + ispn: the k tables of ik, the D of ispn
+    assert hk.ekin.shape[0] == 2 * nk
+    for b in range(2 * nk):
+        assert torch.equal(hk.beta[b], ps.beta[b // 2])
+        assert torch.equal(hk.fft_index[b], ps.fft_index[b // 2])
+        assert torch.equal(hk.dion[b], ps.dion[b % 2])
+    psi2 = psi_from_numpy(np.repeat(psi, 2, axis=0), "cpu")
+    _, sp2 = apply_h_s(hk, psi2)
+    assert rel(sp2.numpy()[::2], want) <= 1e-12
+    assert rel(sp2.numpy()[1::2], want) <= 1e-12
 
 
 @pytest.mark.parametrize("ns", [1, 2])

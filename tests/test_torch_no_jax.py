@@ -39,6 +39,7 @@ def test_port_imports_no_jax():
     assert "sirius_tpu_torch.ops.augmentation" in res["modules"]
     assert "sirius_tpu_torch.ops.hubbard" in res["modules"]
     for name in ("ops.gamma", "ops.beta_chunked", "kernels.gamma_pack",
-                 "kernels.beta_chunk"):
+                 "kernels.beta_chunk", "kernels.gga_xc",
+                 "kernels.xc_gradient", "kernels.xc_functionals"):
         assert "sirius_tpu_torch." + name in res["modules"]
     assert len(res["modules"]) >= 30

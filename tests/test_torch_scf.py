@@ -3,12 +3,14 @@ X + PZ, Anderson, Gaussian smearing, tight tolerances; norm-conserving
 without symmetry, and ultrasoft with the space group and the irreducible
 k-mesh) and the three Gamma-only full-width 2-atom decks of the single-k
 band solves (packed-real Gamma, norm-conserving and ultrasoft + symmetry;
-chunked projectors, ultrasoft + symmetry) on the CPU against the JAX
-package's recorded results in sirius_tpu_torch/data/jax_reference.json
-(recomputed by the slow tests below). Bounds: every energy term and E_F to
-1e-8 Ha, the same iteration count, the recorded electron count to 1e-10.
-Also the band-solve dispatch, the entry points' device rule and the
-NotImplementedError branches of what the port leaves out."""
+chunked projectors, ultrasoft + symmetry) and the small collinear PBE
+decks (k-point antiferromagnetic, Gamma ferromagnetic) on the CPU against
+the JAX package's recorded results in
+sirius_tpu_torch/data/jax_reference.json (recomputed by the slow tests
+below). Bounds: every energy term and E_F to 1e-8 Ha, the same iteration
+count, the recorded electron count to 1e-10, the total and per-atom
+moments to 1e-6. Also the band-solve dispatch, the entry points' device
+rule and the NotImplementedError branches of what the port leaves out."""
 
 import importlib.util
 import json
@@ -52,6 +54,19 @@ SINGLE_K = {
     "chunked_us_sym": (US_SYM, TIGHT,
                        {"beta_chunked": True, "beta_chunk_size": 1}, "chunked"),
 }
+
+
+# the small collinear decks: shape, SCF parameters, moments, band solve
+PBE = ["XC_GGA_X_PBE", "XC_GGA_C_PBE"]
+SPIN_DECKS = {
+    "small_pbe_afm": (SMALL, [[0.0, 0.0, 0.5], [0.0, 0.0, -0.5]], "kset"),
+    "small_gamma_pbe_fm": (dict(SMALL, ngridk=(1, 1, 1)),
+                           [[0.0, 0.0, 0.5], [0.0, 0.0, 0.5]], "gamma"),
+}
+# the full-width decks of other functionals and spin, run on the card by
+# chip_smoke.py and recomputed by the slow test below
+XC_DECKS = ("pbe_us_sym", "pw_us_sym_afm", "gamma_pbe_us_sym_fm",
+            "gamma_nc_vwn", "gamma_nc_pbesol")
 
 
 def _load_reference_tool():
@@ -124,12 +139,41 @@ def test_single_k_deck_matches_jax(reference, deck):
                    electrons=reference[deck]["electrons"])
 
 
+@pytest.mark.parametrize("deck", sorted(SPIN_DECKS))
+def test_spin_deck_matches_jax(reference, deck):
+    """Collinear PBE, ultrasoft + the magnetic space group: the k-set solve
+    over both spins (antiferromagnetic start, 8 ops of which 4 flip the
+    spin) and the Gamma packed-real solve one spin at a time
+    (ferromagnetic start)."""
+    shape, moments, path = SPIN_DECKS[deck]
+    ref = reference[deck]
+    ctx = synthetic_silicon_context(
+        extra_params=dict(TIGHT, xc_functionals=PBE, num_mag_dims=1),
+        moments=np.asarray(moments), **US_SYM, **shape)
+    assert ctx.num_spins == 2 and band_solve_path(ctx.cfg, ctx) == path
+    calls = apply_h_s_gamma.calls
+    res = run_scf(ctx.cfg, ctx=ctx, device="cpu")
+    assert (apply_h_s_gamma.calls > calls) == (path == "gamma")
+    assert_matches(res, ref, ctx)
+    got = res["magnetisation"]
+    assert abs(got["total"][2] - ref["magnetisation"]["total"]) <= 1e-6
+    for a, b in zip(got["atoms"], ref["magnetisation"]["atoms"]):
+        assert abs(a[2] - b) <= 1e-6
+    assert len(res["mag_history"]) == res["num_scf_iterations"]
+    assert np.array(res["band_energies"]).shape[1] == 2
+
+
 def test_reference_file_names_its_command(reference):
     with open(REF_PATH) as f:
         rec = json.load(f)
     assert rec["command"] == _load_reference_tool().COMMAND
     assert set(reference) == {"small", "full_width_2atom", "small_us_sym",
-                              "full_width_2atom_us_sym", *SINGLE_K}
+                              "full_width_2atom_us_sym", *SINGLE_K,
+                              *SPIN_DECKS, *XC_DECKS}
+    for name in SPIN_DECKS:
+        assert reference[name]["deck"]["xc_functionals"] == PBE
+        assert reference[name]["deck"]["moments"] == SPIN_DECKS[name][1]
+        assert len(reference[name]["magnetisation"]["atoms"]) == 2
     for name in ("small_us_sym", "full_width_2atom_us_sym", "gamma_us_sym",
                  "chunked_us_sym"):
         assert reference[name]["deck"]["ultrasoft"]
@@ -173,6 +217,10 @@ def test_entry_points_default_to_cuda(monkeypatch, entry):
         call()
 
 
+# cases that raised in earlier slices and run now: collinear spin and GGA
+NOW_IN_SLICE = ("magnetism", "GGA")
+
+
 @pytest.mark.parametrize("section,key,value,match", [
     ("parameters", "precision_wf", "fp32", "fp32"),
     ("parameters", "so_correction", True, "spin-orbit"),
@@ -180,12 +228,27 @@ def test_entry_points_default_to_cuda(monkeypatch, entry):
     ("parameters", "hubbard_correction", True, "Hubbard"),
     ("parameters", "xc_functionals", ["XC_GGA_X_PBE", "XC_GGA_C_PBE"], "GGA"),
     ("mixer", "type", "broyden2", "broyden2"),
+    ("parameters", "num_mag_dims", 3, "non-collinear"),
+    ("parameters", "xc_functionals", ["XC_MGGA_X_SCAN", "XC_MGGA_C_SCAN"],
+     "SCAN"),
+    ("mixer", "type", "anderson_stable", "anderson_stable"),
 ])
 def test_outside_the_slice_raises(section, key, value, match):
-    ctx = context()
+    if match in NOW_IN_SLICE:
+        # inside the slice now: two iterations run, and a spin-polarized
+        # run reports its moments (the context is built with the setting:
+        # the spin count is the context's)
+        ctx = context({"num_dft_iter": 2, key: value})
+        res = run_scf(ctx.cfg, ctx=ctx, device="cpu")
+        assert res["num_scf_iterations"] == 2
+        assert np.isfinite(res["energy"]["total"])
+        assert ("magnetisation" in res) == (key == "num_mag_dims")
+        return
+    ctx = context({"num_dft_iter": 2})
     setattr(getattr(ctx.cfg, section), key, value)
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(NotImplementedError, match=match) as err:
         run_scf(ctx.cfg, ctx=ctx, device="cpu")
+    assert "ROADMAP" in str(err.value)
 
 
 def test_gamma_only_reduce_gvec_raises():
@@ -198,7 +261,7 @@ def test_gamma_only_reduce_gvec_raises():
     assert apply_h_s_gamma.calls > calls
     assert res["num_scf_iterations"] == 2
     assert np.isfinite(res["energy"]["total"])
-    for key, value, match in (("num_mag_dims", 1, "magnetism"),
+    for key, value, match in (("num_mag_dims", 3, "non-collinear"),
                               ("precision_wf", "fp32", "fp32")):
         bad = context(ngridk=(1, 1, 1))
         setattr(bad.cfg.parameters, key, value)
@@ -302,3 +365,6 @@ def test_recorded_reference_is_current(reference):
         assert got["num_scf_iterations"] == ref["num_scf_iterations"], deck
         for key, want in ref["energy"].items():
             assert abs(got["energy"][key] - want) <= 1e-10, (deck, key)
+        for key, want in ref.get("magnetisation", {}).items():
+            assert np.max(np.abs(np.subtract(got["magnetisation"][key],
+                                             want))) <= 1e-10, (deck, key)

@@ -1,15 +1,25 @@
-"""Port parity: XC_LDA_X + XC_LDA_C_PZ energies and potentials (K7 path)
-against the JAX package's jax.grad values, polarized and unpolarized, on
-random densities that include exactly-zero and sub-threshold (dead)
-channels. Bound: 1e-12 relative, point by point."""
+"""Port parity: the XC energies and potentials of every LDA and GGA
+functional of the JAX package (K7 / K7b / K7g plain versions) against its
+jax.grad values, polarized and unpolarized, on random densities that
+include exactly-zero and sub-threshold (dead) channels, fully polarized
+points and sigma = 0 points. Bounds: LDA e and v 1e-12 relative, point by
+point; GGA e, v, vsigma and the flux fields 1e-12 relative to each
+output's largest magnitude over the points (where the gradient correction
+cancels the local term, PBE correlation's e and vsigma are rounding noise,
+1e-16 and 1e-22, in both packages)."""
+
+import math
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+import sirius_tpu.dft.xc as jax_xc
 from sirius_tpu.dft.xc import XCFunctional as JaxXC
 from sirius_tpu_torch.dft.xc import XCFunctional
+from sirius_tpu_torch.kernels import xc_functionals as xf
+from sirius_tpu_torch.kernels.gga_xc import gga_xc, gga_xc_unpolarized
 from sirius_tpu_torch.kernels.lda_xc import lda_xc, lda_xc_unpolarized
 from sirius_tpu_torch.testing import threads_per_test_worker
 
@@ -17,6 +27,13 @@ from sirius_tpu_torch.testing import threads_per_test_worker
 torch.set_num_threads(threads_per_test_worker())
 
 NAMES = ["XC_LDA_X", "XC_LDA_C_PZ"]
+LDA_SUMS = [["XC_LDA_X"], ["XC_LDA_C_PZ"], ["XC_LDA_C_PW"], ["XC_LDA_C_VWN"],
+            ["XC_LDA_X", "XC_LDA_C_PW"], ["XC_LDA_X", "XC_LDA_C_VWN"],
+            ["XC_LDA_C_VWN", "XC_LDA_X", "XC_LDA_C_PW"]]
+GGA_SUMS = [["XC_GGA_X_PBE"], ["XC_GGA_C_PBE"], ["XC_GGA_X_PBE_SOL"],
+            ["XC_GGA_C_PBE_SOL"], ["XC_GGA_X_PBE", "XC_GGA_C_PBE"],
+            ["XC_GGA_X_PBE_SOL", "XC_GGA_C_PBE_SOL"],
+            ["XC_GGA_X_PBE", "XC_LDA_C_PW"], ["XC_LDA_X", "XC_GGA_C_PBE"]]
 
 
 def densities(n=4000, seed=0):
@@ -36,6 +53,31 @@ def assert_rel(got, want, bound=1e-12):
     got, want = np.asarray(got), np.asarray(want)
     err = np.abs(got - want)
     assert np.all(err <= bound * np.abs(want)), float(np.max(err / np.maximum(np.abs(want), 1e-300)))
+
+
+def assert_normwise(got, want, bound=1e-12):
+    got, want = np.asarray(got), np.asarray(want)
+    assert np.all(np.isfinite(got)) and np.all(np.isfinite(want))
+    err = float(np.max(np.abs(got - want)))
+    assert err <= bound * float(np.max(np.abs(want))), err
+
+
+def gradients(nu, nd, seed=3):
+    """Gradient fields [3, n] of the two channels, consistent with sigma
+    (sigma_ud^2 <= sigma_uu sigma_dd), with zero-gradient points and the
+    dead points of densities()."""
+    rng = np.random.default_rng(seed)
+    n = len(nu)
+    gu = rng.standard_normal((3, n)) * 0.3 * np.cbrt(nu)
+    gd = rng.standard_normal((3, n)) * 0.3 * np.cbrt(nd)
+    gu[:, 400:450] = 0.0
+    gd[:, 420:470] = 0.0
+    gu[:, 500:520] = gd[:, 500:520]
+    return gu, gd
+
+
+def sigmas(gu, gd):
+    return ((gu * gu).sum(0), (gu * gd).sum(0), (gd * gd).sum(0))
 
 
 def test_polarized_matches_jax():
@@ -72,8 +114,121 @@ def test_unpolarized_is_the_spin_average():
                                    ["XC_LDA_X", "XC_LDA_C_PW"],
                                    ["XC_LDA_X"]])
 def test_other_functionals_not_in_slice(names):
+    # these functionals were outside the first slices; they run now, and
+    # agree with the JAX package polarized
+    nu, nd = densities(seed=5)
+    gu, gd = gradients(nu, nd)
+    xc = XCFunctional(names)
+    assert xc.is_gga == JaxXC(names).is_gga
+    args = (nu, nd) + (sigmas(gu, gd) if xc.is_gga else ())
+    want = JaxXC(names).evaluate_polarized(*map(jnp.asarray, args))
+    got = xc.evaluate_polarized(*map(torch.as_tensor, args))
+    assert sorted(got) == sorted(want)
+    for key in got:
+        (assert_normwise if xc.is_gga else assert_rel)(got[key].numpy(),
+                                                       want[key])
+
+
+@pytest.mark.parametrize("names", LDA_SUMS + GGA_SUMS,
+                         ids=lambda n: "+".join(x[3:] for x in n))
+def test_every_functional_matches_jax(names):
+    """e, v and (GGA) vsigma, polarized and unpolarized."""
+    nu, nd = densities(seed=6)
+    gu, gd = gradients(nu, nd)
+    suu, sud, sdd = sigmas(gu, gd)
+    jxc, xc = JaxXC(names), XCFunctional(names)
+    pol = (nu, nd, suu, sud, sdd) if xc.is_gga else (nu, nd)
+    want = jxc.evaluate_polarized(*map(jnp.asarray, pol))
+    got = xc.evaluate_polarized(*map(torch.as_tensor, pol))
+    rho = nu + nd
+    unp = (rho, ((gu + gd) ** 2).sum(0)) if xc.is_gga else (rho,)
+    want_u = jxc.evaluate(*map(jnp.asarray, unp))
+    got_u = xc.evaluate(*map(torch.as_tensor, unp))
+    for g, w in ((got, want), (got_u, want_u)):
+        assert sorted(g) == sorted(w)
+        for key in g:
+            (assert_normwise if xc.is_gga else assert_rel)(g[key].numpy(),
+                                                           w[key])
+    # dead channels carry exactly zero potential
+    assert np.all(got["v_up"].numpy()[:50] == 0.0)
+    assert np.all(got["v_dn"].numpy()[25:75] == 0.0)
+    if xc.is_gga:
+        assert np.all(got["vsigma_ud"].numpy()[:75] == 0.0)
+
+
+@pytest.mark.parametrize("names", GGA_SUMS[4:],
+                         ids=lambda n: "+".join(x[3:] for x in n))
+def test_gga_flux_form_matches_jax(names):
+    """The gradient form K7g computes (sigma formed from the gradients, the
+    flux fields of the divergence term) against the JAX package's vsigma
+    and the products of potential.py:132-137 and :155."""
+    nu, nd = densities(seed=7)
+    gu, gd = gradients(nu, nd, seed=8)
+    suu, sud, sdd = (sum(a * b for a, b in zip(x, y))
+                     for x, y in ((gu, gu), (gu, gd), (gd, gd)))
+    w = JaxXC(names).evaluate_polarized(*map(jnp.asarray,
+                                             (nu, nd, suu, sud, sdd)))
+    vsuu, vsud, vsdd = (np.asarray(w[k]) for k in
+                        ("vsigma_uu", "vsigma_ud", "vsigma_dd"))
+    e, vu, vd, fu, fd = gga_xc(*map(torch.as_tensor, (nu, nd, gu, gd)), names)
+    assert_normwise(e.numpy(), w["e"])
+    assert_normwise(vu.numpy(), w["v_up"])
+    assert_normwise(vd.numpy(), w["v_dn"])
+    assert_normwise(fu.numpy(), 2 * vsuu * gu + vsud * gd)
+    assert_normwise(fd.numpy(), 2 * vsdd * gd + vsud * gu)
+    rho = nu + nd
+    g = gu + gd
+    sigma = g[0] ** 2 + g[1] ** 2 + g[2] ** 2
+    w = JaxXC(names).evaluate(jnp.asarray(rho), jnp.asarray(sigma))
+    e, v, f = gga_xc_unpolarized(torch.as_tensor(rho), torch.as_tensor(g),
+                                 names)
+    assert_normwise(e.numpy(), w["e"])
+    assert_normwise(v.numpy(), w["v"])
+    assert_normwise(f.numpy(), 2.0 * np.asarray(w["vsigma"]) * g)
+
+
+def test_constants_match_jax_bit_for_bit():
+    for name in ("TINY", "DENS_TH", "PBE_KAPPA", "PBE_MU", "PBE_BETA",
+                 "PBE_GAMMA", "PBESOL_MU", "PBESOL_BETA"):
+        want = float(getattr(jax_xc, "_" + name))
+        assert getattr(xf, name) == want, name
+    assert xf.PBE_GAMMA == (1.0 - math.log(2.0)) / math.pi**2
+
+
+def test_pw92_and_pw_mod_differ():
+    # XC_LDA_C_PW takes the published PW92 digits; PBE correlation is
+    # defined on PW_MOD. The two differ at ~1e-5 relative, far above the
+    # parity bound, so a swap would show
+    nu, nd = densities(seed=9)
+    t = torch.as_tensor
+    pub = xf.lda_c_pw_e(t(nu), t(nd)).numpy()
+    mod = xf.lda_c_pw_e(t(nu), t(nd), mod=True).numpy()
+    live = nu + nd > 1e-6
+    rel = np.abs(pub - mod)[live] / np.abs(mod)[live]
+    assert np.median(rel) > 1e-6 and rel.max() < 1e-3
+    want_pub = jax_xc._lda_c_pw_e(jnp.asarray(nu), jnp.asarray(nd))
+    want_mod = jax_xc._lda_c_pw_e(jnp.asarray(nu), jnp.asarray(nd), mod=True)
+    assert_rel(pub[live], np.asarray(want_pub)[live])
+    assert_rel(mod[live], np.asarray(want_mod)[live])
+
+
+@pytest.mark.parametrize("names", [["XC_MGGA_X_SCAN", "XC_MGGA_C_SCAN"],
+                                   ["XC_GGA_X_PBE", "XC_MGGA_C_SCAN"]])
+def test_scan_not_in_slice(names):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         XCFunctional(names)
+
+
+def test_gga_from_sigma_is_the_plain_version_only():
+    # on the card GGA runs from gradients (K7g); the sigma form is the
+    # plain autograd version and refuses any other device
+    xc = XCFunctional(["XC_GGA_X_PBE", "XC_GGA_C_PBE"])
+    x = torch.ones(4, dtype=torch.float64, device="meta")
+    with pytest.raises(RuntimeError, match="evaluate_gga"):
+        xc.evaluate(x, x)
+    with pytest.raises(ValueError, match="LDA"):
+        lda_xc(torch.ones(4, dtype=torch.float64),
+               torch.ones(4, dtype=torch.float64), ["XC_GGA_X_PBE"])
 
 
 def test_unknown_functional_is_an_error():

@@ -1,7 +1,8 @@
 """Where the time goes in one SCF iteration of the PyTorch port on the GPU.
 
 Runs a full-width deck of chip_smoke.py for a few SCF iterations with
-unreachable tolerances, profiles the last ones with torch.profiler, and
+unreachable tolerances, profiles the last ones with torch.profiler (after
+one warm-up iteration under the profiler, whose records are dropped), and
 prints one JSON object: device time by kernel and by category (cuFFT,
 cuBLAS GEMM, cuSOLVER eigh, the port's hand kernels, other torch
 elementwise/reduction kernels, copies), the wall time of the profiled
@@ -12,9 +13,13 @@ iterations and the device's busy share of it. The decks:
   ultrasoft species, its 384-op space group and the irreducible k-mesh;
 - --gamma: the 54-atom Gamma-only supercell (ultrasoft, 1296-op space
   group) through the packed-real Gamma band solve; --chunked: the same
-  deck through the chunked projectors, 16 atoms a chunk.
+  deck through the chunked projectors, 16 atoms a chunk; --gamma-pbe-fm:
+  the same cell spin-polarized with PBE and a starting moment of 0.5 on
+  every atom (its magnetic space group), through the packed-real solve one
+  spin at a time (chip_smoke.py's full_width_gamma_pbe_fm).
 
-    python3 tools/torch_port_profile.py [--ultrasoft | --gamma | --chunked]
+    python3 tools/torch_port_profile.py
+        [--ultrasoft | --gamma | --chunked | --gamma-pbe-fm]
         [--iters 3] [--profiled 2] [--out FILE]
 
 Needs a CUDA card; exits non-zero without one.
@@ -27,17 +32,19 @@ import json
 import os
 import subprocess
 import sys
-import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-PROFILER_RECORDS = ("Buffer Flush", "Activity Buffer Request")
+PROFILER_RECORDS = ("Buffer Flush", "Activity Buffer Request",
+                    "ProfilerStep*")
 # K1's and K8a's zero fill is a cudaMemsetAsync: it counts under copies
 HAND_KERNELS = ("scatter_valid", "gather_hpsi", "residual_rows",
                 "accumulate", "lda_xc_points", "veff_multiply_kernel",
                 "rho_aug_kernel", "d_operator_partial_kernel",
                 "d_operator_finish_kernel", "symmetrize_pw_kernel",
-                "unpack_scatter", "pack_gather", "beta_chunk_kernel")
+                "unpack_scatter", "pack_gather", "beta_chunk_kernel",
+                "gga_xc_polarized", "gga_xc_unpolarized", "gradient_scatter",
+                "divergence_gather")
 # the band-solve entry point of each path, as dft/scf.py calls it
 SOLVES = ("davidson_kset", "davidson_gamma", "davidson")
 
@@ -75,6 +82,9 @@ def main(argv=None) -> int:
                       "(packed-real band solve)")
     deck.add_argument("--chunked", action="store_true",
                       help="the 54-atom deck through the chunked projectors")
+    deck.add_argument("--gamma-pbe-fm", action="store_true",
+                      help="the 54-atom Gamma-only deck spin-polarized with "
+                      "PBE (packed-real band solve per spin)")
     ap.add_argument("--out", default="", help="also write the JSON here")
     args = ap.parse_args(argv)
 
@@ -85,44 +95,67 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, ROOT)
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     from sirius_tpu_torch.dft import scf as scf_mod
     from sirius_tpu_torch.testing import synthetic_silicon_context
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
-    single_k = args.gamma or args.chunked
+    single_k = args.gamma or args.chunked or args.gamma_pbe_fm
     us = args.ultrasoft or single_k
-    ctx = synthetic_silicon_context(
-        gk_cutoff=6.0, pw_cutoff=20.0,
-        ngridk=(1, 1, 1) if single_k else (2, 2, 2),
-        supercell=3 if single_k else 2, ultrasoft=us, use_symmetry=us,
-        extra_params={"num_dft_iter": args.iters, "density_tol": 0.0,
-                      "energy_tol": 0.0})
+    run = {"num_dft_iter": args.iters, "density_tol": 0.0, "energy_tol": 0.0}
+    if args.gamma_pbe_fm:
+        import chip_smoke
+
+        ctx = chip_smoke.magnetic_supercell_context(
+            3, chip_smoke.GAMMA54,
+            dict(run, xc_functionals=chip_smoke.PBE, **chip_smoke.SPIN),
+            chip_smoke.US_SYM, 0.5)
+    else:
+        ctx = synthetic_silicon_context(
+            gk_cutoff=6.0, pw_cutoff=20.0,
+            ngridk=(1, 1, 1) if single_k else (2, 2, 2),
+            supercell=3 if single_k else 2, ultrasoft=us, use_symmetry=us,
+            extra_params=run)
     if args.chunked:
         ctx.cfg.control.beta_chunked = True
         ctx.cfg.control.beta_chunk_size = 16
     deck_name = ("si54_supercell3_chunk16" if args.chunked
+                 else "si54_supercell3_gamma_pbe_fm" if args.gamma_pbe_fm
                  else "si54_supercell3_gamma" if args.gamma
                  else "si16_supercell2_us_sym" if args.ultrasoft
                  else "si16_supercell2")
     first = args.iters - args.profiled
+    if first < 1:
+        print("torch_port_profile: --iters must exceed --profiled (one "
+              "iteration warms the profiler up)", file=sys.stderr)
+        return 2
+    # the profiler opens one iteration early: that iteration is its
+    # warm-up (CUPTI starts up there; its records are dropped), the
+    # `profiled` iterations after it are recorded
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                   schedule=schedule(wait=0, warmup=1, active=args.profiled,
+                                     repeat=1),
                    acc_events=True)
-    state = {"fermi": 0, "t0": None, "solves": 0}
-    # open the profiler at the start of iteration `first`: find_fermi runs
-    # once per SCF iteration, after the band solve and its retry if any, so
-    # the first band solve after `first` find_fermi calls starts it
+    state = {"fermi": 0, "it": None, "solves": 0}
+    # find_fermi runs once per SCF iteration, after the band solve(s) and
+    # the retry if any, so the first band solve after n find_fermi calls
+    # starts iteration n
     orig = {name: getattr(scf_mod, name) for name in SOLVES + ("find_fermi",)}
 
     def hooked(name):
         def solve(*a, **kw):
-            if state["t0"] is None and state["fermi"] == first:
+            it = state["fermi"]
+            if state["it"] is None and it == first - 1:
                 torch.cuda.synchronize()
                 prof.__enter__()
-                state["t0"] = time.perf_counter()
-            if state["t0"] is not None:
+                state["it"] = it
+            elif state["it"] is not None and it != state["it"]:
+                torch.cuda.synchronize()
+                prof.step()
+                state["it"] = it
+            if state["it"] is not None and it >= first:
                 state["solves"] += 1
             return orig[name](*a, **kw)
         return solve
@@ -137,12 +170,14 @@ def main(argv=None) -> int:
     try:
         res = scf_mod.run_scf(ctx.cfg, ctx=ctx, device=dev)
         torch.cuda.synchronize()
-        wall = time.perf_counter() - state["t0"]
         prof.__exit__(None, None, None)
     finally:
         for name, fn in orig.items():
             setattr(scf_mod, name, fn)
     profiled = list(range(first, res["num_scf_iterations"]))
+    # the profiled iterations' own host-clock times (each starts after a
+    # synchronize): the end-of-run report after the loop is not in them
+    wall = sum(res["iteration_seconds"][first:])
 
     kernels = []
     for e in prof.key_averages():

@@ -12,6 +12,17 @@ packed-real Gamma path, norm-conserving ("gamma_nc") and ultrasoft with
 symmetry ("gamma_us_sym"), and the chunked-projector path with one atom
 per chunk ("chunked_us_sym").
 
+Seven more decks carry other functionals and collinear spin (num_mag_dims
+1, starting moments of 0.5 mu_B along z on the atoms): "pbe_us_sym" (the
+k-point deck with PBE, unpolarized), "pw_us_sym_afm" (X + PW92, moments
++0.5 / -0.5: the antiferromagnetic subgroup of 8 ops, 4 of them spin-flip),
+"gamma_pbe_us_sym_fm" (Gamma-only packed path, PBE, +0.5 / +0.5),
+"gamma_nc_vwn" and "gamma_nc_pbesol" (Gamma, norm-conserving, X + VWN5 and
+PBEsol, a fixed 14 iterations like gamma_nc), and at the small shape
+"small_pbe_afm" (k-point, PBE, +0.5 / -0.5) and "small_gamma_pbe_fm"
+(Gamma, PBE, +0.5 / +0.5). Polarized decks also record the total and
+per-atom moments.
+
 gamma_nc runs a fixed 14 iterations (tolerances that cannot be met): its
 partly occupied band triplet at E_F, with no symmetry to average the
 density, makes the iteration count to a tolerance irreproducible even in
@@ -23,6 +34,7 @@ Run from the repository root (CPU, fp64):
 
     python tools/torch_port_reference.py            # rewrite the JSON
     python tools/torch_port_reference.py --check    # compare, write nothing
+    python tools/torch_port_reference.py --decks gamma_nc_vwn  # some decks
 """
 
 from __future__ import annotations
@@ -31,6 +43,8 @@ import argparse
 import json
 import os
 import sys
+
+import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OUT = os.path.join(ROOT, "sirius_tpu_torch", "data", "jax_reference.json")
@@ -44,8 +58,14 @@ NC = dict(ultrasoft=False, use_symmetry=False)
 US_SYM = dict(ultrasoft=True, use_symmetry=True)
 CHUNKED = {"beta_chunked": True, "beta_chunk_size": 1}
 FIXED_14 = {"num_dft_iter": 14, "density_tol": 0.0, "energy_tol": 0.0}
+SMALL_GAMMA = dict(SMALL, ngridk=(1, 1, 1))
+PBE = ["XC_GGA_X_PBE", "XC_GGA_C_PBE"]
+SPIN = {"num_mag_dims": 1}
+# starting moments (mu_B along z) of the two atoms
+FM = [[0.0, 0.0, 0.5], [0.0, 0.0, 0.5]]
+AFM = [[0.0, 0.0, 0.5], [0.0, 0.0, -0.5]]
 # deck name -> (shape, species and symmetry, control settings, SCF
-# parameters)
+# parameters[, starting moments])
 DECKS = {
     "small": (SMALL, NC, {}, TIGHT),
     "full_width_2atom": (FULL_2ATOM, NC, {}, TIGHT),
@@ -54,21 +74,45 @@ DECKS = {
     "gamma_nc": (GAMMA_2ATOM, NC, {}, FIXED_14),
     "gamma_us_sym": (GAMMA_2ATOM, US_SYM, {}, TIGHT),
     "chunked_us_sym": (GAMMA_2ATOM, US_SYM, CHUNKED, TIGHT),
+    "pbe_us_sym": (FULL_2ATOM, US_SYM, {}, dict(TIGHT, xc_functionals=PBE)),
+    "pw_us_sym_afm": (FULL_2ATOM, US_SYM, {},
+                      dict(TIGHT, xc_functionals=["XC_LDA_X", "XC_LDA_C_PW"],
+                           **SPIN), AFM),
+    "gamma_pbe_us_sym_fm": (GAMMA_2ATOM, US_SYM, {},
+                            dict(TIGHT, xc_functionals=PBE, **SPIN), FM),
+    "gamma_nc_vwn": (GAMMA_2ATOM, NC, {},
+                     dict(FIXED_14,
+                          xc_functionals=["XC_LDA_X", "XC_LDA_C_VWN"])),
+    "gamma_nc_pbesol": (GAMMA_2ATOM, NC, {},
+                        dict(FIXED_14, xc_functionals=["XC_GGA_X_PBE_SOL",
+                                                       "XC_GGA_C_PBE_SOL"])),
+    "small_pbe_afm": (SMALL, US_SYM, {},
+                      dict(TIGHT, xc_functionals=PBE, **SPIN), AFM),
+    "small_gamma_pbe_fm": (SMALL_GAMMA, US_SYM, {},
+                           dict(TIGHT, xc_functionals=PBE, **SPIN), FM),
 }
+
+
+def deck_spec(name: str):
+    """(shape, species and symmetry, control, SCF parameters, moments or
+    None) of a deck of DECKS."""
+    spec = DECKS[name]
+    return spec + (None,) * (5 - len(spec))
 
 
 def run_deck(name: str) -> dict:
     """One JAX SCF on a deck of DECKS, on one CPU device, host SCF path."""
     import jax
-    import numpy as np
 
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
     from sirius_tpu.dft.scf import run_scf
     from sirius_tpu.testing import synthetic_silicon_context
 
-    shape, kind, control, params = DECKS[name]
-    ctx = synthetic_silicon_context(extra_params=dict(params), **kind, **shape)
+    shape, kind, control, params, moments = deck_spec(name)
+    ctx = synthetic_silicon_context(
+        extra_params=dict(params), **kind, **shape,
+        moments=None if moments is None else np.asarray(moments))
     ctx.cfg.control.device_scf = "off"
     for key, value in control.items():
         setattr(ctx.cfg.control, key, value)
@@ -78,7 +122,9 @@ def run_deck(name: str) -> dict:
                for k, v in shape.items()}, **params, **kind}
     if control:
         deck["control"] = dict(control)
-    return {
+    if moments is not None:
+        deck["moments"] = moments
+    out = {
         "deck": deck,
         "num_bands": int(ctx.num_bands),
         "ngk_max": int(ctx.gkvec.ngk_max),
@@ -89,15 +135,25 @@ def run_deck(name: str) -> dict:
         * float(ctx.unit_cell.omega),
         "energy": {k: float(v) for k, v in res["energy"].items()},
     }
+    if "magnetisation" in res:
+        out["magnetisation"] = {
+            "total": float(res["magnetisation"]["total"][2]),
+            "atoms": [float(m[2]) for m in res["magnetisation"]["atoms"]],
+        }
+    return out
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--check", action="store_true",
                     help="recompute and compare with the recorded file")
+    ap.add_argument("--decks", nargs="+", choices=sorted(DECKS),
+                    help="recompute only these decks (the others keep "
+                         "their recorded values)")
     args = ap.parse_args(argv)
     sys.path.insert(0, ROOT)
-    out = {"command": COMMAND, "decks": {n: run_deck(n) for n in DECKS}}
+    names = args.decks or list(DECKS)
+    out = {"command": COMMAND, "decks": {n: run_deck(n) for n in names}}
     if args.check:
         with open(OUT) as f:
             rec = json.load(f)
@@ -106,11 +162,18 @@ def main(argv=None) -> int:
             r = rec["decks"][n]
             if r["num_scf_iterations"] != d["num_scf_iterations"]:
                 bad.append((n, "iterations"))
+            for k, v in d.get("magnetisation", {}).items():
+                if np.max(np.abs(np.subtract(r["magnetisation"][k], v))) > 1e-10:
+                    bad.append((n, "magnetisation " + k))
             for k, v in d["energy"].items():
                 if abs(r["energy"][k] - v) > 1e-10:
                     bad.append((n, k))
         print(json.dumps({"mismatches": bad}))
         return 1 if bad else 0
+    if args.decks and os.path.exists(OUT):
+        with open(OUT) as f:
+            out["decks"] = {**json.load(f)["decks"], **out["decks"]}
+    out["decks"] = {n: out["decks"][n] for n in DECKS}
     with open(OUT, "w") as f:
         json.dump(out, f, indent=1, sort_keys=True)
         f.write("\n")
