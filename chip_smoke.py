@@ -13,12 +13,14 @@ imports nothing of JAX or of sirius_tpu. Phases, each printing JSON lines:
    K2, K3, K7; ultrasoft + symmetry: K1c, K4, K5, K6; Gamma packed-real:
    K8a, K8b, K1c in real mode, K2 on float64 blocks; chunked projectors:
    K9; the XC kernels at the fine boxes of the 16- and 54-atom cells: K7b
-   for X + PW92 and X + VWN5, K7g for PBE and PBEsol, each polarized and
-   unpolarized, on densities with dead channels and fully polarized points,
-   K10a and K10b, and K6 on an axial field): error, kernel time (CUDA events, median of 21 samples of 5
-   launches after warm-up), the plain version's time, a one-call PyTorch
-   yardstick where one exists (library_ms), and the least time the card
-   could take (bound_ms);
+   for X + PW92 and X + VWN5, K7g for PBE and PBEsol, K7s for SCAN, each
+   polarized and unpolarized, on densities with dead channels and fully
+   polarized points, K10a and K10b, and K6 on an axial field; the tau
+   operator's K11a and K11b at the 16-atom coarse box): error,
+   kernel time (CUDA events, median of 21 samples of 5 launches after
+   warm-up), the plain version's time, a one-call PyTorch yardstick where
+   one exists (library_ms), and the least time the card could take
+   (bound_ms);
 3. parity SCF: the 2-atom full-width decks, norm-conserving without
    symmetry (parity_scf) and ultrasoft with the space group
    (parity_scf_us), and the Gamma-only 2-atom decks of the single-k band
@@ -28,7 +30,9 @@ imports nothing of JAX or of sirius_tpu. Phases, each printing JSON lines:
    deck; parity_scf_pw_us_afm: X + PW92, moments +0.5 / -0.5, 8 ops of
    which 4 flip the spin; parity_scf_gamma_pbe_us_fm: Gamma, PBE, moments
    +0.5 / +0.5; parity_scf_gamma_nc_vwn and parity_scf_gamma_nc_pbesol:
-   Gamma, NC, a fixed 14 iterations), against the JAX package's recorded
+   Gamma, NC, a fixed 14 iterations; parity_scf_scan_us and
+   parity_scf_scan_us_fm: SCAN on the k-point US + symmetry deck,
+   unpolarized and +0.5 / +0.5), against the JAX package's recorded
    energies and moments (sirius_tpu_torch/data/jax_reference.json);
 4. full-width runs with tolerances that cannot be met, so every iteration
    runs: the 16-atom Si supercell, norm-conserving (full_width, 3 SCF
@@ -39,17 +43,21 @@ imports nothing of JAX or of sirius_tpu. Phases, each printing JSON lines:
    with 16 atoms a chunk (full_width_chunked_us, 4 iterations), and the
    same cell spin-polarized with PBE and +0.5 on every atom through the
    packed-real solve, one spin at a time (full_width_gamma_pbe_fm, 4
-   iterations); kernel launches per iteration, peak device memory, electron
-   count, total moment, finite energies.
+   iterations); the 16-atom ultrasoft cell with SCAN on the k-set solve
+   with the tau operator (full_width_scan_us, 4 iterations); kernel
+   launches per iteration, peak device memory, electron count, total
+   moment, finite energies.
 
 Every SCF phase sets the launch counts to 0 just before its run and reads
 them just after, and fails if a kernel of its path was not launched. The
 kernels summary takes each kernel's launches from the full-width run of its
 path: full_width_us for K1-K7, full_width_gamma_us for K8a, K8b, K1c real
 and K2 float64, full_width_chunked_us for K9, full_width_gamma_pbe_fm for
-K7g (PBE), K10a, K10b and K6 on axial fields; K7b's X + PW92 and X + VWN5
-rows and K7g's PBEsol row take theirs from the parity decks that run them
-(parity_scf_pw_us_afm, parity_scf_gamma_nc_vwn, parity_scf_gamma_nc_pbesol).
+K7g (PBE), K10a, K10b and K6 on axial fields, full_width_scan_us for K7s
+unpolarized, K11a and K11b; K7b's X + PW92 and X + VWN5 rows, K7g's PBEsol
+row and K7s's polarized row take theirs from the parity decks that run
+them (parity_scf_pw_us_afm, parity_scf_gamma_nc_vwn,
+parity_scf_gamma_nc_pbesol, parity_scf_scan_us_fm).
 
 The last three lines are the kernels summary, the nvidia-smi name/power
 line and {"ok": true, "device": {...}}. Any failure exits non-zero before
@@ -113,6 +121,19 @@ XC_DECKS = {
                                             "XC_GGA_C_PBE_SOL"]}, None),
 }
 FULL_ITERS["full_width_gamma_pbe_fm"] = 4
+# the SCAN meta-GGA decks (the k-set path with the tau operator): the
+# 2-atom parity decks of tools/torch_port_reference.py at fixed iteration
+# counts, 5 each (their trajectories to a tolerance are not reproducible
+# even in the JAX package, and a converged SCAN SCF run on hops between
+# states ~1e-8 Ha apart, see that tool); and the 16-atom ultrasoft cell
+# with its 384 ops at 3 k-points
+SCAN = ["XC_MGGA_X_SCAN", "XC_MGGA_C_SCAN"]
+FIXED_5 = {"num_dft_iter": 5, **RUN_TO_END}
+XC_DECKS["scan_us_sym"] = (PARITY, US_SYM, dict(FIXED_5, xc_functionals=SCAN),
+                           None)
+XC_DECKS["scan_us_sym_fm"] = (PARITY, US_SYM,
+                              dict(FIXED_5, xc_functionals=SCAN, **SPIN), FM)
+FULL_ITERS["full_width_scan_us"] = 4
 # the XC kernel checks: functionals, polarized
 XC_CHECKS = {
     "lda_xc.pw92": (["XC_LDA_X", "XC_LDA_C_PW"], True),
@@ -124,6 +145,8 @@ XC_CHECKS = {
     "gga_xc.pbesol": (["XC_GGA_X_PBE_SOL", "XC_GGA_C_PBE_SOL"], True),
     "gga_xc.pbesol.unpolarized": (["XC_GGA_X_PBE_SOL", "XC_GGA_C_PBE_SOL"],
                                   False),
+    "mgga_xc.scan": (SCAN, True),
+    "mgga_xc.scan.unpolarized": (SCAN, False),
 }
 # relative tolerance of each kernel against its plain version on the card:
 # K1/K2 are a store/gather and three fixed-order row sums (rounding only);
@@ -137,8 +160,12 @@ XC_CHECKS = {
 # against exp() of the rounded angle. K7b and K7g take the derivatives on
 # dual numbers against autograd of the same expressions (a different order
 # of the chain rule's products, a few ulp), normwise over the box; K10a and
-# K10b are products and sums in the plain version's order (rounding only)
+# K10b are products and sums in the plain version's order (rounding only).
+# K7s as K7g, held to 1e-12; K11a / K11b are a store and a gather with
+# products and sums in the plain version's order (rounding only)
 TOL = {**{name: 1e-11 for name in XC_CHECKS},
+       "mgga_xc.scan": 1e-12, "mgga_xc.scan.unpolarized": 1e-12,
+       "mgga_tau.grad_to_box": 1e-14, "mgga_tau.box_to_pw_tau": 1e-14,
        "xc_gradient.gradient_boxes": 1e-12,
        "xc_gradient.divergence_pw": 1e-12, "symmetrize_pw.axial": 1e-13,"local_hpsi.pw_to_box": 1e-12, "local_hpsi.box_to_pw_hpsi": 1e-12,
        "davidson_residual": 1e-12, "density_accumulate": 1e-11,
@@ -167,6 +194,8 @@ SOURCE = {
     "xc_gradient.gradient_boxes": "sirius_tpu_torch/csrc/xc_gradient.cu",
     "xc_gradient.divergence_pw": "sirius_tpu_torch/csrc/xc_gradient.cu",
     "symmetrize_pw.axial": "sirius_tpu_torch/csrc/symmetrize_pw.cu",
+    "mgga_tau.grad_to_box": "sirius_tpu_torch/csrc/mgga_tau.cu",
+    "mgga_tau.box_to_pw_tau": "sirius_tpu_torch/csrc/mgga_tau.cu",
 }
 REPLACES = {
     "local_hpsi.pw_to_box": "sirius_tpu/ops/hamiltonian.py:76",
@@ -187,6 +216,8 @@ REPLACES = {
     "xc_gradient.gradient_boxes": "sirius_tpu/dft/potential.py:282",
     "xc_gradient.divergence_pw": "sirius_tpu/dft/potential.py:285",
     "symmetrize_pw.axial": "sirius_tpu/dft/density.py:348",
+    "mgga_tau.grad_to_box": "sirius_tpu/ops/mgga.py:44",
+    "mgga_tau.box_to_pw_tau": "sirius_tpu/ops/mgga.py:50",
 }
 # the kernels summary: the new rows of K7b / K7g (a record at the 54-atom
 # box, in the mode its deck runs) and the run their launches come from
@@ -194,6 +225,12 @@ SUMMARY_XC = {"lda_xc.pw92": "pw_us_sym_afm",
               "lda_xc.vwn.unpolarized": "gamma_nc_vwn",
               "gga_xc.pbe": "full_width_gamma_pbe_fm",
               "gga_xc.pbesol.unpolarized": "gamma_nc_pbesol"}
+# the SCAN rows (records at the 16-atom boxes: fine 96^3 for K7s, coarse
+# for K11) and the run their launches come from
+SUMMARY_MGGA = {"mgga_xc.scan": "scan_us_sym_fm",
+                "mgga_xc.scan.unpolarized": "full_width_scan_us",
+                "mgga_tau.grad_to_box": "full_width_scan_us",
+                "mgga_tau.box_to_pw_tau": "full_width_scan_us"}
 
 
 def emit(obj) -> None:
@@ -635,15 +672,22 @@ def check_kernel_chunk(deck: str, ctx, chunk: int, dev, gpu: str) -> dict:
 
 
 def xc_operations(names, polarized: bool) -> float:
-    """fp64 operations a point of K7b / K7g, by a stated rule: the torch
-    operations of one point's energy sum in the plain version (each
-    elementary function, pow, exp, log, sqrt, atan, counted as one), times
-    1 + the number of partial derivatives the kernel carries (5 polarized
-    GGA, 2 otherwise), plus the sigma and flux products of GGA."""
+    """fp64 operations a point of K7b / K7g / K7s, by a stated rule: the
+    torch operations of each functional's energy in the plain version (each
+    elementary function, pow, exp, expm1, log, sqrt, atan, counted as one),
+    times 1 + the number of partial derivatives the kernel carries for that
+    term, plus the sigma and flux products of GGA and mGGA. K7b / K7g carry
+    5 partials polarized GGA, 2 otherwise. K7s, term by term: SCAN exchange
+    is one scan_x_half per spin channel on Dual<3> polarized (two halves),
+    one unpolarized (0.5 (x + x)); SCAN correlation runs on Dual<4>
+    polarized, Dual<3> unpolarized; the LDA and GGA names of a mixed list
+    on Dual<5> polarized, Dual<3> unpolarized."""
     import torch
     from torch.overrides import TorchFunctionMode
 
-    from sirius_tpu_torch.kernels.xc_functionals import GGA_FUNCS, energy
+    from sirius_tpu_torch.kernels.xc_functionals import (GGA_FUNCS,
+                                                        MGGA_FUNCS, energy,
+                                                        scan_c_e, scan_x_half)
 
     count = [0]
 
@@ -653,21 +697,43 @@ def xc_operations(names, polarized: bool) -> float:
                 count[0] += 1
             return func(*args, **(kwargs or {}))
 
+    def ops(fn, *args) -> int:
+        count[0] = 0
+        with Count():
+            fn(*args)
+        return count[0]
+
     x = [torch.full((1,), v, dtype=torch.float64)
-         for v in (0.31, 0.17, 0.05, 0.01, 0.04)]
-    with Count():
-        energy(list(names), *x)
+         for v in (0.31, 0.17, 0.05, 0.01, 0.04, 0.2, 0.1)]
     gga = any(n in GGA_FUNCS for n in names)
-    partials = 5 if (gga and polarized) else 2
-    extra = (30.0 if polarized else 10.0) if gga else 0.0
-    return count[0] * (1.0 + partials) + extra
+    mgga = any(n in MGGA_FUNCS for n in names)
+    extra = (30.0 if polarized else 10.0) if (gga or mgga) else 0.0
+    if not mgga:
+        partials = 5 if (gga and polarized) else 2
+        return ops(energy, list(names), *x) * (1.0 + partials) + extra
+    total = 0.0
+    for name in names:
+        if name == "XC_MGGA_X_SCAN":
+            # the channel's scalings 2 n, 4 sigma, 2 tau included; the
+            # halves' sum and 0.5 factor are 2 more
+            half = ops(lambda n, s, t: scan_x_half(2 * n, 4 * s, 2 * t),
+                       x[0], x[2], x[5])
+            total += ((2 * half if polarized else half) + 2) * (1 + 3)
+        elif name == "XC_MGGA_C_SCAN":
+            total += ops(scan_c_e, *x) * (1 + (4 if polarized else 3))
+        else:
+            total += ops(energy, [name], *x) * (1 + (5 if polarized else 3))
+    return total + extra
 
 
 def check_kernels_xc(deck: str, ctx, dev, gpu: str) -> dict:
-    """K7b, K7g (each functional sum polarized and unpolarized), K10a and
-    K10b against their plain versions on this deck's fine box: the initial
-    density with a random polarization, exactly fully polarized points
-    (one channel exactly 0) and dead points. Returns {kernel: record}."""
+    """K7b, K7g, K7s (each functional sum polarized and unpolarized), K10a
+    and K10b against their plain versions on this deck's fine box: the
+    initial density with a random polarization, exactly fully polarized
+    points (one channel exactly 0) and dead points; for SCAN a kinetic-
+    energy density per spin of random multiples (0.5 to 2) of the uniform-
+    gas value plus the von Weizsaecker term, 0 (the first SCF potential's)
+    on some points. Returns {kernel: record}."""
     import numpy as np
     import torch
 
@@ -676,6 +742,7 @@ def check_kernels_xc(deck: str, ctx, dev, gpu: str) -> dict:
     from sirius_tpu_torch.dft.potential import gradient_r
     from sirius_tpu_torch.kernels import gga_xc as k7g
     from sirius_tpu_torch.kernels import lda_xc as k7
+    from sirius_tpu_torch.kernels import mgga_xc as k7s
     from sirius_tpu_torch.kernels import xc_gradient as k10
 
     tables = grid_tables(ctx, dev)
@@ -700,10 +767,35 @@ def check_kernels_xc(deck: str, ctx, dev, gpu: str) -> dict:
     gu, gd = g[0].view(3, n), g[1].view(3, n)
     g1 = gradient_r(tables, rho0[None])[0].view(3, n)
     del g
+    tau_unif = 0.3 * (6.0 * math.pi**2) ** (2.0 / 3.0)
+
+    def tau(n_s, grad):
+        w = torch.as_tensor(rng.uniform(0.5, 2.0, n), device=dev)
+        live = n_s > 1e-10
+        t = (tau_unif * n_s.clamp(min=0.0) ** (5.0 / 3.0) * w
+             + torch.where(live, (grad * grad).sum(0), 0.0)
+             / (8.0 * n_s).clamp(min=1e-10))
+        t[256:320] = 0.0
+        return t
+
+    tu, td = tau(nu, gu), tau(nd, gd)
+    tt = tu + td
 
     for name, (names, pol) in XC_CHECKS.items():
         ops = xc_operations(names, pol)
-        if name.startswith("lda_xc"):
+        if name.startswith("mgga_xc"):
+            if pol:
+                kern = functools.partial(k7s.mgga_xc, nu, nd, gu, gd, tu, td,
+                                         names)
+                plain = functools.partial(k7s.mgga_xc_plain, nu, nd, gu, gd,
+                                          tu, td, names)
+            else:
+                kern = functools.partial(k7s.mgga_xc_unpolarized, rho, g1,
+                                         tt, names)
+                plain = functools.partial(k7s.mgga_xc_unpolarized_plain, rho,
+                                          g1, tt, names)
+            nbytes = n * (168.0 if pol else 88.0)
+        elif name.startswith("lda_xc"):
             if pol:
                 kern = functools.partial(k7.lda_xc, nu, nd, names)
                 plain = functools.partial(k7.lda_xc_plain, nu, nd, names)
@@ -730,7 +822,7 @@ def check_kernels_xc(deck: str, ctx, dev, gpu: str) -> dict:
     _, _, _, fu, fd = k7g.gga_xc(nu, nd, gu, gd, PBE)
     boxes = torch.fft.fftn(torch.stack([fu, fd]).view((2, 3) + dims).to(
         torch.complex128), dim=(-3, -2, -1), norm="forward").view(2, 3, n)
-    del fu, fd, gu, gd, g1
+    del fu, fd, gu, gd, g1, tu, td, tt
     gargs = (tables.gcart, tables.fft_index)
     # no single PyTorch call forms i G_c f and scatters it, or gathers and
     # sums it: library_ms null
@@ -747,6 +839,75 @@ def check_kernels_xc(deck: str, ctx, dev, gpu: str) -> dict:
            lambda: k10.divergence_pw_plain(boxes, *gargs), None,
            nbytes=2 * 3 * ng * 16 + ng * 28 + 2 * ng * 16,
            flops=2 * ng * 12.0)
+    return out
+
+
+def check_kernels_tau(deck: str, ctx, dev, gpu: str) -> dict:
+    """K11a and K11b against their plain versions at this deck's band-solve
+    shapes: one component of the tau operator applied to the Davidson step's
+    block [nk, nb, ngk], with non-zero values on the padded lanes (they
+    point at the G = 0 slot). K11b adds its three components into H psi in
+    order, the last one timed (it gathers the box and reads and writes
+    hpsi). Returns {kernel: record}."""
+    import numpy as np
+    import torch
+
+    from sirius_tpu_torch.kernels import mgga_tau as k11
+    from sirius_tpu_torch.parallel.batched import make_hkset_params
+
+    nk, nb, ngk = ctx.gkvec.num_kpoints, ctx.num_bands, ctx.gkvec.ngk_max
+    dims = tuple(ctx.fft_coarse.dims)
+    n = int(np.prod(dims))
+    rng = np.random.default_rng(23)
+    hk = make_hkset_params(ctx, np.zeros(dims), device=dev).hk()
+    mask, idx = hk.mask, hk.fft_index
+    gkc = torch.as_tensor(np.asarray(ctx.gkvec.gkcart, dtype=np.float64),
+                          device=dev)
+    psi = torch.as_tensor(rng.standard_normal((nk, nb, ngk))
+                          + 1j * rng.standard_normal((nk, nb, ngk)),
+                          device=dev)
+    out = {}
+    record = functools.partial(record_kernel, out, deck, gpu)
+
+    # yardstick: the scatter as one index_put_ into a zeroed box
+    bi, gi = torch.nonzero(mask > 0, as_tuple=True)
+    rows = (bi[:, None] * nb
+            + torch.arange(nb, device=dev)[None, :]).reshape(-1)
+    cols = idx[bi, gi].long().repeat_interleave(nb)
+    vals = (gkc[bi, gi, 1][:, None] * psi.permute(0, 2, 1)[bi, gi]).reshape(-1)
+
+    def lib_scatter():
+        z = torch.zeros((nk * nb, n), dtype=torch.complex128, device=dev)
+        return z.index_put_((rows, cols), vals)
+
+    args = (psi, gkc, 1, idx, mask, n)
+    record("mgga_tau.grad_to_box", [k11.grad_to_box(*args)],
+           [k11.grad_to_box_plain(*args)],
+           lambda: k11.grad_to_box(*args),
+           lambda: k11.grad_to_box_plain(*args), lib_scatter,
+           nbytes=nk * nb * ngk * 16 + nk * ngk * 20 + nk * nb * n * 16,
+           flops=nk * nb * ngk * 2.0)
+    del vals, rows, cols
+
+    boxes = [k11.grad_to_box(psi, gkc, c, idx, mask, n) for c in range(3)]
+    h0 = torch.as_tensor(rng.standard_normal((nk, nb, ngk))
+                         + 1j * rng.standard_normal((nk, nb, ngk)), device=dev)
+
+    def run(fn):
+        h = h0.clone()
+        for c in range(3):
+            fn(boxes[c], gkc, c, idx, mask, h)
+        return h
+
+    h_t = run(k11.box_to_pw_tau)
+    gidx = idx.long()[:, None, :].expand(nk, nb, ngk)
+    record("mgga_tau.box_to_pw_tau", [run(k11.box_to_pw_tau)],
+           [run(k11.box_to_pw_tau_plain)],
+           lambda: k11.box_to_pw_tau(boxes[2], gkc, 2, idx, mask, h_t),
+           lambda: k11.box_to_pw_tau_plain(boxes[2], gkc, 2, idx, mask, h_t),
+           lambda: torch.gather(boxes[2], 2, gidx),
+           nbytes=nk * nb * ngk * (16 + 32) + nk * ngk * 20,
+           flops=nk * nb * ngk * 8.0)
     return out
 
 
@@ -787,6 +948,8 @@ def wrappers() -> dict:
     from sirius_tpu_torch.kernels import gga_xc as k7g
     from sirius_tpu_torch.kernels import lda_xc as k7
     from sirius_tpu_torch.kernels import local_hpsi as k1
+    from sirius_tpu_torch.kernels import mgga_tau as k11
+    from sirius_tpu_torch.kernels import mgga_xc as k7s
     from sirius_tpu_torch.kernels import symmetrize_pw as k6
     from sirius_tpu_torch.kernels import veff_multiply as k1c
     from sirius_tpu_torch.kernels import xc_gradient as k10
@@ -794,8 +957,9 @@ def wrappers() -> dict:
     n = "launches"
     # every functional sum counts on its kernel's wrapper: each summary row
     # reads the count of the run that only launches its sum
-    xc = {name: (k7.lda_xc if name.startswith("lda") else k7g.gga_xc, n)
-          for name in XC_CHECKS}
+    kernel = {"lda_xc": k7.lda_xc, "gga_xc": k7g.gga_xc,
+              "mgga_xc": k7s.mgga_xc}
+    xc = {name: (kernel[name.split(".")[0]], n) for name in XC_CHECKS}
     return {"local_hpsi.pw_to_box": (k1.pw_to_box, n),
             "local_hpsi.box_to_pw_hpsi": (k1.box_to_pw_hpsi, n),
             "davidson_residual": (k2.davidson_residual, n),
@@ -813,7 +977,9 @@ def wrappers() -> dict:
             **xc,
             "xc_gradient.gradient_boxes": (k10.gradient_boxes, n),
             "xc_gradient.divergence_pw": (k10.divergence_pw, n),
-            "symmetrize_pw.axial": (k6.symmetrize_pw, "launches_axial")}
+            "symmetrize_pw.axial": (k6.symmetrize_pw, "launches_axial"),
+            "mgga_tau.grad_to_box": (k11.grad_to_box, n),
+            "mgga_tau.box_to_pw_tau": (k11.box_to_pw_tau, n)}
 
 
 # the kernels each SCF path must launch: the norm-conserving k-set path runs
@@ -838,14 +1004,18 @@ SINGLE_K_PATH = {"gamma_nc": ("gamma", GAMMA_KERNELS),
                  "chunked_us_sym": ("chunked", CHUNKED_US_KERNELS)}
 GGA_KERNELS = ("gga_xc.pbe", "xc_gradient.gradient_boxes",
                "xc_gradient.divergence_pw")
+# SCAN on the k-set path: K7s, the gradient halves and the tau operator
+MGGA_KERNELS = ("mgga_xc.scan", "xc_gradient.gradient_boxes",
+                "xc_gradient.divergence_pw", "mgga_tau.grad_to_box",
+                "mgga_tau.box_to_pw_tau")
 
 
-def xc_kernels(base, gga: bool, axial: bool) -> tuple:
+def xc_kernels(base, gga: bool, axial: bool, mgga: bool = False) -> tuple:
     """A path's kernels for a deck of other functionals or spin: GGA runs
-    K7g, K10a and K10b in place of K7; a polarized deck with symmetry runs
-    K6 on its axial fields too."""
-    out = tuple(k for k in base if not (gga and k == "lda_xc"))
-    return out + (GGA_KERNELS if gga else ()) + (
+    K7g, K10a and K10b in place of K7, SCAN K7s, K10a, K10b, K11a and K11b;
+    a polarized deck with symmetry runs K6 on its axial fields too."""
+    out = tuple(k for k in base if not ((gga or mgga) and k == "lda_xc"))
+    return out + (MGGA_KERNELS if mgga else GGA_KERNELS if gga else ()) + (
         ("symmetrize_pw.axial",) if axial else ())
 
 
@@ -856,8 +1026,12 @@ XC_DECK_PATH = {
     "gamma_pbe_us_sym_fm": ("gamma", xc_kernels(GAMMA_US_KERNELS, True, True)),
     "gamma_nc_vwn": ("gamma", GAMMA_KERNELS),
     "gamma_nc_pbesol": ("gamma", xc_kernels(GAMMA_KERNELS, True, False)),
+    "scan_us_sym": ("kset", xc_kernels(US_KERNELS, False, False, mgga=True)),
+    "scan_us_sym_fm": ("kset", xc_kernels(US_KERNELS, False, True,
+                                          mgga=True)),
 }
 FULL_GAMMA_PBE_FM_KERNELS = xc_kernels(GAMMA_US_KERNELS, True, True)
+FULL_SCAN_KERNELS = xc_kernels(US_KERNELS, False, False, mgga=True)
 
 
 def reset_launches() -> None:
@@ -1094,6 +1268,9 @@ def main() -> int:
     ctx54fm = magnetic_supercell_context(
         3, GAMMA54, {"num_dft_iter": FULL_ITERS["full_width_gamma_pbe_fm"],
                      **RUN_TO_END, "xc_functionals": PBE, **SPIN}, US_SYM, 0.5)
+    ctx16scan = make_context(FULL, {
+        "num_dft_iter": FULL_ITERS["full_width_scan_us"], **RUN_TO_END,
+        "xc_functionals": SCAN}, US_SYM)
     emit({"phase": "contexts", "seconds": time.perf_counter() - t0})
 
     check_kernels("full_width_2atom", ctx2, dev, gpu)
@@ -1105,8 +1282,10 @@ def main() -> int:
     check_kernel_chunk("chunked_us_sym", single["chunked_us_sym"], 1, dev, gpu)
     kern54.update(check_kernel_chunk("si54_supercell3_chunk16", ctx54, CHUNK54,
                                      dev, gpu))
-    check_kernels_xc("si16_supercell2", ctx16, dev, gpu)
+    kern_mgga = check_kernels_xc("si16_supercell2", ctx16, dev, gpu)
     kern54xc = check_kernels_xc("si54_supercell3_gamma", ctx54, dev, gpu)
+    kern_mgga.update(check_kernels_tau("si16_supercell2_us_sym", ctx16us, dev,
+                                       gpu))
     check_kernel_axial("pw_us_sym_afm", xc_decks["pw_us_sym_afm"], dev, gpu)
     kern54xc.update(check_kernel_axial("si54_supercell3_gamma_fm", ctx54fm,
                                        dev, gpu))
@@ -1147,6 +1326,14 @@ def main() -> int:
         ctx54fm, dev, gpu, phase="full_width_gamma_pbe_fm",
         required=FULL_GAMMA_PBE_FM_KERNELS, deck="si54_supercell3_gamma_fm",
         path="gamma")
+    del ctx54fm
+    torch.cuda.empty_cache()
+    runs["full_width_scan_us"] = full_width(
+        ctx16scan, dev, gpu, phase="full_width_scan_us",
+        required=FULL_SCAN_KERNELS, deck="si16_supercell2_us_sym_scan")
+    launches_mgga = {name: runs[deck][name]
+                     for name, deck in SUMMARY_MGGA.items()}
+    kern_mgga = {name: kern_mgga[name] for name in launches_mgga}
     launches_xc = {name: runs[deck][name] for name, deck in SUMMARY_XC.items()}
     launches_xc.update({name: runs["full_width_gamma_pbe_fm"][name] for name in
                         ("xc_gradient.gradient_boxes",
@@ -1155,7 +1342,8 @@ def main() -> int:
 
     summary = []
     for records, counts in ((kern16, launches), (kern54, launches54),
-                            (kern54xc, launches_xc)):
+                            (kern54xc, launches_xc),
+                            (kern_mgga, launches_mgga)):
         for name, rec in records.items():
             summary.append({
                 "name": name, "route": "cuda", "source": SOURCE[name],

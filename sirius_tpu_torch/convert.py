@@ -81,6 +81,19 @@ def packed_from_numpy(x: np.ndarray, device) -> torch.Tensor:
                            device=resolve_device(device))
 
 
+def mgga_from_numpy(vtau_r, gkcart, device):
+    """The JAX tau operator's inputs as the port's: v_tau [ns, n1, n2, n3]
+    (a single [n1, n2, n3] box becomes ns = 1) and the Cartesian G+k
+    components [..., ngk, 3], both float64 tensors."""
+    device = resolve_device(device)
+    vtau = np.asarray(vtau_r, dtype=np.float64)
+    if vtau.ndim == 3:
+        vtau = vtau[None]
+    return (torch.as_tensor(vtau, device=device),
+            torch.as_tensor(np.asarray(gkcart, dtype=np.float64),
+                            device=device))
+
+
 def context_arrays(ctx) -> dict:
     """A context's tables under the names the JAX context uses (works on
     either package's SimulationContext: attribute access only)."""

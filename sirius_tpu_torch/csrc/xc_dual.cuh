@@ -12,8 +12,10 @@
 // against a constant, jnp.where on a branch) propagate the derivative of
 // the branch they select, as they do under jax.grad.
 //
-// Included by lda_xc.cu (K7, Dual<2> over n_up, n_dn) and gga_xc.cu (K7g,
-// Dual<5> polarized, Dual<2> over rho, sigma unpolarized).
+// Included by lda_xc.cu (K7, Dual<2> over n_up, n_dn), gga_xc.cu (K7g,
+// Dual<5> polarized, Dual<2> over rho, sigma unpolarized) and mgga_xc.cu
+// (K7s: SCAN exchange on Dual<3> per spin channel, SCAN correlation on
+// Dual<4>, Dual<3> over rho, sigma, tau unpolarized).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -34,7 +36,11 @@ enum : int {
     kGgaCPbe = 32,
     kGgaXPbeSol = 64,
     kGgaCPbeSol = 128,
+    kMggaXScan = 256,
+    kMggaCScan = 512,
     kLdaBits = kLdaX | kLdaCPz | kLdaCPw | kLdaCVwn,
+    kLdaGgaBits = 255,
+    kMggaBits = kMggaXScan | kMggaCScan,
 };
 
 constexpr double kPbeKappa = 0.804;
@@ -42,6 +48,18 @@ constexpr double kPbeMu = 0.2195149727645171;
 constexpr double kPbeBeta = 0.06672455060314922;
 constexpr double kPbeSolMu = 10.0 / 81.0;
 constexpr double kPbeSolBeta = 0.046;
+
+// SCAN (xc.py:190-203); B2, B1 and B4 as the JAX package derives them
+constexpr double kScanK1 = 0.065;
+constexpr double kScanMu = 10.0 / 81.0;
+constexpr double kScanB3 = 0.5;
+constexpr double kScanH0x = 1.174;
+constexpr double kScanA1 = 4.9479;
+constexpr double kScanC1x = 0.667, kScanC2x = 0.8, kScanDx = 1.24;
+constexpr double kScanC1c = 0.64, kScanC2c = 1.5, kScanDc = 0.7;
+constexpr double kScanB1c = 0.0285764, kScanB2c = 0.0889, kScanB3c = 0.125541;
+constexpr double kScanChi = 0.12802585262625815;
+constexpr double kScanGamma = 0.031091;
 
 template <int N>
 struct Dual {
@@ -183,6 +201,11 @@ __device__ __forceinline__ Dual<N> dexp(const Dual<N>& x) {
     return chain(x, e, e);
 }
 template <int N>
+__device__ __forceinline__ Dual<N> dexpm1(const Dual<N>& x) {
+    const double e = expm1(x.v);
+    return chain(x, e, e + 1.0);
+}
+template <int N>
 __device__ __forceinline__ Dual<N> datan(const Dual<N>& x) {
     return chain(x, atan(x.v), 1.0 / (1.0 + x.v * x.v));
 }
@@ -191,6 +214,14 @@ __device__ __forceinline__ Dual<N> datan(const Dual<N>& x) {
 template <int N>
 __device__ __forceinline__ Dual<N> dfloor(const Dual<N>& x, double lo) {
     return x.v >= lo ? x : constant<N>(lo);
+}
+// jnp.maximum(x, c) against a constant, as jax.grad differentiates it: the
+// slope of the selected branch, split in half at a tie
+template <int N>
+__device__ __forceinline__ Dual<N> dmaximum(const Dual<N>& x, double c) {
+    if (x.v > c) return x;
+    if (x.v < c) return constant<N>(c);
+    return chain(x, c, 0.5);
 }
 template <int N>
 __device__ __forceinline__ Dual<N> dclip(const Dual<N>& x, double lo, double hi) {
@@ -335,6 +366,94 @@ __device__ Dual<N> pbe_c_e(const Dual<N>& nu, const Dual<N>& nd, const Dual<N>& 
     const Dual<N> h = gamma * phi3 *
                       dlog1p((beta / gamma) * t2 * num / (1.0 + aa * t2 + dsq(aa) * dsq(t2)));
     return n * (eps_lda + h);
+}
+
+// ---- SCAN meta-GGA (xc.py:205-284) ----
+
+// the alpha interpolation: only the selected branch is evaluated, so its
+// value and derivative are the where's; the other branch (exp of a huge
+// negative number, 0 with a finite slope in the JAX code) contributes
+// nothing, as under jax.grad
+template <int N>
+__device__ Dual<N> scan_interp(const Dual<N>& alpha, double c1, double c2,
+                               double d) {
+    const Dual<N> am1 = alpha - 1.0;
+    if (alpha.v < 1.0) return dexp((-c1) * alpha / dmaximum(-am1, 1e-12));
+    return (-d) * dexp((-c2) / dmaximum(am1, 1e-12));
+}
+
+// exchange of one fully polarized channel (2 n_s, 4 sigma_ss, 2 tau_s)
+template <int N>
+__device__ Dual<N> scan_x_half(Dual<N> n2, const Dual<N>& sigma4,
+                               const Dual<N>& tau2) {
+    const double b2 = sqrt(5913.0 / 405000.0);
+    const double b1 = (511.0 / 13500.0) / (2.0 * b2);
+    const double b4 = kScanMu * kScanMu / kScanK1 - 1606.0 / 18225.0 - b1 * b1;
+    const double pi2 = kPi * kPi;
+    n2 = dmaximum(n2, kTiny);
+    const Dual<N> kf = dpow((3.0 * pi2) * n2, 1.0 / 3.0);
+    const Dual<N> ex_lda = (-(3.0 / (4.0 * kPi))) * kf * n2;
+    const Dual<N> s2 = sigma4 / dmaximum(4.0 * dsq(kf) * dsq(n2), kTiny);
+    const Dual<N> s = dsqrt(dmaximum(s2, kTiny));
+    const Dual<N> tau_w = sigma4 / (8.0 * n2);
+    const Dual<N> tau_u = (0.3 * pow(3.0 * pi2, 2.0 / 3.0)) * dpow(n2, 5.0 / 3.0);
+    const Dual<N> alpha = dmaximum(tau2 - tau_w, 0.0) / dmaximum(tau_u, kTiny);
+    const Dual<N> oma = 1.0 - alpha;
+    const Dual<N> x =
+        kScanMu * s2 * (1.0 + (b4 * s2 / kScanMu) * dexp((-fabs(b4)) * s2 / kScanMu)) +
+        dsq(b1 * s2 + b2 * oma * dexp((-kScanB3) * dsq(oma)));
+    const Dual<N> h1x = (1.0 + kScanK1) - kScanK1 / (1.0 + x / kScanK1);
+    const Dual<N> fx = scan_interp(alpha, kScanC1x, kScanC2x, kScanDx);
+    const Dual<N> gx = 1.0 - dexp((-kScanA1) / dsqrt(s));
+    return ex_lda * ((h1x + fx * (kScanH0x - h1x)) * gx);
+}
+
+// correlation on (n_up, n_dn, sigma = suu + 2 sud + sdd, tau = tu + td):
+// the caller forms sigma and tau and chains their partials back
+template <int N>
+__device__ Dual<N> scan_c_e(const Dual<N>& nu, const Dual<N>& nd,
+                            const Dual<N>& sigma, const Dual<N>& tau) {
+    const double pi2 = kPi * kPi;
+    const Dual<N> n = dmaximum(nu + nd, kTiny);
+    const Dual<N> zeta = dclip((nu - nd) / n, -0.999999, 0.999999);
+    const Dual<N> rs = dpow(3.0 / ((4.0 * kPi) * n), 1.0 / 3.0);
+    const Dual<N> kf = dpow((3.0 * pi2) * n, 1.0 / 3.0);
+    const Dual<N> s2 = sigma / dmaximum(4.0 * dsq(kf) * dsq(n), kTiny);
+    const Dual<N> opz = 1.0 + zeta;
+    const Dual<N> omz = 1.0 - zeta;
+    const Dual<N> ds = 0.5 * (dpow(opz, 5.0 / 3.0) + dpow(omz, 5.0 / 3.0));
+    const Dual<N> tau_w = sigma / (8.0 * n);
+    const Dual<N> tau_u =
+        (0.3 * pow(3.0 * pi2, 2.0 / 3.0)) * dpow(n, 5.0 / 3.0) * ds;
+    const Dual<N> alpha = dmaximum(tau - tau_w, 0.0) / dmaximum(tau_u, kTiny);
+    const Dual<N> phi = 0.5 * (dpow(opz, 2.0 / 3.0) + dpow(omz, 2.0 / 3.0));
+    const Dual<N> phi2 = dsq(phi);
+    const Dual<N> phi3 = phi * phi2;
+
+    // eps_c^1: PW92 + H1 (PBE-like with an rs-dependent beta)
+    const Dual<N> eps_lsda = lda_c_pw_e(nu, nd, true) / n;
+    const Dual<N> beta_rs = 0.066725 * (1.0 + 0.1 * rs) / (1.0 + 0.1778 * rs);
+    const Dual<N> t2 = pow(3.0 * pi2 / 16.0, 2.0 / 3.0) * s2 / dmaximum(phi2 * rs, kTiny);
+    const Dual<N> w1 = dexpm1(-eps_lsda / (kScanGamma * phi3));
+    const Dual<N> y = beta_rs / (kScanGamma * dmaximum(w1, kTiny)) * t2;
+    const Dual<N> gy = dpow(1.0 + 4.0 * y, -0.25);
+    const Dual<N> h1 = kScanGamma * phi3 * dlog1p(w1 * (1.0 - gy));
+    const Dual<N> eps1 = eps_lsda + h1;
+
+    // eps_c^0: the low-density limit + H0
+    const Dual<N> eps_lda0 = (-kScanB1c) / (1.0 + kScanB2c * dsqrt(rs) + kScanB3c * rs);
+    const Dual<N> w0 = dexpm1(-eps_lda0 / kScanB1c);
+    const Dual<N> ginf = dpow(1.0 + (4.0 * kScanChi) * s2, -0.25);
+    const Dual<N> h0 = kScanB1c * dlog1p(w0 * (1.0 - ginf));
+    const Dual<N> dxz = 0.5 * (dpow(opz, 4.0 / 3.0) + dpow(omz, 4.0 / 3.0));
+    const Dual<N> z2 = zeta * zeta;
+    const Dual<N> z4 = z2 * z2;
+    const Dual<N> z12 = z4 * (z4 * z4);
+    const Dual<N> gc = (1.0 - 2.3631 * (dxz - 1.0)) * (1.0 - z12);
+    const Dual<N> eps0 = (eps_lda0 + h0) * gc;
+
+    const Dual<N> fc = scan_interp(alpha, kScanC1c, kScanC2c, kScanDc);
+    return n * (eps1 + fc * (eps0 - eps1));
 }
 
 // the masked sum of the functionals' energies after the _TINY floor

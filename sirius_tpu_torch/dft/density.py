@@ -271,6 +271,16 @@ def symmetrize_pw(tb: SymPwTables, f_g: torch.Tensor,
                                 tb.dims, tb.sign if axial_z else None)
 
 
+def symmetrize_tau(tb: SymPwTables, tau_g: torch.Tensor) -> torch.Tensor:
+    """The kinetic-energy density per spin [ns, ng] symmetrized as a scalar
+    field, each channel under every op (JAX scf.py:1961-1964). Under a
+    spin-flip op of a magnetic group the channels should swap instead
+    (tau_up(r) -> tau_dn(Rr)); the per-channel scalar average mixes them,
+    so a staggered spin difference of tau is averaged to zero. The JAX
+    package does the same; both are to change together."""
+    return torch.stack([symmetrize_pw(tb, t) for t in tau_g])
+
+
 def _beta_rotation_blocks(ctx: SimulationContext, op):
     """Per-atom-type block-diagonal Rlm rotation matrices for one symmetry
     op."""

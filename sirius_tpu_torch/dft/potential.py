@@ -2,15 +2,17 @@
 Potential::generate): Poisson -> XC (unpolarized or collinear) -> V_eff
 assembly, plus the energy integrals the reference reports (energy.hpp:280).
 
-Mirrors the LDA and GGA branches of sirius_tpu/dft/potential.py::
-generate_potential (:76-228; the device form :256-383 is the same
-arithmetic) on device tensors. Collinear magnetism follows the reference's
-layout: charge rho and magnetization m_z; the XC potential splits into the
-charge part V_xc and the field B_z = (V_up - V_dn)/2, which enters the two
-spin channels with opposite signs. The XC evaluation is K7 / K7b (LDA) or
-K7g (GGA), the gradient and divergence of GGA are K10a / K10b around
-cuFFT, and the space-group symmetrization of V_eff(G) and B_z(G) (the
-latter as an axial field) is K6.
+Mirrors sirius_tpu/dft/potential.py::generate_potential (:76-228; the
+device form :256-383 is the same arithmetic for LDA and GGA) on device
+tensors. Collinear magnetism follows the reference's layout: charge rho
+and magnetization m_z; the XC potential splits into the charge part V_xc
+and the field B_z = (V_up - V_dn)/2, which enters the two spin channels
+with opposite signs. The XC evaluation is K7 / K7b (LDA), K7g (GGA) or K7s
+(SCAN meta-GGA, which also reads the kinetic-energy density tau and
+returns v_tau); the gradient and divergence of GGA and mGGA are K10a /
+K10b around cuFFT, and the space-group symmetrization of V_eff(G) and
+B_z(G) (the latter as an axial field) is K6. v_tau is not symmetrized, as
+in the JAX package.
 """
 
 from __future__ import annotations
@@ -35,6 +37,9 @@ class PotentialResult:
     vha_g: torch.Tensor
     vxc_g: torch.Tensor  # fine G: XC potential alone
     energies: dict  # python floats, reference names
+    # mGGA only: per-spin v_tau = de/dtau on the coarse box for the
+    # -1/2 div(v_tau grad) operator (ops/mgga.py); None otherwise
+    vtau_r_coarse: torch.Tensor | None = None
 
 
 def _inner_rr(omega: float, f_r: torch.Tensor, g_r: torch.Tensor) -> float:
@@ -74,12 +79,19 @@ def generate_potential(
     xc: XCFunctional,
     tables: GridTables,
     mag_g: torch.Tensor | None = None,
+    tau_g: torch.Tensor | None = None,
 ) -> PotentialResult:
     """rho_g (and mag_g, the z magnetization of a collinear run): [ng]
-    complex128 on the device of ``tables``."""
+    complex128 on the device of ``tables``. tau_g (mGGA only): the per-spin
+    kinetic-energy density [ns, ng] on the fine G set (ops/mgga.tau_kset
+    through density_from_coarse_acc); unpolarized its one row is the total
+    tau."""
     dims = tables.dims
     npt = dims[0] * dims[1] * dims[2]
+    ng_fine = rho_g.shape[-1]
     polarized = mag_g is not None
+    if xc.is_mgga and tau_g is None:
+        raise ValueError("mGGA functional needs tau_g")
     vha_g = hartree_potential_g(rho_g, tables.glen2)
     rho_r = g_to_r(rho_g, tables.fft_index, dims).real
     rho_core_r = tables.rho_core_r
@@ -89,6 +101,10 @@ def generate_potential(
     def to_r(f_g):
         return g_to_r(f_g, tables.fft_index, dims).real
 
+    tau_r = None  # mGGA: tau per spin on the fine box
+    if xc.is_mgga:
+        tau_r = torch.stack([to_r(t) for t in tau_g.reshape(-1, ng_fine)])
+    vtau = None  # mGGA: v_tau per spin on the fine box, [ns, npt]
     if polarized:
         mag_r = to_r(mag_g)
         # clip |m| <= rho_xc (reference density guard) and split the
@@ -101,9 +117,16 @@ def generate_potential(
             # gradients of the UNCLIPPED spin densities (potential.py:110-115)
             g = gradient_r(tables, torch.stack([0.5 * (rho_tot_g + mag_g),
                                                 0.5 * (rho_tot_g - mag_g)]))
-            e, v_up, v_dn, fu, fd = xc.evaluate_gga_polarized(
-                n_up, n_dn, g[0].view(3, npt), g[1].view(3, npt))
-            del g
+            gu, gd = g[0].view(3, npt), g[1].view(3, npt)
+            if xc.is_mgga:
+                e, v_up, v_dn, fu, fd, vtu, vtd = xc.evaluate_mgga_polarized(
+                    n_up, n_dn, gu, gd, tau_r[0].reshape(-1),
+                    tau_r[1].reshape(-1))
+                vtau = torch.stack([vtu, vtd])
+            else:
+                e, v_up, v_dn, fu, fd = xc.evaluate_gga_polarized(
+                    n_up, n_dn, gu, gd)
+            del g, gu, gd
             # v_s -= div(2 vsigma_ss grad n_s + vsigma_ud grad n_s')
             div = to_r(divergence_g(tables, torch.stack([fu, fd]).view(
                 (2, 3) + dims)))
@@ -122,7 +145,12 @@ def generate_potential(
         rho_xc = torch.clamp(rho_r + rho_core_r, min=0.0)
         if xc.is_gga:
             g = gradient_r(tables, rho_tot_g[None])[0].view(3, npt)
-            e, v, flux = xc.evaluate_gga(rho_xc.reshape(-1), g)
+            if xc.is_mgga:
+                e, v, flux, vt = xc.evaluate_mgga(rho_xc.reshape(-1), g,
+                                                  tau_r[0].reshape(-1))
+                vtau = vt[None]
+            else:
+                e, v, flux = xc.evaluate_gga(rho_xc.reshape(-1), g)
             del g
             vxc_r = v.view(dims) - to_r(divergence_g(
                 tables, flux.view((1, 3) + dims))[0])
@@ -152,6 +180,18 @@ def generate_potential(
     else:
         veff_r_coarse = v_r[None].contiguous()
 
+    # mGGA: v_tau per spin, smoothed through the coarse G set for the
+    # -1/2 div(v_tau grad) operator, and the int v_tau tau integral that the
+    # eval_sum double-counting correction needs (potential.py:189-205)
+    vtau_r_coarse = None
+    e_vtau_tau = 0.0
+    if vtau is not None:
+        vtau_r_coarse = torch.stack([
+            to_coarse(r_to_g(v.view(dims), tables.fft_index, dims))
+            for v in vtau])
+        e_vtau_tau = sum(_inner_rr(tables.omega, tau_r[s], vtau[s].view(dims))
+                         for s in range(vtau.shape[0]))
+
     vha_r = to_r(vha_g)
     veff_r_fine = to_r(veff_g)
     om = tables.omega
@@ -162,7 +202,7 @@ def generate_potential(
         "veff": _inner_rr(om, rho_r, veff_r_fine),
         "exc": _inner_rr(om, rho_r + rho_core_r, exc_r),
         "bxc": _inner_rr(om, mag_r, to_r(bz_g)) if polarized else 0.0,
-        "vtau_tau": 0.0,
+        "vtau_tau": e_vtau_tau,
     }
     return PotentialResult(
         veff_g=veff_g,
@@ -171,4 +211,5 @@ def generate_potential(
         vha_g=vha_g,
         vxc_g=vxc_g,
         energies=energies,
+        vtau_r_coarse=vtau_r_coarse,
     )

@@ -6,10 +6,11 @@ configurations of the port: unpolarized or collinear spin-polarized
 (num_mag_dims 1), norm-conserving or ultrasoft plane-wave pseudopotentials
 on a k-mesh, with or without the space group (irreducible k-mesh,
 symmetrized density, magnetization and potential; the magnetic subgroup
-and its spin-flip ops), any sum of the LDA and PBE-family GGA functionals,
-linear or Anderson mixing of [rho; m]. Orchestration is host Python; the
-band solve, density, mixing and potential run on tensors on ``device``,
-which is the GPU unless the caller asks for the CPU.
+and its spin-flip ops), any sum of the LDA, PBE-family GGA and SCAN
+meta-GGA functionals, linear or Anderson mixing of [rho; m].
+Orchestration is host Python; the band solve, density, mixing and
+potential run on tensors on ``device``, which is the GPU unless the
+caller asks for the CPU.
 
 The band solve takes one of three paths, chosen as the JAX package chooses
 on one device (scf.py:676-713): the chunked-projector solve
@@ -17,12 +18,14 @@ on one device (scf.py:676-713): the chunked-projector solve
 over budget or when control.beta_chunked forces it, else the Gamma
 packed-real solve (ops/gamma.py, one spin at a time) for a Gamma-only deck
 with control.reduce_gvec, else the batched k-set solve over every (k, spin)
-(parallel/batched.py).
+(parallel/batched.py). A meta-GGA deck always takes the k-set solve, with
+the tau term in the operator (ops/mgga.py), as in the JAX package.
 """
 
 from __future__ import annotations
 
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -40,6 +43,7 @@ from sirius_tpu_torch.dft.density import (
     rho_real_space,
     symmetrize_density_matrix_device,
     symmetrize_pw,
+    symmetrize_tau,
 )
 from sirius_tpu_torch.dft.mixer import Mixer, schedule_res_tol
 from sirius_tpu_torch.dft.occupation import find_fermi
@@ -65,6 +69,7 @@ from sirius_tpu_torch.ops.gamma import (
     pack_diags,
     unpack_device,
 )
+from sirius_tpu_torch.ops.mgga import davidson_kset_mgga, tau_kset
 from sirius_tpu_torch.parallel.batched import (
     compute_h_diag,
     compute_o_diag,
@@ -107,7 +112,7 @@ def check_supported(cfg: Config) -> None:
         raise NotImplementedError("Hubbard corrections: ROADMAP queue 1, slice 10")
     if p.so_correction:
         raise NotImplementedError("spin-orbit: ROADMAP queue 1, slice 10")
-    XCFunctional(p.xc_functionals)  # raises for SCAN
+    XCFunctional(p.xc_functionals)  # raises for an unknown name
     if cfg.mixer.type not in ("linear", "anderson", "broyden1"):
         raise NotImplementedError(
             f"mixer '{cfg.mixer.type}': ROADMAP queue 1, slice 5")
@@ -123,13 +128,17 @@ def check_context(cfg: Config, ctx: SimulationContext) -> None:
 
 def band_solve_path(cfg: Config, ctx: SimulationContext) -> str:
     """"chunked", "gamma" or "kset": the band solve the JAX package takes
-    for this deck on one device (scf.py:676-713; Hubbard, PAW and mGGA,
-    which also decide there, are refused before this).
-    The chunked branch is tested first: a single unpolarized k-point with
-    projectors, taken when control.beta_chunked forces it or, on "auto",
-    when the dense [nbeta, ngk] complex table exceeds
+    for this deck on one device (scf.py:676-713; Hubbard and PAW, which also
+    decide there, are refused before this).
+    A meta-GGA deck takes the k-set solve, whatever its k-set and control
+    (scf.py:689, :709: the tau operator is complex and per k-point).
+    Otherwise the chunked branch is tested first: a single unpolarized
+    k-point with projectors, taken when control.beta_chunked forces it or,
+    on "auto", when the dense [nbeta, ngk] complex table exceeds
     control.beta_chunk_budget_bytes. Else a Gamma-only k-set with
     control.reduce_gvec takes the packed-real path, one spin at a time."""
+    if XCFunctional(cfg.parameters.xc_functionals).is_mgga:
+        return "kset"
     c = cfg.control
     nk = ctx.gkvec.num_kpoints
     nbeta = ctx.beta.num_beta_total
@@ -212,6 +221,12 @@ def run_scf(cfg: Config, ctx: SimulationContext | None = None,
         ctx = SimulationContext.create(cfg)
     check_context(cfg, ctx)
     xc = XCFunctional(p.xc_functionals)
+    mgga = xc.is_mgga
+    if mgga and ctx.aug is not None:
+        warnings.warn(
+            "mGGA with ultrasoft augmentation: tau is computed from the "
+            "smooth wave functions only (no augmentation tau), matching "
+            "the common PW-code approximation")
     nk, ns, nb = ctx.gkvec.num_kpoints, ctx.num_spins, ctx.num_bands
     polarized = ctx.num_mag_dims == 1
     nel = ctx.unit_cell.num_valence_electrons - p.extra_charge
@@ -231,7 +246,14 @@ def run_scf(cfg: Config, ctx: SimulationContext | None = None,
     mag_g = (torch.as_tensor(initial_magnetization_g(ctx),
                              dtype=torch.complex128, device=device)
              if polarized else None)
-    pot = generate_potential(ctx, rho_g, xc, tables, mag_g)
+    # mGGA: tau = 0 before the first band solve (SCAN's alpha = 0 region);
+    # the Cartesian G+k vectors of the tau operator, uploaded once
+    tau_g = gkc = None
+    if mgga:
+        tau_g = torch.zeros((ns, ng), dtype=torch.complex128, device=device)
+        gkc = torch.as_tensor(np.asarray(ctx.gkvec.gkcart, dtype=np.float64),
+                              device=device)
+    pot = generate_potential(ctx, rho_g, xc, tables, mag_g, tau_g)
     psi_big = _initial_subspace(ctx)
     psi = None
     # the mixed vector: [rho; m] polarized (scf.py:507-530)
@@ -368,15 +390,20 @@ def run_scf(cfg: Config, ctx: SimulationContext | None = None,
                                  prm.o_diag, prm.mask,
                                  num_steps=itsol.num_steps, res_tol=res_tol)
             psi = x[None]
+        elif mgga:
+            # the tau term in the operator (scf.py:1566-1575)
+            ev, psi, rn = davidson_kset_mgga(ps, pot.vtau_r_coarse, gkc, psi,
+                                             num_steps=itsol.num_steps,
+                                             res_tol=res_tol)
         else:
             ev, psi, rn = davidson_kset(ps, psi, num_steps=itsol.num_steps,
                                         res_tol=res_tol)
         counters["num_loc_op_applied"] += nk * ns * num_applies(itsol.num_steps, nb)
-        if path == "kset":
+        if path == "kset" and not mgga:
             _, rn_ok = residual_health(rn, blowup=cfg.control.band_residual_blowup)
             if not rn_ok:
                 # one deeper retry, warm-started from the stagnated block (the
-                # JAX package retries on this path only)
+                # JAX package retries on this path only, and not under mGGA)
                 ev, psi, rn = davidson_kset(ps, psi,
                                             num_steps=2 * itsol.num_steps,
                                             res_tol=res_tol)
@@ -393,6 +420,14 @@ def run_scf(cfg: Config, ctx: SimulationContext | None = None,
         occ_w = occ * kweights[:, None, None]
         rho_spin = density_from_coarse_acc(ctx, density_kset(ps, psi, occ_w),
                                            tables)
+        if mgga:
+            # tau of the current bands, symmetrized as a scalar field per
+            # spin; not mixed: the potential takes the mixed rho with this
+            # fresh tau (scf.py:1949-1969)
+            tau_g = density_from_coarse_acc(ctx, tau_kset(ps, gkc, psi, occ_w),
+                                            tables)
+            if tables.sym is not None:
+                tau_g = symmetrize_tau(tables.sym, tau_g)
         if aug_tables is not None:
             # beta density matrix -> its space-group average -> rho_aug (K4)
             dm = density_matrix_kset(beta_dense, psi, occ_w)
@@ -432,7 +467,7 @@ def run_scf(cfg: Config, ctx: SimulationContext | None = None,
             return e
 
         e1 = _epot(pot)
-        pot = generate_potential(ctx, rho_g, xc, tables, mag_g)
+        pot = generate_potential(ctx, rho_g, xc, tables, mag_g, tau_g)
         if not bool(torch.all(torch.isfinite(pot.veff_r_coarse))):
             raise FloatingPointError(
                 f"non-finite effective potential at SCF iteration {it + 1}")
@@ -440,8 +475,8 @@ def run_scf(cfg: Config, ctx: SimulationContext | None = None,
         scf_correction = _epot(pot) - e1 if p.use_scf_correction else 0.0
         eval_sum = float(torch.sum(kweights[:, None, None] * occ * evals))
         e = pot.energies
-        e_total = (eval_sum - e["vxc"] - e["bxc"] - 0.5 * e["vha"] + e["exc"]
-                   + ctx.e_ewald + scf_correction)
+        e_total = (eval_sum - e["vxc"] - e["bxc"] - e["vtau_tau"]
+                   - 0.5 * e["vha"] + e["exc"] + ctx.e_ewald + scf_correction)
         etot_history.append(e_total + float(entropy_sum))
         rms_history.append(rms)
         if polarized:
@@ -462,8 +497,8 @@ def run_scf(cfg: Config, ctx: SimulationContext | None = None,
     e = pot.energies
     eval_sum = float(np.sum(ctx.kweights[:, None, None] * occ_np * evals_np))
     ent = 0.0 if entropy_sum is None else float(entropy_sum)
-    e_total = (eval_sum - e["vxc"] - e["bxc"] - 0.5 * e["vha"] + e["exc"]
-               + ctx.e_ewald + scf_correction)
+    e_total = (eval_sum - e["vxc"] - e["bxc"] - e["vtau_tau"]
+               - 0.5 * e["vha"] + e["exc"] + ctx.e_ewald + scf_correction)
     rho_r = rho_real_space(tables, rho_g)
     result = {
         "converged": converged,
@@ -482,7 +517,7 @@ def run_scf(cfg: Config, ctx: SimulationContext | None = None,
             "total": e_total,
             "free": e_total + ent,
             "eval_sum": eval_sum,
-            "kin": eval_sum - e["veff"] - e["bxc"],
+            "kin": eval_sum - e["veff"] - e["bxc"] - e["vtau_tau"],
             "veff": e["veff"],
             "vha": e["vha"],
             "vxc": e["vxc"],

@@ -25,7 +25,7 @@ CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
 SOURCES = ("local_hpsi", "davidson_residual", "density_accumulate", "lda_xc",
            "veff_multiply", "augmentation", "symmetrize_pw", "gamma_pack",
-           "beta_chunk", "gga_xc", "xc_gradient")
+           "beta_chunk", "gga_xc", "xc_gradient", "mgga_xc", "mgga_tau")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -79,6 +79,14 @@ SIGNATURES = {
     "xc_gradient": {
         "gradient_boxes": (_P, _P, _P, _P, _I, _I, _LL, _P),
         "divergence_pw": (_P, _P, _P, _P, _I, _I, _LL, _P),
+    },
+    "mgga_xc": {
+        "mgga_xc": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL,
+                    _I, _I, _P),
+    },
+    "mgga_tau": {
+        "grad_to_box": (_P, _P, _I, _P, _P, _P, _I, _I, _I, _LL, _I, _P),
+        "box_to_pw_tau": (_P, _P, _I, _P, _P, _P, _I, _I, _I, _LL, _I, _P),
     },
 }
 

@@ -21,7 +21,8 @@ from __future__ import annotations
 import torch
 
 from sirius_tpu_torch.kernels import build
-from sirius_tpu_torch.kernels.xc_functionals import eval_plain, func_mask
+from sirius_tpu_torch.kernels.xc_functionals import (MGGA_FUNCS, eval_plain,
+                                                    func_mask)
 
 
 def _sigma(a, b):
@@ -33,7 +34,7 @@ def _sigma(a, b):
 
 
 def gga_xc_plain(nu, nd, gu, gd, names):
-    e, vu, vd, vsuu, vsud, vsdd = eval_plain(
+    e, vu, vd, vsuu, vsud, vsdd, *_ = eval_plain(
         list(names), nu, nd, _sigma(gu, gu), _sigma(gu, gd), _sigma(gd, gd))
     fu = (2 * vsuu) * gu + vsud * gd
     fd = (2 * vsdd) * gd + vsud * gu
@@ -43,10 +44,17 @@ def gga_xc_plain(nu, nd, gu, gd, names):
 def gga_xc_unpolarized_plain(rho, g, names):
     half = 0.5 * rho
     s4 = 0.25 * _sigma(g, g)
-    e, vu, vd, vsuu, vsud, vsdd = eval_plain(list(names), half, half, s4, s4,
-                                             s4)
+    e, vu, vd, vsuu, vsud, vsdd, *_ = eval_plain(list(names), half, half, s4,
+                                                 s4, s4)
     vs = 0.25 * (vsuu + vsud + vsdd)
     return e, 0.5 * (vu + vd), (2.0 * vs) * g
+
+
+def _gga_mask(names) -> int:
+    bad = [n for n in names if n in MGGA_FUNCS]
+    if bad:
+        raise ValueError(f"gga_xc has no tau: {bad} run through mgga_xc")
+    return func_mask(names)
 
 
 def _check(n, fields, grads):
@@ -88,7 +96,7 @@ def _launch(nu, nd, gu, gd, mask: int):
 
 def gga_xc(nu, nd, gu, gd, names):
     """Polarized: (e, v_up, v_dn, flux_up, flux_dn)."""
-    mask = func_mask(names)
+    mask = _gga_mask(names)
     if not _check(nu.shape[0], (nu, nd), (gu, gd)):
         return gga_xc_plain(nu, nd, gu, gd, names)
     return _launch(nu, nd, gu, gd, mask)
@@ -100,7 +108,7 @@ gga_xc.launches = 0
 def gga_xc_unpolarized(rho, g, names):
     """Unpolarized: (e, v, flux). Launches the same kernel as gga_xc
     (counted on gga_xc.launches)."""
-    mask = func_mask(names)
+    mask = _gga_mask(names)
     if not _check(rho.shape[0], (rho,), (g,)):
         return gga_xc_unpolarized_plain(rho, g, names)
     e, v, _, f, _ = _launch(rho, None, g, None, mask)

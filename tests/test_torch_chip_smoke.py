@@ -1,8 +1,8 @@
 """chip_smoke.py off the card: without CUDA it exits non-zero and prints no
 result, and its kernel and parity phases run end to end on the CPU at the
-small decks, norm-conserving, ultrasoft + symmetry, Gamma-only and the
-collinear GGA decks (every wrapper then takes its plain version, so the
-checks compare the plain versions with themselves and no launch is
+small decks, norm-conserving, ultrasoft + symmetry, Gamma-only, the
+collinear GGA decks and SCAN (every wrapper then takes its plain version,
+so the checks compare the plain versions with themselves and no launch is
 counted). Its launch checks are held to what each band-solve path
 launches, and its decks to the reference tool's."""
 
@@ -38,6 +38,16 @@ GAMMA_CHECKED = ("gamma_pack.unpack_to_box", "gamma_pack.box_to_packed_hx",
                  "veff_multiply.real", "davidson_residual.f64")
 XC_CHECKED = tuple(chip_smoke.XC_CHECKS) + ("xc_gradient.gradient_boxes",
                                             "xc_gradient.divergence_pw")
+TAU_CHECKED = ("mgga_tau.grad_to_box", "mgga_tau.box_to_pw_tau")
+
+
+def reference_tool():
+    spec = importlib.util.spec_from_file_location(
+        "torch_port_reference",
+        os.path.join(ROOT, "tools", "torch_port_reference.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    return tool
 
 
 def reference(deck):
@@ -62,7 +72,7 @@ def test_phases_run_on_cpu(monkeypatch, capsys):
     recs = chip_smoke.check_kernels("small", ctx, dev, "cpu")
     assert sorted(recs) == sorted(NC_CHECKED)
     assert sorted(NC_CHECKED + US_CHECKED + GAMMA_CHECKED + ("beta_chunk",)
-                  + XC_CHECKED + ("symmetrize_pw.axial",)) \
+                  + XC_CHECKED + ("symmetrize_pw.axial",) + TAU_CHECKED) \
         == sorted(chip_smoke.SOURCE)
     for rec in recs.values():
         assert rec["max_rel_err"] <= rec["tol_rel"]
@@ -153,12 +163,40 @@ def test_xc_phases_run_on_cpu(monkeypatch, capsys):
     assert all(v == 0 for v in launches.values())
 
 
+def test_mgga_phases_run_on_cpu(monkeypatch, capsys):
+    # K11a / K11b against their plain versions, then the small SCAN deck
+    # through the parity phase with the SCAN path's kernels
+    monkeypatch.setattr(chip_smoke, "time_ms", lambda fn, **kw: (fn(), 0.0)[1])
+    dev = torch.device("cpu")
+    ctx = chip_smoke.make_context(SMALL, chip_smoke.TIGHT, chip_smoke.US_SYM)
+    recs = chip_smoke.check_kernels_tau("small_us_sym", ctx, dev, "cpu")
+    assert sorted(recs) == sorted(TAU_CHECKED)
+    for rec in recs.values():
+        assert rec["max_rel_err"] == 0.0
+        assert rec["library_ms"] is not None
+        assert rec["bound_ms"] > 0 and rec["bound_by"] == "bytes"
+    name = "small_scan_nc"
+    ref = reference(name)
+    shape, kind, _, params, _ = reference_tool().deck_spec(name)
+    scan = chip_smoke.make_context(shape, params, kind)
+    launches = chip_smoke.parity_scf(
+        scan, dev, ref, "cpu", phase="parity_scf_scan_nc", deck=name,
+        required=chip_smoke.xc_kernels(chip_smoke.NC_KERNELS, False, False,
+                                       mgga=True))
+    lines = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
+    parity = [r for r in lines if r.get("phase") == "parity_scf_scan_nc"][0]
+    assert parity["num_scf_iterations"] == ref["num_scf_iterations"]
+    assert set(launches) == set(chip_smoke.SOURCE)
+    assert all(v == 0 for v in launches.values())
+    assert set(chip_smoke.FULL_SCAN_KERNELS) >= set(chip_smoke.MGGA_KERNELS)
+    assert "lda_xc" not in chip_smoke.FULL_SCAN_KERNELS
+    assert set(chip_smoke.SUMMARY_MGGA) == {"mgga_xc.scan",
+                                            "mgga_xc.scan.unpolarized",
+                                            *TAU_CHECKED}
+
+
 def test_decks_match_the_reference_tool():
-    spec = importlib.util.spec_from_file_location(
-        "torch_port_reference",
-        os.path.join(ROOT, "tools", "torch_port_reference.py"))
-    tool = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(tool)
+    tool = reference_tool()
     for name, (shape, kind, params, moments) in chip_smoke.XC_DECKS.items():
         assert tool.deck_spec(name) == (shape, kind, {}, params, moments), name
         assert chip_smoke.XC_DECK_PATH[name][0] == (

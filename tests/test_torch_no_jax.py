@@ -40,6 +40,7 @@ def test_port_imports_no_jax():
     assert "sirius_tpu_torch.ops.hubbard" in res["modules"]
     for name in ("ops.gamma", "ops.beta_chunked", "kernels.gamma_pack",
                  "kernels.beta_chunk", "kernels.gga_xc",
-                 "kernels.xc_gradient", "kernels.xc_functionals"):
+                 "kernels.xc_gradient", "kernels.xc_functionals",
+                 "kernels.mgga_xc", "kernels.mgga_tau", "ops.mgga"):
         assert "sirius_tpu_torch." + name in res["modules"]
     assert len(res["modules"]) >= 30

@@ -1,13 +1,15 @@
 """Port parity: the effective potential (dft/potential.py with K7 / K7b /
-K7g, K10a / K10b and K6 on their plain versions) against the JAX package's
-generate_potential on the small antiferromagnetic deck (ultrasoft, its
-8-op magnetic space group, 4 ops spin-flip): unpolarized PBE, polarized
-X + PW92, polarized PBE and polarized PBEsol, from the free-atom density
-and the deck's initial magnetization plus a seeded perturbation.
-Compared: veff_g, bz_g, vxc_g, vha_g, both veff_r_coarse channels and every
-energy. Bound: 1e-12 relative to each field's largest magnitude, energies
-1e-12 Ha. Also the gradient and divergence halves (K10a / K10b plain
-versions) against the JAX package's _gradient_r and _divergence_g."""
+K7g / K7s, K10a / K10b and K6 on their plain versions) against the JAX
+package's generate_potential on the small antiferromagnetic deck
+(ultrasoft, its 8-op magnetic space group, 4 ops spin-flip): unpolarized
+PBE, polarized X + PW92, polarized PBE and polarized PBEsol, and SCAN
+unpolarized and polarized with a kinetic-energy density tau_g, from the
+free-atom density and the deck's initial magnetization plus a seeded
+perturbation. Compared: veff_g, bz_g, vxc_g, vha_g, both veff_r_coarse
+channels, vtau_r_coarse (SCAN) and every energy, vtau_tau included.
+Bound: 1e-12 relative to each field's largest magnitude, energies 1e-12
+Ha. Also the gradient and divergence halves (K10a / K10b plain versions)
+against the JAX package's _gradient_r and _divergence_g."""
 
 import numpy as np
 import pytest
@@ -35,11 +37,14 @@ AFM = dict(gk_cutoff=3.0, pw_cutoff=7.0, ngridk=(2, 2, 2), num_bands=8,
            moments=np.array([[0.0, 0.0, 0.5], [0.0, 0.0, -0.5]]),
            extra_params={"num_mag_dims": 1})
 PBE = ["XC_GGA_X_PBE", "XC_GGA_C_PBE"]
+SCAN = ["XC_MGGA_X_SCAN", "XC_MGGA_C_SCAN"]
 CASES = {
     "pbe_unpolarized": (PBE, False),
     "pw92_polarized": (["XC_LDA_X", "XC_LDA_C_PW"], True),
     "pbe_polarized": (PBE, True),
     "pbesol_polarized": (["XC_GGA_X_PBE_SOL", "XC_GGA_C_PBE_SOL"], True),
+    "scan_unpolarized": (SCAN, False),
+    "scan_polarized": (SCAN, True),
 }
 
 
@@ -64,16 +69,46 @@ def deck():
     return jctx, pctx, grid_tables(pctx, "cpu"), rho, mag
 
 
+def kinetic_density(jctx, rho, mag, polarized):
+    """A positive, space-group-symmetric tau_g [ns, ng]: per spin the
+    uniform-gas value 0.3 (6 pi^2)^(2/3) n_s^(5/3) times a smooth factor
+    between 0.5 and 1.5 (unpolarized: one row, the total of both spins)."""
+    phase = np.random.default_rng(41).uniform(0.0, 2.0 * np.pi)
+    halves = ([0.5 * (rho + mag), 0.5 * (rho - mag)] if polarized
+              else [0.5 * rho])
+    out = []
+    for f_g in halves:
+        n_s = np.maximum(jax_potential._to_r(jctx, f_g), 0.0)
+        fac = 1.0 + 0.5 * np.sin(phase + np.linspace(0.0, 2.0 * np.pi,
+                                                     n_s.size))
+        t_r = (0.3 * (6.0 * np.pi**2) ** (2.0 / 3.0) * n_s ** (5.0 / 3.0)
+               * fac.reshape(n_s.shape))
+        out.append(jax_potential._to_g(jctx, t_r))
+    if not polarized:
+        out = [2.0 * out[0]]
+    return np.stack([jax_symmetrize_pw(jctx, t) for t in out])
+
+
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_generate_potential_matches_jax(deck, case):
     jctx, pctx, tables, rho, mag = deck
     names, polarized = CASES[case]
+    mgga = names == SCAN
+    tau = kinetic_density(jctx, rho, mag, polarized) if mgga else None
     want = jax_potential.generate_potential(jctx, rho, JaxXC(names),
-                                            mag if polarized else None)
+                                            mag if polarized else None,
+                                            tau_g=tau)
     got = generate_potential(pctx, torch.as_tensor(rho), XCFunctional(names),
                              tables,
-                             torch.as_tensor(mag) if polarized else None)
-    for key in ("veff_g", "vxc_g", "vha_g", "veff_r_coarse"):
+                             torch.as_tensor(mag) if polarized else None,
+                             None if tau is None else torch.as_tensor(tau))
+    keys = ("veff_g", "vxc_g", "vha_g", "veff_r_coarse") + (
+        ("vtau_r_coarse",) if mgga else ())
+    assert (got.vtau_r_coarse is None) == (want.vtau_r_coarse is None)
+    if mgga:
+        assert got.vtau_r_coarse.shape[0] == (2 if polarized else 1)
+        assert abs(got.energies["vtau_tau"]) > 1e-3
+    for key in keys:
         a, b = getattr(got, key).numpy(), np.asarray(getattr(want, key))
         assert a.shape == b.shape, key
         assert rel(a, b) <= 1e-12, (key, rel(a, b))
@@ -86,6 +121,13 @@ def test_generate_potential_matches_jax(deck, case):
     assert set(got.energies) == set(want.energies)
     for key, value in want.energies.items():
         assert abs(got.energies[key] - value) <= 1e-12, key
+
+
+def test_mgga_needs_tau(deck):
+    _, pctx, tables, rho, _ = deck
+    with pytest.raises(ValueError, match="tau_g"):
+        generate_potential(pctx, torch.as_tensor(rho), XCFunctional(SCAN),
+                           tables)
 
 
 def test_gradient_and_divergence_match_jax(deck):

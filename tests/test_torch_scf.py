@@ -4,13 +4,15 @@ without symmetry, and ultrasoft with the space group and the irreducible
 k-mesh) and the three Gamma-only full-width 2-atom decks of the single-k
 band solves (packed-real Gamma, norm-conserving and ultrasoft + symmetry;
 chunked projectors, ultrasoft + symmetry) and the small collinear PBE
-decks (k-point antiferromagnetic, Gamma ferromagnetic) on the CPU against
-the JAX package's recorded results in
+decks (k-point antiferromagnetic, Gamma ferromagnetic) and the small SCAN
+meta-GGA decks (norm-conserving; ultrasoft + symmetry, antiferromagnetic)
+on the CPU against the JAX package's recorded results in
 sirius_tpu_torch/data/jax_reference.json (recomputed by the slow tests
 below). Bounds: every energy term and E_F to 1e-8 Ha, the same iteration
 count, the recorded electron count to 1e-10, the total and per-atom
-moments to 1e-6. Also the band-solve dispatch, the entry points' device
-rule and the NotImplementedError branches of what the port leaves out."""
+moments to 1e-6 (1e-8 on the SCAN decks). Also the band-solve dispatch,
+the entry points' device rule and the NotImplementedError branches of what
+the port leaves out."""
 
 import importlib.util
 import json
@@ -29,6 +31,7 @@ from sirius_tpu_torch.ops.beta_chunked import apply_h_s_chunked, make_chunked_hk
 from sirius_tpu_torch.ops.gamma import (apply_h_s_gamma, build_gamma_map,
                                         make_gamma_params)
 from sirius_tpu_torch.ops.hamiltonian import make_hk_params
+from sirius_tpu_torch.ops.mgga import apply_h_s_mgga
 from sirius_tpu_torch.parallel.batched import make_hkset_params
 from sirius_tpu_torch.testing import synthetic_silicon_context
 from sirius_tpu_torch.testing import threads_per_test_worker
@@ -66,7 +69,10 @@ SPIN_DECKS = {
 # the full-width decks of other functionals and spin, run on the card by
 # chip_smoke.py and recomputed by the slow test below
 XC_DECKS = ("pbe_us_sym", "pw_us_sym_afm", "gamma_pbe_us_sym_fm",
-            "gamma_nc_vwn", "gamma_nc_pbesol")
+            "gamma_nc_vwn", "gamma_nc_pbesol", "scan_us_sym", "scan_us_sym_fm")
+# the small SCAN decks, run here; the tool's deck_spec builds them
+SCAN = ["XC_MGGA_X_SCAN", "XC_MGGA_C_SCAN"]
+SCAN_DECKS = ("small_scan_nc", "small_scan_us_afm")
 
 
 def _load_reference_tool():
@@ -163,13 +169,68 @@ def test_spin_deck_matches_jax(reference, deck):
     assert np.array(res["band_energies"]).shape[1] == 2
 
 
+@pytest.mark.parametrize("deck", SCAN_DECKS)
+def test_scan_deck_matches_jax(reference, deck):
+    """SCAN on the k-set solve with the tau operator: norm-conserving
+    without symmetry, and ultrasoft + the magnetic space group with moments
+    +0.5 / -0.5 (tau symmetrized per spin, the ultrasoft warning; the
+    state relaxes to zero moments, see test_torch_mgga.py::
+    test_tau_symmetrization_under_spin_flip_ops for tau with a moment)."""
+    shape, kind, control, params, moments = \
+        _load_reference_tool().deck_spec(deck)
+    ref = reference[deck]
+    ctx = synthetic_silicon_context(
+        extra_params=dict(params), **kind, **shape,
+        moments=None if moments is None else np.asarray(moments))
+    assert control == {} and band_solve_path(ctx.cfg, ctx) == "kset"
+    calls = apply_h_s_mgga.calls
+    if ctx.aug is not None:
+        with pytest.warns(UserWarning, match="mGGA with ultrasoft"):
+            res = run_scf(ctx.cfg, ctx=ctx, device="cpu")
+    else:
+        res = run_scf(ctx.cfg, ctx=ctx, device="cpu")
+    assert apply_h_s_mgga.calls > calls
+    assert_matches(res, ref, ctx)
+    if moments is not None:
+        got = res["magnetisation"]
+        assert abs(got["total"][2] - ref["magnetisation"]["total"]) <= 1e-8
+        for a, b in zip(got["atoms"], ref["magnetisation"]["atoms"]):
+            assert abs(a[2] - b) <= 1e-8
+
+
+@pytest.mark.parametrize("control,ngridk", [
+    ({}, (1, 1, 1)),
+    ({"beta_chunked": "force"}, (1, 1, 1)),
+    ({"beta_chunked": True, "beta_chunk_size": 1}, (1, 1, 1)),
+    ({"beta_chunk_budget_bytes": 1.0}, (1, 1, 1)),
+    ({}, (2, 2, 2)),
+])
+def test_mgga_takes_the_kset_solve(control, ngridk):
+    # the JAX package keeps meta-GGA on the k-set solve whatever the k-set
+    # and control (scf.py:689, :709): Gamma-only with reduce_gvec and forced
+    # chunked projectors included
+    ctx = context({"xc_functionals": SCAN}, ngridk=ngridk)
+    for key, value in control.items():
+        setattr(ctx.cfg.control, key, value)
+    assert band_solve_path(ctx.cfg, ctx) == "kset"
+    if ngridk == (1, 1, 1) and not control:
+        assert ctx.cfg.control.reduce_gvec
+        ctx.cfg.parameters.num_dft_iter = 2
+        gamma, mgga = apply_h_s_gamma.calls, apply_h_s_mgga.calls
+        res = run_scf(ctx.cfg, ctx=ctx, device="cpu")
+        assert apply_h_s_gamma.calls == gamma and apply_h_s_mgga.calls > mgga
+        assert np.isfinite(res["energy"]["total"])
+
+
 def test_reference_file_names_its_command(reference):
     with open(REF_PATH) as f:
         rec = json.load(f)
     assert rec["command"] == _load_reference_tool().COMMAND
     assert set(reference) == {"small", "full_width_2atom", "small_us_sym",
                               "full_width_2atom_us_sym", *SINGLE_K,
-                              *SPIN_DECKS, *XC_DECKS}
+                              *SPIN_DECKS, *XC_DECKS, *SCAN_DECKS}
+    for name in (*SCAN_DECKS, "scan_us_sym", "scan_us_sym_fm"):
+        assert reference[name]["deck"]["xc_functionals"] == SCAN
     for name in SPIN_DECKS:
         assert reference[name]["deck"]["xc_functionals"] == PBE
         assert reference[name]["deck"]["moments"] == SPIN_DECKS[name][1]
@@ -217,8 +278,9 @@ def test_entry_points_default_to_cuda(monkeypatch, entry):
         call()
 
 
-# cases that raised in earlier slices and run now: collinear spin and GGA
-NOW_IN_SLICE = ("magnetism", "GGA")
+# cases that raised in earlier slices and run now: collinear spin, GGA and
+# SCAN
+NOW_IN_SLICE = ("magnetism", "GGA", "SCAN")
 
 
 @pytest.mark.parametrize("section,key,value,match", [

@@ -11,6 +11,8 @@ iterations and the device's busy share of it. The decks:
 - default: the 16-atom Si supercell (2x2x2 k-mesh, gk 6 / pw 20),
   norm-conserving without symmetry; --ultrasoft: the same cell with the
   ultrasoft species, its 384-op space group and the irreducible k-mesh;
+  --scan: that ultrasoft cell with the SCAN meta-GGA, the k-set band solve
+  with the tau operator (chip_smoke.py's full_width_scan_us);
 - --gamma: the 54-atom Gamma-only supercell (ultrasoft, 1296-op space
   group) through the packed-real Gamma band solve; --chunked: the same
   deck through the chunked projectors, 16 atoms a chunk; --gamma-pbe-fm:
@@ -19,7 +21,7 @@ iterations and the device's busy share of it. The decks:
   spin at a time (chip_smoke.py's full_width_gamma_pbe_fm).
 
     python3 tools/torch_port_profile.py
-        [--ultrasoft | --gamma | --chunked | --gamma-pbe-fm]
+        [--ultrasoft | --scan | --gamma | --chunked | --gamma-pbe-fm]
         [--iters 3] [--profiled 2] [--out FILE]
 
 Needs a CUDA card; exits non-zero without one.
@@ -44,9 +46,10 @@ HAND_KERNELS = ("scatter_valid", "gather_hpsi", "residual_rows",
                 "d_operator_finish_kernel", "symmetrize_pw_kernel",
                 "unpack_scatter", "pack_gather", "beta_chunk_kernel",
                 "gga_xc_polarized", "gga_xc_unpolarized", "gradient_scatter",
-                "divergence_gather")
+                "divergence_gather", "mgga_xc_polarized",
+                "mgga_xc_unpolarized", "grad_scatter", "grad_gather")
 # the band-solve entry point of each path, as dft/scf.py calls it
-SOLVES = ("davidson_kset", "davidson_gamma", "davidson")
+SOLVES = ("davidson_kset", "davidson_kset_mgga", "davidson_gamma", "davidson")
 
 
 def category(name: str) -> str:
@@ -77,6 +80,9 @@ def main(argv=None) -> int:
     deck.add_argument("--ultrasoft", action="store_true",
                       help="the 16-atom ultrasoft + symmetry deck instead of "
                       "the norm-conserving one")
+    deck.add_argument("--scan", action="store_true",
+                      help="the 16-atom ultrasoft + symmetry deck with SCAN "
+                      "(k-set band solve with the tau operator)")
     deck.add_argument("--gamma", action="store_true",
                       help="the 54-atom Gamma-only ultrasoft + symmetry deck "
                       "(packed-real band solve)")
@@ -103,8 +109,10 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     single_k = args.gamma or args.chunked or args.gamma_pbe_fm
-    us = args.ultrasoft or single_k
+    us = args.ultrasoft or args.scan or single_k
     run = {"num_dft_iter": args.iters, "density_tol": 0.0, "energy_tol": 0.0}
+    if args.scan:
+        run["xc_functionals"] = ["XC_MGGA_X_SCAN", "XC_MGGA_C_SCAN"]
     if args.gamma_pbe_fm:
         import chip_smoke
 
@@ -124,6 +132,7 @@ def main(argv=None) -> int:
     deck_name = ("si54_supercell3_chunk16" if args.chunked
                  else "si54_supercell3_gamma_pbe_fm" if args.gamma_pbe_fm
                  else "si54_supercell3_gamma" if args.gamma
+                 else "si16_supercell2_us_sym_scan" if args.scan
                  else "si16_supercell2_us_sym" if args.ultrasoft
                  else "si16_supercell2")
     first = args.iters - args.profiled

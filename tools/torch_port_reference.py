@@ -23,12 +23,42 @@ PBEsol, a fixed 14 iterations like gamma_nc), and at the small shape
 (Gamma, PBE, +0.5 / +0.5). Polarized decks also record the total and
 per-atom moments.
 
+Four decks carry the SCAN meta-GGA (XC_MGGA_X_SCAN + XC_MGGA_C_SCAN, the
+k-set band solve with the tau operator), each a fixed iteration count:
+"small_scan_nc" (small shape, norm-conserving, 34 iterations),
+"small_scan_us_afm" (small shape, ultrasoft + symmetry, moments +0.5 /
+-0.5, 28 iterations) and at the full-width 2-atom shape "scan_us_sym"
+(ultrasoft + symmetry) and "scan_us_sym_fm" (the same, moments +0.5 /
++0.5), 5 iterations each.
+
 gamma_nc runs a fixed 14 iterations (tolerances that cannot be met): its
 partly occupied band triplet at E_F, with no symmetry to average the
 density, makes the iteration count to a tolerance irreproducible even in
 the JAX package (its own start block perturbed by 1e-13 takes 10, 11 or 12
 iterations, and the energy terms of those runs differ by ~1.6e-8 Ha). At a
 fixed count past 12 every term is reproducible to ~3e-11 Ha.
+
+The SCAN decks have the same trouble, worse. SCAN's alpha has a kink at
+tau = tau_W (max(tau - tau_W, 0)), and points that sit on it flip their
+v_tau slope with the rounding: one iteration turns differences of 1e-13
+in the density into 1e-7 in v_tau. To a tolerance the JAX package's own
+start block perturbed by 1e-13 takes the small AFM deck to 20, 22 or 20
+iterations (23 unperturbed) and scan_us_sym to 19 or 19 (26
+unperturbed, E_total 3e-9 Ha apart); the small NC deck takes 26 or 30
+iterations in the port with 4 or 1 CPU threads; scan_us_sym_fm does not
+converge in 40 iterations (its density residual stays near 1e-5), and two
+runs that differ by rounding separate past 1e-8 Ha after iteration 8.
+So the small decks run fixed counts past the convergence of every run
+seen (34 and 28: there every term is reproducible to ~5e-12 and ~4e-10
+Ha), the full-width ones a fixed 5 (every term reproducible to ~4e-9 Ha).
+No count past convergence serves scan_us_sym: run on, its converged SCF
+hops between states ~1e-8 Ha apart in both packages (the JAX package,
+converged at 26 with a density residual of 9e-13, jumps at iteration 30
+to a residual of 4e-10 and a free energy 8.4e-9 Ha lower; the port on the
+CPU at 27; the port on the H100 lands at 26 on the JAX package's
+iteration-30 state, E_total 1.1e-10 apart, and at 30 on its converged
+one, 4e-11 apart), so a fixed 26 or 30 misses the 1e-8 gate in vxc by
+~1.2e-8 one way or the other.
 
 Run from the repository root (CPU, fp64):
 
@@ -58,8 +88,12 @@ NC = dict(ultrasoft=False, use_symmetry=False)
 US_SYM = dict(ultrasoft=True, use_symmetry=True)
 CHUNKED = {"beta_chunked": True, "beta_chunk_size": 1}
 FIXED_14 = {"num_dft_iter": 14, "density_tol": 0.0, "energy_tol": 0.0}
+FIXED_5 = dict(FIXED_14, num_dft_iter=5)
+FIXED_28 = dict(FIXED_14, num_dft_iter=28)
+FIXED_34 = dict(FIXED_14, num_dft_iter=34)
 SMALL_GAMMA = dict(SMALL, ngridk=(1, 1, 1))
 PBE = ["XC_GGA_X_PBE", "XC_GGA_C_PBE"]
+SCAN = ["XC_MGGA_X_SCAN", "XC_MGGA_C_SCAN"]
 SPIN = {"num_mag_dims": 1}
 # starting moments (mu_B along z) of the two atoms
 FM = [[0.0, 0.0, 0.5], [0.0, 0.0, 0.5]]
@@ -90,6 +124,13 @@ DECKS = {
                       dict(TIGHT, xc_functionals=PBE, **SPIN), AFM),
     "small_gamma_pbe_fm": (SMALL_GAMMA, US_SYM, {},
                            dict(TIGHT, xc_functionals=PBE, **SPIN), FM),
+    "small_scan_nc": (SMALL, NC, {}, dict(FIXED_34, xc_functionals=SCAN)),
+    "small_scan_us_afm": (SMALL, US_SYM, {},
+                          dict(FIXED_28, xc_functionals=SCAN, **SPIN), AFM),
+    "scan_us_sym": (FULL_2ATOM, US_SYM, {},
+                    dict(FIXED_5, xc_functionals=SCAN)),
+    "scan_us_sym_fm": (FULL_2ATOM, US_SYM, {},
+                       dict(FIXED_5, xc_functionals=SCAN, **SPIN), FM),
 }
 
 
