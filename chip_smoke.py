@@ -16,7 +16,9 @@ imports nothing of JAX or of sirius_tpu. Phases, each printing JSON lines:
    for X + PW92 and X + VWN5, K7g for PBE and PBEsol, K7s for SCAN, each
    polarized and unpolarized, on densities with dead channels and fully
    polarized points, K10a and K10b, and K6 on an axial field; the tau
-   operator's K11a and K11b at the 16-atom coarse box): error,
+   operator's K11a and K11b at the 16-atom coarse box; the non-collinear
+   kernels at the 2-atom and 16-atom spinor decks: K12a, K12b, K6v and K4
+   on four channels): error,
    kernel time (CUDA events, median of 21 samples of 5 launches after
    warm-up), the plain version's time, a one-call PyTorch yardstick where
    one exists (library_ms), and the least time the card could take
@@ -32,8 +34,13 @@ imports nothing of JAX or of sirius_tpu. Phases, each printing JSON lines:
    +0.5 / +0.5; parity_scf_gamma_nc_vwn and parity_scf_gamma_nc_pbesol:
    Gamma, NC, a fixed 14 iterations; parity_scf_scan_us and
    parity_scf_scan_us_fm: SCAN on the k-point US + symmetry deck,
-   unpolarized and +0.5 / +0.5), against the JAX package's recorded
-   energies and moments (sirius_tpu_torch/data/jax_reference.json);
+   unpolarized and +0.5 / +0.5), and the non-collinear decks of the spinor
+   k-set solve (parity_scf_small_spinor_us and
+   parity_scf_small_spinor_pbe_us_sym, magnetic; parity_scf_spinor_us and
+   parity_scf_spinor_pbe_us_sym at the parity shape, which relax to no
+   moment; spinor_moment_errors says what of the moments is compared),
+   against the JAX package's recorded energies and moments
+   (sirius_tpu_torch/data/jax_reference.json);
 4. full-width runs with tolerances that cannot be met, so every iteration
    runs: the 16-atom Si supercell, norm-conserving (full_width, 3 SCF
    iterations) and ultrasoft with its 384 space-group ops (full_width_us,
@@ -44,7 +51,9 @@ imports nothing of JAX or of sirius_tpu. Phases, each printing JSON lines:
    same cell spin-polarized with PBE and +0.5 on every atom through the
    packed-real solve, one spin at a time (full_width_gamma_pbe_fm, 4
    iterations); the 16-atom ultrasoft cell with SCAN on the k-set solve
-   with the tau operator (full_width_scan_us, 4 iterations); kernel
+   with the tau operator (full_width_scan_us, 4 iterations); the 16-atom
+   ultrasoft cell non-collinear with (0.3, 0.3, 0.3) on every atom, its 48
+   magnetic ops and 4 k-points (full_width_spinor_us, 4 iterations); kernel
    launches per iteration, peak device memory, electron count, total
    moment, finite energies.
 
@@ -54,7 +63,8 @@ kernels summary takes each kernel's launches from the full-width run of its
 path: full_width_us for K1-K7, full_width_gamma_us for K8a, K8b, K1c real
 and K2 float64, full_width_chunked_us for K9, full_width_gamma_pbe_fm for
 K7g (PBE), K10a, K10b and K6 on axial fields, full_width_scan_us for K7s
-unpolarized, K11a and K11b; K7b's X + PW92 and X + VWN5 rows, K7g's PBEsol
+unpolarized, K11a and K11b, full_width_spinor_us for K12a, K12b, K6v and
+K4 on four channels; K7b's X + PW92 and X + VWN5 rows, K7g's PBEsol
 row and K7s's polarized row take theirs from the parity decks that run
 them (parity_scf_pw_us_afm, parity_scf_gamma_nc_vwn,
 parity_scf_gamma_nc_pbesol, parity_scf_scan_us_fm).
@@ -134,6 +144,34 @@ XC_DECKS["scan_us_sym"] = (PARITY, US_SYM, dict(FIXED_5, xc_functionals=SCAN),
 XC_DECKS["scan_us_sym_fm"] = (PARITY, US_SYM,
                               dict(FIXED_5, xc_functionals=SCAN, **SPIN), FM)
 FULL_ITERS["full_width_scan_us"] = 4
+# the non-collinear decks (num_mag_dims 3, the spinor k-set solve; the same
+# decks as tools/torch_port_reference.py, each a fixed count past its
+# convergence): shape, species, SCF parameters, starting moments. The small
+# shape is the magnetic one (1.41 and 0.74 mu_B); at the parity shape the
+# cell relaxes to moments below 1e-7
+NONCOLLINEAR = {"num_mag_dims": 3}
+ORTHO = [[0.5, 0.0, 0.0], [0.0, 0.0, 0.5]]
+CANTED = [[0.3, 0.3, 0.3], [0.3, 0.3, 0.3]]
+US = dict(ultrasoft=True, use_symmetry=False)
+SMALL_SPINOR = dict(gk_cutoff=3.5, pw_cutoff=9.0, ngridk=(2, 2, 2),
+                    num_bands=16)
+SPINOR_DECKS = {
+    "small_spinor_us": (dict(SMALL_SPINOR, ngridk=(1, 1, 1)), US,
+                        {"num_dft_iter": 14, **RUN_TO_END,
+                         "smearing_width": 0.01, **NONCOLLINEAR}, ORTHO),
+    "small_spinor_pbe_us_sym": (SMALL_SPINOR, US_SYM,
+                                {"num_dft_iter": 20, **RUN_TO_END,
+                                 "smearing_width": 0.01, "xc_functionals": PBE,
+                                 **NONCOLLINEAR}, CANTED),
+    "spinor_us": (PARITY, US, {"num_dft_iter": 18, **RUN_TO_END,
+                               **NONCOLLINEAR}, ORTHO),
+    "spinor_pbe_us_sym": (PARITY, US_SYM,
+                          {"num_dft_iter": 24, **RUN_TO_END,
+                           "xc_functionals": PBE, **NONCOLLINEAR}, CANTED),
+}
+# the 16-atom ultrasoft cell with (0.3, 0.3, 0.3) on every atom: 48
+# magnetic ops, 4 k-points (time reversal off), 84 spinor bands
+FULL_ITERS["full_width_spinor_us"] = 4
 # the XC kernel checks: functionals, polarized
 XC_CHECKS = {
     "lda_xc.pw92": (["XC_LDA_X", "XC_LDA_C_PW"], True),
@@ -173,7 +211,13 @@ TOL = {**{name: 1e-11 for name in XC_CHECKS},
        "augmentation.rho_aug": 1e-12, "augmentation.d_operator": 1e-12,
        "symmetrize_pw": 1e-13, "gamma_pack.unpack_to_box": 1e-12,
        "gamma_pack.box_to_packed_hx": 1e-12, "veff_multiply.real": 1e-12,
-       "davidson_residual.f64": 1e-12, "beta_chunk": 1e-12}
+       "davidson_residual.f64": 1e-12, "beta_chunk": 1e-12,
+       # K12a multiplies and adds per point (the compiler's fused
+       # multiply-adds against torch's complex products), K12b sums the
+       # bands in order as K3, K6v sums the ops in the plain version's order
+       # (sincospi against exp() phases), K4 on four channels as on two
+       "spinor_veff": 1e-13, "density_accumulate_nc": 1e-13,
+       "symmetrize_vector_pw": 1e-13, "augmentation.rho_aug.4": 1e-12}
 SOURCE = {
     "local_hpsi.pw_to_box": "sirius_tpu_torch/csrc/local_hpsi.cu",
     "local_hpsi.box_to_pw_hpsi": "sirius_tpu_torch/csrc/local_hpsi.cu",
@@ -196,6 +240,10 @@ SOURCE = {
     "symmetrize_pw.axial": "sirius_tpu_torch/csrc/symmetrize_pw.cu",
     "mgga_tau.grad_to_box": "sirius_tpu_torch/csrc/mgga_tau.cu",
     "mgga_tau.box_to_pw_tau": "sirius_tpu_torch/csrc/mgga_tau.cu",
+    "spinor_veff": "sirius_tpu_torch/csrc/spinor_veff.cu",
+    "density_accumulate_nc": "sirius_tpu_torch/csrc/density_accumulate.cu",
+    "symmetrize_vector_pw": "sirius_tpu_torch/csrc/symmetrize_pw.cu",
+    "augmentation.rho_aug.4": "sirius_tpu_torch/csrc/augmentation.cu",
 }
 REPLACES = {
     "local_hpsi.pw_to_box": "sirius_tpu/ops/hamiltonian.py:76",
@@ -218,6 +266,10 @@ REPLACES = {
     "symmetrize_pw.axial": "sirius_tpu/dft/density.py:348",
     "mgga_tau.grad_to_box": "sirius_tpu/ops/mgga.py:44",
     "mgga_tau.box_to_pw_tau": "sirius_tpu/ops/mgga.py:50",
+    "spinor_veff": "sirius_tpu/ops/spinor.py:64",
+    "density_accumulate_nc": "sirius_tpu/parallel/batched_nc.py:146",
+    "symmetrize_vector_pw": "sirius_tpu/dft/potential_nc.py:60",
+    "augmentation.rho_aug.4": "sirius_tpu/ops/augmentation.py:250",
 }
 # the kernels summary: the new rows of K7b / K7g (a record at the 54-atom
 # box, in the mode its deck runs) and the run their launches come from
@@ -937,6 +989,126 @@ def check_kernel_axial(deck: str, ctx, dev, gpu: str) -> dict:
     return out
 
 
+def check_kernels_spinor(deck: str, ctx, dev, gpu: str) -> dict:
+    """K12a, K12b, K6v and K4 on four channels against their plain versions
+    at a non-collinear deck's main-path shapes: the spinor potential of the
+    initial density and magnetization on one k-point's [nb, 2, n] box (a
+    Davidson step's block), the four-component density of that box, the
+    axial-vector symmetrization of the initial B field over the magnetic
+    group, rho_aug of four Hermitian component blocks. Returns {kernel:
+    record}."""
+    import numpy as np
+    import torch
+
+    from sirius_tpu_torch.dft.density import (build_sym_pw_tables, grid_tables,
+                                              initial_density_g,
+                                              initial_magnetization_vec_g)
+    from sirius_tpu_torch.dft.potential_nc import generate_potential_nc
+    from sirius_tpu_torch.dft.xc import XCFunctional
+    from sirius_tpu_torch.kernels import augmentation as k45
+    from sirius_tpu_torch.kernels import density_accumulate_nc as k12b
+    from sirius_tpu_torch.kernels import spinor_veff as k12a
+    from sirius_tpu_torch.kernels import symmetrize_pw as k6
+    from sirius_tpu_torch.ops.augmentation import build_aug_device_tables
+
+    nb = ctx.num_bands
+    dims = tuple(ctx.fft_coarse.dims)
+    n = int(np.prod(dims))
+    ng = ctx.gvec.num_gvec
+    nbeta = ctx.beta.num_beta_total
+    rng = np.random.default_rng(31)
+    out = {}
+    record = functools.partial(record_kernel, out, deck, gpu)
+    tables = grid_tables(ctx, dev)
+    rho0 = torch.as_tensor(initial_density_g(ctx), device=dev)
+    m0 = torch.as_tensor(initial_magnetization_vec_g(ctx), device=dev)
+    pot = generate_potential_nc(ctx, rho0, XCFunctional(["XC_LDA_X",
+                                                         "XC_LDA_C_PZ"]),
+                                m0, tables)
+    v = pot.veff_boxes.view(4, n)
+
+    # K12a: in place on [nb, 2, n], one k-point's block of a Davidson step
+    fr0 = torch.complex(torch.randn(nb, 2, n, dtype=torch.float64, device=dev),
+                        torch.randn(nb, 2, n, dtype=torch.float64, device=dev))
+    fr_k = k12a.spinor_veff(fr0.clone(), *v)
+    fr_p = k12a.spinor_veff_plain(fr0.clone(), *v)
+    fr_t = fr0.clone()
+    record("spinor_veff", [fr_k], [fr_p],
+           lambda: k12a.spinor_veff(fr_t, *v),
+           lambda: k12a.spinor_veff_plain(fr_t, *v), None,
+           nbytes=nb * 2 * n * 32 + 4 * n * 8, flops=nb * n * 20.0)
+    del fr_k, fr_p, fr_t
+
+    # K12b: the four fields of that box
+    occ = torch.as_tensor(rng.uniform(0.0, 0.25, nb), device=dev)
+    acc0 = torch.as_tensor(rng.uniform(0.0, 1.0, (4, n)), device=dev)
+    acc_t = acc0.clone()
+    record("density_accumulate_nc",
+           [k12b.density_accumulate_nc(acc0.clone(), fr0, occ, float(n) ** 2)],
+           [k12b.density_accumulate_nc_plain(acc0.clone(), fr0, occ,
+                                             float(n) ** 2)],
+           lambda: k12b.density_accumulate_nc(acc_t, fr0, occ, float(n) ** 2),
+           lambda: k12b.density_accumulate_nc_plain(acc_t, fr0, occ,
+                                                    float(n) ** 2),
+           None, nbytes=nb * 2 * n * 16 + 4 * n * 16 + nb * 8,
+           flops=nb * n * 20.0 + n * 12.0)
+    del fr0, acc_t
+
+    # K6v: the unsymmetrized B field of the initial potential; yardstick:
+    # index_add_ over the JAX package's dense per-op scatter table, with the
+    # rotated and phased values built outside the timing
+    tb = tables.sym if tables.sym is not None else build_sym_pw_tables(ctx,
+                                                                       dev)
+    f = pot.bvec_g.contiguous()
+    sargs = (tb.millers, tb.lut, tb.rot, tb.trans, tb.srot, tb.dims)
+    nops = tb.num_ops
+    n1, n2, n3 = tb.dims
+    m = tb.millers.long()
+    idx = torch.empty((nops, ng), dtype=torch.int64, device=dev)
+    vals = torch.empty((3, nops, ng), dtype=torch.complex128, device=dev)
+    arange = torch.arange(ng, device=dev)
+    x = m.to(torch.float64) @ tb.trans.T  # [ng, nops]: target phases
+    for op in range(nops):
+        src, _ = k6.source_index(m, tb.rot[op], tb.lut, tb.dims)
+        idx[op].scatter_(0, src, arange)  # source -> target
+        ph = torch.polar(torch.ones_like(x[:, op]), -2.0 * math.pi * x[:, op])
+        # the value the target g gathers from its source, stored at the
+        # source's slot of this op's row (index_add_ sends it back to g)
+        vals[:, op].index_copy_(1, src,
+                                (tb.srot[op].to(f.dtype) @ f[:, src]) * ph)
+    idx = idx.reshape(-1)
+    vals = vals.reshape(3, -1)
+    del x
+
+    def lib_sym():
+        return torch.zeros_like(f).index_add_(1, idx, vals) / nops
+
+    record("symmetrize_vector_pw", [k6.symmetrize_vector_pw(f, *sargs)],
+           [k6.symmetrize_vector_pw_plain(f, *sargs)],
+           lambda: k6.symmetrize_vector_pw(f, *sargs),
+           lambda: k6.symmetrize_vector_pw_plain(f, *sargs), lib_sym,
+           nbytes=ng * (48 + 12 + 48) + n1 * n2 * n3 * 4 + nops * 132,
+           flops=nops * ng * 60.0, slow_plain=True)
+    del idx, vals
+
+    # K4 on the four (rho, m_x, m_y, m_z) Hermitian component blocks
+    aug = build_aug_device_tables(ctx.unit_cell, ctx.gvec, ctx.aug, ctx.beta,
+                                  dev)[0]
+    na, nqlm = aug["pos"].shape[0], aug["q"].shape[0]
+    a = (rng.standard_normal((4, nbeta, nbeta))
+         + 1j * rng.standard_normal((4, nbeta, nbeta)))
+    dm = torch.as_tensor((a + a.conj().transpose(0, 2, 1)) * 0.05, device=dev)
+    targs = (aug["gidx"], aug["w"], aug["millers"], aug["pos"], aug["q"])
+    record("augmentation.rho_aug.4", [k45.rho_aug(dm, *targs)],
+           [k45.rho_aug_plain(dm, *targs)],
+           lambda: k45.rho_aug(dm, *targs),
+           lambda: k45.rho_aug_plain(dm, *targs), None,
+           nbytes=nqlm * ng * 16 + 4 * ng * 16 + ng * 12
+           + 4 * nbeta * nbeta * 16,
+           flops=ng * (na * (5.0 + 4 * nqlm * 4.0) + 4 * nqlm * 8.0))
+    return out
+
+
 def wrappers() -> dict:
     """The kernel wrappers by summary name, each with the attribute that
     holds its launch count (K2 counts its float64 launches apart)."""
@@ -944,12 +1116,14 @@ def wrappers() -> dict:
     from sirius_tpu_torch.kernels import beta_chunk as k9
     from sirius_tpu_torch.kernels import davidson_residual as k2
     from sirius_tpu_torch.kernels import density_accumulate as k3
+    from sirius_tpu_torch.kernels import density_accumulate_nc as k12b
     from sirius_tpu_torch.kernels import gamma_pack as k8
     from sirius_tpu_torch.kernels import gga_xc as k7g
     from sirius_tpu_torch.kernels import lda_xc as k7
     from sirius_tpu_torch.kernels import local_hpsi as k1
     from sirius_tpu_torch.kernels import mgga_tau as k11
     from sirius_tpu_torch.kernels import mgga_xc as k7s
+    from sirius_tpu_torch.kernels import spinor_veff as k12a
     from sirius_tpu_torch.kernels import symmetrize_pw as k6
     from sirius_tpu_torch.kernels import veff_multiply as k1c
     from sirius_tpu_torch.kernels import xc_gradient as k10
@@ -979,7 +1153,11 @@ def wrappers() -> dict:
             "xc_gradient.divergence_pw": (k10.divergence_pw, n),
             "symmetrize_pw.axial": (k6.symmetrize_pw, "launches_axial"),
             "mgga_tau.grad_to_box": (k11.grad_to_box, n),
-            "mgga_tau.box_to_pw_tau": (k11.box_to_pw_tau, n)}
+            "mgga_tau.box_to_pw_tau": (k11.box_to_pw_tau, n),
+            "spinor_veff": (k12a.spinor_veff, n),
+            "density_accumulate_nc": (k12b.density_accumulate_nc, n),
+            "symmetrize_vector_pw": (k6.symmetrize_vector_pw, n),
+            "augmentation.rho_aug.4": (k45.rho_aug, n)}
 
 
 # the kernels each SCF path must launch: the norm-conserving k-set path runs
@@ -1030,6 +1208,21 @@ XC_DECK_PATH = {
     "scan_us_sym_fm": ("kset", xc_kernels(US_KERNELS, False, True,
                                           mgga=True)),
 }
+# the spinor k-set path: K1 over (band, spin) rows, K12a in place of K1c,
+# K2 on the flattened spinors, K12b in place of K3, K4 on four channels, K5
+# four times an iteration, K6 on rho and V_eff and K6v on m and B with
+# symmetry; LDA runs K7, PBE K7g, K10a and K10b
+SPINOR_KERNELS = ("local_hpsi.pw_to_box", "local_hpsi.box_to_pw_hpsi",
+                  "davidson_residual", "spinor_veff", "density_accumulate_nc",
+                  "lda_xc", "augmentation.rho_aug.4",
+                  "augmentation.d_operator")
+SPINOR_SYM_KERNELS = SPINOR_KERNELS + ("symmetrize_pw", "symmetrize_vector_pw")
+SPINOR_DECK_PATH = {
+    "small_spinor_us": SPINOR_KERNELS,
+    "small_spinor_pbe_us_sym": xc_kernels(SPINOR_SYM_KERNELS, True, False),
+    "spinor_us": SPINOR_KERNELS,
+    "spinor_pbe_us_sym": xc_kernels(SPINOR_SYM_KERNELS, True, False),
+}
 FULL_GAMMA_PBE_FM_KERNELS = xc_kernels(GAMMA_US_KERNELS, True, True)
 FULL_SCAN_KERNELS = xc_kernels(US_KERNELS, False, False, mgga=True)
 
@@ -1062,11 +1255,19 @@ def check_launched(phase: str, dev, launches: dict, required,
         raise AssertionError(
             f"{phase}: {gathers} K1 gathers, want {want} (r -> G only): "
             "H psi went through K1")
+    # the spinor path has K12a and K12b in place of K1c and K3
+    scalar = {k: launches[k] for k in ("veff_multiply", "density_accumulate")
+              if launches[k]}
+    if path == "kset_nc" and scalar:
+        raise AssertionError(f"{phase}: scalar kernels on the spinor path: "
+                             f"{scalar}")
 
 
 def parity_scf(ctx, dev, ref: dict, gpu: str, phase: str = "parity_scf",
                deck: str = "full_width_2atom", required=NC_KERNELS,
                path: str = "kset") -> dict:
+    import numpy as np
+
     from sirius_tpu_torch.dft.scf import run_scf
 
     reset_launches()
@@ -1085,9 +1286,10 @@ def parity_scf(ctx, dev, ref: dict, gpu: str, phase: str = "parity_scf",
           "iteration_seconds": res["iteration_seconds"],
           "band_solve_seconds": res["band_solve_seconds"],
           "launches": launches})
-    if "electrons" in ref and abs(nel - ref["electrons"]) > 1e-8:
-        raise AssertionError(f"{phase}: electron count {nel}, recorded "
-                             f"{ref['electrons']}")
+    # the spinor records carry no electron count: the cell's valence count
+    want_nel = ref.get("electrons", float(ctx.unit_cell.num_valence_electrons))
+    if abs(nel - want_nel) > 1e-8:
+        raise AssertionError(f"{phase}: electron count {nel}, want {want_nel}")
     if abs(d_total) > 1e-8:
         raise AssertionError(f"{phase}: |dE_total| = {abs(d_total)} > 1e-8 Ha")
     bad = {k: v for k, v in terms.items() if abs(v) > 1e-8}
@@ -1096,7 +1298,18 @@ def parity_scf(ctx, dev, ref: dict, gpu: str, phase: str = "parity_scf",
     if abs(res["num_scf_iterations"] - ref["num_scf_iterations"]) > 1:
         raise AssertionError(f"{phase}: iteration count differs by more than 1")
     polarized = "magnetisation" in ref
-    if polarized:
+    if polarized and path == "kset_nc":
+        got, want = res["magnetisation"], ref["magnetisation"]
+        errs = spinor_moment_errors(got, want,
+                                    bool(ctx.cfg.parameters.use_symmetry))
+        emit({"phase": phase, "gpu": gpu, "deck": deck,
+              "total_moment": got["total"], "atom_moments": got["atoms"],
+              **errs})
+        if not errs["max_moment_err"] <= errs["moment_tol"]:
+            raise AssertionError(f"{phase}: moments off by "
+                                 f"{errs['max_moment_err']} > "
+                                 f"{errs['moment_tol']} ({errs['compared']})")
+    elif polarized:
         got = res["magnetisation"]
         d_mag = max([abs(got["total"][2] - ref["magnetisation"]["total"])]
                     + [abs(a[2] - b) for a, b in zip(
@@ -1110,6 +1323,39 @@ def parity_scf(ctx, dev, ref: dict, gpu: str, phase: str = "parity_scf",
     check_launched(phase, dev, launches, required, path,
                    res["num_scf_iterations"], polarized)
     return launches
+
+
+def spinor_moment_errors(got: dict, want: dict, symmetric: bool) -> dict:
+    """What the physics fixes of a non-collinear run's moments, and how far
+    two runs differ in it. A magnetic state without a symmetry group has a
+    zero mode (the functional has no spin-orbit term, so a common rotation
+    of every moment costs no energy), and rounding turns its axis: there
+    the magnitudes of the total and per-atom moments and the dot products
+    between atoms are compared. A group that pins the axis makes the
+    components themselves comparable. All at 1e-8. A state whose recorded
+    total moment is below 1e-6 is not magnetic: its components are the
+    rounding noise of spin-degenerate bands (the JAX package's own runs of
+    one deck differ by 1e-7), so both runs must have every component below
+    1e-6."""
+    import numpy as np
+
+    gt, wt = np.asarray(got["total"]), np.asarray(want["total"])
+    ga, wa = np.asarray(got["atoms"]), np.asarray(want["atoms"])
+    comp = float(max(np.max(np.abs(gt - wt)), np.max(np.abs(ga - wa))))
+    if np.linalg.norm(wt) < 1e-6:
+        worst = float(max(np.max(np.abs(gt)), np.max(np.abs(ga)),
+                          np.max(np.abs(wt)), np.max(np.abs(wa))))
+        return {"compared": "non-magnetic: every component", "moment_tol": 1e-6,
+                "max_moment_err": worst, "max_component_err": comp}
+    inv = float(max(abs(np.linalg.norm(gt) - np.linalg.norm(wt)),
+                    np.max(np.abs(np.linalg.norm(ga, axis=1)
+                                  - np.linalg.norm(wa, axis=1))),
+                    np.max(np.abs(ga @ ga.T - wa @ wa.T))))
+    if symmetric:
+        return {"compared": "components", "moment_tol": 1e-8,
+                "max_moment_err": max(comp, inv), "max_component_err": comp}
+    return {"compared": "magnitudes and dot products", "moment_tol": 1e-8,
+            "max_moment_err": inv, "max_component_err": comp}
 
 
 def full_width(ctx, dev, gpu: str, phase: str = "full_width",
@@ -1145,7 +1391,7 @@ def full_width(ctx, dev, gpu: str, phase: str = "full_width",
           "launches_per_iteration": {k: v / iters for k, v in launches.items()},
           "max_memory_allocated": torch.cuda.max_memory_allocated(),
           "electrons": nel, "e_total": res["energy"]["total"],
-          "total_moment": res.get("magnetisation", {}).get("total", [0.0] * 3)[2],
+          "total_moment": res.get("magnetisation", {}).get("total", [0.0] * 3),
           "energies_finite": e_ok})
     if iters != FULL_ITERS[phase]:
         raise AssertionError(f"{phase}: {iters} iterations, want "
@@ -1172,9 +1418,10 @@ def xc_context(name: str):
 
 
 def magnetic_supercell_context(n: int, spec: dict, extra: dict, kind: dict,
-                               moment: float):
-    """The n x n x n supercell of the synthetic 2-atom cell with the
-    starting moment (0, 0, moment) on every atom. synthetic_silicon_context
+                               moment):
+    """The n x n x n supercell of the synthetic 2-atom cell with one
+    starting moment on every atom: (0, 0, moment) for a number, else the
+    vector (m_x, m_y, m_z). synthetic_silicon_context
     refuses moments with supercell > 1, so this tiles the positions and the
     moments itself, as that helper tiles positions, and builds the context
     the way the helper does."""
@@ -1196,8 +1443,8 @@ def magnetic_supercell_context(n: int, spec: dict, extra: dict, kind: dict,
                        for k in range(n)], dtype=np.float64)
     base = np.array([[0.0, 0, 0], [0.25, 0.25, 0.25]])
     positions = ((base[None] + shifts[:, None]) / n).reshape(-1, 3)
-    moments = np.zeros((len(positions), 3))
-    moments[:, 2] = moment
+    vec = [0.0, 0.0, moment] if np.ndim(moment) == 0 else list(moment)
+    moments = np.tile(np.asarray(vec, dtype=np.float64), (len(positions), 1))
     uc = ucm.UnitCell(
         lattice=lattice,
         atom_types=[synthetic_silicon_type(ultrasoft=kind["ultrasoft"])],
@@ -1209,6 +1456,17 @@ def magnetic_supercell_context(n: int, spec: dict, extra: dict, kind: dict,
         return cm.SimulationContext.create(cfg, ".")
     finally:
         ucm.UnitCell.from_config = orig
+
+
+def spinor_context(name: str):
+    """The context of a non-collinear deck of SPINOR_DECKS."""
+    import numpy as np
+
+    from sirius_tpu_torch.testing import synthetic_silicon_context
+
+    spec, kind, params, moments = SPINOR_DECKS[name]
+    return synthetic_silicon_context(extra_params=dict(params), **kind,
+                                     **spec, moments=np.asarray(moments))
 
 
 def single_k_context(name: str, spec: dict = GAMMA2):
@@ -1271,6 +1529,10 @@ def main() -> int:
     ctx16scan = make_context(FULL, {
         "num_dft_iter": FULL_ITERS["full_width_scan_us"], **RUN_TO_END,
         "xc_functionals": SCAN}, US_SYM)
+    spinor = {name: spinor_context(name) for name in SPINOR_DECKS}
+    ctx16nc = magnetic_supercell_context(
+        2, FULL, {"num_dft_iter": FULL_ITERS["full_width_spinor_us"],
+                  **RUN_TO_END, **NONCOLLINEAR}, US_SYM, CANTED[0])
     emit({"phase": "contexts", "seconds": time.perf_counter() - t0})
 
     check_kernels("full_width_2atom", ctx2, dev, gpu)
@@ -1289,6 +1551,10 @@ def main() -> int:
     check_kernel_axial("pw_us_sym_afm", xc_decks["pw_us_sym_afm"], dev, gpu)
     kern54xc.update(check_kernel_axial("si54_supercell3_gamma_fm", ctx54fm,
                                        dev, gpu))
+    check_kernels_spinor("spinor_pbe_us_sym", spinor["spinor_pbe_us_sym"], dev,
+                         gpu)
+    kern_spinor = check_kernels_spinor("si16_supercell2_us_sym_spinor", ctx16nc,
+                                       dev, gpu)
     torch.cuda.empty_cache()
     parity_scf(ctx2, dev, refs["full_width_2atom"], gpu)
     full_width(ctx16, dev, gpu)
@@ -1331,6 +1597,19 @@ def main() -> int:
     runs["full_width_scan_us"] = full_width(
         ctx16scan, dev, gpu, phase="full_width_scan_us",
         required=FULL_SCAN_KERNELS, deck="si16_supercell2_us_sym_scan")
+    for name, ctx in spinor.items():
+        runs[name] = parity_scf(
+            ctx, dev, refs[name], gpu, phase="parity_scf_" + name, deck=name,
+            required=SPINOR_DECK_PATH[name], path="kset_nc")
+    del spinor
+    torch.cuda.empty_cache()
+    runs["full_width_spinor_us"] = full_width(
+        ctx16nc, dev, gpu, phase="full_width_spinor_us",
+        required=SPINOR_SYM_KERNELS, deck="si16_supercell2_us_sym_spinor",
+        path="kset_nc")
+    del ctx16nc
+    launches_spinor = {name: runs["full_width_spinor_us"][name]
+                       for name in kern_spinor}
     launches_mgga = {name: runs[deck][name]
                      for name, deck in SUMMARY_MGGA.items()}
     kern_mgga = {name: kern_mgga[name] for name in launches_mgga}
@@ -1343,7 +1622,8 @@ def main() -> int:
     summary = []
     for records, counts in ((kern16, launches), (kern54, launches54),
                             (kern54xc, launches_xc),
-                            (kern_mgga, launches_mgga)):
+                            (kern_mgga, launches_mgga),
+                            (kern_spinor, launches_spinor)):
         for name, rec in records.items():
             summary.append({
                 "name": name, "route": "cuda", "source": SOURCE[name],

@@ -16,12 +16,16 @@ from sirius_tpu_torch.ops.beta_chunked import (ChunkedParams,
                                                chunked_params_from_arrays)
 from sirius_tpu_torch.ops.gamma import GammaParams, gamma_params_from_arrays
 from sirius_tpu_torch.parallel.batched import HkSetParams, hkset_from_arrays
+from sirius_tpu_torch.parallel.batched_nc import NcSetParams
 
 HKSET_KEYS = ("veff_r", "ekin", "mask", "fft_index", "beta_re", "beta_im",
               "dion", "qmat", "h_diag", "o_diag")
 GAMMA_KEYS = ("veff_r", "ekin_p", "mask_p", "fft_index", "slot_re",
               "slot_im", "im_sign", "scale", "zero_idx", "beta_p", "dion",
               "qmat")
+NC_SET_KEYS = ("veff_uu", "veff_dd", "bx", "by", "ekin", "mask", "fft_index",
+               "beta_re", "beta_im", "dmat_re", "dmat_im", "qmat_re",
+               "qmat_im", "h_diag", "o_diag")
 CHUNKED_KEYS = ("ekin", "mask", "fft_index", "veff_r", "dmat", "qmat_c",
                 "pos", "xi_rf", "xi_lm", "cph_re", "cph_im", "rlm", "q", "mk",
                 "ri_grid", "dq", "pref")
@@ -42,6 +46,41 @@ def hkset_from_numpy(arrays: dict, device) -> HkSetParams:
     a = _take(arrays, HKSET_KEYS, "HkSetParams")
     a["beta"] = a.pop("beta_re") + 1j * a.pop("beta_im")
     return hkset_from_arrays(a, device)
+
+
+def nc_set_from_numpy(arrays: dict, device) -> NcSetParams:
+    """The port's spinor k-set parameters from the JAX NcSetParams leaves
+    (numpy arrays under NC_SET_KEYS; the complex tables as (re, im) pairs,
+    the four coarse boxes apart). The projectors are masked here, as
+    make_nc_set_params masks them."""
+    device = resolve_device(device)
+    a = _take(arrays, NC_SET_KEYS, "NcSetParams")
+
+    def t(x, dtype):
+        return torch.tensor(x, dtype=dtype, device=device)
+
+    f64, c128 = torch.float64, torch.complex128
+    mask = t(a["mask"], f64)
+    return NcSetParams(
+        veff=t(np.stack([a["veff_uu"], a["veff_dd"], a["bx"], a["by"]]), f64),
+        ekin=t(a["ekin"], f64), mask=mask,
+        fft_index=t(a["fft_index"], torch.int32),
+        beta=t(a["beta_re"] + 1j * a["beta_im"], c128) * mask[:, None, :],
+        dmat=t(a["dmat_re"] + 1j * a["dmat_im"], c128),
+        qmat=t(a["qmat_re"] + 1j * a["qmat_im"], c128),
+        h_diag=t(a["h_diag"], f64), o_diag=t(a["o_diag"], f64))
+
+
+def nc_state_from_numpy(psi, x_mix, ng: int, device):
+    """A JAX non-collinear SCF state as the port's tensors: the flattened
+    spinors [nk, nb, 2 ngk] and the mixed vector [rho; m_x; m_y; m_z]
+    [4 ng], returned as (psi, rho_g [ng], mvec_g [3, ng])."""
+    device = resolve_device(device)
+    x = torch.as_tensor(np.asarray(x_mix, dtype=np.complex128), device=device)
+    if x.shape != (4 * ng,):
+        raise ValueError(f"mixed vector of {tuple(x.shape)}, want [{4 * ng}]")
+    return (torch.as_tensor(np.asarray(psi, dtype=np.complex128),
+                            device=device), x[:ng], x[ng:].reshape(3, ng))
 
 
 def gamma_params_from_numpy(arrays: dict, device) -> GammaParams:

@@ -8,7 +8,8 @@
 // K5 replaces d_operator_device (:266-282) for one atom type:
 //   vq[a, q] = Omega Re sum_g Q[q, g] conj(V[g]) e^{-2 pi i m_g . tau_a}
 //   D[gidx[a, q]] += vq[a, q];  D[lo_idx[a, q]] += vq[a, q] lo_mask[q]
-// dm is complex128 [ns, nbeta * nbeta], Q complex128 [nqlm, ng], V
+// dm is complex128 [ns, nbeta * nbeta] (ns channels: 1, 2, or the 4
+// non-collinear component blocks), Q complex128 [nqlm, ng], V
 // complex128 [ng], the Millers m int32 [ng, 3], tau float64 [na, 3]
 // (fractional), D float64 [nbeta * nbeta].
 //
@@ -205,8 +206,28 @@ __global__ void d_operator_finish_kernel(const double* __restrict__ partial,
     }
 }
 
+template <int NS>
+int launch_rho_aug(const void* dm, const int* gidx, const double* w,
+                   const int* millers, const double* pos, const void* q,
+                   void* out, long long nbeta2, int na, int nqlm, long long ng,
+                   int accumulate, size_t shmem, long long blocks,
+                   cudaStream_t st) {
+    // above the default 48 KB a block must opt in to dynamic shared memory
+    if (shmem > 48 * 1024)
+        cudaFuncSetAttribute(rho_aug_kernel<NS>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)shmem);
+    rho_aug_kernel<NS><<<(int)blocks, THREADS, shmem, st>>>(
+        (const cuDoubleComplex*)dm, gidx, w, millers, pos,
+        (const cuDoubleComplex*)q, (cuDoubleComplex*)out, nbeta2, na, nqlm,
+        ng, accumulate);
+    return (int)cudaGetLastError();
+}
+
 }  // namespace
 
+// ns is the number of channels: 1 (unpolarized), 2 (collinear spins) or 4
+// (the non-collinear (rho, m_x, m_y, m_z) component blocks).
 extern "C" int rho_aug(const void* dm, const int* gidx, const double* w,
                        const int* millers, const double* pos, const void* q,
                        void* out, int ns, long long nbeta2, int na, int nqlm,
@@ -216,28 +237,19 @@ extern "C" int rho_aug(const void* dm, const int* gidx, const double* w,
     if (blocks > 65535LL * 16) blocks = 65535LL * 16;
     if (blocks <= 0) return (int)cudaGetLastError();
     cudaStream_t st = (cudaStream_t)stream;
-    // above the default 48 KB a block must opt in to dynamic shared memory
-    if (shmem > 48 * 1024) {
-        if (ns == 1)
-            cudaFuncSetAttribute(rho_aug_kernel<1>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 (int)shmem);
-        else
-            cudaFuncSetAttribute(rho_aug_kernel<2>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 (int)shmem);
+    switch (ns) {
+        case 1:
+            return launch_rho_aug<1>(dm, gidx, w, millers, pos, q, out, nbeta2,
+                                     na, nqlm, ng, accumulate, shmem, blocks, st);
+        case 2:
+            return launch_rho_aug<2>(dm, gidx, w, millers, pos, q, out, nbeta2,
+                                     na, nqlm, ng, accumulate, shmem, blocks, st);
+        case 4:
+            return launch_rho_aug<4>(dm, gidx, w, millers, pos, q, out, nbeta2,
+                                     na, nqlm, ng, accumulate, shmem, blocks, st);
+        default:
+            return (int)cudaErrorInvalidValue;
     }
-    if (ns == 1)
-        rho_aug_kernel<1><<<(int)blocks, THREADS, shmem, st>>>(
-            (const cuDoubleComplex*)dm, gidx, w, millers, pos,
-            (const cuDoubleComplex*)q, (cuDoubleComplex*)out, nbeta2, na,
-            nqlm, ng, accumulate);
-    else
-        rho_aug_kernel<2><<<(int)blocks, THREADS, shmem, st>>>(
-            (const cuDoubleComplex*)dm, gidx, w, millers, pos,
-            (const cuDoubleComplex*)q, (cuDoubleComplex*)out, nbeta2, na,
-            nqlm, ng, accumulate);
-    return (int)cudaGetLastError();
 }
 
 extern "C" int d_operator(const int* millers, const double* pos,

@@ -25,6 +25,16 @@
 // order 0..nops-1, the order in which the JAX package's scatter meets each
 // target, then divides by nops: no atomics, bit-reproducible.
 //
+// K6v (symmetrize_vector_pw) is the axial-vector form, replacing the host
+// scatter of sirius_tpu/dft/potential_nc.py::symmetrize_vector_pw (:47-67):
+//   out_i[g'] = (1/nops) sum_op sum_j A_op[i][j] f_j[g(op, g')] e^{-2 pi i m_g' . t_op}
+// over the three components f [3, ng] in one launch, with A_op = det(R) R the
+// op's Cartesian rotation of an axial vector. The JAX package scatters the
+// rotated vector of g to its image w_k g; read from the target side the
+// source is g = w_k^{-1} g' and the rotation applied to it is the same
+// A_op (the op moves both the point and the vector). One thread per target G
+// sums the ops in order, all three components at once.
+//
 // Plain C interface (loaded with ctypes); launches on the stream passed in,
 // allocates nothing, returns cudaGetLastError().
 #include <cuda_runtime.h>
@@ -75,7 +85,67 @@ __global__ void symmetrize_pw_kernel(const cuDoubleComplex* __restrict__ f,
     }
 }
 
+__global__ void symmetrize_vector_kernel(const cuDoubleComplex* __restrict__ f,
+                                         const int* __restrict__ millers,
+                                         const int* __restrict__ lut,
+                                         const int* __restrict__ rot,
+                                         const double* __restrict__ trans,
+                                         const double* __restrict__ srot,
+                                         cuDoubleComplex* __restrict__ out,
+                                         int nops, long long ng, int n1,
+                                         int n2, int n3) {
+    for (long long g = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+         g < ng; g += (long long)gridDim.x * blockDim.x) {
+        const int m0 = millers[3 * g], m1 = millers[3 * g + 1],
+                  m2 = millers[3 * g + 2];
+        double acc_re[3] = {0.0, 0.0, 0.0}, acc_im[3] = {0.0, 0.0, 0.0};
+        for (int op = 0; op < nops; ++op) {
+            const int* r = rot + 9 * op;
+            const int s0 = r[0] * m0 + r[1] * m1 + r[2] * m2;
+            const int s1 = r[3] * m0 + r[4] * m1 + r[5] * m2;
+            const int s2 = r[6] * m0 + r[7] * m1 + r[8] * m2;
+            const int src = lut[((long long)wrap(s0, n1) * n2 + wrap(s1, n2)) * n3
+                                + wrap(s2, n3)];
+            if (src < 0) __trap();
+            const double* t = trans + 3 * op;
+            const double x = (double)m0 * t[0] + (double)m1 * t[1] + (double)m2 * t[2];
+            double sn, cs;
+            sincospi(-2.0 * x, &sn, &cs);
+            cuDoubleComplex v[3];
+            for (int j = 0; j < 3; ++j) v[j] = f[j * ng + src];
+            const double* a = srot + 9 * op;
+            for (int i = 0; i < 3; ++i) {
+                const double vr = a[3 * i] * v[0].x + a[3 * i + 1] * v[1].x
+                                  + a[3 * i + 2] * v[2].x;
+                const double vi = a[3 * i] * v[0].y + a[3 * i + 1] * v[1].y
+                                  + a[3 * i + 2] * v[2].y;
+                acc_re[i] += vr * cs - vi * sn;
+                acc_im[i] += vr * sn + vi * cs;
+            }
+        }
+        for (int i = 0; i < 3; ++i)
+            out[i * ng + g] = make_cuDoubleComplex(acc_re[i] / nops,
+                                                   acc_im[i] / nops);
+    }
+}
+
 }  // namespace
+
+extern "C" int symmetrize_vector_pw(const void* f, const int* millers,
+                                    const int* lut, const int* rot,
+                                    const double* trans, const double* srot,
+                                    void* out, int nops, long long ng, int n1,
+                                    int n2, int n3, void* stream) {
+    const int threads = 256;
+    long long blocks = (ng + threads - 1) / threads;
+    if (blocks > 65535LL * 16) blocks = 65535LL * 16;
+    if (blocks > 0)
+        symmetrize_vector_kernel<<<(int)blocks, threads, 0,
+                                   (cudaStream_t)stream>>>(
+            (const cuDoubleComplex*)f, millers, lut, rot, trans, srot,
+            (cuDoubleComplex*)out, nops, ng, n1, n2, n3);
+    return (int)cudaGetLastError();
+}
 
 extern "C" int symmetrize_pw(const void* f, const int* millers, const int* lut,
                              const int* rot, const double* trans,

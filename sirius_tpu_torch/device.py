@@ -16,3 +16,10 @@ def resolve_device(device=None) -> torch.device:
                 "versions of the kernels")
         return torch.device("cuda")
     return torch.device(device)
+
+
+def synchronize(device: torch.device) -> None:
+    """Wait for the device's queued work (a no-op on the CPU), so that a
+    host clock read after it covers that work."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

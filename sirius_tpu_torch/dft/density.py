@@ -182,6 +182,14 @@ def atomic_moments(ctx: SimulationContext, mag_g: np.ndarray) -> np.ndarray:
     return out
 
 
+def atomic_moments_vec(ctx: SimulationContext, mvec_g: np.ndarray) -> np.ndarray:
+    """Per-atom (mx, my, mz) sphere integrals [natoms, 3], the vector form
+    of atomic_moments for non-collinear runs. mvec_g: [3, ng]."""
+    return np.stack(
+        [atomic_moments(ctx, mvec_g[i]) for i in range(3)], axis=1
+    )
+
+
 def density_from_coarse_acc(ctx: SimulationContext, acc: torch.Tensor,
                             tables: GridTables) -> torch.Tensor:
     """Finalize the per-spin density from the occupation-weighted |psi(r)|^2
@@ -219,10 +227,20 @@ class SymPwTables:
     trans: torch.Tensor  # [nops, 3] float64 fractional translations
     sign: torch.Tensor  # [nops] float64 spin signs (axial fields)
     dims: tuple[int, int, int]  # fine box
+    # [nops, 3, 3] float64 det(R) R: the Cartesian rotation of an axial
+    # vector (K6v, non-collinear magnetization and B)
+    srot: torch.Tensor
 
     @property
     def num_ops(self) -> int:
         return self.rot.shape[0]
+
+
+def _axial_rotations(ops) -> np.ndarray:
+    """[nops, 3, 3] det(R) R of each op's Cartesian rotation R: how an axial
+    vector (a magnetization) rotates (potential_nc.py:62)."""
+    return np.stack([np.linalg.det(op.rot_cart) * op.rot_cart
+                     for op in ops]).astype(np.float64)
 
 
 def build_sym_pw_tables(ctx: SimulationContext, device=None) -> SymPwTables:
@@ -251,6 +269,7 @@ def build_sym_pw_tables(ctx: SimulationContext, device=None) -> SymPwTables:
         sign=torch.as_tensor(np.array([op.spin_sign for op in ops],
                                       dtype=np.float64), device=device),
         dims=tuple(int(x) for x in gv.fft.dims),
+        srot=torch.as_tensor(_axial_rotations(ops), device=device),
     )
     m = tb.millers.long()
     ok = torch.ones((), dtype=torch.bool, device=device)
@@ -339,6 +358,8 @@ def build_dm_sym_tables(ctx: SimulationContext, device=None) -> dict:
         "s_ops": torch.as_tensor(s_ops, dtype=torch.complex128, device=device),
         "flipneg": torch.as_tensor(flipneg, device=device),
         "blockmask": torch.as_tensor(blockmask, device=device),
+        "srot": torch.as_tensor(_axial_rotations(ops) if ops else np.eye(3)[None],
+                                device=device),
     }
 
 
@@ -356,4 +377,26 @@ def symmetrize_density_matrix_device(dm: torch.Tensor, tb: dict) -> torch.Tensor
     else:
         dms = dm[None].expand((nops,) + dm.shape)
     out = torch.matmul(torch.matmul(s[:, None], dms), s.mT[:, None]).sum(dim=0)
+    return out * tb["blockmask"][None] / nops
+
+
+def symmetrize_density_matrix_nc_device(dm3: torch.Tensor, tb: dict) -> torch.Tensor:
+    """Non-collinear density-matrix symmetrization (JAX density.py:253-285)
+    as batched matrix products over the ops. dm3 [3, nbeta, nbeta] complex128
+    spin components (uu, dd, ud). Per atom block the scalar d0 = uu + dd
+    rotates with the beta rotations alone, the axial vector (dx, dy, dz) =
+    (ud + ud^H, i (ud - ud^H), uu - dd) with them and with det(R) R; the
+    result is reassembled into (uu, dd, ud) on the diagonal atom blocks."""
+    uu, dd, ud = dm3
+    udh = ud.mH
+    comp = torch.stack([uu + dd, ud + udh, 1j * (ud - udh), uu - dd])
+    s = tb["s_ops"]
+    nops = s.shape[0]
+    # rotated components per op: [nops, 4, nbeta, nbeta]
+    rc = torch.matmul(torch.matmul(s[:, None], comp[None]), s.mT[:, None])
+    srot = tb["srot"].to(rc.dtype)
+    dv = torch.einsum("oij,ojab->oiab", srot, rc[:, 1:])
+    d0 = rc[:, 0].sum(dim=0)
+    dx, dy, dz = dv.sum(dim=0)
+    out = torch.stack([0.5 * (d0 + dz), 0.5 * (d0 - dz), 0.5 * (dx - 1j * dy)])
     return out * tb["blockmask"][None] / nops

@@ -2,8 +2,10 @@
 :178-427 and the sirius.scf mini-app output JSON).
 
 Mirrors the host path of sirius_tpu/dft/scf.py::_run_scf_inner for the
-configurations of the port: unpolarized or collinear spin-polarized
-(num_mag_dims 1), norm-conserving or ultrasoft plane-wave pseudopotentials
+configurations of the port: unpolarized, collinear spin-polarized
+(num_mag_dims 1) or non-collinear (num_mag_dims 3, handed to
+dft/scf_nc.py::run_scf_nc as the JAX package hands it at scf.py:244-259),
+norm-conserving or ultrasoft plane-wave pseudopotentials
 on a k-mesh, with or without the space group (irreducible k-mesh,
 symmetrized density, magnetization and potential; the magnetic subgroup
 and its spin-flip ops), any sum of the LDA, PBE-family GGA and SCAN
@@ -32,7 +34,7 @@ import torch
 
 from sirius_tpu_torch.config.schema import Config
 from sirius_tpu_torch.context import SimulationContext
-from sirius_tpu_torch.device import resolve_device
+from sirius_tpu_torch.device import resolve_device, synchronize
 from sirius_tpu_torch.dft.density import (
     atomic_moments,
     build_dm_sym_tables,
@@ -48,6 +50,7 @@ from sirius_tpu_torch.dft.density import (
 from sirius_tpu_torch.dft.mixer import Mixer, schedule_res_tol
 from sirius_tpu_torch.dft.occupation import find_fermi
 from sirius_tpu_torch.dft.potential import generate_potential
+from sirius_tpu_torch.dft.scf_nc import run_scf_nc
 from sirius_tpu_torch.dft.xc import XCFunctional
 from sirius_tpu_torch.ops.atomic import atomic_orbitals
 from sirius_tpu_torch.ops.augmentation import (
@@ -99,19 +102,17 @@ def check_supported(cfg: Config) -> None:
     if p.precision_wf == "fp32":
         raise NotImplementedError(
             "precision_wf='fp32' comes with the fp32 precision path "
-            "(ROADMAP open items, still to port, item 1); the port runs "
-            "fp64")
+            "(ROADMAP queue 1, item 2); the port runs fp64")
     if p.precision_wf != "fp64":
         raise ValueError(f"precision_wf must be fp32 or fp64, got '{p.precision_wf}'")
-    if p.num_mag_dims not in (0, 1):
-        raise NotImplementedError(
-            f"num_mag_dims={p.num_mag_dims}: non-collinear magnetism comes "
-            "with ROADMAP queue 1, slice 10; collinear (1) and unpolarized "
-            "(0) run")
+    if p.num_mag_dims not in (0, 1, 3):
+        raise ValueError(f"num_mag_dims must be 0, 1 or 3, got {p.num_mag_dims}")
     if p.hubbard_correction or cfg.hubbard.local or cfg.hubbard.nonlocal_:
-        raise NotImplementedError("Hubbard corrections: ROADMAP queue 1, slice 10")
+        raise NotImplementedError("Hubbard corrections: ROADMAP queue 1, item 8")
     if p.so_correction:
-        raise NotImplementedError("spin-orbit: ROADMAP queue 1, slice 10")
+        raise NotImplementedError(
+            "spin-orbit needs species with j-resolved beta projectors, which "
+            "only UPF files carry: ROADMAP queue 1, item 3 (UPF), then item 7")
     XCFunctional(p.xc_functionals)  # raises for an unknown name
     if cfg.mixer.type not in ("linear", "anderson", "broyden1"):
         raise NotImplementedError(
@@ -127,9 +128,12 @@ def check_context(cfg: Config, ctx: SimulationContext) -> None:
 
 
 def band_solve_path(cfg: Config, ctx: SimulationContext) -> str:
-    """"chunked", "gamma" or "kset": the band solve the JAX package takes
-    for this deck on one device (scf.py:676-713; Hubbard and PAW, which also
-    decide there, are refused before this).
+    """"kset_nc", "chunked", "gamma" or "kset": the band solve the JAX
+    package takes for this deck on one device (scf.py:244-259, :676-713;
+    Hubbard and PAW, which also decide there, are refused before this).
+    A non-collinear context (num_mag_dims 3) takes the spinor k-set solve
+    whatever its k-set: the JAX package hands it to run_scf_nc before the
+    Gamma and chunked branches.
     A meta-GGA deck takes the k-set solve, whatever its k-set and control
     (scf.py:689, :709: the tau operator is complex and per k-point).
     Otherwise the chunked branch is tested first: a single unpolarized
@@ -137,6 +141,8 @@ def band_solve_path(cfg: Config, ctx: SimulationContext) -> str:
     on "auto", when the dense [nbeta, ngk] complex table exceeds
     control.beta_chunk_budget_bytes. Else a Gamma-only k-set with
     control.reduce_gvec takes the packed-real path, one spin at a time."""
+    if ctx.num_mag_dims == 3:
+        return "kset_nc"
     if XCFunctional(cfg.parameters.xc_functionals).is_mgga:
         return "kset"
     c = cfg.control
@@ -199,15 +205,11 @@ def _band_gap(evals: np.ndarray, occ: np.ndarray, ctx: SimulationContext) -> flo
     return max(gap, 0.0)
 
 
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 def run_scf(cfg: Config, ctx: SimulationContext | None = None,
             device=None) -> dict:
     """Ground-state SCF. device=None runs on the GPU (and raises without
-    CUDA); device="cpu" runs the plain PyTorch versions of the kernels.
+    CUDA); device="cpu" runs the plain PyTorch versions of the kernels. A
+    non-collinear context (num_mag_dims 3) runs dft/scf_nc.py::run_scf_nc.
 
     Returns the JAX package's result dict for the keys of this slice
     (energies under the reference's names; mag_history and, polarized,
@@ -235,6 +237,8 @@ def run_scf(cfg: Config, ctx: SimulationContext | None = None,
             f"num_bands={nb} cannot hold {nel} electrons "
             f"(max {nb * ctx.max_occupancy * ctx.num_spins})"
         )
+    if ctx.num_mag_dims == 3:
+        return run_scf_nc(cfg, ctx, device)
     itsol = cfg.iterative_solver
     omega = ctx.unit_cell.omega
     tables = grid_tables(ctx, device)
@@ -345,7 +349,7 @@ def run_scf(cfg: Config, ctx: SimulationContext | None = None,
     num_iter_done = 0
     res_tol = itsol.residual_tolerance
     for it in range(p.num_dft_iter):
-        _sync(device)
+        synchronize(device)
         it_t0 = time.perf_counter()
         if psi_big is not None:
             # first iteration: rotate the full atomic-orbital block down to
@@ -399,18 +403,19 @@ def run_scf(cfg: Config, ctx: SimulationContext | None = None,
             ev, psi, rn = davidson_kset(ps, psi, num_steps=itsol.num_steps,
                                         res_tol=res_tol)
         counters["num_loc_op_applied"] += nk * ns * num_applies(itsol.num_steps, nb)
-        if path == "kset" and not mgga:
+        if path == "kset" and not mgga and cfg.control.scf_supervision:
             _, rn_ok = residual_health(rn, blowup=cfg.control.band_residual_blowup)
             if not rn_ok:
                 # one deeper retry, warm-started from the stagnated block (the
-                # JAX package retries on this path only, and not under mGGA)
+                # JAX package retries on this path only, not under mGGA, and
+                # only under control.scf_supervision: scf.py:1644)
                 ev, psi, rn = davidson_kset(ps, psi,
                                             num_steps=2 * itsol.num_steps,
                                             res_tol=res_tol)
                 counters["num_loc_op_applied"] += nk * ns * num_applies(
                     2 * itsol.num_steps, nb)
         evals = ev.reshape(nk, ns, nb)
-        _sync(device)
+        synchronize(device)
         band_seconds.append(time.perf_counter() - it_t0)
 
         # --- occupations and the new density ---

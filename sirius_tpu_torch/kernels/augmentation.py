@@ -82,10 +82,11 @@ def _check_type(millers, pos, q, gidx, device):
 def rho_aug(dm, gidx, w, millers, pos, q, out=None):
     """One type's augmentation charge [ns, ng]; added into ``out`` when it
     is given (the sum over types), else returned as a new tensor."""
-    if dm.dtype != torch.complex128 or dm.dim() != 3 or dm.shape[0] not in (1, 2) \
-            or dm.shape[1] != dm.shape[2] or not dm.is_contiguous():
+    if dm.dtype != torch.complex128 or dm.dim() != 3 \
+            or dm.shape[0] not in (1, 2, 4) or dm.shape[1] != dm.shape[2] \
+            or not dm.is_contiguous():
         raise ValueError("dm must be a contiguous complex128 [ns, nbeta, nbeta]"
-                         " tensor, ns 1 or 2")
+                         " tensor, ns 1, 2 or 4")
     ns, nbeta = dm.shape[0], dm.shape[1]
     ng, nqlm, na = _check_type(millers, pos, q, gidx, dm.device)
     if w.dtype != torch.float64 or tuple(w.shape) != (nqlm,) \

@@ -25,7 +25,8 @@ CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
 SOURCES = ("local_hpsi", "davidson_residual", "density_accumulate", "lda_xc",
            "veff_multiply", "augmentation", "symmetrize_pw", "gamma_pack",
-           "beta_chunk", "gga_xc", "xc_gradient", "mgga_xc", "mgga_tau")
+           "beta_chunk", "gga_xc", "xc_gradient", "mgga_xc", "mgga_tau",
+           "spinor_veff")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -48,6 +49,7 @@ SIGNATURES = {
     },
     "density_accumulate": {
         "density_accumulate": (_P, _P, _P, _I, _I, _LL, _D, _P),
+        "density_accumulate_nc": (_P, _P, _P, _I, _LL, _D, _P),
     },
     "lda_xc": {
         "lda_xc": (_P, _P, _P, _P, _P, _LL, _I, _I, _P),
@@ -63,6 +65,8 @@ SIGNATURES = {
     },
     "symmetrize_pw": {
         "symmetrize_pw": (_P, _P, _P, _P, _P, _P, _P, _I, _LL, _I, _I, _I, _P),
+        "symmetrize_vector_pw": (_P, _P, _P, _P, _P, _P, _P, _I, _LL, _I, _I,
+                                 _I, _P),
     },
     "gamma_pack": {
         "unpack_to_box": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _LL, _P),
@@ -87,6 +91,9 @@ SIGNATURES = {
     "mgga_tau": {
         "grad_to_box": (_P, _P, _I, _P, _P, _P, _I, _I, _I, _LL, _I, _P),
         "box_to_pw_tau": (_P, _P, _I, _P, _P, _P, _I, _I, _I, _LL, _I, _P),
+    },
+    "spinor_veff": {
+        "spinor_veff": (_P, _P, _P, _P, _P, _LL, _LL, _P),
     },
 }
 

@@ -1,7 +1,8 @@
 """chip_smoke.py off the card: without CUDA it exits non-zero and prints no
 result, and its kernel and parity phases run end to end on the CPU at the
 small decks, norm-conserving, ultrasoft + symmetry, Gamma-only, the
-collinear GGA decks and SCAN (every wrapper then takes its plain version,
+collinear GGA decks, SCAN and non-collinear spin (every wrapper then takes
+its plain version,
 so the checks compare the plain versions with themselves and no launch is
 counted). Its launch checks are held to what each band-solve path
 launches, and its decks to the reference tool's."""
@@ -39,6 +40,8 @@ GAMMA_CHECKED = ("gamma_pack.unpack_to_box", "gamma_pack.box_to_packed_hx",
 XC_CHECKED = tuple(chip_smoke.XC_CHECKS) + ("xc_gradient.gradient_boxes",
                                             "xc_gradient.divergence_pw")
 TAU_CHECKED = ("mgga_tau.grad_to_box", "mgga_tau.box_to_pw_tau")
+SPINOR_CHECKED = ("spinor_veff", "density_accumulate_nc",
+                  "symmetrize_vector_pw", "augmentation.rho_aug.4")
 
 
 def reference_tool():
@@ -72,8 +75,8 @@ def test_phases_run_on_cpu(monkeypatch, capsys):
     recs = chip_smoke.check_kernels("small", ctx, dev, "cpu")
     assert sorted(recs) == sorted(NC_CHECKED)
     assert sorted(NC_CHECKED + US_CHECKED + GAMMA_CHECKED + ("beta_chunk",)
-                  + XC_CHECKED + ("symmetrize_pw.axial",) + TAU_CHECKED) \
-        == sorted(chip_smoke.SOURCE)
+                  + XC_CHECKED + ("symmetrize_pw.axial",) + TAU_CHECKED
+                  + SPINOR_CHECKED) == sorted(chip_smoke.SOURCE)
     for rec in recs.values():
         assert rec["max_rel_err"] <= rec["tol_rel"]
         assert rec["bound_ms"] > 0 and rec["bound_by"] in ("bytes", "operations")
@@ -201,6 +204,59 @@ def test_decks_match_the_reference_tool():
         assert tool.deck_spec(name) == (shape, kind, {}, params, moments), name
         assert chip_smoke.XC_DECK_PATH[name][0] == (
             "gamma" if shape["ngridk"] == (1, 1, 1) else "kset")
+    assert set(chip_smoke.SPINOR_DECKS) == set(tool.SPINOR_DECKS)
+    for name, (shape, kind, params, moments) in \
+            chip_smoke.SPINOR_DECKS.items():
+        assert tool.deck_spec(name) == (shape, kind, {}, params, moments), name
+
+
+def test_spinor_phases_run_on_cpu(monkeypatch, capsys):
+    # K12a, K12b, K6v and four-channel K4 against their plain versions on
+    # the 6-op canted deck, then the Gamma-only spinor deck through the
+    # parity phase with the spinor path's kernels and vector moments
+    monkeypatch.setattr(chip_smoke, "time_ms", lambda fn, **kw: (fn(), 0.0)[1])
+    dev = torch.device("cpu")
+    ctx = chip_smoke.spinor_context("small_spinor_pbe_us_sym")
+    assert ctx.symmetry.num_ops == 6
+    recs = chip_smoke.check_kernels_spinor("small_spinor_pbe_us_sym", ctx, dev,
+                                           "cpu")
+    assert sorted(recs) == sorted(SPINOR_CHECKED)
+    for rec in recs.values():
+        assert rec["max_rel_err"] <= rec["tol_rel"]
+        assert rec["bound_ms"] > 0 and rec["bound_by"] in ("bytes", "operations")
+    assert recs["symmetrize_vector_pw"]["library_ms"] is not None
+    # the yardstick computes the same function
+    name = "small_spinor_us"
+    ref = reference(name)
+    launches = chip_smoke.parity_scf(
+        chip_smoke.spinor_context(name), dev, ref, "cpu",
+        phase="parity_scf_" + name, deck=name,
+        required=chip_smoke.SPINOR_DECK_PATH[name], path="kset_nc")
+    lines = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
+    parity = [r for r in lines if r.get("phase") == "parity_scf_" + name]
+    assert parity[0]["num_scf_iterations"] == ref["num_scf_iterations"]
+    assert parity[1]["max_moment_err"] <= 1e-8
+    assert len(parity[1]["total_moment"]) == 3
+    assert set(launches) == set(chip_smoke.SOURCE)
+    assert all(v == 0 for v in launches.values())
+
+
+def test_spinor_yardstick_is_the_symmetrization(monkeypatch):
+    # K6v's library yardstick (index_add_ over a dense scatter table)
+    # computes the same field as the kernel's plain version
+    seen = {}
+
+    def keep(out, deck, gpu, name, kernel_out, plain_out, fn_k, fn_p, fn_lib,
+             nbytes, flops, slow_plain=False):
+        if name == "symmetrize_vector_pw":
+            seen["lib"], seen["plain"] = fn_lib(), plain_out[0]
+
+    monkeypatch.setattr(chip_smoke, "record_kernel", keep)
+    ctx = chip_smoke.spinor_context("small_spinor_pbe_us_sym")
+    chip_smoke.check_kernels_spinor("small_spinor_pbe_us_sym", ctx,
+                                    torch.device("cpu"), "cpu")
+    err = (seen["lib"] - seen["plain"]).abs().max() / seen["plain"].abs().max()
+    assert float(err) <= 1e-13
 
 
 def test_magnetic_supercell_context_tiles_like_the_helper():
@@ -221,6 +277,17 @@ def test_magnetic_supercell_context_tiles_like_the_helper():
         np.testing.assert_array_equal(a, b)
     assert got.symmetry.num_ops == want.symmetry.num_ops
     assert got.num_spins == 2 and got.num_bands == want.num_bands
+    # a moment vector: the non-collinear canted cell
+    extra = {"num_mag_dims": 3}
+    got = chip_smoke.magnetic_supercell_context(
+        1, SMALL_GAMMA, extra, chip_smoke.US_SYM, chip_smoke.CANTED[0])
+    want = synthetic_silicon_context(extra_params=extra,
+                                     moments=np.asarray(chip_smoke.CANTED),
+                                     **chip_smoke.US_SYM,
+                                     **dict(SMALL_GAMMA, num_bands=None))
+    np.testing.assert_array_equal(got.unit_cell.moments,
+                                  want.unit_cell.moments)
+    assert got.symmetry.num_ops == want.symmetry.num_ops == 6
 
 
 def test_launch_checks_follow_the_band_solve_path():
@@ -250,3 +317,14 @@ def test_launch_checks_follow_the_band_solve_path():
         chip_smoke.check_launched("gamma_fm", cuda, launches,
                                   chip_smoke.FULL_GAMMA_PBE_FM_KERNELS,
                                   "gamma", 3, polarized=True)
+    # the spinor path launches K12a and K12b, never K1c or K3
+    with pytest.raises(AssertionError, match="scalar kernels"):
+        chip_smoke.check_launched("spinor", cuda, launches,
+                                  chip_smoke.SPINOR_SYM_KERNELS, "kset_nc", 3)
+    launches["veff_multiply"] = launches["density_accumulate"] = 0
+    chip_smoke.check_launched("spinor", cuda, launches,
+                              chip_smoke.SPINOR_SYM_KERNELS, "kset_nc", 3)
+    launches["spinor_veff"] = 0
+    with pytest.raises(AssertionError, match="spinor_veff"):
+        chip_smoke.check_launched("spinor", cuda, launches,
+                                  chip_smoke.SPINOR_SYM_KERNELS, "kset_nc", 3)

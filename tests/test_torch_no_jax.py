@@ -41,6 +41,9 @@ def test_port_imports_no_jax():
     for name in ("ops.gamma", "ops.beta_chunked", "kernels.gamma_pack",
                  "kernels.beta_chunk", "kernels.gga_xc",
                  "kernels.xc_gradient", "kernels.xc_functionals",
-                 "kernels.mgga_xc", "kernels.mgga_tau", "ops.mgga"):
+                 "kernels.mgga_xc", "kernels.mgga_tau", "ops.mgga",
+                 "ops.spinor", "parallel.batched_nc", "dft.potential_nc",
+                 "dft.scf_nc", "kernels.spinor_veff",
+                 "kernels.density_accumulate_nc"):
         assert "sirius_tpu_torch." + name in res["modules"]
     assert len(res["modules"]) >= 30

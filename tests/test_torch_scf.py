@@ -73,6 +73,10 @@ XC_DECKS = ("pbe_us_sym", "pw_us_sym_afm", "gamma_pbe_us_sym_fm",
 # the small SCAN decks, run here; the tool's deck_spec builds them
 SCAN = ["XC_MGGA_X_SCAN", "XC_MGGA_C_SCAN"]
 SCAN_DECKS = ("small_scan_nc", "small_scan_us_afm")
+# the non-collinear decks (tests/test_torch_noncollinear.py runs the small
+# ones, chip_smoke.py all four)
+SPINOR_DECKS = ("small_spinor_us", "small_spinor_pbe_us_sym", "spinor_us",
+                "spinor_pbe_us_sym")
 
 
 def _load_reference_tool():
@@ -228,7 +232,11 @@ def test_reference_file_names_its_command(reference):
     assert rec["command"] == _load_reference_tool().COMMAND
     assert set(reference) == {"small", "full_width_2atom", "small_us_sym",
                               "full_width_2atom_us_sym", *SINGLE_K,
-                              *SPIN_DECKS, *XC_DECKS, *SCAN_DECKS}
+                              *SPIN_DECKS, *XC_DECKS, *SCAN_DECKS,
+                              *SPINOR_DECKS}
+    for name in SPINOR_DECKS:
+        assert reference[name]["deck"]["num_mag_dims"] == 3
+        assert len(reference[name]["magnetisation"]["total"]) == 3
     for name in (*SCAN_DECKS, "scan_us_sym", "scan_us_sym_fm"):
         assert reference[name]["deck"]["xc_functionals"] == SCAN
     for name in SPIN_DECKS:
@@ -278,9 +286,9 @@ def test_entry_points_default_to_cuda(monkeypatch, entry):
         call()
 
 
-# cases that raised in earlier slices and run now: collinear spin, GGA and
-# SCAN
-NOW_IN_SLICE = ("magnetism", "GGA", "SCAN")
+# cases that raised in earlier slices and run now: collinear spin, GGA,
+# SCAN and non-collinear spin
+NOW_IN_SLICE = ("magnetism", "GGA", "SCAN", "non-collinear")
 
 
 @pytest.mark.parametrize("section,key,value,match", [
@@ -323,12 +331,20 @@ def test_gamma_only_reduce_gvec_raises():
     assert apply_h_s_gamma.calls > calls
     assert res["num_scf_iterations"] == 2
     assert np.isfinite(res["energy"]["total"])
-    for key, value, match in (("num_mag_dims", 3, "non-collinear"),
-                              ("precision_wf", "fp32", "fp32")):
-        bad = context(ngridk=(1, 1, 1))
-        setattr(bad.cfg.parameters, key, value)
-        with pytest.raises(NotImplementedError, match=match):
-            run_scf(bad.cfg, ctx=bad, device="cpu")
+    bad = context(ngridk=(1, 1, 1))
+    bad.cfg.parameters.precision_wf = "fp32"
+    with pytest.raises(NotImplementedError, match="fp32"):
+        run_scf(bad.cfg, ctx=bad, device="cpu")
+    # a non-collinear Gamma-only deck takes the spinor k-set solve, as the
+    # JAX package hands it to run_scf_nc before the Gamma branch
+    nc = context({"num_dft_iter": 2, "num_mag_dims": 3}, ngridk=(1, 1, 1),
+                 num_bands=16)
+    assert band_solve_path(nc.cfg, nc) == "kset_nc"
+    calls = apply_h_s_gamma.calls
+    res = run_scf(nc.cfg, ctx=nc, device="cpu")
+    assert apply_h_s_gamma.calls == calls
+    assert res["num_scf_iterations"] == 2
+    assert np.isfinite(res["energy"]["total"])
 
 
 @pytest.mark.parametrize("control,ngridk,want", [

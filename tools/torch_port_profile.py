@@ -18,11 +18,21 @@ iterations and the device's busy share of it. The decks:
   deck through the chunked projectors, 16 atoms a chunk; --gamma-pbe-fm:
   the same cell spin-polarized with PBE and a starting moment of 0.5 on
   every atom (its magnetic space group), through the packed-real solve one
-  spin at a time (chip_smoke.py's full_width_gamma_pbe_fm).
+  spin at a time (chip_smoke.py's full_width_gamma_pbe_fm);
+- --spinor: the 16-atom ultrasoft cell non-collinear (num_mag_dims 3) with
+  a starting moment of (0.3, 0.3, 0.3) on every atom, its 48-op magnetic
+  space group and 4 k-points, through the spinor k-set solve
+  (chip_smoke.py's full_width_spinor_us).
+
+The device's idle time (the profiled window less the union of its kernel,
+copy and memset intervals in the exported trace) is split by what the host
+was doing meanwhile: inside a CUDA synchronize or blocking copy (waiting on
+the device's tail), launching work, in the allocator, or none of these
+(Python, numpy and other host code: the host's own share).
 
     python3 tools/torch_port_profile.py
-        [--ultrasoft | --scan | --gamma | --chunked | --gamma-pbe-fm]
-        [--iters 3] [--profiled 2] [--out FILE]
+        [--ultrasoft | --scan | --gamma | --chunked | --gamma-pbe-fm
+         | --spinor] [--iters 3] [--profiled 2] [--out FILE]
 
 Needs a CUDA card; exits non-zero without one.
 """
@@ -34,6 +44,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -47,9 +58,96 @@ HAND_KERNELS = ("scatter_valid", "gather_hpsi", "residual_rows",
                 "unpack_scatter", "pack_gather", "beta_chunk_kernel",
                 "gga_xc_polarized", "gga_xc_unpolarized", "gradient_scatter",
                 "divergence_gather", "mgga_xc_polarized",
-                "mgga_xc_unpolarized", "grad_scatter", "grad_gather")
-# the band-solve entry point of each path, as dft/scf.py calls it
+                "mgga_xc_unpolarized", "grad_scatter", "grad_gather",
+                "spinor_veff_kernel", "symmetrize_vector_kernel")
+# the band-solve entry point of each path, as dft/scf.py (and, for the
+# spinor path, dft/scf_nc.py) calls it
 SOLVES = ("davidson_kset", "davidson_kset_mgga", "davidson_gamma", "davidson")
+SOLVES_NC = ("davidson_kset_nc",)
+# trace categories of device work, and how the host's CUDA runtime calls
+# classify the idle time they overlap
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def runtime_kind(name: str) -> str:
+    """The idle-time class of a host CUDA runtime or driver call."""
+    if "Synchronize" in name or name in ("cudaMemcpy", "cuMemcpyDtoH_v2"):
+        return "sync_wait"
+    if "Malloc" in name or "Free" in name or "HostAlloc" in name:
+        return "allocator"
+    return "launch"
+
+
+def _union(intervals):
+    out = []
+    for a, b in sorted(intervals):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def _overlap(gaps, intervals) -> float:
+    """Total length of the intersection of two sorted disjoint interval
+    lists."""
+    i = j = 0
+    total = 0.0
+    while i < len(gaps) and j < len(intervals):
+        a = max(gaps[i][0], intervals[j][0])
+        b = min(gaps[i][1], intervals[j][1])
+        if b > a:
+            total += b - a
+        if gaps[i][1] < intervals[j][1]:
+            i += 1
+        else:
+            j += 1
+    return total
+
+
+def idle_breakdown(events) -> dict:
+    """Split the device's idle time over a trace window (Chrome trace
+    events: dicts with cat, name, ts and dur in microseconds) by the host's
+    activity. The window runs from the first to the last device interval.
+    Returns milliseconds: window, busy, idle, and idle spent while the host
+    waits in a synchronize (sync_wait), launches work (launch), is in the
+    allocator (allocator) or runs none of these (host: Python, numpy and
+    other host code). Host classes are assigned in that order, so a
+    nested call counts once."""
+    dev = [(e["ts"], e["ts"] + e.get("dur", 0.0)) for e in events
+           if e.get("cat") in DEVICE_CATS and e.get("dur", 0.0) > 0]
+    if not dev:
+        return {"window_ms": 0.0, "busy_ms": 0.0, "idle_ms": 0.0,
+                "sync_wait_ms": 0.0, "launch_ms": 0.0, "allocator_ms": 0.0,
+                "host_ms": 0.0}
+    busy = _union(dev)
+    lo, hi = busy[0][0], busy[-1][1]
+    gaps = [[a[1], b[0]] for a, b in zip(busy, busy[1:])]
+    idle = sum(b - a for a, b in gaps)
+    out = {"window_ms": (hi - lo) / 1e3,
+           "busy_ms": sum(b - a for a, b in busy) / 1e3,
+           "idle_ms": idle / 1e3}
+    left = gaps
+    for kind in ("sync_wait", "launch", "allocator"):
+        calls = _union([(e["ts"], e["ts"] + e.get("dur", 0.0)) for e in events
+                        if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                        and runtime_kind(e.get("name", "")) == kind])
+        out[kind + "_ms"] = _overlap(left, calls) / 1e3
+        # what stays idle outside these calls
+        rest = []
+        for a, b in left:
+            cur = a
+            for c, d in calls:
+                if d <= cur or c >= b:
+                    continue
+                if c > cur:
+                    rest.append([cur, c])
+                cur = max(cur, d)
+            if cur < b:
+                rest.append([cur, b])
+        left = rest
+    out["host_ms"] = sum(b - a for a, b in left) / 1e3
+    return out
 
 
 def category(name: str) -> str:
@@ -91,6 +189,9 @@ def main(argv=None) -> int:
     deck.add_argument("--gamma-pbe-fm", action="store_true",
                       help="the 54-atom Gamma-only deck spin-polarized with "
                       "PBE (packed-real band solve per spin)")
+    deck.add_argument("--spinor", action="store_true",
+                      help="the 16-atom ultrasoft deck non-collinear with "
+                      "(0.3, 0.3, 0.3) on every atom (spinor k-set solve)")
     ap.add_argument("--out", default="", help="also write the JSON here")
     args = ap.parse_args(argv)
 
@@ -104,6 +205,7 @@ def main(argv=None) -> int:
     from torch.profiler import ProfilerActivity, profile, schedule
 
     from sirius_tpu_torch.dft import scf as scf_mod
+    from sirius_tpu_torch.dft import scf_nc as scf_nc_mod
     from sirius_tpu_torch.testing import synthetic_silicon_context
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -113,7 +215,13 @@ def main(argv=None) -> int:
     run = {"num_dft_iter": args.iters, "density_tol": 0.0, "energy_tol": 0.0}
     if args.scan:
         run["xc_functionals"] = ["XC_MGGA_X_SCAN", "XC_MGGA_C_SCAN"]
-    if args.gamma_pbe_fm:
+    if args.spinor:
+        import chip_smoke
+
+        ctx = chip_smoke.magnetic_supercell_context(
+            2, chip_smoke.FULL, dict(run, **chip_smoke.NONCOLLINEAR),
+            chip_smoke.US_SYM, chip_smoke.CANTED[0])
+    elif args.gamma_pbe_fm:
         import chip_smoke
 
         ctx = chip_smoke.magnetic_supercell_context(
@@ -129,7 +237,8 @@ def main(argv=None) -> int:
     if args.chunked:
         ctx.cfg.control.beta_chunked = True
         ctx.cfg.control.beta_chunk_size = 16
-    deck_name = ("si54_supercell3_chunk16" if args.chunked
+    deck_name = ("si16_supercell2_us_sym_spinor" if args.spinor
+                 else "si54_supercell3_chunk16" if args.chunked
                  else "si54_supercell3_gamma_pbe_fm" if args.gamma_pbe_fm
                  else "si54_supercell3_gamma" if args.gamma
                  else "si16_supercell2_us_sym_scan" if args.scan
@@ -151,7 +260,10 @@ def main(argv=None) -> int:
     # find_fermi runs once per SCF iteration, after the band solve(s) and
     # the retry if any, so the first band solve after n find_fermi calls
     # starts iteration n
-    orig = {name: getattr(scf_mod, name) for name in SOLVES + ("find_fermi",)}
+    # the module whose band solves and Fermi search the run calls
+    mod = scf_nc_mod if args.spinor else scf_mod
+    solves = SOLVES_NC if args.spinor else SOLVES
+    orig = {name: getattr(mod, name) for name in solves + ("find_fermi",)}
 
     def hooked(name):
         def solve(*a, **kw):
@@ -173,16 +285,16 @@ def main(argv=None) -> int:
         state["fermi"] += 1
         return orig["find_fermi"](*a, **kw)
 
-    for name in SOLVES:
-        setattr(scf_mod, name, hooked(name))
-    scf_mod.find_fermi = hooked_fermi
+    for name in solves:
+        setattr(mod, name, hooked(name))
+    mod.find_fermi = hooked_fermi
     try:
         res = scf_mod.run_scf(ctx.cfg, ctx=ctx, device=dev)
         torch.cuda.synchronize()
         prof.__exit__(None, None, None)
     finally:
         for name, fn in orig.items():
-            setattr(scf_mod, name, fn)
+            setattr(mod, name, fn)
     profiled = list(range(first, res["num_scf_iterations"]))
     # the profiled iterations' own host-clock times (each starts after a
     # synchronize): the end-of-run report after the loop is not in them
@@ -204,6 +316,14 @@ def main(argv=None) -> int:
     for k in kernels:
         by_cat[k["category"]] = by_cat.get(k["category"], 0.0) + k["device_ms"]
     busy = sum(by_cat.values())
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            trace = json.load(f)
+    idle = idle_breakdown(trace.get("traceEvents", trace)
+                          if isinstance(trace, dict) else trace)
+    del trace
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True, timeout=60).stdout.strip()
@@ -218,6 +338,9 @@ def main(argv=None) -> int:
         "device_busy_ms": busy,
         "device_busy_share": busy / (wall * 1e3),
         "by_category_ms": dict(sorted(by_cat.items(), key=lambda kv: -kv[1])),
+        # the device's idle time in the traced window by the host's
+        # activity; host_ms is the host's own share (Python, numpy)
+        "idle_breakdown_ms": idle,
         "top_kernels": kernels[:25],
         "iteration_seconds": res["iteration_seconds"],
         "band_solve_seconds": res["band_solve_seconds"],
