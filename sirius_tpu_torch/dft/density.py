@@ -380,6 +380,16 @@ def symmetrize_density_matrix_device(dm: torch.Tensor, tb: dict) -> torch.Tensor
     return out * tb["blockmask"][None] / nops
 
 
+def dm_component_blocks(dm3: torch.Tensor) -> torch.Tensor:
+    """The blocks of the four fields (rho, m_x, m_y, m_z) from the (uu, dd,
+    ud) spin components (JAX scf_nc.py::_dm_component_blocks; reference
+    density_matrix_aux, density.cpp:1784-1811), [4, nbeta, nbeta]. Each is
+    Hermitian, so the packed Re(dm) contraction of rho_aug (K4) is exact."""
+    uu, dd, ud = dm3
+    udh = ud.mH
+    return torch.stack([uu + dd, ud + udh, 1j * (ud - udh), uu - dd])
+
+
 def symmetrize_density_matrix_nc_device(dm3: torch.Tensor, tb: dict) -> torch.Tensor:
     """Non-collinear density-matrix symmetrization (JAX density.py:253-285)
     as batched matrix products over the ops. dm3 [3, nbeta, nbeta] complex128
@@ -387,9 +397,7 @@ def symmetrize_density_matrix_nc_device(dm3: torch.Tensor, tb: dict) -> torch.Te
     rotates with the beta rotations alone, the axial vector (dx, dy, dz) =
     (ud + ud^H, i (ud - ud^H), uu - dd) with them and with det(R) R; the
     result is reassembled into (uu, dd, ud) on the diagonal atom blocks."""
-    uu, dd, ud = dm3
-    udh = ud.mH
-    comp = torch.stack([uu + dd, ud + udh, 1j * (ud - udh), uu - dd])
+    comp = dm_component_blocks(dm3)
     s = tb["s_ops"]
     nops = s.shape[0]
     # rotated components per op: [nops, 4, nbeta, nbeta]

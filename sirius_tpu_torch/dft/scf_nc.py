@@ -28,6 +28,7 @@ from sirius_tpu_torch.dft.density import (
     atomic_moments_vec,
     build_dm_sym_tables,
     density_from_coarse_acc,
+    dm_component_blocks,
     grid_tables,
     initial_density_g,
     initial_magnetization_vec_g,
@@ -85,16 +86,6 @@ def _initial_spinors(ctx: SimulationContext) -> np.ndarray:
                 ) * damp
         psi[ik] *= ctx.gkvec.mask[ik][None, None, :]
     return psi.reshape(nk, nb, 2 * ngk)
-
-
-def _dm_component_blocks(dm3: torch.Tensor) -> torch.Tensor:
-    """The augmentation blocks of the four fields (rho, m_x, m_y, m_z) from
-    the (uu, dd, ud) spin components (reference density_matrix_aux,
-    density.cpp:1784-1811), [4, nbeta, nbeta]. Each is Hermitian, so the
-    packed Re(dm) contraction of rho_aug (K4) is exact."""
-    uu, dd, ud = dm3
-    udh = ud.mH
-    return torch.stack([uu + dd, ud + udh, 1j * (ud - udh), uu - dd])
 
 
 def run_scf_nc(cfg: Config, ctx: SimulationContext, device) -> dict:
@@ -184,7 +175,7 @@ def run_scf_nc(cfg: Config, ctx: SimulationContext, device) -> dict:
             dm3 = density_matrix_kset_nc(ps.beta, psi, occ_w)
             if dm_sym is not None:
                 dm3 = symmetrize_density_matrix_nc_device(dm3, dm_sym)
-            aug = rho_aug_g_device(_dm_component_blocks(dm3).contiguous(),
+            aug = rho_aug_g_device(dm_component_blocks(dm3).contiguous(),
                                    aug_tables, ng)
             rho_new = rho_new + aug[0]
             mvec_new = mvec_new + aug[1:]

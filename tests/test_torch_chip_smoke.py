@@ -204,10 +204,13 @@ def test_decks_match_the_reference_tool():
         assert tool.deck_spec(name) == (shape, kind, {}, params, moments), name
         assert chip_smoke.XC_DECK_PATH[name][0] == (
             "gamma" if shape["ngridk"] == (1, 1, 1) else "kset")
-    assert set(chip_smoke.SPINOR_DECKS) == set(tool.SPINOR_DECKS)
-    for name, (shape, kind, params, moments) in \
-            chip_smoke.SPINOR_DECKS.items():
-        assert tool.deck_spec(name) == (shape, kind, {}, params, moments), name
+    # the spinor decks are the tool's own, each with its kernel list
+    assert set(chip_smoke.SPINOR_DECK_PATH) == set(tool.SPINOR_DECKS)
+    ctx = chip_smoke.spinor_context("small_spinor_us", tool)
+    shape, kind, _, params, moments = tool.deck_spec("small_spinor_us")
+    np.testing.assert_array_equal(ctx.unit_cell.moments, np.asarray(moments))
+    assert ctx.num_mag_dims == 3 and ctx.num_bands == shape["num_bands"]
+    assert ctx.cfg.parameters.num_dft_iter == params["num_dft_iter"]
 
 
 def test_spinor_phases_run_on_cpu(monkeypatch, capsys):
@@ -224,7 +227,9 @@ def test_spinor_phases_run_on_cpu(monkeypatch, capsys):
     for rec in recs.values():
         assert rec["max_rel_err"] <= rec["tol_rel"]
         assert rec["bound_ms"] > 0 and rec["bound_by"] in ("bytes", "operations")
-    assert recs["symmetrize_vector_pw"]["library_ms"] is not None
+    # one PyTorch call computes each but K12b
+    assert [n for n, r in recs.items() if r["library_ms"] is None] == [
+        "density_accumulate_nc"]
     # the yardstick computes the same function
     name = "small_spinor_us"
     ref = reference(name)
@@ -257,6 +262,57 @@ def test_spinor_yardstick_is_the_symmetrization(monkeypatch):
                                     torch.device("cpu"), "cpu")
     err = (seen["lib"] - seen["plain"]).abs().max() / seen["plain"].abs().max()
     assert float(err) <= 1e-13
+
+
+@pytest.mark.parametrize("name", ["spinor_veff", "augmentation.rho_aug.4"])
+def test_spinor_yardsticks_compute_the_kernels_function(monkeypatch, name):
+    # K12a's einsum over the [2, 2, n] potential and K4's einsum on four
+    # channels compute the same fields as the kernels' plain versions
+    seen = {}
+
+    def keep(out, deck, gpu, rec_name, kernel_out, plain_out, fn_k, fn_p,
+             fn_lib, nbytes, flops, slow_plain=False):
+        if rec_name == name:
+            seen["lib"], seen["plain"] = fn_lib(), plain_out[0]
+
+    monkeypatch.setattr(chip_smoke, "record_kernel", keep)
+    ctx = chip_smoke.spinor_context("small_spinor_pbe_us_sym")
+    chip_smoke.check_kernels_spinor("small_spinor_pbe_us_sym", ctx,
+                                    torch.device("cpu"), "cpu")
+    lib, plain = seen["lib"], seen["plain"]
+    assert lib.shape == plain.shape
+    err = (lib - plain).abs().max() / plain.abs().max()
+    assert float(err) <= 1e-13
+
+
+MAGNETIC = {"total": [1.0, 0.0, 1.0], "atoms": [[0.5, 0.0, 0.5]] * 2}
+ROTATED = {"total": [2 ** 0.5, 0.0, 0.0], "atoms": [[2 ** -0.5, 0.0, 0.0]] * 2}
+NOISE = {"total": [3.5e-8] * 3, "atoms": [[1e-9] * 3] * 2}
+ZERO = {"total": [0.0] * 3, "atoms": [[0.0] * 3] * 2}
+
+
+@pytest.mark.parametrize("got,want,symmetric,compared,ok", [
+    (ROTATED, MAGNETIC, False, "magnitudes and dot products", True),
+    (ROTATED, MAGNETIC, True, "components", False),
+    (MAGNETIC, MAGNETIC, True, "components", True),
+    (NOISE, ZERO, True, "non-magnetic: components", True),
+    ({"total": [2e-7] * 3, "atoms": [[1e-9] * 3] * 2}, ZERO, True,
+     "non-magnetic: components", False),
+], ids=["axis_turned", "axis_pinned", "same", "noise", "noise_too_large"])
+def test_spinor_moment_errors_compare_what_the_physics_fixes(
+        got, want, symmetric, compared, ok):
+    # a common rotation passes without a group and fails with one; a
+    # non-magnetic record takes the JAX package's own run-to-run spread
+    errs = chip_smoke.spinor_moment_errors(got, want, symmetric)
+    assert errs["compared"] == compared
+    assert (errs["max_moment_err"] <= errs["moment_tol"]) == ok
+    if compared.startswith("non-magnetic"):
+        assert errs["moment_tol"] == chip_smoke.NONMAGNETIC_MOMENT_TOL == 1e-7
+
+
+def test_reference_spread_takes_spinor_decks_only():
+    with pytest.raises(ValueError, match="spinor decks"):
+        reference_tool().spread(["small"])
 
 
 def test_magnetic_supercell_context_tiles_like_the_helper():

@@ -45,8 +45,9 @@ from sirius_tpu_torch.convert import (NC_SET_KEYS, nc_set_from_numpy,
                                       nc_state_from_numpy)
 from sirius_tpu_torch.dft import density as tden
 from sirius_tpu_torch.dft import potential_nc as tpot
+from sirius_tpu_torch.dft.density import dm_component_blocks
 from sirius_tpu_torch.dft.scf import band_solve_path, run_scf
-from sirius_tpu_torch.dft.scf_nc import _dm_component_blocks, _initial_spinors
+from sirius_tpu_torch.dft.scf_nc import _initial_spinors
 from sirius_tpu_torch.dft.xc import XCFunctional
 from sirius_tpu_torch.kernels import density_accumulate_nc as k12b
 from sirius_tpu_torch.kernels import spinor_veff as k12a
@@ -223,8 +224,10 @@ def test_davidson_kset_nc_matches_jax(canted):
 
 
 def test_nc_state_from_numpy_splits_the_mixed_vector(canted):
-    # the JAX package's packing [rho; m_x; m_y; m_z] (scf_nc.py:170-174)
-    jctx, _ = canted
+    # the JAX package's packing [rho; m_x; m_y; m_z] (scf_nc.py:170-174);
+    # one JAX state fed to both packages: the density of its spinors and
+    # the potential of its mixed vector agree
+    jctx, pctx = canted
     ng = jctx.gvec.num_gvec
     rho = jden.initial_density_g(jctx)
     m = jden.initial_magnetization_vec_g(jctx)
@@ -236,6 +239,22 @@ def test_nc_state_from_numpy_splits_the_mixed_vector(canted):
     np.testing.assert_array_equal(m_t.numpy(), m)
     with pytest.raises(ValueError, match="mixed vector"):
         nc_state_from_numpy(psi0, x[:-1], ng, "cpu")
+    boxes, dmat, _ = random_operator(jctx)
+    occ_w = np.random.default_rng(19).uniform(0.0, 0.3, psi0.shape[:2])
+    want = np.asarray(jbnc.density_kset_nc(
+        jax_nc_set(jctx, boxes, dmat), jnp.asarray(psi0.real),
+        jnp.asarray(psi0.imag), jnp.asarray(occ_w)))
+    got = tbnc.density_kset_nc(
+        tbnc.make_nc_set_params(pctx, boxes, dmat, device="cpu"), psi,
+        torch.as_tensor(occ_w))
+    assert rel(got.numpy(), want) <= 1e-12
+    names = ["XC_LDA_X", "XC_LDA_C_PZ"]
+    want = jpot.generate_potential_nc(jctx, x[:ng], JaxXC(names),
+                                      x[ng:].reshape(3, ng))
+    got = tpot.generate_potential_nc(pctx, rho_t, XCFunctional(names), m_t,
+                                     tden.grid_tables(pctx, "cpu"))
+    assert rel(got.veff_g.numpy(), want.veff_g) <= 1e-12
+    assert rel(got.bvec_g.numpy(), want.bvec_g) <= 1e-12
 
 
 def test_density_kset_nc_and_density_matrix_match_jax(canted):
@@ -354,7 +373,7 @@ def test_dm_component_blocks_are_hermitian(canted):
     a = rng.standard_normal((3, nbeta, nbeta)) \
         + 1j * rng.standard_normal((3, nbeta, nbeta))
     dm3 = np.stack([a[0] + a[0].conj().T, a[1] + a[1].conj().T, a[2]])
-    got = _dm_component_blocks(torch.as_tensor(dm3)).numpy()
+    got = dm_component_blocks(torch.as_tensor(dm3)).numpy()
     want = jax_dm_blocks(jctx, dm3)
     for i, key in enumerate(("rho", "mx", "my", "mz")):
         np.testing.assert_allclose(got[i], want[key], rtol=0, atol=1e-14)

@@ -87,6 +87,13 @@ Run from the repository root (CPU, fp64):
     python tools/torch_port_reference.py            # rewrite the JSON
     python tools/torch_port_reference.py --check    # compare, write nothing
     python tools/torch_port_reference.py --decks gamma_nc_vwn  # some decks
+    python tools/torch_port_reference.py --spread spinor_us  # noise
+
+--spread runs a spinor deck again with the JAX package's start block
+perturbed by a relative 1e-13 (two seeds) and prints how far each run's
+moments and energy terms lie from the record: the spread of the JAX
+package's own runs of one deck, which sets the moment limit of
+chip_smoke.py for a non-magnetic record.
 """
 
 from __future__ import annotations
@@ -185,8 +192,10 @@ def deck_spec(name: str):
     return spec + (None,) * (5 - len(spec))
 
 
-def run_deck(name: str) -> dict:
-    """One JAX SCF on a deck of DECKS, on one CPU device, host SCF path."""
+def run_deck(name: str, perturb_seed: int | None = None) -> dict:
+    """One JAX SCF on a deck of DECKS, on one CPU device, host SCF path.
+    With perturb_seed (spinor decks only), the start block is perturbed by
+    a relative 1e-13 drawn from that seed."""
     import jax
 
     jax.config.update("jax_platforms", "cpu")
@@ -202,9 +211,24 @@ def run_deck(name: str) -> dict:
     for key, value in control.items():
         setattr(ctx.cfg.control, key, value)
     spinor = ctx.num_mag_dims == 3
-    # the non-collinear driver keeps no state (scf.py:244-259)
-    res = run_scf(ctx.cfg, ctx=ctx, devices=jax.devices()[:1],
-                  keep_state=not spinor)
+    if perturb_seed is not None:
+        import sirius_tpu.dft.scf_nc as scf_nc
+
+        start = scf_nc._initial_spinors
+        rng = np.random.default_rng(perturb_seed)
+
+        def perturbed(c):
+            psi = start(c)
+            return psi * (1.0 + 1e-13 * rng.standard_normal(psi.shape))
+
+        scf_nc._initial_spinors = perturbed
+    try:
+        # the non-collinear SCF returns no state (scf.py:244-259)
+        res = run_scf(ctx.cfg, ctx=ctx, devices=jax.devices()[:1],
+                      keep_state=not spinor)
+    finally:
+        if perturb_seed is not None:
+            scf_nc._initial_spinors = start
     deck = {**{k: (list(v) if isinstance(v, tuple) else v)
                for k, v in shape.items()}, **params, **kind}
     if control:
@@ -240,6 +264,36 @@ def run_deck(name: str) -> dict:
     return out
 
 
+def spread(names) -> dict:
+    """For each spinor deck, two runs with the start block perturbed
+    (seeds 1 and 2) against the record: per run the largest moment
+    component and the largest component and energy-term differences."""
+    with open(OUT) as f:
+        rec = json.load(f)["decks"]
+    out = {}
+    for name in names:
+        if deck_spec(name)[3].get("num_mag_dims") != 3:
+            raise ValueError(f"--spread takes spinor decks, not {name}")
+        r = rec[name]
+        want = np.concatenate([[r["magnetisation"]["total"]],
+                               r["magnetisation"]["atoms"]])
+        runs = []
+        for seed in (1, 2):
+            d = run_deck(name, perturb_seed=seed)
+            got = np.concatenate([[d["magnetisation"]["total"]],
+                                  d["magnetisation"]["atoms"]])
+            runs.append({
+                "seed": seed, "num_scf_iterations": d["num_scf_iterations"],
+                "max_moment_component": float(np.max(np.abs(got))),
+                "max_moment_diff": float(np.max(np.abs(got - want))),
+                "max_term_diff": max(abs(d["energy"][k] - v)
+                                     for k, v in r["energy"].items()),
+                "magnetisation": d["magnetisation"]})
+        out[name] = {"record_max_moment_component": float(np.max(np.abs(want))),
+                     "runs": runs}
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--check", action="store_true",
@@ -247,8 +301,14 @@ def main(argv=None) -> int:
     ap.add_argument("--decks", nargs="+", choices=sorted(DECKS),
                     help="recompute only these decks (the others keep "
                          "their recorded values)")
+    ap.add_argument("--spread", nargs="+", choices=SPINOR_DECKS,
+                    help="rerun these spinor decks from perturbed starts "
+                         "and print their spread, write nothing")
     args = ap.parse_args(argv)
     sys.path.insert(0, ROOT)
+    if args.spread:
+        print(json.dumps(spread(args.spread), indent=1))
+        return 0
     names = args.decks or list(DECKS)
     out = {"command": COMMAND, "decks": {n: run_deck(n) for n in names}}
     if args.check:
