@@ -18,7 +18,12 @@ imports nothing of JAX or of sirius_tpu. Phases, each printing JSON lines:
    polarized points, K10a and K10b, and K6 on an axial field; the tau
    operator's K11a and K11b at the 16-atom coarse box; the non-collinear
    kernels at the 2-atom and 16-atom spinor decks: K12a, K12b, K6v and K4
-   on four channels): error,
+   on four channels; and the fp32 instantiations, at the full-width shapes
+   of their fp64 rows and held to 1e-5 relative: K1, K1c, K2 and K3 on
+   complex64 at the 16-atom US deck, K8a, K8b, K1c real and K2 on float32
+   packed blocks at 54 atoms, K9 at 54 atoms and 16 a chunk, K11a and K11b
+   at the 16-atom coarse box, K12a on the spinor k-set block and K12b on
+   one k-point's): error,
    kernel time (CUDA events, median of 21 samples of 5 launches after
    warm-up), the plain version's time, a one-call PyTorch yardstick where
    one exists (library_ms), and the least time the card could take
@@ -32,7 +37,7 @@ imports nothing of JAX or of sirius_tpu. Phases, each printing JSON lines:
    deck; parity_scf_pw_us_afm: X + PW92, moments +0.5 / -0.5, 8 ops of
    which 4 flip the spin; parity_scf_gamma_pbe_us_fm: Gamma, PBE, moments
    +0.5 / +0.5; parity_scf_gamma_nc_vwn and parity_scf_gamma_nc_pbesol:
-   Gamma, NC, a fixed 14 iterations; parity_scf_scan_us and
+   Gamma, NC, a fixed 24 iterations like gamma_nc; parity_scf_scan_us and
    parity_scf_scan_us_fm: SCAN on the k-point US + symmetry deck,
    unpolarized and +0.5 / +0.5), and the non-collinear decks of the spinor
    k-set solve (parity_scf_small_spinor_us and
@@ -40,7 +45,10 @@ imports nothing of JAX or of sirius_tpu. Phases, each printing JSON lines:
    parity_scf_spinor_pbe_us_sym at the parity shape, which relax to no
    moment; spinor_moment_errors says what of the moments is compared),
    against the JAX package's recorded energies and moments
-   (sirius_tpu_torch/data/jax_reference.json);
+   (sirius_tpu_torch/data/jax_reference.json), and the six fp32 decks
+   against the JAX package's fp64 twin of each (parity_scf_fp32: the
+   polished ones to 1e-8, the others within 4x the JAX package's own fp32
+   scatter), every fp32 band solve launching only fp32 instantiations;
 4. full-width runs with tolerances that cannot be met, so every iteration
    runs: the 16-atom Si supercell, norm-conserving (full_width, 3 SCF
    iterations) and ultrasoft with its 384 space-group ops (full_width_us,
@@ -53,8 +61,13 @@ imports nothing of JAX or of sirius_tpu. Phases, each printing JSON lines:
    iterations); the 16-atom ultrasoft cell with SCAN on the k-set solve
    with the tau operator (full_width_scan_us, 4 iterations); the 16-atom
    ultrasoft cell non-collinear with (0.3, 0.3, 0.3) on every atom, its 48
-   magnetic ops and 4 k-points (full_width_spinor_us, 4 iterations); kernel
-   launches per iteration, peak device memory, electron count, total
+   magnetic ops and 4 k-points (full_width_spinor_us, 4 iterations); then
+   the fp32 path at full width: the 16-atom US run polished to fp64 after
+   iteration 3 or 4 (full_width_us_fp32, the switch's residual taken from
+   full_width_us), the 54-atom packed-real and the 16-atom spinor runs in
+   fp32 throughout (full_width_gamma_us_fp32, full_width_spinor_us_fp32);
+   kernel launches per iteration and per band solve, the precision and
+   seconds of each iteration, peak device memory, electron count, total
    moment, finite energies.
 
 Every SCF phase sets the launch counts to 0 just before its run and reads
@@ -67,7 +80,8 @@ unpolarized, K11a and K11b, full_width_spinor_us for K12a, K12b, K6v and
 K4 on four channels; K7b's X + PW92 and X + VWN5 rows, K7g's PBEsol
 row and K7s's polarized row take theirs from the parity decks that run
 them (parity_scf_pw_us_afm, parity_scf_gamma_nc_vwn,
-parity_scf_gamma_nc_pbesol, parity_scf_scan_us_fm).
+parity_scf_gamma_nc_pbesol, parity_scf_scan_us_fm); the fp32 rows from
+the run FP32_SUMMARY names.
 
 The last three lines are the kernels summary, the nvidia-smi name/power
 line and {"ok": true, "device": {...}}. Any failure exits non-zero before
@@ -76,6 +90,7 @@ the ok line; without CUDA it exits non-zero at once.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import math
@@ -84,10 +99,11 @@ import subprocess
 import sys
 import time
 
-# H100 SXM data-sheet peaks (dense): device memory and fp64 outside the
-# tensor cores, the rate of these kernels' elementwise fp64 work
+# H100 SXM data-sheet peaks (dense): device memory, and fp64 and fp32
+# outside the tensor cores, the rates of these kernels' elementwise work
 HBM_BYTES_PER_S = 3.35e12
 FP64_FLOPS_PER_S = 34e12
+FP32_FLOPS_PER_S = 67e12
 
 TIGHT = {"num_dft_iter": 40, "density_tol": 5e-9, "energy_tol": 1e-10}
 PARITY = dict(gk_cutoff=6.0, pw_cutoff=20.0, ngridk=(2, 2, 2))
@@ -100,9 +116,9 @@ FULL_ITERS = {"full_width": 3, "full_width_us": 6, "full_width_gamma_us": 4,
               "full_width_chunked_us": 4}
 RUN_TO_END = {"density_tol": 0.0, "energy_tol": 0.0}
 # the 2-atom single-k parity decks: species, SCF parameters (gamma_nc runs
-# a fixed 14 iterations, see tools/torch_port_reference.py), control
+# a fixed 24 iterations, see tools/torch_port_reference.py), control
 SINGLE_K = {
-    "gamma_nc": (NC, {"num_dft_iter": 14, **RUN_TO_END}, {}),
+    "gamma_nc": (NC, {"num_dft_iter": 24, **RUN_TO_END}, {}),
     "gamma_us_sym": (US_SYM, TIGHT, {}),
     "chunked_us_sym": (US_SYM, TIGHT,
                        {"beta_chunked": True, "beta_chunk_size": 1}),
@@ -123,10 +139,10 @@ XC_DECKS = {
     "gamma_pbe_us_sym_fm": (GAMMA2, US_SYM,
                             dict(TIGHT, xc_functionals=PBE, **SPIN), FM),
     "gamma_nc_vwn": (GAMMA2, NC,
-                     {"num_dft_iter": 14, **RUN_TO_END,
+                     {"num_dft_iter": 24, **RUN_TO_END,
                       "xc_functionals": ["XC_LDA_X", "XC_LDA_C_VWN"]}, None),
     "gamma_nc_pbesol": (GAMMA2, NC,
-                        {"num_dft_iter": 14, **RUN_TO_END,
+                        {"num_dft_iter": 24, **RUN_TO_END,
                          "xc_functionals": ["XC_GGA_X_PBE_SOL",
                                             "XC_GGA_C_PBE_SOL"]}, None),
 }
@@ -146,7 +162,7 @@ XC_DECKS["scan_us_sym_fm"] = (PARITY, US_SYM,
 FULL_ITERS["full_width_scan_us"] = 4
 # the non-collinear decks (num_mag_dims 3, the spinor k-set solve) are
 # those of tools/torch_port_reference.py (SPINOR_DECKS there, built by
-# spinor_context); the full-width one takes their canted moment
+# deck_context); the full-width one takes their canted moment
 NONCOLLINEAR = {"num_mag_dims": 3}
 CANTED = [[0.3, 0.3, 0.3], [0.3, 0.3, 0.3]]
 # the 16-atom ultrasoft cell with (0.3, 0.3, 0.3) on every atom: 48
@@ -251,6 +267,41 @@ REPLACES = {
     "symmetrize_vector_pw": "sirius_tpu/dft/potential_nc.py:60",
     "augmentation.rho_aug.4": "sirius_tpu/ops/augmentation.py:250",
 }
+# the fp32 instantiations (precision_wf "fp32"): each kernel's name with the
+# suffix of the block type it takes (.c64 complex64, .f32 float32 packed
+# blocks), held to its plain version at 1e-5 relative (fp32 rounding; the
+# JAX package's own fp32 run moves an energy term by 2.5e-5 Ha), bound by
+# 8-byte complex64 and 4-byte float32 elements against fp32 operations, and
+# the run its launches come from: the full-width fp32 runs, and for K9 and
+# K11 the parity decks of the paths that launch them
+FP32_SUMMARY = {
+    "local_hpsi.pw_to_box.c64": "full_width_us_fp32",
+    "local_hpsi.box_to_pw_hpsi.c64": "full_width_us_fp32",
+    "veff_multiply.c64": "full_width_us_fp32",
+    "davidson_residual.c64": "full_width_us_fp32",
+    "density_accumulate.c64": "full_width_us_fp32",
+    "gamma_pack.unpack_to_box.f32": "full_width_gamma_us_fp32",
+    "veff_multiply.real.c64": "full_width_gamma_us_fp32",
+    "gamma_pack.box_to_packed_hx.f32": "full_width_gamma_us_fp32",
+    "davidson_residual.f32": "full_width_gamma_us_fp32",
+    "beta_chunk.c64": "chunked_us_sym_fp32",
+    "mgga_tau.grad_to_box.c64": "scan_us_sym_fp32",
+    "mgga_tau.box_to_pw_tau.c64": "scan_us_sym_fp32",
+    "spinor_veff.c64": "full_width_spinor_us_fp32",
+    "density_accumulate_nc.c64": "full_width_spinor_us_fp32",
+}
+FP32_SUFFIXES = (".c64", ".f32")
+
+
+def base_name(name: str) -> str:
+    """The fp64 kernel of an fp32 instantiation's name (itself for an fp64
+    one)."""
+    return name.rsplit(".", 1)[0] if name.endswith(FP32_SUFFIXES) else name
+
+
+TOL.update({name: 1e-5 for name in FP32_SUMMARY})
+SOURCE.update({name: SOURCE[base_name(name)] for name in FP32_SUMMARY})
+REPLACES.update({name: REPLACES[base_name(name)] for name in FP32_SUMMARY})
 # the kernels summary: the new rows of K7b / K7g (a record at the 54-atom
 # box, in the mode its deck runs) and the run their launches come from
 SUMMARY_XC = {"lda_xc.pw92": "pw_us_sym_afm",
@@ -298,9 +349,10 @@ def time_ms(fn, samples: int = 21, inner: int = 5, warm: int = 3) -> float:
     return times[len(times) // 2]
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
+def bound(nbytes: float, flops: float,
+          fp32: bool = False) -> tuple[float, str]:
     tb = nbytes / HBM_BYTES_PER_S * 1e3
-    tf = flops / FP64_FLOPS_PER_S * 1e3
+    tf = flops / (FP32_FLOPS_PER_S if fp32 else FP64_FLOPS_PER_S) * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
@@ -327,7 +379,7 @@ def record_kernel(out, deck, gpu, name, kernel_out, plain_out, fn_k, fn_p,
     plain_ms = (time_ms(fn_p, samples=5, inner=1, warm=1) if slow_plain
                 else time_ms(fn_p))
     lib_ms = time_ms(fn_lib) if fn_lib is not None else None
-    b_ms, b_by = bound(nbytes, flops)
+    b_ms, b_by = bound(nbytes, flops, name.endswith(FP32_SUFFIXES))
     rec = {"phase": "kernel", "deck": deck, "name": name, "gpu": gpu,
            "max_abs_err": abs_err, "max_rel_err": rel, "tol_rel": TOL[name],
            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
@@ -346,9 +398,16 @@ def make_context(spec: dict, extra: dict | None = None, kind: dict = NC):
                                      **spec)
 
 
-def check_kernels(deck: str, ctx, dev, gpu: str) -> dict:
+def element_bytes(fp32: bool) -> tuple[int, int, str]:
+    """(bytes of a complex element, of a real one, name suffix) of the fp64
+    or the fp32 instantiations."""
+    return (8, 4, ".c64") if fp32 else (16, 8, "")
+
+
+def check_kernels(deck: str, ctx, dev, gpu: str, fp32: bool = False) -> dict:
     """Each kernel against its plain version at this deck's main-path
-    shapes. Returns {kernel: record}."""
+    shapes; fp32: the complex64 instantiations of K1, K2 and K3 on the fp32
+    tables (K7 has none). Returns {kernel: record}."""
     import numpy as np
     import torch
 
@@ -368,16 +427,20 @@ def check_kernels(deck: str, ctx, dev, gpu: str) -> dict:
     n = int(np.prod(dims))
     nfine = int(np.prod(ctx.gvec.fft.dims))
     rng = np.random.default_rng(7)
+    cb, rb, sfx = element_bytes(fp32)
+    wf = torch.complex64 if fp32 else torch.complex128
     tables = grid_tables(ctx, dev)
     rho0 = torch.as_tensor(initial_density_g(ctx), device=dev)
     pot = generate_potential(ctx, rho0, XCFunctional(["XC_LDA_X", "XC_LDA_C_PZ"]),
                              tables)
-    ps = make_hkset_params(ctx, pot.veff_r_coarse.cpu().numpy(), device=dev)
+    ps = make_hkset_params(ctx, pot.veff_r_coarse.cpu().numpy(), device=dev,
+                           dtype=wf)
     hk = ps.hk()
     mask = hk.mask
     psi_np = (rng.standard_normal((nk, nb, ngk))
               + 1j * rng.standard_normal((nk, nb, ngk)))
-    psi = torch.as_tensor(psi_np, device=dev)  # padded lanes hold garbage
+    # padded lanes hold garbage
+    psi = torch.as_tensor(psi_np, device=dev).to(wf)
     idx = hk.fft_index
     out = {}
     record = functools.partial(record_kernel, out, deck, gpu)
@@ -392,13 +455,13 @@ def check_kernels(deck: str, ctx, dev, gpu: str) -> dict:
     vals = psi.permute(0, 2, 1)[bi, gi].reshape(-1)
 
     def lib_scatter():
-        z = torch.zeros((nk * nb, n), dtype=torch.complex128, device=dev)
+        z = torch.zeros((nk * nb, n), dtype=wf, device=dev)
         return z.index_put_((rows, cols), vals)
 
-    record("local_hpsi.pw_to_box", [box_k], [box_p],
+    record("local_hpsi.pw_to_box" + sfx, [box_k], [box_p],
            lambda: k1.pw_to_box(psi, idx, mask, n),
            lambda: k1.pw_to_box_plain(psi, idx, mask, n), lib_scatter,
-           nbytes=nk * nb * ngk * 16 + nk * ngk * 12 + nk * nb * n * 16,
+           nbytes=nk * nb * ngk * cb + nk * ngk * (4 + rb) + nk * nb * n * cb,
            flops=0.0)
     del box_p
 
@@ -408,11 +471,11 @@ def check_kernels(deck: str, ctx, dev, gpu: str) -> dict:
     h_k = k1.box_to_pw_hpsi(vbox, psi, hk.ekin, mask, idx)
     h_p = k1.box_to_pw_hpsi_plain(vbox, psi, hk.ekin, mask, idx)
     gidx = idx.long()[:, None, :].expand(nk, nb, ngk)
-    record("local_hpsi.box_to_pw_hpsi", list(h_k), list(h_p),
+    record("local_hpsi.box_to_pw_hpsi" + sfx, list(h_k), list(h_p),
            lambda: k1.box_to_pw_hpsi(vbox, psi, hk.ekin, mask, idx),
            lambda: k1.box_to_pw_hpsi_plain(vbox, psi, hk.ekin, mask, idx),
            lambda: torch.gather(vbox, 2, gidx),
-           nbytes=nk * nb * ngk * (16 + 16 + 32) + nk * ngk * 20,
+           nbytes=nk * nb * ngk * 4 * cb + nk * ngk * (4 + 2 * rb),
            flops=nk * nb * ngk * 8.0)
     del vbox, h_k, h_p
 
@@ -423,15 +486,17 @@ def check_kernels(deck: str, ctx, dev, gpu: str) -> dict:
     hx[:, 0] = 2.0 * sx[:, 0]
     hd = ps.h_diag.reshape(nk, ngk)
     od = ps.o_diag
-    r_k = k2.davidson_residual(x, hx, sx, hd, od, mask, 1e-6)
-    r_p = k2.davidson_residual_plain(x, hx, sx, hd, od, mask, 1e-6)
-    if not bool((r_k[1][:, 0] < 1e-6).all()):
+    # (an fp32 eigenpair row's residual is at fp32 rounding of |H x|)
+    tol = 1e-3 if fp32 else 1e-6
+    r_k = k2.davidson_residual(x, hx, sx, hd, od, mask, tol)
+    r_p = k2.davidson_residual_plain(x, hx, sx, hd, od, mask, tol)
+    if not bool((r_k[1][:, 0] < tol).all()):
         raise AssertionError("davidson_residual: eigenpair rows not converged")
-    record("davidson_residual", list(r_k), list(r_p),
-           lambda: k2.davidson_residual(x, hx, sx, hd, od, mask, 1e-6),
-           lambda: k2.davidson_residual_plain(x, hx, sx, hd, od, mask, 1e-6),
+    record("davidson_residual" + sfx, list(r_k), list(r_p),
+           lambda: k2.davidson_residual(x, hx, sx, hd, od, mask, tol),
+           lambda: k2.davidson_residual_plain(x, hx, sx, hd, od, mask, tol),
            None,
-           nbytes=nk * nb * ngk * (48 + 16) + nk * ngk * 24 + nk * nb * 16,
+           nbytes=nk * nb * ngk * 4 * cb + nk * ngk * 3 * rb + nk * nb * 2 * rb,
            flops=nk * nb * ngk * 30.0)
     del x, hx, sx, r_k, r_p
 
@@ -444,11 +509,13 @@ def check_kernels(deck: str, ctx, dev, gpu: str) -> dict:
     a_k = k3.density_accumulate(acc0.clone(), fr, occ, float(n) ** 2)
     a_p = k3.density_accumulate_plain(acc0.clone(), fr, occ, float(n) ** 2)
     acc_t = acc0.clone()
-    record("density_accumulate", [a_k], [a_p],
+    record("density_accumulate" + sfx, [a_k], [a_p],
            lambda: k3.density_accumulate(acc_t, fr, occ, float(n) ** 2),
            lambda: k3.density_accumulate_plain(acc_t, fr, occ, float(n) ** 2),
-           None, nbytes=nb * n * 16 + n * 16 + nb * 8, flops=nb * n * 4.0)
+           None, nbytes=nb * n * cb + n * 16 + nb * 8, flops=nb * n * 4.0)
     del fr
+    if fp32:
+        return out
 
     # K7: unpolarized X + PZ on the initial density's fine box, with
     # exactly-zero and sub-threshold points
@@ -464,9 +531,10 @@ def check_kernels(deck: str, ctx, dev, gpu: str) -> dict:
     return out
 
 
-def check_kernels_us(deck: str, ctx, dev, gpu: str) -> dict:
+def check_kernels_us(deck: str, ctx, dev, gpu: str, fp32: bool = False) -> dict:
     """K1c, K4, K5 and K6 against their plain versions at an ultrasoft +
-    symmetry deck's main-path shapes. Returns {kernel: record}."""
+    symmetry deck's main-path shapes; fp32: K1c's complex64 instantiation
+    alone (K4-K6 have none). Returns {kernel: record}."""
     import numpy as np
     import torch
 
@@ -494,18 +562,22 @@ def check_kernels_us(deck: str, ctx, dev, gpu: str) -> dict:
 
     # K1c: one application to [X; P] of the band solve, B = nk, R = 2 nb
     rows = 2 * nb
-    veff = pot.veff_r_coarse.reshape(1, n)
-    fr0 = torch.complex(torch.randn(nk, rows, n, dtype=torch.float64, device=dev),
-                        torch.randn(nk, rows, n, dtype=torch.float64, device=dev))
+    cb, rb, sfx = element_bytes(fp32)
+    real = torch.float32 if fp32 else torch.float64
+    veff = pot.veff_r_coarse.reshape(1, n).to(real)
+    fr0 = torch.complex(torch.randn(nk, rows, n, dtype=real, device=dev),
+                        torch.randn(nk, rows, n, dtype=real, device=dev))
     fr_k = k1c.veff_multiply(fr0.clone(), veff)
     fr_p = k1c.veff_multiply_plain(fr0.clone(), veff)
     fr_t = fr0.clone()
-    record("veff_multiply", [fr_k], [fr_p],
+    record("veff_multiply" + sfx, [fr_k], [fr_p],
            lambda: k1c.veff_multiply(fr_t, veff),
            lambda: k1c.veff_multiply_plain(fr_t, veff),
            lambda: fr_t.mul_(veff[None]),
-           nbytes=nk * rows * n * 32 + n * 8, flops=nk * rows * n * 2.0)
+           nbytes=nk * rows * n * 2 * cb + n * rb, flops=nk * rows * n * 2.0)
     del fr0, fr_k, fr_p, fr_t
+    if fp32:
+        return out
 
     # K4 / K5: one atom type; a Hermitian density matrix and the potential
     # of the initial density
@@ -574,11 +646,13 @@ def check_kernels_us(deck: str, ctx, dev, gpu: str) -> dict:
     return out
 
 
-def check_kernels_gamma(deck: str, ctx, dev, gpu: str) -> dict:
+def check_kernels_gamma(deck: str, ctx, dev, gpu: str,
+                        fp32: bool = False) -> dict:
     """K8a, K8b, K1c in real mode and K2 on float64 blocks against their
     plain versions at a Gamma deck's main-path shapes: one application to
     the packed [X; P] block of the band solve (R = 2 nb) and one residual
-    of the nb-row block. Returns {kernel: record}."""
+    of the nb-row block; fp32: their instantiations on float32 packed
+    blocks, float32 tables and complex64 boxes. Returns {kernel: record}."""
     import numpy as np
     import torch
 
@@ -603,21 +677,25 @@ def check_kernels_gamma(deck: str, ctx, dev, gpu: str) -> dict:
                              tables)
     gm = build_gamma_map(np.asarray(ctx.gkvec.millers[0]),
                          np.asarray(ctx.gkvec.mask[0]))
+    cb, rb, _ = element_bytes(fp32)
+    real = torch.float32 if fp32 else torch.float64
+    sfx_r, sfx_c = (".f32", ".c64") if fp32 else ("", "")
     gp = make_gamma_params(ctx, pot.veff_r_coarse.cpu().numpy(), gm,
-                           device=dev)
+                           device=dev, dtype=real)
     npair = int(gp.rep_box.shape[0])
     rows = 2 * nb
-    x = torch.as_tensor(rng.standard_normal((1, rows, ngk)), device=dev)
+    x = torch.as_tensor(rng.standard_normal((1, rows, ngk)),
+                        device=dev).to(real)
     utabs = (gp.mask_p, gp.slot_re, gp.slot_im, gp.im_sign, gp.scale,
              gp.fft_index)
 
     # K8a: packed real -> complex box (zero fill and scatter)
     box = k8.unpack_to_box(x, *utabs, n)
-    record("gamma_pack.unpack_to_box", [box],
+    record("gamma_pack.unpack_to_box" + sfx_r, [box],
            [k8.unpack_to_box_plain(x, *utabs, n)],
            lambda: k8.unpack_to_box(x, *utabs, n),
            lambda: k8.unpack_to_box_plain(x, *utabs, n), None,
-           nbytes=rows * ngk * 8 + ngk * 36 + rows * n * 16,
+           nbytes=rows * ngk * rb + ngk * (12 + 3 * rb) + rows * n * cb,
            flops=rows * ngk * 3.0)
 
     # K1c real mode on the inverse transform of that box
@@ -631,12 +709,12 @@ def check_kernels_gamma(deck: str, ctx, dev, gpu: str) -> dict:
     # (veff, 0), the pair table built once outside the timing
     vz = torch.stack([veff, torch.zeros_like(veff)], dim=-1)
     fr_v = torch.view_as_real(fr_t)
-    record("veff_multiply.real", [fr_k],
+    record("veff_multiply.real" + sfx_c, [fr_k],
            [k1c.veff_multiply_real_plain(fr0, veff)],
            lambda: k1c.veff_multiply_real(fr_t, veff),
            lambda: k1c.veff_multiply_real_plain(fr_t, veff),
            lambda: fr_v.mul_(vz),
-           nbytes=rows * n * (8 + 16) + n * 8, flops=rows * n * 1.0)
+           nbytes=rows * n * (rb + cb) + n * rb, flops=rows * n * 1.0)
     del fr0, fr_t, fr_v, vz
 
     # K8b: the forward transform gathered back into the packed slots
@@ -644,13 +722,13 @@ def check_kernels_gamma(deck: str, ctx, dev, gpu: str) -> dict:
                           dim=(-3, -2, -1)).view(1, rows, n)
     del fr_k
     pargs = (gp.ekin_p, gp.mask_p, gp.rep_box, gp.par_box, gp.zero_box)
-    record("gamma_pack.box_to_packed_hx",
+    record("gamma_pack.box_to_packed_hx" + sfx_r,
            list(k8.box_to_packed_hx(vbox, x, *pargs)),
            list(k8.box_to_packed_hx_plain(vbox, x, *pargs)),
            lambda: k8.box_to_packed_hx(vbox, x, *pargs),
            lambda: k8.box_to_packed_hx_plain(vbox, x, *pargs), None,
-           nbytes=(rows * (2 * npair + 1) * 16 + rows * ngk * (8 + 16)
-                   + ngk * 16 + npair * 8),
+           nbytes=(rows * (2 * npair + 1) * cb + rows * ngk * 3 * rb
+                   + ngk * 2 * rb + npair * 8),
            flops=rows * ngk * 6.0)
     del vbox
 
@@ -659,30 +737,36 @@ def check_kernels_gamma(deck: str, ctx, dev, gpu: str) -> dict:
     xs = x[:, :nb] * gp.mask_p
     hx, sx = apply_h_s_gamma(gp, xs)
     hx[:, 0] = 2.0 * sx[:, 0]
-    hd = torch.as_tensor(rng.uniform(1.0, 3.0, (1, ngk)), device=dev)
-    od = torch.ones((1, ngk), dtype=torch.float64, device=dev)
+    hd = torch.as_tensor(rng.uniform(1.0, 3.0, (1, ngk)), device=dev).to(real)
+    od = torch.ones((1, ngk), dtype=real, device=dev)
     mask = gp.mask_p[None]
-    r_k = k2.davidson_residual(xs, hx, sx, hd, od, mask, 1e-6)
-    if not bool((r_k[1][:, 0] < 1e-6).all()):
-        raise AssertionError("davidson_residual.f64: eigenpair row not converged")
-    record("davidson_residual.f64", list(r_k),
-           list(k2.davidson_residual_plain(xs, hx, sx, hd, od, mask, 1e-6)),
-           lambda: k2.davidson_residual(xs, hx, sx, hd, od, mask, 1e-6),
-           lambda: k2.davidson_residual_plain(xs, hx, sx, hd, od, mask, 1e-6),
-           None, nbytes=nb * ngk * (24 + 8) + ngk * 24 + nb * 16,
+    tol = 1e-3 if fp32 else 1e-6
+    name = "davidson_residual" + (".f32" if fp32 else ".f64")
+    r_k = k2.davidson_residual(xs, hx, sx, hd, od, mask, tol)
+    if not bool((r_k[1][:, 0] < tol).all()):
+        raise AssertionError(f"{name}: eigenpair row not converged")
+    record(name, list(r_k),
+           list(k2.davidson_residual_plain(xs, hx, sx, hd, od, mask, tol)),
+           lambda: k2.davidson_residual(xs, hx, sx, hd, od, mask, tol),
+           lambda: k2.davidson_residual_plain(xs, hx, sx, hd, od, mask, tol),
+           None, nbytes=nb * ngk * 4 * rb + ngk * 3 * rb + nb * 2 * rb,
            flops=nb * ngk * 15.0)
     return out
 
 
-def check_kernel_chunk(deck: str, ctx, chunk: int, dev, gpu: str) -> dict:
+def check_kernel_chunk(deck: str, ctx, chunk: int, dev, gpu: str,
+                       fp32: bool = False) -> dict:
     """K9 against its plain version for the first chunk step of a
-    chunked-projector deck (chunk atoms a step). Returns {kernel: record}."""
+    chunked-projector deck (chunk atoms a step); fp32: its complex64
+    instantiation on the float32 tables. Returns {kernel: record}."""
     import torch
 
     from sirius_tpu_torch.kernels import beta_chunk as k9
     from sirius_tpu_torch.ops.beta_chunked import make_chunked_hk
 
-    prm = make_chunked_hk(ctx, 0, chunk=chunk, device=dev)
+    cb, rb, sfx = element_bytes(fp32)
+    prm = make_chunked_hk(ctx, 0, chunk=chunk, device=dev,
+                          dtype=torch.complex64 if fp32 else torch.complex128)
     args = (prm.pos[0], prm.xi_rf[0], prm.xi_lm[0], prm.cph[0], prm.rlm,
             prm.q, prm.mk, prm.ri_grid, prm.dq, prm.pref, prm.mask[0])
     c, nxi = prm.xi_rf.shape[1:]
@@ -693,12 +777,12 @@ def check_kernel_chunk(deck: str, ctx, chunk: int, dev, gpu: str) -> dict:
     i0 = torch.clamp(prm.q / prm.dq, 0.0, nq - 1.001).long()
     nread = int(torch.unique(torch.cat([i0, i0 + 1])).numel())
     out = {}
-    record_kernel(out, deck, gpu, "beta_chunk", [k9.beta_chunk(*args)],
+    record_kernel(out, deck, gpu, "beta_chunk" + sfx, [k9.beta_chunk(*args)],
                   [k9.beta_chunk_plain(*args)],
                   lambda: k9.beta_chunk(*args),
                   lambda: k9.beta_chunk_plain(*args), None,
-                  nbytes=(c * nxi * ngk * 16 + ngk * (8 + 8 + 24 + lmmax * 8)
-                          + nrf * nread * 8 + c * (24 + nxi * 24)),
+                  nbytes=(c * nxi * ngk * cb + ngk * rb * (5 + lmmax)
+                          + nrf * nread * rb + c * (3 * rb + nxi * (8 + cb))),
                   flops=c * nxi * ngk * 14.0 + c * ngk * 7.0 + ngk * 3.0)
     return out
 
@@ -874,13 +958,14 @@ def check_kernels_xc(deck: str, ctx, dev, gpu: str) -> dict:
     return out
 
 
-def check_kernels_tau(deck: str, ctx, dev, gpu: str) -> dict:
+def check_kernels_tau(deck: str, ctx, dev, gpu: str, fp32: bool = False) -> dict:
     """K11a and K11b against their plain versions at this deck's band-solve
     shapes: one component of the tau operator applied to the Davidson step's
     block [nk, nb, ngk], with non-zero values on the padded lanes (they
     point at the G = 0 slot). K11b adds its three components into H psi in
     order, the last one timed (it gathers the box and reads and writes
-    hpsi). Returns {kernel: record}."""
+    hpsi); fp32: their complex64 instantiations on float32 G+k vectors.
+    Returns {kernel: record}."""
     import numpy as np
     import torch
 
@@ -891,13 +976,16 @@ def check_kernels_tau(deck: str, ctx, dev, gpu: str) -> dict:
     dims = tuple(ctx.fft_coarse.dims)
     n = int(np.prod(dims))
     rng = np.random.default_rng(23)
-    hk = make_hkset_params(ctx, np.zeros(dims), device=dev).hk()
+    cb, rb, sfx = element_bytes(fp32)
+    wf = torch.complex64 if fp32 else torch.complex128
+    real = torch.float32 if fp32 else torch.float64
+    hk = make_hkset_params(ctx, np.zeros(dims), device=dev, dtype=wf).hk()
     mask, idx = hk.mask, hk.fft_index
     gkc = torch.as_tensor(np.asarray(ctx.gkvec.gkcart, dtype=np.float64),
-                          device=dev)
+                          device=dev).to(real)
     psi = torch.as_tensor(rng.standard_normal((nk, nb, ngk))
                           + 1j * rng.standard_normal((nk, nb, ngk)),
-                          device=dev)
+                          device=dev).to(wf)
     out = {}
     record = functools.partial(record_kernel, out, deck, gpu)
 
@@ -909,21 +997,23 @@ def check_kernels_tau(deck: str, ctx, dev, gpu: str) -> dict:
     vals = (gkc[bi, gi, 1][:, None] * psi.permute(0, 2, 1)[bi, gi]).reshape(-1)
 
     def lib_scatter():
-        z = torch.zeros((nk * nb, n), dtype=torch.complex128, device=dev)
+        z = torch.zeros((nk * nb, n), dtype=wf, device=dev)
         return z.index_put_((rows, cols), vals)
 
     args = (psi, gkc, 1, idx, mask, n)
-    record("mgga_tau.grad_to_box", [k11.grad_to_box(*args)],
+    record("mgga_tau.grad_to_box" + sfx, [k11.grad_to_box(*args)],
            [k11.grad_to_box_plain(*args)],
            lambda: k11.grad_to_box(*args),
            lambda: k11.grad_to_box_plain(*args), lib_scatter,
-           nbytes=nk * nb * ngk * 16 + nk * ngk * 20 + nk * nb * n * 16,
+           nbytes=nk * nb * ngk * cb + nk * ngk * (4 + 2 * rb)
+           + nk * nb * n * cb,
            flops=nk * nb * ngk * 2.0)
     del vals, rows, cols
 
     boxes = [k11.grad_to_box(psi, gkc, c, idx, mask, n) for c in range(3)]
     h0 = torch.as_tensor(rng.standard_normal((nk, nb, ngk))
-                         + 1j * rng.standard_normal((nk, nb, ngk)), device=dev)
+                         + 1j * rng.standard_normal((nk, nb, ngk)),
+                         device=dev).to(wf)
 
     def run(fn):
         h = h0.clone()
@@ -933,12 +1023,12 @@ def check_kernels_tau(deck: str, ctx, dev, gpu: str) -> dict:
 
     h_t = run(k11.box_to_pw_tau)
     gidx = idx.long()[:, None, :].expand(nk, nb, ngk)
-    record("mgga_tau.box_to_pw_tau", [run(k11.box_to_pw_tau)],
+    record("mgga_tau.box_to_pw_tau" + sfx, [run(k11.box_to_pw_tau)],
            [run(k11.box_to_pw_tau_plain)],
            lambda: k11.box_to_pw_tau(boxes[2], gkc, 2, idx, mask, h_t),
            lambda: k11.box_to_pw_tau_plain(boxes[2], gkc, 2, idx, mask, h_t),
            lambda: torch.gather(boxes[2], 2, gidx),
-           nbytes=nk * nb * ngk * (16 + 32) + nk * ngk * 20,
+           nbytes=nk * nb * ngk * 3 * cb + nk * ngk * (4 + 2 * rb),
            flops=nk * nb * ngk * 8.0)
     return out
 
@@ -969,14 +1059,16 @@ def check_kernel_axial(deck: str, ctx, dev, gpu: str) -> dict:
     return out
 
 
-def check_kernels_spinor(deck: str, ctx, dev, gpu: str) -> dict:
+def check_kernels_spinor(deck: str, ctx, dev, gpu: str,
+                         fp32: bool = False) -> dict:
     """K12a, K12b, K6v and K4 on four channels against their plain versions
     at a non-collinear deck's main-path shapes: the spinor potential of the
     initial density and magnetization on the k-set's [nk nb, 2, n] box (a
     Davidson step's block), the four-component density of one k-point's
     [nb, 2, n] box, the axial-vector symmetrization of the initial B field
-    over the magnetic group, rho_aug of four Hermitian component blocks.
-    Returns {kernel: record}."""
+    over the magnetic group, rho_aug of four Hermitian component blocks;
+    fp32: the complex64 instantiations of K12a (float32 fields) and K12b
+    alone (K6v and K4 have none). Returns {kernel: record}."""
     import numpy as np
     import torch
 
@@ -1005,26 +1097,26 @@ def check_kernels_spinor(deck: str, ctx, dev, gpu: str) -> dict:
     pot = generate_potential_nc(ctx, rho0, XCFunctional(["XC_LDA_X",
                                                          "XC_LDA_C_PZ"]),
                                 m0, tables)
-    v = pot.veff_boxes.view(4, n)
+    cb, rb, sfx = element_bytes(fp32)
+    real = torch.float32 if fp32 else torch.float64
+    v = pot.veff_boxes.view(4, n).to(real)
 
     # K12a: in place on [nk nb, 2, n], the whole k-set's block of a
     # Davidson step (22 of the 25 launches of an iteration; the three
     # [X; P] refreshes take twice the rows). Yardstick: one einsum of the
     # [2, 2, n] complex potential, built outside the timing, with the box
     rows = nk * nb
-    fr0 = torch.complex(torch.randn(rows, 2, n, dtype=torch.float64,
-                                    device=dev),
-                        torch.randn(rows, 2, n, dtype=torch.float64,
-                                    device=dev))
+    fr0 = torch.complex(torch.randn(rows, 2, n, dtype=real, device=dev),
+                        torch.randn(rows, 2, n, dtype=real, device=dev))
     fr_k = k12a.spinor_veff(fr0.clone(), *v)
     fr_p = k12a.spinor_veff_plain(fr0.clone(), *v)
     fr_t = fr0.clone()
     vmat = spinor_potential_matrix(*v)
-    record("spinor_veff", [fr_k], [fr_p],
+    record("spinor_veff" + sfx, [fr_k], [fr_p],
            lambda: k12a.spinor_veff(fr_t, *v),
            lambda: k12a.spinor_veff_plain(fr_t, *v),
            lambda: torch.einsum("sti,rti->rsi", vmat, fr0),
-           nbytes=rows * 2 * n * 32 + 4 * n * 8, flops=rows * n * 20.0)
+           nbytes=rows * 2 * n * 2 * cb + 4 * n * rb, flops=rows * n * 20.0)
     del fr_k, fr_p, fr_t
 
     # K12b: the four fields of one k-point's box (one launch per k-point)
@@ -1032,16 +1124,18 @@ def check_kernels_spinor(deck: str, ctx, dev, gpu: str) -> dict:
     occ = torch.as_tensor(rng.uniform(0.0, 0.25, nb), device=dev)
     acc0 = torch.as_tensor(rng.uniform(0.0, 1.0, (4, n)), device=dev)
     acc_t = acc0.clone()
-    record("density_accumulate_nc",
+    record("density_accumulate_nc" + sfx,
            [k12b.density_accumulate_nc(acc0.clone(), fr1, occ, float(n) ** 2)],
            [k12b.density_accumulate_nc_plain(acc0.clone(), fr1, occ,
                                              float(n) ** 2)],
            lambda: k12b.density_accumulate_nc(acc_t, fr1, occ, float(n) ** 2),
            lambda: k12b.density_accumulate_nc_plain(acc_t, fr1, occ,
                                                     float(n) ** 2),
-           None, nbytes=nb * 2 * n * 16 + 4 * n * 16 + nb * 8,
+           None, nbytes=nb * 2 * n * cb + 4 * n * 16 + nb * 8,
            flops=nb * n * 20.0 + n * 12.0)
     del fr0, fr1, acc_t
+    if fp32:
+        return out
 
     # K6v: the unsymmetrized B field of the initial potential; yardstick:
     # index_add_ over the JAX package's dense per-op scatter table, with the
@@ -1116,7 +1210,9 @@ def spinor_potential_matrix(v_uu, v_dd, b_x, b_y):
 
 def wrappers() -> dict:
     """The kernel wrappers by summary name, each with the attribute that
-    holds its launch count (K2 counts its float64 launches apart)."""
+    holds its launch count (K2 counts its float64 launches apart, and every
+    fp32 instantiation counts on its wrapper's launches_c64 or
+    launches_f32)."""
     from sirius_tpu_torch.kernels import augmentation as k45
     from sirius_tpu_torch.kernels import beta_chunk as k9
     from sirius_tpu_torch.kernels import davidson_residual as k2
@@ -1139,30 +1235,34 @@ def wrappers() -> dict:
     kernel = {"lda_xc": k7.lda_xc, "gga_xc": k7g.gga_xc,
               "mgga_xc": k7s.mgga_xc}
     xc = {name: (kernel[name.split(".")[0]], n) for name in XC_CHECKS}
-    return {"local_hpsi.pw_to_box": (k1.pw_to_box, n),
-            "local_hpsi.box_to_pw_hpsi": (k1.box_to_pw_hpsi, n),
-            "davidson_residual": (k2.davidson_residual, n),
-            "density_accumulate": (k3.density_accumulate, n),
-            "lda_xc": (k7.lda_xc, n),
-            "veff_multiply": (k1c.veff_multiply, n),
-            "augmentation.rho_aug": (k45.rho_aug, n),
-            "augmentation.d_operator": (k45.d_operator, n),
-            "symmetrize_pw": (k6.symmetrize_pw, n),
-            "gamma_pack.unpack_to_box": (k8.unpack_to_box, n),
-            "gamma_pack.box_to_packed_hx": (k8.box_to_packed_hx, n),
-            "veff_multiply.real": (k1c.veff_multiply_real, n),
-            "davidson_residual.f64": (k2.davidson_residual, "launches_f64"),
-            "beta_chunk": (k9.beta_chunk, n),
-            **xc,
-            "xc_gradient.gradient_boxes": (k10.gradient_boxes, n),
-            "xc_gradient.divergence_pw": (k10.divergence_pw, n),
-            "symmetrize_pw.axial": (k6.symmetrize_pw, "launches_axial"),
-            "mgga_tau.grad_to_box": (k11.grad_to_box, n),
-            "mgga_tau.box_to_pw_tau": (k11.box_to_pw_tau, n),
-            "spinor_veff": (k12a.spinor_veff, n),
-            "density_accumulate_nc": (k12b.density_accumulate_nc, n),
-            "symmetrize_vector_pw": (k6.symmetrize_vector_pw, n),
-            "augmentation.rho_aug.4": (k45.rho_aug, n)}
+    out = {"local_hpsi.pw_to_box": (k1.pw_to_box, n),
+           "local_hpsi.box_to_pw_hpsi": (k1.box_to_pw_hpsi, n),
+           "davidson_residual": (k2.davidson_residual, n),
+           "density_accumulate": (k3.density_accumulate, n),
+           "lda_xc": (k7.lda_xc, n),
+           "veff_multiply": (k1c.veff_multiply, n),
+           "augmentation.rho_aug": (k45.rho_aug, n),
+           "augmentation.d_operator": (k45.d_operator, n),
+           "symmetrize_pw": (k6.symmetrize_pw, n),
+           "gamma_pack.unpack_to_box": (k8.unpack_to_box, n),
+           "gamma_pack.box_to_packed_hx": (k8.box_to_packed_hx, n),
+           "veff_multiply.real": (k1c.veff_multiply_real, n),
+           "davidson_residual.f64": (k2.davidson_residual, "launches_f64"),
+           "beta_chunk": (k9.beta_chunk, n),
+           **xc,
+           "xc_gradient.gradient_boxes": (k10.gradient_boxes, n),
+           "xc_gradient.divergence_pw": (k10.divergence_pw, n),
+           "symmetrize_pw.axial": (k6.symmetrize_pw, "launches_axial"),
+           "mgga_tau.grad_to_box": (k11.grad_to_box, n),
+           "mgga_tau.box_to_pw_tau": (k11.box_to_pw_tau, n),
+           "spinor_veff": (k12a.spinor_veff, n),
+           "density_accumulate_nc": (k12b.density_accumulate_nc, n),
+           "symmetrize_vector_pw": (k6.symmetrize_vector_pw, n),
+           "augmentation.rho_aug.4": (k45.rho_aug, n)}
+    for name in FP32_SUMMARY:
+        out[name] = (out[base_name(name)][0],
+                     "launches_" + name.rsplit(".", 1)[1])
+    return out
 
 
 # the kernels each SCF path must launch: the norm-conserving k-set path runs
@@ -1230,6 +1330,81 @@ SPINOR_DECK_PATH = {
 }
 FULL_GAMMA_PBE_FM_KERNELS = xc_kernels(GAMMA_US_KERNELS, True, True)
 FULL_SCAN_KERNELS = xc_kernels(US_KERNELS, False, False, mgga=True)
+# the fp32 paths: the band solve (and on the k-set path the density's
+# transforms) through the fp32 instantiations, the rest of the iteration in
+# fp64. The Gamma and chunked paths hand the density complex128 bands (K1's
+# fp64 scatter and K3), as the JAX package does
+FP32_US_KERNELS = ("local_hpsi.pw_to_box.c64", "local_hpsi.box_to_pw_hpsi.c64",
+                   "veff_multiply.c64", "davidson_residual.c64",
+                   "density_accumulate.c64", "lda_xc", "augmentation.rho_aug",
+                   "augmentation.d_operator", "symmetrize_pw")
+FP32_GAMMA_US_KERNELS = ("gamma_pack.unpack_to_box.f32",
+                         "veff_multiply.real.c64",
+                         "gamma_pack.box_to_packed_hx.f32",
+                         "davidson_residual.f32", "local_hpsi.pw_to_box",
+                         "density_accumulate", "lda_xc",
+                         "augmentation.rho_aug", "augmentation.d_operator",
+                         "symmetrize_pw")
+FP32_CHUNKED_US_KERNELS = ("local_hpsi.pw_to_box.c64",
+                           "local_hpsi.box_to_pw_hpsi.c64",
+                           "veff_multiply.c64", "davidson_residual.c64",
+                           "beta_chunk.c64", "local_hpsi.pw_to_box",
+                           "density_accumulate", "lda_xc",
+                           "augmentation.rho_aug", "augmentation.d_operator",
+                           "symmetrize_pw")
+FP32_SCAN_KERNELS = tuple(k for k in FP32_US_KERNELS if k != "lda_xc") + (
+    "mgga_xc.scan", "xc_gradient.gradient_boxes", "xc_gradient.divergence_pw",
+    "mgga_tau.grad_to_box.c64", "mgga_tau.box_to_pw_tau.c64")
+FP32_SPINOR_SYM_KERNELS = ("local_hpsi.pw_to_box.c64",
+                           "local_hpsi.box_to_pw_hpsi.c64",
+                           "davidson_residual.c64", "spinor_veff.c64",
+                           "density_accumulate_nc.c64",
+                           "augmentation.rho_aug.4", "augmentation.d_operator",
+                           "symmetrize_pw", "symmetrize_vector_pw")
+# the fp32 parity decks of the reference tool (each beside its fp64 twin
+# there): the band solve each takes and the kernels it must launch
+FP32_DECK_PATH = {
+    "fp32_us_sym_polish": ("kset", FP32_US_KERNELS),
+    "fp32_us_sym_fixed8": ("kset", FP32_US_KERNELS),
+    "gamma_us_sym_fp32": ("gamma", FP32_GAMMA_US_KERNELS),
+    "chunked_us_sym_fp32": ("chunked", FP32_CHUNKED_US_KERNELS),
+    "scan_us_sym_fp32": ("kset", FP32_SCAN_KERNELS),
+    "small_spinor_pbe_us_sym_fp32": (
+        "kset_nc", xc_kernels(FP32_SPINOR_SYM_KERNELS, True, False)),
+}
+# the band-solve kernels by instantiation: a band solve on complex64 or
+# float32 blocks launches none of the fp64 ones
+BAND_SOLVE_FP64 = ("local_hpsi.pw_to_box", "local_hpsi.box_to_pw_hpsi",
+                   "veff_multiply", "veff_multiply.real", "davidson_residual",
+                   "davidson_residual.f64", "gamma_pack.unpack_to_box",
+                   "gamma_pack.box_to_packed_hx", "beta_chunk",
+                   "mgga_tau.grad_to_box", "mgga_tau.box_to_pw_tau",
+                   "spinor_veff")
+# the full-width fp32 runs: the 16-atom US cell with the polish, and the
+# 54-atom Gamma and 16-atom spinor cells in fp32 throughout
+FULL_ITERS.update(full_width_us_fp32=6, full_width_gamma_us_fp32=4,
+                  full_width_spinor_us_fp32=4)
+
+
+def fp32_electron_tol(refs: dict, nel: float) -> float:
+    """The electron-count limit of a full-width fp32 run: its bands are
+    S-normalized to fp32 rounding, so the count is off by ~1e-7 per
+    electron, in the JAX package too (and a run polished for its last
+    iterations still mixes the earlier densities). 4x the JAX package's
+    largest relative electron-count gap over its pure-fp32 records, times
+    nel."""
+    rel = max(r["twin_electron_gap"] / refs[r["twin"]]["electrons"]
+              for r in refs.values() if "twin_electron_gap" in r)
+    return 4.0 * rel * nel
+
+
+def polish_threshold(rms_history) -> float:
+    """fp32_to_fp64_rms of full_width_us_fp32, taken from the density
+    residuals of the fp64 full_width_us run of the same call: the geometric
+    mean of those after iterations 3 and 4, so the switch fires after
+    iteration 4 (after 3 if the fp32 trajectory runs ahead) with a margin
+    of the square root of their ratio either way."""
+    return math.sqrt(rms_history[2] * rms_history[3])
 
 
 def reset_launches() -> None:
@@ -1268,6 +1443,175 @@ def check_launched(phase: str, dev, launches: dict, required,
                              f"{scalar}")
 
 
+@contextlib.contextmanager
+def watch_band_solves():
+    """Yield a list that collects, for every band solve run_scf makes, its
+    precision ("fp32" where the solve returns float32 Ritz values) and the
+    launches each kernel instantiation made during it (nonzero counts
+    only). Wraps the solve functions dft/scf.py and dft/scf_nc.py call
+    (davidson_kset, davidson_kset_mgga, davidson_gamma, the chunked path's
+    davidson, davidson_kset_nc) and puts them back on exit."""
+    import torch
+
+    import sirius_tpu_torch.dft.scf as scf_mod
+    import sirius_tpu_torch.dft.scf_nc as nc_mod
+
+    solves = []
+    saved = []
+    for mod, names in ((scf_mod, ("davidson_kset", "davidson_kset_mgga",
+                                  "davidson_gamma", "davidson")),
+                       (nc_mod, ("davidson_kset_nc",))):
+        for name in names:
+            fn = getattr(mod, name)
+            saved.append((mod, name, fn))
+
+            def wrapped(*args, _fn=fn, **kwargs):
+                before = read_launches()
+                out = _fn(*args, **kwargs)
+                after = read_launches()
+                solves.append({
+                    "precision": ("fp32" if out[0].dtype == torch.float32
+                                  else "fp64"),
+                    "launches": {k: after[k] - before[k] for k in after
+                                 if after[k] != before[k]}})
+                return out
+
+            setattr(mod, name, wrapped)
+    try:
+        yield solves
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def check_band_solves(phase: str, dev, solves) -> None:
+    """On the card, every fp32 band solve launched K2's fp32 instantiation
+    and no fp64 band-solve kernel."""
+    if dev.type != "cuda":
+        return
+    for i, solve in enumerate(solves):
+        if solve["precision"] != "fp32":
+            continue
+        wide = {k: v for k, v in solve["launches"].items()
+                if k in BAND_SOLVE_FP64}
+        if wide:
+            raise AssertionError(f"{phase}: fp32 band solve {i} launched fp64 "
+                                 f"kernels: {wide}")
+        if not any(solve["launches"].get(k) for k in
+                   ("davidson_residual.c64", "davidson_residual.f32")):
+            raise AssertionError(f"{phase}: fp32 band solve {i} launched no "
+                                 "fp32 K2")
+
+
+def moment_vector(mag: dict):
+    """The total and per-atom moments of a result or record as one flat
+    vector (components of a spinor run, z of a collinear one)."""
+    import numpy as np
+
+    return np.concatenate([np.ravel(mag["total"]), np.ravel(mag["atoms"])])
+
+
+def iteration_span(rec: dict) -> list:
+    """[least, most] iterations of the JAX package on a deck: its record's
+    count and, where the reference tool recorded them, those of its runs
+    from perturbed starts (perturbed_iterations)."""
+    its = [rec["num_scf_iterations"]] + rec.get("perturbed_iterations", [])
+    return [min(its), max(its)]
+
+
+def check_iterations(phase: str, n: int, rec: dict) -> None:
+    """A run's iteration count within +-1 of the JAX package's span."""
+    lo, hi = iteration_span(rec)
+    if not lo - 1 <= n <= hi + 1:
+        raise AssertionError(f"{phase}: {n} iterations, the JAX package "
+                             f"{lo} to {hi}")
+
+
+def parity_scf_fp32(ctx, dev, refs: dict, name: str, gpu: str,
+                    path: str | None = None, required=None) -> dict:
+    """An fp32 deck of the reference tool against the JAX package's fp64
+    twin of it (refs[refs[name]["twin"]]). With the fp32_to_fp64_rms polish
+    every energy term and the electron count must land within 1e-8 of the
+    twin, after at least one fp64 iteration, and the iteration count
+    within +-1 of the JAX package's polished counts (iteration_span). In
+    fp32 throughout (a fixed count) the total must land within 5e-5 Ha of
+    the twin's, and every energy term, the electron count and (spinor; its
+    6-op group pins the axis) every moment component within 4x the JAX
+    package's own largest fp32-vs-fp64 gap in that quantity over its three
+    fp32 runs of the deck (the record and two from starts perturbed by
+    1e-7), the terms and moments at most 1e-4. The fp32 bands are
+    S-normalized to fp32 rounding, so the electron count is off by ~1e-6 in
+    the JAX package's own runs: it has no 1e-8 gate in fp32 throughout.
+    Every fp32 band solve launched only fp32 band-solve kernels. path and
+    required default to the deck's entry of FP32_DECK_PATH."""
+    from sirius_tpu_torch.dft.scf import run_scf
+
+    rec = refs[name]
+    twin = refs[rec["twin"]]
+    if path is None:
+        path, required = FP32_DECK_PATH[name]
+    phase = "parity_scf_" + name
+    polished = ctx.cfg.settings.fp32_to_fp64_rms > 0
+    reset_launches()
+    with watch_band_solves() as solves:
+        res = run_scf(ctx.cfg, ctx=ctx, device=dev)
+    launches = read_launches()
+    nel = float(res["_state"]["rho_g"][0].real) * ctx.unit_cell.omega
+    terms = {k: res["energy"][k] - v for k, v in twin["energy"].items()}
+    term_limit = 1e-8 if polished else min(4.0 * rec["twin_max_gap"], 1e-4)
+    nel_limit = 1e-8 if polished else 4.0 * rec["twin_electron_gap"]
+    out = {"phase": phase, "gpu": gpu, "deck": name, "twin": rec["twin"],
+           "polished": polished,
+           "num_scf_iterations": res["num_scf_iterations"],
+           "ref_iterations": rec["num_scf_iterations"],
+           "jax_iteration_span": iteration_span(rec),
+           "twin_iterations": twin["num_scf_iterations"],
+           "wf_precision": res["wf_precision"],
+           "e_total": res["energy"]["total"], "d_total": terms["total"],
+           "max_term_err": max(abs(v) for v in terms.values()),
+           "term_limit": term_limit,
+           "jax_twin_max_gap": rec["twin_max_gap"], "electrons": nel,
+           "electron_limit": nel_limit,
+           "iteration_seconds": res["iteration_seconds"],
+           "band_solve_seconds": res["band_solve_seconds"],
+           "band_solves": solves, "launches": launches}
+    if "magnetisation" in twin:
+        mom = float(abs(moment_vector(res["magnetisation"])
+                        - moment_vector(twin["magnetisation"])).max())
+        out.update(max_moment_err=mom,
+                   moment_limit=min(4.0 * rec["twin_max_moment_gap"], 1e-4))
+    emit(out)
+    want_nel = twin["electrons"]
+    if not abs(nel - want_nel) <= nel_limit:
+        raise AssertionError(f"{phase}: electron count {nel}, want {want_nel} "
+                             f"to {nel_limit}")
+    bad = {k: v for k, v in terms.items() if abs(v) > term_limit}
+    if bad:
+        raise AssertionError(f"{phase}: energy terms off the fp64 twin by "
+                             f"more than {term_limit} Ha: {bad}")
+    prec = res["wf_precision"]
+    if polished:
+        check_iterations(phase, res["num_scf_iterations"], rec)
+        if prec[0] != "fp32" or prec[-1] != "fp64":
+            raise AssertionError(f"{phase}: no fp32 -> fp64 switch: {prec}")
+    else:
+        if abs(terms["total"]) > 5e-5:
+            raise AssertionError(f"{phase}: |dE_total| {abs(terms['total'])}"
+                                 " > 5e-5 Ha")
+        if set(prec) != {"fp32"} or (res["num_scf_iterations"]
+                                     != rec["num_scf_iterations"]):
+            raise AssertionError(f"{phase}: {prec}, want "
+                                 f"{rec['num_scf_iterations']} fp32 iterations")
+        if "max_moment_err" in out and not (out["max_moment_err"]
+                                            <= out["moment_limit"]):
+            raise AssertionError(f"{phase}: moments off by "
+                                 f"{out['max_moment_err']}")
+    check_launched(phase, dev, launches, required, path,
+                   res["num_scf_iterations"], ctx.num_mag_dims == 1)
+    check_band_solves(phase, dev, solves)
+    return launches
+
+
 def parity_scf(ctx, dev, ref: dict, gpu: str, phase: str = "parity_scf",
                deck: str = "full_width_2atom", required=NC_KERNELS,
                path: str = "kset") -> dict:
@@ -1284,6 +1628,7 @@ def parity_scf(ctx, dev, ref: dict, gpu: str, phase: str = "parity_scf",
     emit({"phase": phase, "gpu": gpu, "deck": deck,
           "num_scf_iterations": res["num_scf_iterations"],
           "ref_iterations": ref["num_scf_iterations"],
+          "jax_iteration_span": iteration_span(ref),
           "e_total": res["energy"]["total"], "d_total": d_total,
           "max_term_err": max(abs(v) for v in terms.values()),
           "efermi": res["efermi"], "efermi_err": res["efermi"] - ref["efermi"],
@@ -1300,8 +1645,7 @@ def parity_scf(ctx, dev, ref: dict, gpu: str, phase: str = "parity_scf",
     bad = {k: v for k, v in terms.items() if abs(v) > 1e-8}
     if bad:
         raise AssertionError(f"{phase}: energy terms off by > 1e-8 Ha: {bad}")
-    if abs(res["num_scf_iterations"] - ref["num_scf_iterations"]) > 1:
-        raise AssertionError(f"{phase}: iteration count differs by more than 1")
+    check_iterations(phase, res["num_scf_iterations"], ref)
     polarized = "magnetisation" in ref
     if polarized and path == "kset_nc":
         got, want = res["magnetisation"], ref["magnetisation"]
@@ -1370,16 +1714,23 @@ def spinor_moment_errors(got: dict, want: dict, symmetric: bool) -> dict:
 
 def full_width(ctx, dev, gpu: str, phase: str = "full_width",
                required=NC_KERNELS, deck: str = "si16_supercell2",
-               path: str = "kset") -> dict:
+               path: str = "kset", with_rms: bool = False,
+               electron_tol: float = 1e-8):
+    """One full-width run with tolerances that cannot be met, its electron
+    count held to electron_tol. Returns the launches, and with with_rms
+    the density residual of each iteration too."""
     import torch
 
     from sirius_tpu_torch.dft.scf import run_scf
 
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    res = run_scf(ctx.cfg, ctx=ctx, device=dev)
+    with watch_band_solves() as solves:
+        res = run_scf(ctx.cfg, ctx=ctx, device=dev)
     launches = read_launches()
     iters = res["num_scf_iterations"]
+    prec = res["wf_precision"]
+    secs = res["iteration_seconds"]
     nel = float(res["_state"]["rho_g"][0].real) * ctx.unit_cell.omega
     want_nel = float(ctx.unit_cell.num_valence_electrons)
     e_ok = all(math.isfinite(v) for v in res["energy"].values())
@@ -1393,14 +1744,26 @@ def full_width(ctx, dev, gpu: str, phase: str = "full_width",
           "fine_box": list(ctx.gvec.fft.dims), "num_gvec": ctx.gvec.num_gvec,
           "num_beta": ctx.beta.num_beta_total, "num_scf_iterations": iters,
           "iteration_seconds": res["iteration_seconds"],
+          "rms_history": res["rms_history"],
+          "fp32_to_fp64_rms": ctx.cfg.settings.fp32_to_fp64_rms,
           "band_solve_seconds": res["band_solve_seconds"],
           # after the first iteration, which carries the LCAO start
           "band_solve_share": (sum(res["band_solve_seconds"][1:])
                                / max(sum(res["iteration_seconds"][1:]), 1e-30)),
           "launches": launches,
           "launches_per_iteration": {k: v / iters for k, v in launches.items()},
+          # the precision of each iteration's band solve, the seconds of the
+          # fp32 and fp64 iterations after the first (which carries the LCAO
+          # start), and each band solve's launches by instantiation
+          "wf_precision": prec,
+          "fp32_iteration_seconds": [t for i, (t, w) in enumerate(
+              zip(secs, prec)) if i and w == "fp32"],
+          "fp64_iteration_seconds": [t for i, (t, w) in enumerate(
+              zip(secs, prec)) if i and w == "fp64"],
+          "band_solves": solves,
           "max_memory_allocated": torch.cuda.max_memory_allocated(),
-          "electrons": nel, "e_total": res["energy"]["total"],
+          "electrons": nel, "electron_tol": electron_tol,
+          "e_total": res["energy"]["total"],
           "total_moment": res.get("magnetisation", {}).get("total", [0.0] * 3),
           "energies_finite": e_ok})
     if iters != FULL_ITERS[phase]:
@@ -1408,11 +1771,17 @@ def full_width(ctx, dev, gpu: str, phase: str = "full_width",
                              f"{FULL_ITERS[phase]}")
     if not e_ok:
         raise AssertionError(f"{phase}: non-finite energy")
-    if abs(nel - want_nel) > 1e-8:
-        raise AssertionError(f"{phase}: electron count {nel}, want {want_nel}")
+    if not abs(nel - want_nel) <= electron_tol:
+        raise AssertionError(f"{phase}: electron count {nel}, want {want_nel}"
+                             f" to {electron_tol}")
     check_launched(phase, dev, launches, required, path, iters,
                    ctx.num_mag_dims == 1)
-    return launches
+    check_band_solves(phase, dev, solves)
+    if phase == "full_width_us_fp32" and prec.count("fp32") not in (3, 4):
+        raise AssertionError(f"{phase}: the polish switch fired after "
+                             f"{prec.count('fp32')} fp32 iterations, want 3 "
+                             "or 4")
+    return (launches, res["rms_history"]) if with_rms else launches
 
 
 def xc_context(name: str):
@@ -1482,15 +1851,20 @@ def reference_tool():
     return tool
 
 
-def spinor_context(name: str, tool=None):
-    """The context of a non-collinear deck of the reference tool."""
+def deck_context(name: str, tool=None):
+    """The context of a deck of the reference tool (the spinor and fp32
+    decks), with its control and settings entries applied."""
     import numpy as np
 
     from sirius_tpu_torch.testing import synthetic_silicon_context
 
-    spec, kind, _, params, moments = (tool or reference_tool()).deck_spec(name)
-    return synthetic_silicon_context(extra_params=dict(params), **kind,
-                                     **spec, moments=np.asarray(moments))
+    tool = tool or reference_tool()
+    spec, kind, control, params, moments = tool.deck_spec(name)
+    ctx = synthetic_silicon_context(
+        extra_params=dict(params), **kind, **spec,
+        moments=None if moments is None else np.asarray(moments))
+    tool.apply_control(ctx.cfg, control)
+    return ctx
 
 
 def single_k_context(name: str, spec: dict = GAMMA2):
@@ -1554,7 +1928,7 @@ def main() -> int:
         "num_dft_iter": FULL_ITERS["full_width_scan_us"], **RUN_TO_END,
         "xc_functionals": SCAN}, US_SYM)
     tool = reference_tool()
-    spinor = {name: spinor_context(name, tool) for name in tool.SPINOR_DECKS}
+    spinor = {name: deck_context(name, tool) for name in tool.SPINOR_DECKS}
     ctx16nc = magnetic_supercell_context(
         2, FULL, {"num_dft_iter": FULL_ITERS["full_width_spinor_us"],
                   **RUN_TO_END, **NONCOLLINEAR}, US_SYM, CANTED[0])
@@ -1580,14 +1954,37 @@ def main() -> int:
                          gpu)
     kern_spinor = check_kernels_spinor("si16_supercell2_us_sym_spinor", ctx16nc,
                                        dev, gpu)
+    # the fp32 instantiations at the full-width shapes of their fp64 rows
+    kern_fp32 = check_kernels("si16_supercell2_us_sym", ctx16us, dev, gpu,
+                              fp32=True)
+    kern_fp32.update(check_kernels_us("si16_supercell2_us_sym", ctx16us, dev,
+                                      gpu, fp32=True))
+    kern_fp32.update(check_kernels_gamma("si54_supercell3_gamma", ctx54, dev,
+                                         gpu, fp32=True))
+    kern_fp32.update(check_kernel_chunk("si54_supercell3_chunk16", ctx54,
+                                        CHUNK54, dev, gpu, fp32=True))
+    kern_fp32.update(check_kernels_tau("si16_supercell2_us_sym", ctx16us, dev,
+                                       gpu, fp32=True))
+    kern_fp32.update(check_kernels_spinor("si16_supercell2_us_sym_spinor",
+                                          ctx16nc, dev, gpu, fp32=True))
     torch.cuda.empty_cache()
     parity_scf(ctx2, dev, refs["full_width_2atom"], gpu)
     full_width(ctx16, dev, gpu)
     parity_scf(ctx2us, dev, refs["full_width_2atom_us_sym"], gpu,
                phase="parity_scf_us", deck="full_width_2atom_us_sym",
                required=US_KERNELS)
-    launches = full_width(ctx16us, dev, gpu, phase="full_width_us",
-                          required=US_KERNELS)
+    launches, rms64 = full_width(ctx16us, dev, gpu, phase="full_width_us",
+                                 required=US_KERNELS, with_rms=True)
+    # the same run on the fp32 path, polished to fp64 after iteration 3 or 4
+    ctx16us.cfg.parameters.precision_wf = "fp32"
+    ctx16us.cfg.settings.fp32_to_fp64_rms = polish_threshold(rms64)
+    # (its two fp64 iterations still mix the fp32 iterations' densities,
+    # so its electron count is held as an fp32 run's)
+    runs_fp32 = {"full_width_us_fp32": full_width(
+        ctx16us, dev, gpu, phase="full_width_us_fp32",
+        required=FP32_US_KERNELS, deck="si16_supercell2_us_sym",
+        electron_tol=fp32_electron_tol(
+            refs, ctx16us.unit_cell.num_valence_electrons))}
     for name, ctx in single.items():
         path, required = SINGLE_K_PATH[name]
         parity_scf(ctx, dev, refs[name], gpu,
@@ -1597,6 +1994,14 @@ def main() -> int:
     launches54 = full_width(ctx54, dev, gpu, phase="full_width_gamma_us",
                             required=GAMMA_US_KERNELS,
                             deck="si54_supercell3_gamma", path="gamma")
+    torch.cuda.empty_cache()
+    ctx54.cfg.parameters.precision_wf = "fp32"
+    runs_fp32["full_width_gamma_us_fp32"] = full_width(
+        ctx54, dev, gpu, phase="full_width_gamma_us_fp32",
+        required=FP32_GAMMA_US_KERNELS, deck="si54_supercell3_gamma",
+        path="gamma", electron_tol=fp32_electron_tol(
+            refs, ctx54.unit_cell.num_valence_electrons))
+    ctx54.cfg.parameters.precision_wf = "fp64"
     ctx54.cfg.control.beta_chunked = True
     ctx54.cfg.control.beta_chunk_size = CHUNK54
     torch.cuda.empty_cache()
@@ -1632,7 +2037,19 @@ def main() -> int:
         ctx16nc, dev, gpu, phase="full_width_spinor_us",
         required=SPINOR_SYM_KERNELS, deck="si16_supercell2_us_sym_spinor",
         path="kset_nc")
+    torch.cuda.empty_cache()
+    ctx16nc.cfg.parameters.precision_wf = "fp32"
+    runs_fp32["full_width_spinor_us_fp32"] = full_width(
+        ctx16nc, dev, gpu, phase="full_width_spinor_us_fp32",
+        required=FP32_SPINOR_SYM_KERNELS,
+        deck="si16_supercell2_us_sym_spinor", path="kset_nc",
+        electron_tol=fp32_electron_tol(
+            refs, ctx16nc.unit_cell.num_valence_electrons))
     del ctx16nc
+    torch.cuda.empty_cache()
+    for name in FP32_DECK_PATH:
+        runs_fp32[name] = parity_scf_fp32(deck_context(name, tool), dev, refs,
+                                          name, gpu)
     launches_spinor = {name: runs["full_width_spinor_us"][name]
                        for name in kern_spinor}
     launches_mgga = {name: runs[deck][name]
@@ -1645,10 +2062,13 @@ def main() -> int:
     kern54xc = {name: kern54xc[name] for name in launches_xc}
 
     summary = []
+    launches_fp32 = {name: runs_fp32[run][name]
+                     for name, run in FP32_SUMMARY.items()}
     for records, counts in ((kern16, launches), (kern54, launches54),
                             (kern54xc, launches_xc),
                             (kern_mgga, launches_mgga),
-                            (kern_spinor, launches_spinor)):
+                            (kern_spinor, launches_spinor),
+                            (kern_fp32, launches_fp32)):
         for name, rec in records.items():
             summary.append({
                 "name": name, "route": "cuda", "source": SOURCE[name],

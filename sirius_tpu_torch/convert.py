@@ -3,7 +3,10 @@
 The tests feed both packages exactly the same operator and start vectors:
 they export the JAX objects as numpy arrays and build the port's tensors
 from them with these functions. Only numpy crosses the boundary; nothing
-here imports JAX.
+here imports JAX. Each builder takes the working dtype: complex128 (or
+float64 for the packed-real Gamma blocks) by default, complex64 / float32
+for the fp32 wave-function path, so the JAX package's float32 tables come
+in unchanged.
 """
 
 from __future__ import annotations
@@ -12,6 +15,8 @@ import numpy as np
 import torch
 
 from sirius_tpu_torch.device import resolve_device
+from sirius_tpu_torch.ops.hamiltonian import (astype, complex_dtype_of,
+                                              real_dtype_of)
 from sirius_tpu_torch.ops.beta_chunked import (ChunkedParams,
                                                chunked_params_from_arrays)
 from sirius_tpu_torch.ops.gamma import GammaParams, gamma_params_from_arrays
@@ -38,17 +43,19 @@ def _take(arrays: dict, keys, what: str) -> dict:
     return {k: np.asarray(arrays[k]) for k in keys}
 
 
-def hkset_from_numpy(arrays: dict, device) -> HkSetParams:
+def hkset_from_numpy(arrays: dict, device,
+                     dtype=torch.complex128) -> HkSetParams:
     """The port's batched H parameters from the JAX HkSetParams leaves
     (numpy arrays under HKSET_KEYS; beta as its (re, im) pair). A polarized
     set carries its spin axis as the JAX one does: veff_r [ns, ...], dion
     [ns, nbeta, nbeta], h_diag [nk, ns, ngk]."""
     a = _take(arrays, HKSET_KEYS, "HkSetParams")
     a["beta"] = a.pop("beta_re") + 1j * a.pop("beta_im")
-    return hkset_from_arrays(a, device)
+    return hkset_from_arrays(a, device, dtype=dtype)
 
 
-def nc_set_from_numpy(arrays: dict, device) -> NcSetParams:
+def nc_set_from_numpy(arrays: dict, device,
+                      dtype=torch.complex128) -> NcSetParams:
     """The port's spinor k-set parameters from the JAX NcSetParams leaves
     (numpy arrays under NC_SET_KEYS; the complex tables as (re, im) pairs,
     the four coarse boxes apart). The projectors are masked here, as
@@ -61,14 +68,14 @@ def nc_set_from_numpy(arrays: dict, device) -> NcSetParams:
 
     f64, c128 = torch.float64, torch.complex128
     mask = t(a["mask"], f64)
-    return NcSetParams(
+    return astype(NcSetParams(
         veff=t(np.stack([a["veff_uu"], a["veff_dd"], a["bx"], a["by"]]), f64),
         ekin=t(a["ekin"], f64), mask=mask,
         fft_index=t(a["fft_index"], torch.int32),
         beta=t(a["beta_re"] + 1j * a["beta_im"], c128) * mask[:, None, :],
         dmat=t(a["dmat_re"] + 1j * a["dmat_im"], c128),
         qmat=t(a["qmat_re"] + 1j * a["qmat_im"], c128),
-        h_diag=t(a["h_diag"], f64), o_diag=t(a["o_diag"], f64))
+        h_diag=t(a["h_diag"], f64), o_diag=t(a["o_diag"], f64)), dtype)
 
 
 def nc_state_from_numpy(psi, x_mix, ng: int, device):
@@ -83,15 +90,16 @@ def nc_state_from_numpy(psi, x_mix, ng: int, device):
                             device=device), x[:ng], x[ng:].reshape(3, ng))
 
 
-def gamma_params_from_numpy(arrays: dict, device) -> GammaParams:
+def gamma_params_from_numpy(arrays: dict, device,
+                            dtype=torch.float64) -> GammaParams:
     """The port's packed-real H parameters from the JAX GammaParams leaves
     (numpy arrays under GAMMA_KEYS)."""
     return gamma_params_from_arrays(_take(arrays, GAMMA_KEYS, "GammaParams"),
-                                    device)
+                                    device, real_dtype_of(dtype))
 
 
-def gamma_spin_params_from_numpy(arrays: dict, veff_r, dion,
-                                 device) -> list[GammaParams]:
+def gamma_spin_params_from_numpy(arrays: dict, veff_r, dion, device,
+                                 dtype=torch.float64) -> list[GammaParams]:
     """One GammaParams per spin channel, as the JAX package's polarized
     Gamma solve makes them (scf.py:1400-1403): the constant leaves of
     ``arrays`` (GAMMA_KEYS) with that spin's potential veff_r[ispn] and
@@ -101,36 +109,42 @@ def gamma_spin_params_from_numpy(arrays: dict, veff_r, dion,
     veff_r, dion = np.asarray(veff_r), np.asarray(dion)
     if veff_r.shape[0] != dion.shape[0]:
         raise ValueError("veff_r and dion disagree on the spin count")
-    return [gamma_params_from_arrays(dict(a, veff_r=v, dion=d), device)
+    return [gamma_params_from_arrays(dict(a, veff_r=v, dion=d), device,
+                                     real_dtype_of(dtype))
             for v, d in zip(veff_r, dion)]
 
 
-def chunked_params_from_numpy(arrays: dict, device) -> ChunkedParams:
+def chunked_params_from_numpy(arrays: dict, device,
+                              dtype=torch.complex128) -> ChunkedParams:
     """The port's chunked-projector H parameters from the JAX
     make_chunked_hk dict (numpy arrays under CHUNKED_KEYS; the (-i)^l
     prefactors as their (re, im) pair)."""
     a = _take(arrays, CHUNKED_KEYS, "make_chunked_hk")
     a["cph"] = a.pop("cph_re") + 1j * a.pop("cph_im")
-    return chunked_params_from_arrays(a, device)
+    return chunked_params_from_arrays(a, device, dtype)
 
 
-def packed_from_numpy(x: np.ndarray, device) -> torch.Tensor:
-    """A packed-real Gamma block [..., ngk] as a float64 tensor."""
+def packed_from_numpy(x: np.ndarray, device,
+                      dtype=torch.float64) -> torch.Tensor:
+    """A packed-real Gamma block [..., ngk] as a float64 (or float32)
+    tensor."""
     return torch.as_tensor(np.asarray(x, dtype=np.float64),
-                           device=resolve_device(device))
+                           device=resolve_device(device)).to(
+                               real_dtype_of(dtype))
 
 
-def mgga_from_numpy(vtau_r, gkcart, device):
+def mgga_from_numpy(vtau_r, gkcart, device, dtype=torch.float64):
     """The JAX tau operator's inputs as the port's: v_tau [ns, n1, n2, n3]
     (a single [n1, n2, n3] box becomes ns = 1) and the Cartesian G+k
-    components [..., ngk, 3], both float64 tensors."""
+    components [..., ngk, 3], both float64 (or float32) tensors."""
     device = resolve_device(device)
+    rdt = real_dtype_of(dtype)
     vtau = np.asarray(vtau_r, dtype=np.float64)
     if vtau.ndim == 3:
         vtau = vtau[None]
-    return (torch.as_tensor(vtau, device=device),
+    return (torch.as_tensor(vtau, device=device).to(rdt),
             torch.as_tensor(np.asarray(gkcart, dtype=np.float64),
-                            device=device))
+                            device=device).to(rdt))
 
 
 def context_arrays(ctx) -> dict:
@@ -169,11 +183,13 @@ def context_arrays(ctx) -> dict:
     return {k: np.asarray(v) for k, v in out.items()}
 
 
-def psi_from_numpy(psi: np.ndarray, device) -> torch.Tensor:
+def psi_from_numpy(psi: np.ndarray, device,
+                   dtype=torch.complex128) -> torch.Tensor:
     """A wave-function block [..., ngk] or rho(G) on the fine G set as a
-    complex128 tensor."""
+    complex128 (or complex64) tensor."""
     return torch.as_tensor(np.asarray(psi, dtype=np.complex128),
-                           device=resolve_device(device))
+                           device=resolve_device(device)).to(
+                               complex_dtype_of(dtype))
 
 
 density_from_numpy = psi_from_numpy

@@ -25,83 +25,95 @@
 // run is bit-reproducible. Passes 2 and 3 re-read the row, which a 126 KB
 // (ngk 7880) row keeps in L2.
 //
+// fp32 instantiations (davidson_residual_c64 on complex64 blocks,
+// davidson_residual_f32 on float32 packed-real blocks) take float32 tables
+// and reduce in float32, as the JAX package's complex64 davidson computes
+// its Ritz values and residual norms (real_dtype_of float32 throughout):
+// the evals and rnorm they return are float32. Half the bytes of the fp64
+// ones, the same design.
+//
 // Plain C interface (loaded with ctypes); launches on the stream passed in,
 // allocates nothing, returns cudaGetLastError().
 #include <cuda_runtime.h>
-#include <cuComplex.h>
+
+#include "precision.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 
 // element access: a real element is a complex one with imaginary part 0
-__device__ inline double2 load(const cuDoubleComplex* p, long long i) {
-    const cuDoubleComplex z = p[i];
-    return make_double2(z.x, z.y);
-}
+__device__ inline double2 load(const double2* p, long long i) { return p[i]; }
+__device__ inline float2 load(const float2* p, long long i) { return p[i]; }
 __device__ inline double2 load(const double* p, long long i) {
     return make_double2(p[i], 0.0);
 }
-__device__ inline void store(cuDoubleComplex* p, long long i, double re,
-                             double im) {
-    p[i] = make_cuDoubleComplex(re, im);
+__device__ inline float2 load(const float* p, long long i) {
+    return make_float2(p[i], 0.0f);
 }
-__device__ inline void store(double* p, long long i, double re, double) {
+template <typename R>
+__device__ inline void store(cplx_t<R>* p, long long i, R re, R im) {
+    p[i] = make_cplx<R>(re, im);
+}
+template <typename R>
+__device__ inline void store(R* p, long long i, R re, R) {
     p[i] = re;
 }
 
-__device__ double block_sum(double v, double* sh) {
+template <typename R>
+__device__ R block_sum(R v, R* sh) {
     sh[threadIdx.x] = v;
     __syncthreads();
     for (int s = kThreads / 2; s > 0; s >>= 1) {
         if (threadIdx.x < s) sh[threadIdx.x] += sh[threadIdx.x + s];
         __syncthreads();
     }
-    const double out = sh[0];
+    const R out = sh[0];
     __syncthreads();
     return out;
 }
 
-// x, hx, sx, w: [nrows_total, ngk]; h_diag, o_diag, mask: [nrows_total/nb, ngk].
-// mask may be null (exit values: no mask, as davidson.py:209-213); w may be
-// null (exit values: no preconditioned block).
-template <typename T>
+// x, hx, sx, w: [nrows_total, ngk] of T (cplx_t<R> or R); h_diag, o_diag,
+// mask: [nrows_total/nb, ngk] of R. mask may be null (exit values: no mask,
+// as davidson.py:209-213); w may be null (exit values: no preconditioned
+// block).
+template <typename T, typename R>
 __global__ void __launch_bounds__(kThreads)
 residual_rows(const T* __restrict__ x, const T* __restrict__ hx,
               const T* __restrict__ sx,
-              const double* __restrict__ h_diag,
-              const double* __restrict__ o_diag,
-              const double* __restrict__ mask, double res_tol,
-              double* __restrict__ evals, double* __restrict__ rnorm,
+              const R* __restrict__ h_diag,
+              const R* __restrict__ o_diag,
+              const R* __restrict__ mask, R res_tol,
+              R* __restrict__ evals, R* __restrict__ rnorm,
               T* __restrict__ w, int nb, int ngk) {
-    __shared__ double sh[kThreads];
+    __shared__ R sh[kThreads];
     const long long row = blockIdx.x;
     const long long off = row * (long long)ngk;
     const long long doff = (row / nb) * (long long)ngk;
 
-    double num = 0.0, den = 0.0;
+    R num = 0, den = 0;
     for (int g = threadIdx.x; g < ngk; g += kThreads) {
-        const double2 xv = load(x, off + g);
-        const double2 hv = load(hx, off + g);
-        const double2 sv = load(sx, off + g);
+        const auto xv = load(x, off + g);
+        const auto hv = load(hx, off + g);
+        const auto sv = load(sx, off + g);
         num += xv.x * hv.x + xv.y * hv.y;  // Re(conj(x) * hx)
         den += xv.x * sv.x + xv.y * sv.y;
     }
-    num = block_sum(num, sh);
-    den = block_sum(den, sh);
-    const double ev = num / (fabs(den) > 1e-30 ? den : 1.0);
+    num = block_sum<R>(num, sh);
+    den = block_sum<R>(den, sh);
+    const R ev = num / (fabs(den) > R(1e-30) ? den : R(1));
 
-    double r2 = 0.0;
+    R r2 = 0;
     for (int g = threadIdx.x; g < ngk; g += kThreads) {
-        const double m = mask != nullptr ? mask[doff + g] : 1.0;
-        const double2 hv = load(hx, off + g);
-        const double2 sv = load(sx, off + g);
-        const double rr = (hv.x - ev * sv.x) * m;
-        const double ri = (hv.y - ev * sv.y) * m;
+        const R m = mask != nullptr ? mask[doff + g] : R(1);
+        const auto hv = load(hx, off + g);
+        const auto sv = load(sx, off + g);
+        const R rr = (hv.x - ev * sv.x) * m;
+        const R ri = (hv.y - ev * sv.y) * m;
         r2 += rr * rr + ri * ri;
     }
-    r2 = block_sum(r2, sh);
-    const double rn = sqrt(r2);
+    r2 = block_sum<R>(r2, sh);
+    const R rn = sqrt(r2);
     if (threadIdx.x == 0) {
         evals[row] = ev;
         rnorm[row] = rn;
@@ -110,29 +122,30 @@ residual_rows(const T* __restrict__ x, const T* __restrict__ hx,
 
     const bool conv = rn < res_tol;
     for (int g = threadIdx.x; g < ngk; g += kThreads) {
-        const double m = mask != nullptr ? mask[doff + g] : 1.0;
-        double wr = 0.0, wi = 0.0;
+        const R m = mask != nullptr ? mask[doff + g] : R(1);
+        R wr = 0, wi = 0;
         if (!conv) {
-            const double2 hv = load(hx, off + g);
-            const double2 sv = load(sx, off + g);
-            double p = h_diag[doff + g] - ev * o_diag[doff + g];
-            p = 0.5 * (1.0 + p + sqrt(1.0 + (p - 1.0) * (p - 1.0)));
+            const auto hv = load(hx, off + g);
+            const auto sv = load(sx, off + g);
+            R p = h_diag[doff + g] - ev * o_diag[doff + g];
+            p = R(0.5) * (R(1) + p + sqrt(R(1) + (p - R(1)) * (p - R(1))));
             wr = (hv.x - ev * sv.x) * m / p;
             wi = (hv.y - ev * sv.y) * m / p;
         }
-        store(w, off + g, wr * m, wi * m);
+        store<R>(w, off + g, wr * m, wi * m);
     }
 }
 
-template <typename T>
-int launch(const void* x, const void* hx, const void* sx, const double* h_diag,
-           const double* o_diag, const double* mask, double res_tol,
-           double* evals, double* rnorm, void* w, int nrows_total, int nb,
-           int ngk, void* stream) {
+template <typename T, typename R>
+int launch(const void* x, const void* hx, const void* sx, const R* h_diag,
+           const R* o_diag, const R* mask, double res_tol, R* evals,
+           R* rnorm, void* w, int nrows_total, int nb, int ngk,
+           void* stream) {
     if (nrows_total > 0)
-        residual_rows<T><<<nrows_total, kThreads, 0, (cudaStream_t)stream>>>(
+        residual_rows<T, R><<<nrows_total, kThreads, 0,
+                              (cudaStream_t)stream>>>(
             (const T*)x, (const T*)hx, (const T*)sx, h_diag, o_diag, mask,
-            res_tol, evals, rnorm, (T*)w, nb, ngk);
+            (R)res_tol, evals, rnorm, (T*)w, nb, ngk);
     return (int)cudaGetLastError();
 }
 
@@ -144,7 +157,7 @@ extern "C" int davidson_residual(const void* x, const void* hx, const void* sx,
                                  double* evals, double* rnorm, void* w,
                                  int nrows_total, int nb, int ngk,
                                  void* stream) {
-    return launch<cuDoubleComplex>(x, hx, sx, h_diag, o_diag, mask, res_tol,
+    return launch<double2, double>(x, hx, sx, h_diag, o_diag, mask, res_tol,
                                    evals, rnorm, w, nrows_total, nb, ngk,
                                    stream);
 }
@@ -155,6 +168,28 @@ extern "C" int davidson_residual_f64(const void* x, const void* hx,
                                      double res_tol, double* evals,
                                      double* rnorm, void* w, int nrows_total,
                                      int nb, int ngk, void* stream) {
-    return launch<double>(x, hx, sx, h_diag, o_diag, mask, res_tol, evals,
-                          rnorm, w, nrows_total, nb, ngk, stream);
+    return launch<double, double>(x, hx, sx, h_diag, o_diag, mask, res_tol,
+                                  evals, rnorm, w, nrows_total, nb, ngk,
+                                  stream);
+}
+
+extern "C" int davidson_residual_c64(const void* x, const void* hx,
+                                     const void* sx, const float* h_diag,
+                                     const float* o_diag, const float* mask,
+                                     double res_tol, float* evals,
+                                     float* rnorm, void* w, int nrows_total,
+                                     int nb, int ngk, void* stream) {
+    return launch<float2, float>(x, hx, sx, h_diag, o_diag, mask, res_tol,
+                                 evals, rnorm, w, nrows_total, nb, ngk,
+                                 stream);
+}
+
+extern "C" int davidson_residual_f32(const void* x, const void* hx,
+                                     const void* sx, const float* h_diag,
+                                     const float* o_diag, const float* mask,
+                                     double res_tol, float* evals,
+                                     float* rnorm, void* w, int nrows_total,
+                                     int nb, int ngk, void* stream) {
+    return launch<float, float>(x, hx, sx, h_diag, o_diag, mask, res_tol,
+                                evals, rnorm, w, nrows_total, nb, ngk, stream);
 }

@@ -26,14 +26,23 @@
 // writes acc once. One thread per grid point walks the bands in order,
 // carrying the four sums in registers: deterministic, no atomics.
 //
+// Both come in two instantiations of one template: complex128 boxes (the
+// plain names) and complex64 boxes (the *_c64 names, the fp32
+// wave-function path). The fp32 one reads half the bytes; each element is
+// widened to double before it is squared, and occ_w, the sums and acc stay
+// float64, as the JAX package promotes |fr|^2 into its float64 occupation
+// sum (batched.py:343).
+//
 // Plain C interface (loaded with ctypes); launches on the stream passed in,
 // allocates nothing, returns cudaGetLastError().
 #include <cuda_runtime.h>
-#include <cuComplex.h>
+
+#include "precision.cuh"
 
 namespace {
 
-__global__ void accumulate(const cuDoubleComplex* __restrict__ fr,
+template <typename R>
+__global__ void accumulate(const cplx_t<R>* __restrict__ fr,
                            const double* __restrict__ occ_w,
                            double* __restrict__ acc, int ns, int nb,
                            long long n, double scale) {
@@ -42,18 +51,20 @@ __global__ void accumulate(const cuDoubleComplex* __restrict__ fr,
          t < total; t += (long long)gridDim.x * blockDim.x) {
         const long long s = t / n;
         const long long r = t - s * n;
-        const cuDoubleComplex* f = fr + s * (long long)nb * n + r;
+        const cplx_t<R>* f = fr + s * (long long)nb * n + r;
         const double* o = occ_w + s * nb;
         double sum = 0.0;
         for (int b = 0; b < nb; ++b) {
-            const cuDoubleComplex v = f[(long long)b * n];
-            sum += o[b] * (v.x * v.x + v.y * v.y);
+            const cplx_t<R> v = f[(long long)b * n];
+            const double vx = v.x, vy = v.y;
+            sum += o[b] * (vx * vx + vy * vy);
         }
         acc[t] += scale * sum;
     }
 }
 
-__global__ void accumulate_nc(const cuDoubleComplex* __restrict__ fr,
+template <typename R>
+__global__ void accumulate_nc(const cplx_t<R>* __restrict__ fr,
                               const double* __restrict__ occ_w,
                               double* __restrict__ acc, int nb, long long n,
                               double scale) {
@@ -61,14 +72,15 @@ __global__ void accumulate_nc(const cuDoubleComplex* __restrict__ fr,
          r < n; r += (long long)gridDim.x * blockDim.x) {
         double up = 0.0, dn = 0.0, zr = 0.0, zi = 0.0;
         for (int b = 0; b < nb; ++b) {
-            const cuDoubleComplex u = fr[(2LL * b) * n + r];
-            const cuDoubleComplex d = fr[(2LL * b + 1) * n + r];
+            const cplx_t<R> uf = fr[(2LL * b) * n + r];
+            const cplx_t<R> df = fr[(2LL * b + 1) * n + r];
+            const double ux = uf.x, uy = uf.y, dx = df.x, dy = df.y;
             const double w = occ_w[b];
-            up += w * (u.x * u.x + u.y * u.y);
-            dn += w * (d.x * d.x + d.y * d.y);
+            up += w * (ux * ux + uy * uy);
+            dn += w * (dx * dx + dy * dy);
             // u conj(d)
-            zr += w * (u.x * d.x + u.y * d.y);
-            zi += w * (u.y * d.x - u.x * d.y);
+            zr += w * (ux * dx + uy * dy);
+            zi += w * (uy * dx - ux * dy);
         }
         acc[r] += scale * (up + dn);
         acc[n + r] += scale * (up - dn);
@@ -77,28 +89,57 @@ __global__ void accumulate_nc(const cuDoubleComplex* __restrict__ fr,
     }
 }
 
+inline int grid_for(long long n, int threads) {
+    long long blocks = (n + threads - 1) / threads;
+    if (blocks > 65535LL * 16) blocks = 65535LL * 16;
+    return (int)blocks;
+}
+
+template <typename R>
+int launch_nc(const void* fr, const double* occ_w, double* acc, int nb,
+              long long n, double scale, void* stream) {
+    const int threads = 256;
+    const int blocks = grid_for(n, threads);
+    if (blocks > 0)
+        accumulate_nc<R><<<blocks, threads, 0, (cudaStream_t)stream>>>(
+            (const cplx_t<R>*)fr, occ_w, acc, nb, n, scale);
+    return (int)cudaGetLastError();
+}
+
+template <typename R>
+int launch(const void* fr, const double* occ_w, double* acc, int ns, int nb,
+           long long n, double scale, void* stream) {
+    const int threads = 256;
+    const int blocks = grid_for((long long)ns * n, threads);
+    if (blocks > 0)
+        accumulate<R><<<blocks, threads, 0, (cudaStream_t)stream>>>(
+            (const cplx_t<R>*)fr, occ_w, acc, ns, nb, n, scale);
+    return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int density_accumulate_nc(const void* fr, const double* occ_w,
                                      double* acc, int nb, long long n,
                                      double scale, void* stream) {
-    const int threads = 256;
-    long long blocks = (n + threads - 1) / threads;
-    if (blocks > 65535LL * 16) blocks = 65535LL * 16;
-    if (blocks > 0)
-        accumulate_nc<<<(int)blocks, threads, 0, (cudaStream_t)stream>>>(
-            (const cuDoubleComplex*)fr, occ_w, acc, nb, n, scale);
-    return (int)cudaGetLastError();
+    return launch_nc<double>(fr, occ_w, acc, nb, n, scale, stream);
+}
+
+extern "C" int density_accumulate_nc_c64(const void* fr, const double* occ_w,
+                                         double* acc, int nb, long long n,
+                                         double scale, void* stream) {
+    return launch_nc<float>(fr, occ_w, acc, nb, n, scale, stream);
 }
 
 extern "C" int density_accumulate(const void* fr, const double* occ_w,
                                   double* acc, int ns, int nb, long long n,
                                   double scale, void* stream) {
-    const int threads = 256;
-    long long blocks = ((long long)ns * n + threads - 1) / threads;
-    if (blocks > 65535LL * 16) blocks = 65535LL * 16;
-    if (blocks > 0)
-        accumulate<<<(int)blocks, threads, 0, (cudaStream_t)stream>>>(
-            (const cuDoubleComplex*)fr, occ_w, acc, ns, nb, n, scale);
-    return (int)cudaGetLastError();
+    return launch<double>(fr, occ_w, acc, ns, nb, n, scale, stream);
+}
+
+extern "C" int density_accumulate_c64(const void* fr, const double* occ_w,
+                                      double* acc, int ns, int nb,
+                                      long long n, double scale,
+                                      void* stream) {
+    return launch<float>(fr, occ_w, acc, ns, nb, n, scale, stream);
 }

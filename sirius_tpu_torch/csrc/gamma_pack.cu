@@ -30,73 +30,85 @@
 // Consecutive threads take consecutive packed slots, so x, hx and sx are
 // read and written coalesced; the box reads are gathers.
 //
+// Each entry point comes in two instantiations of one template: float64
+// packed blocks with complex128 boxes (the plain names) and float32 packed
+// blocks with complex64 boxes and float32 tables (the *_f32 names, the fp32
+// wave-function path of sirius_tpu/ops/gamma.py::make_gamma_params with
+// rdtype float32; there _pack_device's sqrt2 / 2 is the float32 rounding of
+// the same double). The fp32 ones move half the bytes with the same design.
+//
 // Plain C interface (loaded with ctypes); every launch goes on the stream
 // passed in, allocates nothing, and the function returns cudaGetLastError().
 #include <cuda_runtime.h>
-#include <cuComplex.h>
+
+#include "precision.cuh"
 
 namespace {
 
 // sqrt(2) / 2 rounded once: the same double as the JAX package's
-// float(0.5 * np.sqrt(2.0))
-constexpr double kHalfSqrt2 = 0.70710678118654752440;
+// float(0.5 * np.sqrt(2.0)), and its float32 rounding
+template <typename R>
+__device__ __forceinline__ R half_sqrt2() {
+    return R(0.70710678118654752440);
+}
 
 // x [rows, ngk] packed real -> box [rows, nbox]; the lane tables are [ngk].
-__global__ void unpack_scatter(const double* __restrict__ x,
-                               const double* __restrict__ mask_p,
+template <typename R>
+__global__ void unpack_scatter(const R* __restrict__ x,
+                               const R* __restrict__ mask_p,
                                const int* __restrict__ slot_re,
                                const int* __restrict__ slot_im,
-                               const double* __restrict__ im_sign,
-                               const double* __restrict__ scale,
+                               const R* __restrict__ im_sign,
+                               const R* __restrict__ scale,
                                const int* __restrict__ fft_index,
-                               cuDoubleComplex* __restrict__ box, int ngk,
+                               cplx_t<R>* __restrict__ box, int ngk,
                                long long nbox, long long total) {
     for (long long t = blockIdx.x * (long long)blockDim.x + threadIdx.x;
          t < total; t += (long long)gridDim.x * blockDim.x) {
         const int g = (int)(t % ngk);
         const long long row = t / ngk;
-        const double sc = scale[g];
-        if (sc == 0.0) continue;  // padded lane
+        const R sc = scale[g];
+        if (sc == R(0)) continue;  // padded lane
         const int a = slot_re[g];
         const int b = slot_im[g];
-        const double xr = x[row * ngk + a] * mask_p[a];
-        const double xi = x[row * ngk + b] * mask_p[b];
+        const R xr = x[row * ngk + a] * mask_p[a];
+        const R xi = x[row * ngk + b] * mask_p[b];
         box[row * nbox + fft_index[g]] =
-            make_cuDoubleComplex(sc * xr, (sc * im_sign[g]) * xi);
+            make_cplx<R>(sc * xr, (sc * im_sign[g]) * xi);
     }
 }
 
 // box [rows, nbox] -> hx, sx [rows, ngk] packed real.
-__global__ void pack_gather(const cuDoubleComplex* __restrict__ box,
-                            const double* __restrict__ x,
-                            const double* __restrict__ ekin_p,
-                            const double* __restrict__ mask_p,
+template <typename R>
+__global__ void pack_gather(const cplx_t<R>* __restrict__ box,
+                            const R* __restrict__ x,
+                            const R* __restrict__ ekin_p,
+                            const R* __restrict__ mask_p,
                             const int* __restrict__ rep_box,
                             const int* __restrict__ par_box,
                             long long zero_box, int npair,
-                            double* __restrict__ hx, double* __restrict__ sx,
+                            R* __restrict__ hx, R* __restrict__ sx,
                             int ngk, long long nbox, long long total) {
+    const R h = half_sqrt2<R>();
     for (long long t = blockIdx.x * (long long)blockDim.x + threadIdx.x;
          t < total; t += (long long)gridDim.x * blockDim.x) {
         const int p = (int)(t % ngk);
         const long long row = t / ngk;
-        const cuDoubleComplex* v = box + row * nbox;
-        double vp = 0.0;
+        const cplx_t<R>* v = box + row * nbox;
+        R vp = 0;
         if (p == 0) {
             vp = v[zero_box].x;
         } else if (p <= npair) {
             const int k = p - 1;
-            vp = __dadd_rn(__dmul_rn(kHalfSqrt2, v[rep_box[k]].x),
-                           __dmul_rn(kHalfSqrt2, v[par_box[k]].x));
+            vp = add_rn(mul_rn(h, v[rep_box[k]].x), mul_rn(h, v[par_box[k]].x));
         } else if (p <= 2 * npair) {
             const int k = p - 1 - npair;
-            vp = __dsub_rn(__dmul_rn(kHalfSqrt2, v[rep_box[k]].y),
-                           __dmul_rn(kHalfSqrt2, v[par_box[k]].y));
+            vp = sub_rn(mul_rn(h, v[rep_box[k]].y), mul_rn(h, v[par_box[k]].y));
         }
-        const double m = mask_p[p];
-        const double xm = x[t] * m;
-        const double ek = m > 0.0 ? ekin_p[p] : 0.0;
-        hx[t] = __dadd_rn(__dmul_rn(ek, xm), vp) * m;
+        const R m = mask_p[p];
+        const R xm = x[t] * m;
+        const R ek = m > R(0) ? ekin_p[p] : R(0);
+        hx[t] = add_rn(mul_rn(ek, xm), vp) * m;
         sx[t] = xm * m;
     }
 }
@@ -108,6 +120,40 @@ inline int grid_for(long long n, int threads) {
     return (int)blocks;
 }
 
+template <typename R>
+int unpack(const R* x, const R* mask_p, const int* slot_re, const int* slot_im,
+           const R* im_sign, const R* scale, const int* fft_index, void* box,
+           int nrows, int ngk, long long nbox, void* stream) {
+    cudaStream_t s = (cudaStream_t)stream;
+    const int threads = 256;
+    const long long nfill = (long long)nrows * nbox;
+    // all-zero bits are a complex zero
+    const cudaError_t e =
+        cudaMemsetAsync(box, 0, nfill * sizeof(cplx_t<R>), s);
+    if (e != cudaSuccess) return (int)e;
+    const long long total = (long long)nrows * ngk;
+    if (total > 0)
+        unpack_scatter<R><<<grid_for(total, threads), threads, 0, s>>>(
+            x, mask_p, slot_re, slot_im, im_sign, scale, fft_index,
+            (cplx_t<R>*)box, ngk, nbox, total);
+    return (int)cudaGetLastError();
+}
+
+template <typename R>
+int pack(const void* box, const R* x, const R* ekin_p, const R* mask_p,
+         const int* rep_box, const int* par_box, long long zero_box,
+         int npair, R* hx, R* sx, int nrows, int ngk, long long nbox,
+         void* stream) {
+    const int threads = 256;
+    const long long total = (long long)nrows * ngk;
+    if (total > 0)
+        pack_gather<R><<<grid_for(total, threads), threads, 0,
+                         (cudaStream_t)stream>>>(
+            (const cplx_t<R>*)box, x, ekin_p, mask_p, rep_box, par_box,
+            zero_box, npair, hx, sx, ngk, nbox, total);
+    return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int unpack_to_box(const double* x, const double* mask_p,
@@ -115,19 +161,17 @@ extern "C" int unpack_to_box(const double* x, const double* mask_p,
                              const double* im_sign, const double* scale,
                              const int* fft_index, void* box, int nrows,
                              int ngk, long long nbox, void* stream) {
-    cudaStream_t s = (cudaStream_t)stream;
-    const int threads = 256;
-    const long long nfill = (long long)nrows * nbox;
-    // all-zero bits are a complex128 zero
-    const cudaError_t e =
-        cudaMemsetAsync(box, 0, nfill * sizeof(cuDoubleComplex), s);
-    if (e != cudaSuccess) return (int)e;
-    const long long total = (long long)nrows * ngk;
-    if (total > 0)
-        unpack_scatter<<<grid_for(total, threads), threads, 0, s>>>(
-            x, mask_p, slot_re, slot_im, im_sign, scale, fft_index,
-            (cuDoubleComplex*)box, ngk, nbox, total);
-    return (int)cudaGetLastError();
+    return unpack<double>(x, mask_p, slot_re, slot_im, im_sign, scale,
+                          fft_index, box, nrows, ngk, nbox, stream);
+}
+
+extern "C" int unpack_to_box_f32(const float* x, const float* mask_p,
+                                 const int* slot_re, const int* slot_im,
+                                 const float* im_sign, const float* scale,
+                                 const int* fft_index, void* box, int nrows,
+                                 int ngk, long long nbox, void* stream) {
+    return unpack<float>(x, mask_p, slot_re, slot_im, im_sign, scale,
+                         fft_index, box, nrows, ngk, nbox, stream);
 }
 
 extern "C" int box_to_packed_hx(const void* box, const double* x,
@@ -136,12 +180,16 @@ extern "C" int box_to_packed_hx(const void* box, const double* x,
                                 long long zero_box, int npair, double* hx,
                                 double* sx, int nrows, int ngk, long long nbox,
                                 void* stream) {
-    const int threads = 256;
-    const long long total = (long long)nrows * ngk;
-    if (total > 0)
-        pack_gather<<<grid_for(total, threads), threads, 0,
-                      (cudaStream_t)stream>>>(
-            (const cuDoubleComplex*)box, x, ekin_p, mask_p, rep_box, par_box,
-            zero_box, npair, hx, sx, ngk, nbox, total);
-    return (int)cudaGetLastError();
+    return pack<double>(box, x, ekin_p, mask_p, rep_box, par_box, zero_box,
+                        npair, hx, sx, nrows, ngk, nbox, stream);
+}
+
+extern "C" int box_to_packed_hx_f32(const void* box, const float* x,
+                                    const float* ekin_p, const float* mask_p,
+                                    const int* rep_box, const int* par_box,
+                                    long long zero_box, int npair, float* hx,
+                                    float* sx, int nrows, int ngk,
+                                    long long nbox, void* stream) {
+    return pack<float>(box, x, ekin_p, mask_p, rep_box, par_box, zero_box,
+                       npair, hx, sx, nrows, ngk, nbox, stream);
 }

@@ -20,19 +20,27 @@
 // consecutive G+k lanes, so psi/ekin/mask/hpsi/spsi are read and written
 // coalesced; the box read is a gather.
 //
+// Two instantiations of one template: complex128 blocks with float64
+// ekin / mask (pw_to_box, box_to_pw) and complex64 blocks with float32
+// ekin / mask (pw_to_box_c64, box_to_pw_c64), the fp32 wave-function path
+// of sirius_tpu/ops/hamiltonian.py::make_hk_params(dtype=complex64). The
+// fp32 one moves half the bytes with the same design.
+//
 // Plain C interface (loaded with ctypes); every launch goes on the stream
 // passed in, allocates nothing, and the function returns cudaGetLastError().
 #include <cuda_runtime.h>
-#include <cuComplex.h>
+
+#include "precision.cuh"
 
 namespace {
 
 // psi [nbatch, nrows, ngk] -> box [nbatch, nrows, nbox]; fft_index / mask
 // are [nbatch, ngk] when index_batched, else [ngk]; mask may be null.
-__global__ void scatter_valid(const cuDoubleComplex* __restrict__ psi,
+template <typename R>
+__global__ void scatter_valid(const cplx_t<R>* __restrict__ psi,
                               const int* __restrict__ fft_index,
-                              const double* __restrict__ mask,
-                              cuDoubleComplex* __restrict__ box, int nrows,
+                              const R* __restrict__ mask,
+                              cplx_t<R>* __restrict__ box, int nrows,
                               int ngk, long long nbox, int index_batched,
                               long long total) {
     for (long long t = blockIdx.x * (long long)blockDim.x + threadIdx.x;
@@ -41,20 +49,21 @@ __global__ void scatter_valid(const cuDoubleComplex* __restrict__ psi,
         const long long row = t / ngk;  // b * nrows + band
         const long long b = row / nrows;
         const long long lane = (index_batched ? b * ngk : 0) + g;
-        if (mask != nullptr && !(mask[lane] > 0.0)) continue;
+        if (mask != nullptr && !(mask[lane] > R(0))) continue;
         box[row * nbox + fft_index[lane]] = psi[t];
     }
 }
 
 // hpsi = m * (where(m > 0, ekin, 0) * psi + box[fft_index]),  spsi = m * psi.
 // With psi == null it is the plain gather hpsi = m * box[fft_index].
-__global__ void gather_hpsi(const cuDoubleComplex* __restrict__ box,
-                            const cuDoubleComplex* __restrict__ psi,
-                            const double* __restrict__ ekin,
-                            const double* __restrict__ mask,
+template <typename R>
+__global__ void gather_hpsi(const cplx_t<R>* __restrict__ box,
+                            const cplx_t<R>* __restrict__ psi,
+                            const R* __restrict__ ekin,
+                            const R* __restrict__ mask,
                             const int* __restrict__ fft_index,
-                            cuDoubleComplex* __restrict__ hpsi,
-                            cuDoubleComplex* __restrict__ spsi, int nrows,
+                            cplx_t<R>* __restrict__ hpsi,
+                            cplx_t<R>* __restrict__ spsi, int nrows,
                             int ngk, long long nbox, int index_batched,
                             long long total) {
     for (long long t = blockIdx.x * (long long)blockDim.x + threadIdx.x;
@@ -63,17 +72,17 @@ __global__ void gather_hpsi(const cuDoubleComplex* __restrict__ box,
         const long long row = t / ngk;
         const long long b = row / nrows;
         const long long lane = (index_batched ? b * ngk : 0) + g;
-        const double m = mask != nullptr ? mask[lane] : 1.0;
-        const cuDoubleComplex v = box[row * nbox + fft_index[lane]];
-        double hr = v.x, hi = v.y;
+        const R m = mask != nullptr ? mask[lane] : R(1);
+        const cplx_t<R> v = box[row * nbox + fft_index[lane]];
+        R hr = v.x, hi = v.y;
         if (psi != nullptr) {
-            const cuDoubleComplex p = psi[t];
-            const double ek = m > 0.0 ? ekin[lane] : 0.0;
+            const cplx_t<R> p = psi[t];
+            const R ek = m > R(0) ? ekin[lane] : R(0);
             hr = ek * p.x + v.x;
             hi = ek * p.y + v.y;
-            if (spsi != nullptr) spsi[t] = make_cuDoubleComplex(m * p.x, m * p.y);
+            if (spsi != nullptr) spsi[t] = make_cplx<R>(m * p.x, m * p.y);
         }
-        hpsi[t] = make_cuDoubleComplex(m * hr, m * hi);
+        hpsi[t] = make_cplx<R>(m * hr, m * hi);
     }
 }
 
@@ -84,38 +93,71 @@ inline int grid_for(long long n, int threads) {
     return (int)blocks;
 }
 
+template <typename R>
+int scatter(const void* psi, const int* fft_index, const R* mask, void* box,
+            int nbatch, int nrows, int ngk, long long nbox, int index_batched,
+            void* stream) {
+    cudaStream_t s = (cudaStream_t)stream;
+    const int threads = 256;
+    const long long nfill = (long long)nbatch * nrows * nbox;
+    // all-zero bits are a complex zero
+    const cudaError_t e =
+        cudaMemsetAsync(box, 0, nfill * sizeof(cplx_t<R>), s);
+    if (e != cudaSuccess) return (int)e;
+    const long long total = (long long)nbatch * nrows * ngk;
+    if (total > 0)
+        scatter_valid<R><<<grid_for(total, threads), threads, 0, s>>>(
+            (const cplx_t<R>*)psi, fft_index, mask, (cplx_t<R>*)box, nrows,
+            ngk, nbox, index_batched, total);
+    return (int)cudaGetLastError();
+}
+
+template <typename R>
+int gather(const void* box, const void* psi, const R* ekin, const R* mask,
+           const int* fft_index, void* hpsi, void* spsi, int nbatch, int nrows,
+           int ngk, long long nbox, int index_batched, void* stream) {
+    const int threads = 256;
+    const long long total = (long long)nbatch * nrows * ngk;
+    if (total > 0)
+        gather_hpsi<R><<<grid_for(total, threads), threads, 0,
+                         (cudaStream_t)stream>>>(
+            (const cplx_t<R>*)box, (const cplx_t<R>*)psi, ekin, mask,
+            fft_index, (cplx_t<R>*)hpsi, (cplx_t<R>*)spsi, nrows, ngk, nbox,
+            index_batched, total);
+    return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int pw_to_box(const void* psi, const int* fft_index,
                          const double* mask, void* box, int nbatch, int nrows,
                          int ngk, long long nbox, int index_batched,
                          void* stream) {
-    cudaStream_t s = (cudaStream_t)stream;
-    const int threads = 256;
-    const long long nfill = (long long)nbatch * nrows * nbox;
-    // all-zero bits are a complex128 zero
-    const cudaError_t e =
-        cudaMemsetAsync(box, 0, nfill * sizeof(cuDoubleComplex), s);
-    if (e != cudaSuccess) return (int)e;
-    const long long total = (long long)nbatch * nrows * ngk;
-    if (total > 0)
-        scatter_valid<<<grid_for(total, threads), threads, 0, s>>>(
-            (const cuDoubleComplex*)psi, fft_index, mask,
-            (cuDoubleComplex*)box, nrows, ngk, nbox, index_batched, total);
-    return (int)cudaGetLastError();
+    return scatter<double>(psi, fft_index, mask, box, nbatch, nrows, ngk, nbox,
+                           index_batched, stream);
+}
+
+extern "C" int pw_to_box_c64(const void* psi, const int* fft_index,
+                             const float* mask, void* box, int nbatch,
+                             int nrows, int ngk, long long nbox,
+                             int index_batched, void* stream) {
+    return scatter<float>(psi, fft_index, mask, box, nbatch, nrows, ngk, nbox,
+                          index_batched, stream);
 }
 
 extern "C" int box_to_pw(const void* box, const void* psi, const double* ekin,
                          const double* mask, const int* fft_index, void* hpsi,
                          void* spsi, int nbatch, int nrows, int ngk,
                          long long nbox, int index_batched, void* stream) {
-    cudaStream_t s = (cudaStream_t)stream;
-    const int threads = 256;
-    const long long total = (long long)nbatch * nrows * ngk;
-    if (total > 0)
-        gather_hpsi<<<grid_for(total, threads), threads, 0, s>>>(
-            (const cuDoubleComplex*)box, (const cuDoubleComplex*)psi, ekin,
-            mask, fft_index, (cuDoubleComplex*)hpsi, (cuDoubleComplex*)spsi,
-            nrows, ngk, nbox, index_batched, total);
-    return (int)cudaGetLastError();
+    return gather<double>(box, psi, ekin, mask, fft_index, hpsi, spsi, nbatch,
+                          nrows, ngk, nbox, index_batched, stream);
+}
+
+extern "C" int box_to_pw_c64(const void* box, const void* psi,
+                             const float* ekin, const float* mask,
+                             const int* fft_index, void* hpsi, void* spsi,
+                             int nbatch, int nrows, int ngk, long long nbox,
+                             int index_batched, void* stream) {
+    return gather<float>(box, psi, ekin, mask, fft_index, hpsi, spsi, nbatch,
+                         nrows, ngk, nbox, index_batched, stream);
 }

@@ -19,7 +19,8 @@
 // JAX package sums the three components first (acc, then
 // hpsi + 0.5 acc mask); adding them one at a time rounds differently, by
 // an ulp of hpsi, and needs no acc buffer. One thread per (row, lane), no
-// atomics; products and sums use __dmul_rn / __dadd_rn, so the compiler
+// atomics; products and sums use the rounded mul_rn / add_rn of
+// precision.cuh, so the compiler
 // cannot fuse them and the results are the plain version's bits.
 //
 // Bound on the H100: bytes. K11a writes the whole complex box (16 bytes a
@@ -28,22 +29,30 @@
 // box at the lanes (a gather) and reads and writes 16 bytes of hpsi a
 // lane.
 //
+// Each entry point comes in two instantiations of one template: complex128
+// blocks with float64 G+k vectors and mask (the plain names) and complex64
+// blocks with float32 ones (the *_c64 names, the fp32 wave-function path of
+// sirius_tpu/dft/scf.py::_gkc_dev(float32)). The fp32 ones move half the
+// bytes with the same design.
+//
 // Plain C interface (loaded with ctypes); every launch goes on the stream
 // passed in, allocates nothing, and each function returns
 // cudaGetLastError().
 #include <cuda_runtime.h>
-#include <cuComplex.h>
+
+#include "precision.cuh"
 
 namespace {
 
 // psi [nbatch, nrows, ngk] -> box [nbatch, nrows, nbox]; fft_index / mask
 // [nbatch, ngk] and gkc [nbatch, ngk, 3] when index_batched, else [ngk] and
 // [ngk, 3]
-__global__ void grad_scatter(const cuDoubleComplex* __restrict__ psi,
-                             const double* __restrict__ gkc, int comp,
+template <typename R>
+__global__ void grad_scatter(const cplx_t<R>* __restrict__ psi,
+                             const R* __restrict__ gkc, int comp,
                              const int* __restrict__ fft_index,
-                             const double* __restrict__ mask,
-                             cuDoubleComplex* __restrict__ box, int nrows,
+                             const R* __restrict__ mask,
+                             cplx_t<R>* __restrict__ box, int nrows,
                              int ngk, long long nbox, int index_batched,
                              long long total) {
     for (long long t = blockIdx.x * (long long)blockDim.x + threadIdx.x;
@@ -52,35 +61,37 @@ __global__ void grad_scatter(const cuDoubleComplex* __restrict__ psi,
         const long long row = t / ngk;  // b * nrows + band
         const long long b = row / nrows;
         const long long lane = (index_batched ? b * ngk : 0) + g;
-        if (!(mask[lane] > 0.0)) continue;
-        const double gc = gkc[3 * lane + comp];
-        const cuDoubleComplex p = psi[t];
+        if (!(mask[lane] > R(0))) continue;
+        const R gc = gkc[3 * lane + comp];
+        const cplx_t<R> p = psi[t];
         box[row * nbox + fft_index[lane]] =
-            make_cuDoubleComplex(__dmul_rn(gc, p.x), __dmul_rn(gc, p.y));
+            make_cplx<R>(mul_rn(gc, p.x), mul_rn(gc, p.y));
     }
 }
 
 // hpsi += (0.5 gc back) m
-__global__ void grad_gather(const cuDoubleComplex* __restrict__ box,
-                            const double* __restrict__ gkc, int comp,
+template <typename R>
+__global__ void grad_gather(const cplx_t<R>* __restrict__ box,
+                            const R* __restrict__ gkc, int comp,
                             const int* __restrict__ fft_index,
-                            const double* __restrict__ mask,
-                            cuDoubleComplex* __restrict__ hpsi, int nrows,
+                            const R* __restrict__ mask,
+                            cplx_t<R>* __restrict__ hpsi, int nrows,
                             int ngk, long long nbox, int index_batched,
                             long long total) {
+    const R half = R(0.5);
     for (long long t = blockIdx.x * (long long)blockDim.x + threadIdx.x;
          t < total; t += (long long)gridDim.x * blockDim.x) {
         const int g = (int)(t % ngk);
         const long long row = t / ngk;
         const long long b = row / nrows;
         const long long lane = (index_batched ? b * ngk : 0) + g;
-        const double gc = gkc[3 * lane + comp];
-        const double m = mask[lane];
-        const cuDoubleComplex v = box[row * nbox + fft_index[lane]];
-        const cuDoubleComplex h = hpsi[t];
-        hpsi[t] = make_cuDoubleComplex(
-            __dadd_rn(h.x, __dmul_rn(__dmul_rn(0.5, __dmul_rn(gc, v.x)), m)),
-            __dadd_rn(h.y, __dmul_rn(__dmul_rn(0.5, __dmul_rn(gc, v.y)), m)));
+        const R gc = gkc[3 * lane + comp];
+        const R m = mask[lane];
+        const cplx_t<R> v = box[row * nbox + fft_index[lane]];
+        const cplx_t<R> h = hpsi[t];
+        hpsi[t] = make_cplx<R>(
+            add_rn(h.x, mul_rn(mul_rn(half, mul_rn(gc, v.x)), m)),
+            add_rn(h.y, mul_rn(mul_rn(half, mul_rn(gc, v.y)), m)));
     }
 }
 
@@ -91,26 +102,58 @@ inline int grid_for(long long n, int threads) {
     return (int)blocks;
 }
 
+template <typename R>
+int scatter(const void* psi, const R* gkc, int comp, const int* fft_index,
+            const R* mask, void* box, int nbatch, int nrows, int ngk,
+            long long nbox, int index_batched, void* stream) {
+    if (comp < 0 || comp > 2) return (int)cudaErrorInvalidValue;
+    cudaStream_t s = (cudaStream_t)stream;
+    const int threads = 256;
+    const long long nfill = (long long)nbatch * nrows * nbox;
+    // all-zero bits are a complex zero
+    const cudaError_t e =
+        cudaMemsetAsync(box, 0, nfill * sizeof(cplx_t<R>), s);
+    if (e != cudaSuccess) return (int)e;
+    const long long total = (long long)nbatch * nrows * ngk;
+    if (total > 0)
+        grad_scatter<R><<<grid_for(total, threads), threads, 0, s>>>(
+            (const cplx_t<R>*)psi, gkc, comp, fft_index, mask,
+            (cplx_t<R>*)box, nrows, ngk, nbox, index_batched, total);
+    return (int)cudaGetLastError();
+}
+
+template <typename R>
+int gather(const void* box, const R* gkc, int comp, const int* fft_index,
+           const R* mask, void* hpsi, int nbatch, int nrows, int ngk,
+           long long nbox, int index_batched, void* stream) {
+    if (comp < 0 || comp > 2) return (int)cudaErrorInvalidValue;
+    const int threads = 256;
+    const long long total = (long long)nbatch * nrows * ngk;
+    if (total > 0)
+        grad_gather<R><<<grid_for(total, threads), threads, 0,
+                         (cudaStream_t)stream>>>(
+            (const cplx_t<R>*)box, gkc, comp, fft_index, mask,
+            (cplx_t<R>*)hpsi, nrows, ngk, nbox, index_batched, total);
+    return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int grad_to_box(const void* psi, const double* gkc, int comp,
                            const int* fft_index, const double* mask, void* box,
                            int nbatch, int nrows, int ngk, long long nbox,
                            int index_batched, void* stream) {
-    if (comp < 0 || comp > 2) return (int)cudaErrorInvalidValue;
-    cudaStream_t s = (cudaStream_t)stream;
-    const int threads = 256;
-    const long long nfill = (long long)nbatch * nrows * nbox;
-    // all-zero bits are a complex128 zero
-    const cudaError_t e =
-        cudaMemsetAsync(box, 0, nfill * sizeof(cuDoubleComplex), s);
-    if (e != cudaSuccess) return (int)e;
-    const long long total = (long long)nbatch * nrows * ngk;
-    if (total > 0)
-        grad_scatter<<<grid_for(total, threads), threads, 0, s>>>(
-            (const cuDoubleComplex*)psi, gkc, comp, fft_index, mask,
-            (cuDoubleComplex*)box, nrows, ngk, nbox, index_batched, total);
-    return (int)cudaGetLastError();
+    return scatter<double>(psi, gkc, comp, fft_index, mask, box, nbatch, nrows,
+                           ngk, nbox, index_batched, stream);
+}
+
+extern "C" int grad_to_box_c64(const void* psi, const float* gkc, int comp,
+                               const int* fft_index, const float* mask,
+                               void* box, int nbatch, int nrows, int ngk,
+                               long long nbox, int index_batched,
+                               void* stream) {
+    return scatter<float>(psi, gkc, comp, fft_index, mask, box, nbatch, nrows,
+                          ngk, nbox, index_batched, stream);
 }
 
 extern "C" int box_to_pw_tau(const void* box, const double* gkc, int comp,
@@ -118,14 +161,15 @@ extern "C" int box_to_pw_tau(const void* box, const double* gkc, int comp,
                              void* hpsi, int nbatch, int nrows,
                              int ngk, long long nbox, int index_batched,
                              void* stream) {
-    if (comp < 0 || comp > 2) return (int)cudaErrorInvalidValue;
-    cudaStream_t s = (cudaStream_t)stream;
-    const int threads = 256;
-    const long long total = (long long)nbatch * nrows * ngk;
-    if (total > 0)
-        grad_gather<<<grid_for(total, threads), threads, 0, s>>>(
-            (const cuDoubleComplex*)box, gkc, comp, fft_index, mask,
-            (cuDoubleComplex*)hpsi, nrows, ngk, nbox,
-            index_batched, total);
-    return (int)cudaGetLastError();
+    return gather<double>(box, gkc, comp, fft_index, mask, hpsi, nbatch, nrows,
+                          ngk, nbox, index_batched, stream);
+}
+
+extern "C" int box_to_pw_tau_c64(const void* box, const float* gkc, int comp,
+                                 const int* fft_index, const float* mask,
+                                 void* hpsi, int nbatch, int nrows, int ngk,
+                                 long long nbox, int index_batched,
+                                 void* stream) {
+    return gather<float>(box, gkc, comp, fft_index, mask, hpsi, nbatch, nrows,
+                         ngk, nbox, index_batched, stream);
 }

@@ -22,35 +22,42 @@
 // coalesced) and no thread divides a 64-bit index. Elementwise: no sums,
 // no atomics, bit-reproducible.
 //
+// Both modes come in two instantiations of one template: complex128 boxes
+// with a float64 potential, and complex64 boxes with a float32 potential
+// (the *_c64 entry points, the fp32 wave-function path of
+// sirius_tpu/ops/hamiltonian.py and ops/gamma.py with real_dtype_of
+// float32). The fp32 one moves half the bytes with the same design.
+//
 // Plain C interface (loaded with ctypes); launches on the stream passed in,
 // allocates nothing, returns cudaGetLastError().
 #include <cuda_runtime.h>
-#include <cuComplex.h>
+
+#include "precision.cuh"
 
 namespace {
 
-template <bool kRealMode>
-__global__ void veff_multiply_kernel(cuDoubleComplex* __restrict__ fr,
-                                     const double* __restrict__ veff,
+template <typename R, bool kRealMode>
+__global__ void veff_multiply_kernel(cplx_t<R>* __restrict__ fr,
+                                     const R* __restrict__ veff,
                                      long long rows, int r_per_b, int ns,
                                      long long n) {
     for (long long row = blockIdx.y; row < rows; row += gridDim.y) {
         const long long b = row / r_per_b;
-        const double* v = veff + (b % ns) * n;
-        cuDoubleComplex* f = fr + row * n;
+        const R* v = veff + (b % ns) * n;
+        cplx_t<R>* f = fr + row * n;
         for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
              i < n; i += (long long)gridDim.x * blockDim.x) {
-            const double s = v[i];
-            cuDoubleComplex z = f[i];
+            const R s = v[i];
+            cplx_t<R> z = f[i];
             z.x *= s;
-            z.y = kRealMode ? 0.0 : z.y * s;
+            z.y = kRealMode ? R(0) : z.y * s;
             f[i] = z;
         }
     }
 }
 
-template <bool kRealMode>
-int launch(void* fr, const double* veff, int nbatch, int r_per_b, int ns,
+template <typename R, bool kRealMode>
+int launch(void* fr, const R* veff, int nbatch, int r_per_b, int ns,
            long long n, void* stream) {
     const int threads = 256;
     const long long rows = (long long)nbatch * r_per_b;
@@ -61,8 +68,9 @@ int launch(void* fr, const double* veff, int nbatch, int r_per_b, int ns,
     if (bx > 1024) bx = 1024;
     const long long by = rows < 65535 ? rows : 65535;
     dim3 grid((unsigned)bx, (unsigned)by);
-    veff_multiply_kernel<kRealMode><<<grid, threads, 0, (cudaStream_t)stream>>>(
-        (cuDoubleComplex*)fr, veff, rows, r_per_b, ns, n);
+    veff_multiply_kernel<R, kRealMode>
+        <<<grid, threads, 0, (cudaStream_t)stream>>>((cplx_t<R>*)fr, veff,
+                                                     rows, r_per_b, ns, n);
     return (int)cudaGetLastError();
 }
 
@@ -70,11 +78,23 @@ int launch(void* fr, const double* veff, int nbatch, int r_per_b, int ns,
 
 extern "C" int veff_multiply(void* fr, const double* veff, int nbatch,
                              int r_per_b, int ns, long long n, void* stream) {
-    return launch<false>(fr, veff, nbatch, r_per_b, ns, n, stream);
+    return launch<double, false>(fr, veff, nbatch, r_per_b, ns, n, stream);
 }
 
 extern "C" int veff_multiply_real(void* fr, const double* veff, int nbatch,
                                   int r_per_b, int ns, long long n,
                                   void* stream) {
-    return launch<true>(fr, veff, nbatch, r_per_b, ns, n, stream);
+    return launch<double, true>(fr, veff, nbatch, r_per_b, ns, n, stream);
+}
+
+extern "C" int veff_multiply_c64(void* fr, const float* veff, int nbatch,
+                                 int r_per_b, int ns, long long n,
+                                 void* stream) {
+    return launch<float, false>(fr, veff, nbatch, r_per_b, ns, n, stream);
+}
+
+extern "C" int veff_multiply_real_c64(void* fr, const float* veff, int nbatch,
+                                      int r_per_b, int ns, long long n,
+                                      void* stream) {
+    return launch<float, true>(fr, veff, nbatch, r_per_b, ns, n, stream);
 }

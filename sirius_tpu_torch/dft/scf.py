@@ -22,6 +22,15 @@ packed-real solve (ops/gamma.py, one spin at a time) for a Gamma-only deck
 with control.reduce_gvec, else the batched k-set solve over every (k, spin)
 (parallel/batched.py). A meta-GGA deck always takes the k-set solve, with
 the tau term in the operator (ops/mgga.py), as in the JAX package.
+
+precision_wf = "fp32" runs the band solve (the wave functions, the H and S
+applications, the Davidson residual and the subspace algebra) in complex64
+with float32 tables, on every path; the density, the density matrix, the
+potential, XC, D, the symmetrization and the mixer stay fp64, as in the JAX
+package (scf.py:266). settings.fp32_to_fp64_rms > 0 switches the band solve
+to complex128 once the density residual falls below it, and then runs at
+least one fp64 iteration before convergence may be declared
+(scf.py:2200-2212).
 """
 
 from __future__ import annotations
@@ -72,6 +81,7 @@ from sirius_tpu_torch.ops.gamma import (
     pack_diags,
     unpack_device,
 )
+from sirius_tpu_torch.ops.hamiltonian import astype, real_dtype_of
 from sirius_tpu_torch.ops.mgga import davidson_kset_mgga, tau_kset
 from sirius_tpu_torch.parallel.batched import (
     compute_h_diag,
@@ -99,11 +109,7 @@ def check_supported(cfg: Config) -> None:
         raise NotImplementedError(
             f"{p.electronic_structure_method}: FP-LAPW comes with ROADMAP "
             "queue 1, slice 13")
-    if p.precision_wf == "fp32":
-        raise NotImplementedError(
-            "precision_wf='fp32' comes with the fp32 precision path "
-            "(ROADMAP queue 1, item 2); the port runs fp64")
-    if p.precision_wf != "fp64":
+    if p.precision_wf not in ("fp32", "fp64"):
         raise ValueError(f"precision_wf must be fp32 or fp64, got '{p.precision_wf}'")
     if p.num_mag_dims not in (0, 1, 3):
         raise ValueError(f"num_mag_dims must be 0, 1 or 3, got {p.num_mag_dims}")
@@ -214,7 +220,8 @@ def run_scf(cfg: Config, ctx: SimulationContext | None = None,
     Returns the JAX package's result dict for the keys of this slice
     (energies under the reference's names; mag_history and, polarized,
     magnetisation), plus the wall time of each iteration and of each band
-    solve."""
+    solve and the precision each band solve ran at (wf_precision, "fp32"
+    or "fp64")."""
     device = resolve_device(device)
     t0 = time.time()
     check_supported(cfg)
@@ -266,6 +273,10 @@ def run_scf(cfg: Config, ctx: SimulationContext | None = None,
     x_mix = torch.cat([rho_g, mag_g]) if polarized else rho_g
     path = band_solve_path(cfg, ctx)
     chunk = cfg.control.beta_chunk_size
+    # the band solve's working type: complex64 on the fp32 path until the
+    # polish switch (scf.py:266); the fp64 tables below are refreshed from
+    # the potential and cast to it (astype) at every band solve
+    wf_dtype = torch.complex64 if p.precision_wf == "fp32" else torch.complex128
     prm = gm = gp = x_packed = None
     if path == "chunked":
         # H psi generates the projectors chunk by chunk (K9). The dense
@@ -330,10 +341,10 @@ def run_scf(cfg: Config, ctx: SimulationContext | None = None,
 
     def gamma_spin(ispn):
         """The one GammaParams with this spin's veff_r and D swapped in
-        (scf.py:1400-1403)."""
+        (scf.py:1400-1403), at the working precision."""
         gp.veff_r = pot.veff_r_coarse[ispn]
         gp.dion = d_spin[ispn].contiguous()
-        return gp
+        return astype(gp, real_dtype_of(wf_dtype))
 
     if path == "chunked" or aug_tables is not None:
         # the k-set and Gamma tables of a norm-conserving deck were built
@@ -342,7 +353,7 @@ def run_scf(cfg: Config, ctx: SimulationContext | None = None,
 
     counters = {"num_loc_op_applied": 0}
     etot_history, rms_history, iter_seconds, band_seconds = [], [], [], []
-    mag_history = []
+    mag_history, precision_history = [], []
     e_prev, converged, rms, scf_correction = None, False, 0.0, 0.0
     mu = entropy_sum = None
     evals = occ = None
@@ -351,6 +362,9 @@ def run_scf(cfg: Config, ctx: SimulationContext | None = None,
     for it in range(p.num_dft_iter):
         synchronize(device)
         it_t0 = time.perf_counter()
+        rdt = real_dtype_of(wf_dtype)
+        precision_history.append("fp32" if rdt == torch.float32 else "fp64")
+        band = None if path == "gamma" else astype(ps, wf_dtype)
         if psi_big is not None:
             # first iteration: rotate the full atomic-orbital block down to
             # the lowest nb Ritz vectors (reference initialize_subspace.hpp:279)
@@ -360,18 +374,22 @@ def run_scf(cfg: Config, ctx: SimulationContext | None = None,
                 x_packed = []
                 for ispn in range(ns):
                     xb = torch.as_tensor(pack(gm, psi_big[0, ispn:ispn + 1]),
-                                         device=device)
-                    hx, sx = apply_h_s_gamma(gamma_spin(ispn), xb)
+                                         device=device).to(rdt)
+                    gw = gamma_spin(ispn)
+                    hx, sx = apply_h_s_gamma(gw, xb)
                     x_packed.append(subspace_rotate(xb, hx, sx, nb,
-                                                    mask=gp.mask_p[None]))
+                                                    mask=gw.mask_p[None]))
             else:
                 big = torch.as_tensor(psi_big, device=device)
                 if path == "chunked":
+                    # applied at the working precision, rotated in fp64
+                    # (scf.py:1348-1361)
                     xb = big[0] * prm.mask[:, None, :]
-                    hx, sx = apply_h_s_chunked(prm, xb)
-                    psi = subspace_rotate(xb, hx, sx, nb)[None]
+                    hx, sx = apply_h_s_chunked(band, xb.to(wf_dtype))
+                    psi = subspace_rotate(xb, hx.to(xb.dtype), sx.to(xb.dtype),
+                                          nb)[None]
                 else:
-                    psi = initialize_subspace_kset(ps, big, nb)
+                    psi = initialize_subspace_kset(band, big.to(wf_dtype), nb)
                 del big
             counters["num_loc_op_applied"] += nk * ns * psi_big.shape[2]
             psi_big = None
@@ -379,28 +397,35 @@ def run_scf(cfg: Config, ctx: SimulationContext | None = None,
         if path == "gamma":
             # packed-real solve per spin (scf.py:1376-1440) with that spin's
             # preconditioner diagonals; the density takes the unpacked bands
+            # (fp64 diagonals cast to the working type; the fp64 packed
+            # bands unpack to the complex128 bands of the density, as the
+            # JAX package's host unpack, scf.py:1439-1440)
             hd_p, od_p = pack_diags(gm, ps.h_diag[0], ps.o_diag.expand(ns, -1))
+            hd_p, od_p = hd_p.to(rdt), od_p.to(rdt)
             evs = []
             for ispn in range(ns):
                 ev_s, x_packed[ispn], _ = davidson_gamma(
-                    gamma_spin(ispn), x_packed[ispn],
+                    gamma_spin(ispn), x_packed[ispn].to(rdt),
                     hd_p[ispn:ispn + 1], od_p[ispn:ispn + 1],
                     num_steps=itsol.num_steps, res_tol=res_tol)
                 evs.append(ev_s)
             ev = torch.cat(evs)
-            psi = unpack_device(gp, torch.cat(x_packed))[None]
+            psi = unpack_device(gp, torch.cat(x_packed).double())[None]
         elif path == "chunked":
-            ev, x, rn = davidson(apply_h_s_chunked, prm, psi[0], prm.h_diag,
-                                 prm.o_diag, prm.mask,
+            # the density takes complex128 bands (scf.py:1375)
+            ev, x, rn = davidson(apply_h_s_chunked, band, psi[0].to(wf_dtype),
+                                 band.h_diag, band.o_diag, band.mask,
                                  num_steps=itsol.num_steps, res_tol=res_tol)
-            psi = x[None]
+            psi = x[None].to(torch.complex128)
         elif mgga:
             # the tau term in the operator (scf.py:1566-1575)
-            ev, psi, rn = davidson_kset_mgga(ps, pot.vtau_r_coarse, gkc, psi,
+            ev, psi, rn = davidson_kset_mgga(band, pot.vtau_r_coarse.to(rdt),
+                                             gkc.to(rdt), psi.to(wf_dtype),
                                              num_steps=itsol.num_steps,
                                              res_tol=res_tol)
         else:
-            ev, psi, rn = davidson_kset(ps, psi, num_steps=itsol.num_steps,
+            ev, psi, rn = davidson_kset(band, psi.to(wf_dtype),
+                                        num_steps=itsol.num_steps,
                                         res_tol=res_tol)
         counters["num_loc_op_applied"] += nk * ns * num_applies(itsol.num_steps, nb)
         if path == "kset" and not mgga and cfg.control.scf_supervision:
@@ -409,12 +434,12 @@ def run_scf(cfg: Config, ctx: SimulationContext | None = None,
                 # one deeper retry, warm-started from the stagnated block (the
                 # JAX package retries on this path only, not under mGGA, and
                 # only under control.scf_supervision: scf.py:1644)
-                ev, psi, rn = davidson_kset(ps, psi,
+                ev, psi, rn = davidson_kset(band, psi,
                                             num_steps=2 * itsol.num_steps,
                                             res_tol=res_tol)
                 counters["num_loc_op_applied"] += nk * ns * num_applies(
                     2 * itsol.num_steps, nb)
-        evals = ev.reshape(nk, ns, nb)
+        evals = ev.reshape(nk, ns, nb).to(torch.float64)
         synchronize(device)
         band_seconds.append(time.perf_counter() - it_t0)
 
@@ -423,14 +448,18 @@ def run_scf(cfg: Config, ctx: SimulationContext | None = None,
             evals, kweights, nel, p.smearing_width, kind=p.smearing,
             max_occupancy=ctx.max_occupancy)
         occ_w = occ * kweights[:, None, None]
-        rho_spin = density_from_coarse_acc(ctx, density_kset(ps, psi, occ_w),
+        # the k-set bands are at the working precision, with `band`'s
+        # tables; the Gamma and chunked paths hand the density complex128
+        # bands, with the fp64 tables
+        dens = band if path == "kset" else ps
+        rho_spin = density_from_coarse_acc(ctx, density_kset(dens, psi, occ_w),
                                            tables)
         if mgga:
             # tau of the current bands, symmetrized as a scalar field per
             # spin; not mixed: the potential takes the mixed rho with this
             # fresh tau (scf.py:1949-1969)
-            tau_g = density_from_coarse_acc(ctx, tau_kset(ps, gkc, psi, occ_w),
-                                            tables)
+            tau_g = density_from_coarse_acc(
+                ctx, tau_kset(dens, gkc.to(rdt), psi, occ_w), tables)
             if tables.sym is not None:
                 tau_g = symmetrize_tau(tables.sym, tau_g)
         if aug_tables is not None:
@@ -491,6 +520,13 @@ def run_scf(cfg: Config, ctx: SimulationContext | None = None,
         iter_seconds.append(time.perf_counter() - it_t0)
         de = abs(e_total - e_prev) if e_prev is not None else np.inf
         e_prev = e_total
+        if (wf_dtype == torch.complex64 and cfg.settings.fp32_to_fp64_rms > 0
+                and rms < cfg.settings.fp32_to_fp64_rms):
+            # the fp32 -> fp64 polish: the next band solve runs on complex128
+            # tables and bands, and this iteration may not end the run
+            # (scf.py:2200-2212)
+            wf_dtype = torch.complex128
+            continue
         if de < p.energy_tol and dens_metric < p.density_tol:
             converged = True
             break
@@ -517,6 +553,7 @@ def run_scf(cfg: Config, ctx: SimulationContext | None = None,
         "scf_time": time.time() - t0,
         "iteration_seconds": iter_seconds,
         "band_solve_seconds": band_seconds,
+        "wf_precision": precision_history,
         "device": str(device),
         "energy": {
             "total": e_total,

@@ -11,7 +11,10 @@ an iteration (D(V) with D_ion, D(B_x), D(B_y), D(B_z) without), rho_aug K4
 once over the four Hermitian component blocks, the symmetrization K6 (rho,
 V_eff) and K6v (m, B). As in the JAX package the loop runs no band-solve
 retry, and spin-orbit is refused (it needs j-resolved projectors, which
-only UPF species carry).
+only UPF species carry). precision_wf = "fp32" runs the spinor band solve
+and the density's transforms in complex64 with float32 tables for the
+whole run (scf_nc.py:113, :193-196): the JAX package's non-collinear
+driver has no fp32_to_fp64_rms polish, so neither has this one.
 """
 
 from __future__ import annotations
@@ -49,6 +52,7 @@ from sirius_tpu_torch.ops.augmentation import (
     d_operator_device,
     rho_aug_g_device,
 )
+from sirius_tpu_torch.ops.hamiltonian import astype
 from sirius_tpu_torch.ops.spinor import spin_blocks_from_components
 from sirius_tpu_torch.parallel.batched_nc import (
     davidson_kset_nc,
@@ -118,6 +122,9 @@ def run_scf_nc(cfg: Config, ctx: SimulationContext, device) -> dict:
     pot = generate_potential_nc(ctx, rho_g, xc, mvec_g, tables)
     mixer = Mixer(cfg.mixer, ctx.gvec.glen2, omega=omega, device=device,
                   num_components=4)
+    # the band solve's working type; the fp64 set is cast to it at every
+    # band solve (the density matrix keeps the fp64 projectors)
+    wf_dtype = torch.complex64 if p.precision_wf == "fp32" else torch.complex128
     dion = torch.as_tensor(ctx.beta.dion, dtype=torch.float64, device=device)
     zero_d = torch.zeros_like(dion)
     aug_tables = dm_sym = None
@@ -154,8 +161,11 @@ def run_scf_nc(cfg: Config, ctx: SimulationContext, device) -> dict:
         dmat = spin_blocks_from_components(d0, dz, dx, dy)
         ps = make_nc_set_params(ctx, pot.veff_boxes, dmat,
                                 v0=pot.veff_g[0].real, prev=ps, device=device)
-        evals, psi, _ = davidson_kset_nc(ps, psi, num_steps=itsol.num_steps,
+        band = astype(ps, wf_dtype)
+        evals, psi, _ = davidson_kset_nc(band, psi.to(wf_dtype),
+                                         num_steps=itsol.num_steps,
                                          res_tol=res_tol)
+        evals = evals.to(torch.float64)
         counters["num_loc_op_applied"] += nk * num_applies(itsol.num_steps, nb)
         synchronize(device)
         band_seconds.append(time.perf_counter() - it_t0)
@@ -167,8 +177,8 @@ def run_scf_nc(cfg: Config, ctx: SimulationContext, device) -> dict:
         occ_w = occ[:, 0, :] * kweights[:, None]
 
         # --- the four-component density, (rho, m_z, m_x, m_y) on the box ---
-        fields = density_from_coarse_acc(ctx, density_kset_nc(ps, psi, occ_w),
-                                         tables)
+        fields = density_from_coarse_acc(
+            ctx, density_kset_nc(band, psi, occ_w), tables)
         rho_new = fields[0]
         mvec_new = torch.stack([fields[2], fields[3], fields[1]])
         if aug_tables is not None:
@@ -243,6 +253,8 @@ def run_scf_nc(cfg: Config, ctx: SimulationContext, device) -> dict:
         "scf_time": time.time() - t0,
         "iteration_seconds": iter_seconds,
         "band_solve_seconds": band_seconds,
+        "wf_precision": ["fp32" if wf_dtype == torch.complex64 else "fp64"]
+        * num_iter_done,
         "device": str(device),
         "energy": {
             "total": e_total,

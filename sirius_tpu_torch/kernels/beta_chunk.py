@@ -15,6 +15,12 @@ uniform grid of step dq; mask may be None. Replaces the chunk build of
 sirius_tpu/ops/beta_chunked.py::apply_h_s_chunked (:279-301) and
 chunked_nonlocal (:144-170). A CPU tensor takes the plain PyTorch version; a
 CUDA tensor launches the kernel.
+
+Two instantiations, chosen by the type of q: float64 tables with complex128
+cph and projectors (counted in beta_chunk.launches), and float32 tables with
+complex64 cph and projectors (the fp32 wave-function path,
+beta_chunk.launches_c64), where the index, weights and phase are float32,
+as in the JAX package's make_chunked_hk(dtype=complex64).
 """
 
 from __future__ import annotations
@@ -45,15 +51,20 @@ def beta_chunk(pos, xi_rf, xi_lm, cph, rlm, q, mk, ri_grid, dq: float,
     c, nxi = xi_rf.shape
     ngk, lmmax = rlm.shape
     dev = q.device
-    f64 = torch.float64
+    if q.dtype not in (torch.float64, torch.float32):
+        raise ValueError(f"q must be float64 or float32, got {q.dtype}")
+    real = q.dtype
+    cplx = torch.complex128 if real == torch.float64 else torch.complex64
+    _, suffix = build.variant(cplx)
     for name, t, dtype, shape in (
-            ("pos", pos, f64, (c, 3)), ("xi_rf", xi_rf, torch.int32, (c, nxi)),
+            ("pos", pos, real, (c, 3)),
+            ("xi_rf", xi_rf, torch.int32, (c, nxi)),
             ("xi_lm", xi_lm, torch.int32, (c, nxi)),
-            ("cph", cph, torch.complex128, (c, nxi)),
-            ("rlm", rlm, f64, (ngk, lmmax)), ("q", q, f64, (ngk,)),
-            ("mk", mk, f64, (ngk, 3)),
-            ("ri_grid", ri_grid, f64, (ri_grid.shape[0], ri_grid.shape[1])),
-            ("mask", mask, f64, (ngk,))):
+            ("cph", cph, cplx, (c, nxi)),
+            ("rlm", rlm, real, (ngk, lmmax)), ("q", q, real, (ngk,)),
+            ("mk", mk, real, (ngk, 3)),
+            ("ri_grid", ri_grid, real, (ri_grid.shape[0], ri_grid.shape[1])),
+            ("mask", mask, real, (ngk,))):
         if t is None:
             continue
         if t.dtype != dtype or tuple(t.shape) != shape or t.device != dev:
@@ -67,9 +78,9 @@ def beta_chunk(pos, xi_rf, xi_lm, cph, rlm, q, mk, ri_grid, dq: float,
     if dev.type != "cuda":
         raise RuntimeError(f"beta_chunk: unsupported device {dev}")
     nq = ri_grid.shape[1]
-    beta = torch.empty((c, nxi, ngk), dtype=torch.complex128, device=dev)
+    beta = torch.empty((c, nxi, ngk), dtype=cplx, device=dev)
     lib = build.library("beta_chunk")
-    rc = lib.beta_chunk(
+    rc = getattr(lib, "beta_chunk" + suffix)(
         beta.data_ptr(), pos.contiguous().data_ptr(),
         xi_rf.contiguous().data_ptr(), xi_lm.contiguous().data_ptr(),
         cph.contiguous().data_ptr(), rlm.contiguous().data_ptr(),
@@ -77,9 +88,10 @@ def beta_chunk(pos, xi_rf, xi_lm, cph, rlm, q, mk, ri_grid, dq: float,
         None if mask is None else mask.contiguous().data_ptr(),
         ri_grid.contiguous().data_ptr(), c, nxi, ngk, lmmax, nq, float(dq),
         float(pref), float(nq - 1.001), build.stream_of(q))
-    build.check(rc, "beta_chunk")
-    beta_chunk.launches += 1
+    build.check(rc, "beta_chunk" + suffix)
+    build.count_launch(beta_chunk, suffix)
     return beta
 
 
 beta_chunk.launches = 0
+beta_chunk.launches_c64 = 0

@@ -36,27 +36,39 @@ _LL = ctypes.c_longlong
 _D = ctypes.c_double
 # argtypes of every exported function: pointers and the stream as void*,
 # so ctypes never truncates a pointer to a 32-bit int
+# (the fp32 instantiations, suffixed _c64 for complex64 blocks and _f32 for
+# float32 packed-real blocks, take the same arguments as their fp64 twins)
+_K1_SCATTER = (_P, _P, _P, _P, _I, _I, _I, _LL, _I, _P)
+_K1_GATHER = (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _LL, _I, _P)
+_K1C = (_P, _P, _I, _I, _I, _LL, _P)
+_K2 = (_P, _P, _P, _P, _P, _P, _D, _P, _P, _P, _I, _I, _I, _P)
+_K3 = (_P, _P, _P, _I, _I, _LL, _D, _P)
+_K12B = (_P, _P, _P, _I, _LL, _D, _P)
+_K8A = (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _LL, _P)
+_K8B = (_P, _P, _P, _P, _P, _P, _LL, _I, _P, _P, _I, _I, _LL, _P)
+_K9 = (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _D, _D,
+       _D, _P)
+_K11 = (_P, _P, _I, _P, _P, _P, _I, _I, _I, _LL, _I, _P)
+_K12A = (_P, _P, _P, _P, _P, _LL, _LL, _P)
 SIGNATURES = {
     "local_hpsi": {
-        "pw_to_box": (_P, _P, _P, _P, _I, _I, _I, _LL, _I, _P),
-        "box_to_pw": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _LL, _I, _P),
+        "pw_to_box": _K1_SCATTER, "pw_to_box_c64": _K1_SCATTER,
+        "box_to_pw": _K1_GATHER, "box_to_pw_c64": _K1_GATHER,
     },
     "davidson_residual": {
-        "davidson_residual": (_P, _P, _P, _P, _P, _P, _D, _P, _P, _P,
-                              _I, _I, _I, _P),
-        "davidson_residual_f64": (_P, _P, _P, _P, _P, _P, _D, _P, _P, _P,
-                                  _I, _I, _I, _P),
+        "davidson_residual": _K2, "davidson_residual_f64": _K2,
+        "davidson_residual_c64": _K2, "davidson_residual_f32": _K2,
     },
     "density_accumulate": {
-        "density_accumulate": (_P, _P, _P, _I, _I, _LL, _D, _P),
-        "density_accumulate_nc": (_P, _P, _P, _I, _LL, _D, _P),
+        "density_accumulate": _K3, "density_accumulate_c64": _K3,
+        "density_accumulate_nc": _K12B, "density_accumulate_nc_c64": _K12B,
     },
     "lda_xc": {
         "lda_xc": (_P, _P, _P, _P, _P, _LL, _I, _I, _P),
     },
     "veff_multiply": {
-        "veff_multiply": (_P, _P, _I, _I, _I, _LL, _P),
-        "veff_multiply_real": (_P, _P, _I, _I, _I, _LL, _P),
+        "veff_multiply": _K1C, "veff_multiply_real": _K1C,
+        "veff_multiply_c64": _K1C, "veff_multiply_real_c64": _K1C,
     },
     "augmentation": {
         "rho_aug": (_P, _P, _P, _P, _P, _P, _P, _I, _LL, _I, _I, _LL, _I, _P),
@@ -69,14 +81,10 @@ SIGNATURES = {
                                  _I, _P),
     },
     "gamma_pack": {
-        "unpack_to_box": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _LL, _P),
-        "box_to_packed_hx": (_P, _P, _P, _P, _P, _P, _LL, _I, _P, _P, _I, _I,
-                             _LL, _P),
+        "unpack_to_box": _K8A, "unpack_to_box_f32": _K8A,
+        "box_to_packed_hx": _K8B, "box_to_packed_hx_f32": _K8B,
     },
-    "beta_chunk": {
-        "beta_chunk": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                       _I, _D, _D, _D, _P),
-    },
+    "beta_chunk": {"beta_chunk": _K9, "beta_chunk_c64": _K9},
     "gga_xc": {
         "gga_xc": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _P),
     },
@@ -89,12 +97,10 @@ SIGNATURES = {
                     _I, _I, _P),
     },
     "mgga_tau": {
-        "grad_to_box": (_P, _P, _I, _P, _P, _P, _I, _I, _I, _LL, _I, _P),
-        "box_to_pw_tau": (_P, _P, _I, _P, _P, _P, _I, _I, _I, _LL, _I, _P),
+        "grad_to_box": _K11, "grad_to_box_c64": _K11,
+        "box_to_pw_tau": _K11, "box_to_pw_tau_c64": _K11,
     },
-    "spinor_veff": {
-        "spinor_veff": (_P, _P, _P, _P, _P, _LL, _LL, _P),
-    },
+    "spinor_veff": {"spinor_veff": _K12A, "spinor_veff_c64": _K12A},
 }
 
 _LOADED: dict[str, ctypes.CDLL] = {}
@@ -164,6 +170,30 @@ def library(name: str) -> ctypes.CDLL:
             f.restype = ctypes.c_int
         _LOADED[name] = lib
     return lib
+
+
+def variant(dtype) -> tuple:
+    """(real dtype of the tables, suffix) of a kernel instantiation, by the
+    element type of the block it takes: complex128 and float64 blocks run
+    the fp64 instantiation (no suffix), complex64 blocks the "_c64" one and
+    float32 packed-real blocks the "_f32" one, each with its C entry point
+    and launch counter ("launches" + suffix) named by the suffix. Raises
+    for any other type: no block is cast to reach a kernel."""
+    import torch
+
+    table = {torch.complex128: (torch.float64, ""),
+             torch.float64: (torch.float64, ""),
+             torch.complex64: (torch.float32, "_c64"),
+             torch.float32: (torch.float32, "_f32")}
+    if dtype not in table:
+        raise ValueError(f"no kernel instantiation for {dtype}")
+    return table[dtype]
+
+
+def count_launch(fn, suffix: str) -> None:
+    """Add one to the launch counter of an instantiation of a wrapper."""
+    name = "launches" + suffix
+    setattr(fn, name, getattr(fn, name) + 1)
 
 
 def check(rc: int, what: str) -> None:

@@ -11,9 +11,12 @@ davidson_residual(x, hx, sx, h_diag, o_diag, mask, res_tol) on blocks
 
 With want_w=False it returns (evals, rnorm, None) with no mask applied: the
 exit values of davidson (davidson.py:209-213). The blocks are complex128
-(k-point path) or float64 (the Gamma packed-real path): the same kernel
-source, counted apart in davidson_residual.launches and
-davidson_residual.launches_f64. A CPU tensor takes the plain PyTorch
+(k-point path) or float64 (the Gamma packed-real path), with float64
+tables and results, or on the fp32 wave-function path complex64 or
+float32, with float32 tables and float32 evals and rnorm (reduced in
+float32, as the JAX package's complex64 davidson): one kernel source, four
+instantiations counted apart in davidson_residual.launches, .launches_f64,
+.launches_c64 and .launches_f32. A CPU tensor takes the plain PyTorch
 version; a CUDA tensor launches the kernel.
 """
 
@@ -44,8 +47,13 @@ def davidson_residual_plain(x, hx, sx, h_diag, o_diag, mask, res_tol,
 
 def davidson_residual(x, hx, sx, h_diag, o_diag, mask, res_tol: float,
                       want_w: bool = True):
-    if x.dtype not in (torch.complex128, torch.float64):
-        raise ValueError(f"x must be complex128 or float64, got {x.dtype}")
+    if x.dtype not in (torch.complex128, torch.float64, torch.complex64,
+                       torch.float32):
+        raise ValueError(f"x must be complex128, float64, complex64 or "
+                         f"float32, got {x.dtype}")
+    real, suffix = build.variant(x.dtype)
+    if x.dtype == torch.float64:
+        suffix = "_f64"
     for name, t in (("x", x), ("hx", hx), ("sx", sx)):
         if t.dtype != x.dtype or t.dim() != 3:
             raise ValueError(f"{name} must be {x.dtype} [B, nb, ngk]")
@@ -54,23 +62,22 @@ def davidson_residual(x, hx, sx, h_diag, o_diag, mask, res_tol: float,
     b, nb, ngk = x.shape
     tables = (h_diag, o_diag, mask) if want_w else ()
     for t in tables:
-        if t.dtype != torch.float64 or tuple(t.shape) != (b, ngk) \
+        if t.dtype != real or tuple(t.shape) != (b, ngk) \
                 or t.device != x.device:
-            raise ValueError("h_diag, o_diag, mask must be float64 [B, ngk] "
-                             "on x's device")
+            raise ValueError(f"h_diag, o_diag, mask must be {real} [B, ngk] "
+                             f"on x's device, got {t.dtype}")
     if x.device.type == "cpu":
         return davidson_residual_plain(x, hx, sx, h_diag, o_diag, mask,
                                        res_tol, want_w)
     if x.device.type != "cuda":
         raise RuntimeError(f"davidson_residual: unsupported device {x.device}")
     x, hx, sx = x.contiguous(), hx.contiguous(), sx.contiguous()
-    evals = torch.empty((b, nb), dtype=torch.float64, device=x.device)
+    evals = torch.empty((b, nb), dtype=real, device=x.device)
     rnorm = torch.empty_like(evals)
     w = torch.empty_like(x) if want_w else None
     tabs = [t.contiguous() for t in tables]
-    real = x.dtype == torch.float64
     lib = build.library("davidson_residual")
-    fn = lib.davidson_residual_f64 if real else lib.davidson_residual
+    fn = getattr(lib, "davidson_residual" + suffix)
     rc = fn(
         x.data_ptr(), hx.data_ptr(), sx.data_ptr(),
         tabs[0].data_ptr() if want_w else None,
@@ -79,13 +86,12 @@ def davidson_residual(x, hx, sx, h_diag, o_diag, mask, res_tol: float,
         float(res_tol), evals.data_ptr(), rnorm.data_ptr(),
         None if w is None else w.data_ptr(), b * nb, nb, ngk,
         build.stream_of(x))
-    build.check(rc, "davidson_residual")
-    if real:
-        davidson_residual.launches_f64 += 1
-    else:
-        davidson_residual.launches += 1
+    build.check(rc, "davidson_residual" + suffix)
+    build.count_launch(davidson_residual, suffix)
     return evals, rnorm, w
 
 
 davidson_residual.launches = 0
 davidson_residual.launches_f64 = 0
+davidson_residual.launches_c64 = 0
+davidson_residual.launches_f32 = 0

@@ -10,8 +10,11 @@ occ_w [nb],
     acc[3] += -2 scale sum_b w_b Im(u conj d)     m_y
 into acc [4, N] in place: the reference's (rho, m_z, m_x, m_y) order.
 Called once per k-point in k order. Replaces the fusion of
-sirius_tpu/parallel/batched_nc.py::density_kset_nc (:141-152). A CPU tensor
-takes the plain PyTorch version; a CUDA tensor launches the kernel.
+sirius_tpu/parallel/batched_nc.py::density_kset_nc (:141-152). fr is
+complex128 or, on the fp32 wave-function path, complex64 (counted apart in
+.launches_c64; widened to float64 before the products, occ_w and acc
+float64). A CPU tensor takes the plain PyTorch version; a CUDA tensor
+launches the kernel.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from sirius_tpu_torch.kernels import build
 
 
 def density_accumulate_nc_plain(acc, fr, occ_w, scale):
+    fr = fr.to(torch.complex128)
     u, d = fr[:, 0], fr[:, 1]
     up = torch.einsum("b,br->r", occ_w, u.real ** 2 + u.imag ** 2)
     dn = torch.einsum("b,br->r", occ_w, d.real ** 2 + d.imag ** 2)
@@ -32,8 +36,10 @@ def density_accumulate_nc_plain(acc, fr, occ_w, scale):
 
 
 def density_accumulate_nc(acc, fr, occ_w, scale: float):
-    if fr.dtype != torch.complex128 or fr.dim() != 3 or fr.shape[1] != 2:
-        raise ValueError("fr must be complex128 [nb, 2, N]")
+    if fr.dtype not in (torch.complex128, torch.complex64) or fr.dim() != 3 \
+            or fr.shape[1] != 2:
+        raise ValueError("fr must be complex128 or complex64 [nb, 2, N]")
+    _, suffix = build.variant(fr.dtype)
     nb, _, n = fr.shape
     if acc.dtype != torch.float64 or tuple(acc.shape) != (4, n) \
             or not acc.is_contiguous():
@@ -50,12 +56,13 @@ def density_accumulate_nc(acc, fr, occ_w, scale: float):
     fr = fr.contiguous()
     occ_w = occ_w.contiguous()
     lib = build.library("density_accumulate")
-    rc = lib.density_accumulate_nc(fr.data_ptr(), occ_w.data_ptr(),
-                                   acc.data_ptr(), nb, n, float(scale),
-                                   build.stream_of(fr))
-    density_accumulate_nc.launches += 1
-    build.check(rc, "density_accumulate_nc")
+    rc = getattr(lib, "density_accumulate_nc" + suffix)(
+        fr.data_ptr(), occ_w.data_ptr(), acc.data_ptr(), nb, n, float(scale),
+        build.stream_of(fr))
+    build.count_launch(density_accumulate_nc, suffix)
+    build.check(rc, "density_accumulate_nc" + suffix)
     return acc
 
 
 density_accumulate_nc.launches = 0
+density_accumulate_nc.launches_c64 = 0

@@ -18,6 +18,11 @@ tensor and takes the plain PyTorch version below for a CPU tensor:
 The lane tables are [ngk] (one Gamma sphere); rep_box / par_box [P] are the
 box positions of each pair's two members. Replaces sirius_tpu/ops/gamma.py::
 apply_h_s_gamma (:216-226, :230-245) and _pack_device (:248-268).
+
+Two instantiations: float64 packed blocks with complex128 boxes and float64
+tables (counted in <wrapper>.launches), and float32 packed blocks with
+complex64 boxes and float32 tables (the fp32 wave-function path,
+<wrapper>.launches_f32).
 """
 
 from __future__ import annotations
@@ -31,15 +36,19 @@ HALF_SQRT2 = 0.7071067811865476
 
 
 def _check_packed(name, t):
-    if t.dtype != torch.float64 or t.dim() != 3:
-        raise ValueError(f"{name} must be float64 [B, rows, ngk], got "
-                         f"{t.dtype} {tuple(t.shape)}")
+    if t.dtype not in (torch.float64, torch.float32) or t.dim() != 3:
+        raise ValueError(f"{name} must be float64 or float32 [B, rows, ngk], "
+                         f"got {t.dtype} {tuple(t.shape)}")
 
 
-def _check_tables(ngk, device, **tables):
+def _complex_of(real):
+    return torch.complex128 if real == torch.float64 else torch.complex64
+
+
+def _check_tables(ngk, device, real, **tables):
     for name, t in tables.items():
         want = torch.int32 if name in ("slot_re", "slot_im", "fft_index",
-                                       "rep_box", "par_box") else torch.float64
+                                       "rep_box", "par_box") else real
         if t.dtype != want or t.dim() != 1:
             raise ValueError(f"{name} must be a {want} vector, got {t.dtype} "
                              f"{tuple(t.shape)}")
@@ -57,7 +66,8 @@ def unpack_to_box_plain(x, mask_p, slot_re, slot_im, im_sign, scale,
     xi = xm[..., slot_im.long()]
     c = torch.complex(scale * xr, scale * im_sign * xi)
     valid = scale != 0
-    box = torch.zeros((b, r, nbox), dtype=torch.complex128, device=x.device)
+    box = torch.zeros((b, r, nbox), dtype=_complex_of(x.dtype),
+                      device=x.device)
     box[..., fft_index.long()[valid]] = c[..., valid]
     return box
 
@@ -67,8 +77,9 @@ def unpack_to_box(x, mask_p, slot_re, slot_im, im_sign, scale, fft_index,
     """Unpack a packed-real block [B, R, ngk] into a zeroed complex box
     [B, R, nbox]."""
     _check_packed("x", x)
+    _, suffix = build.variant(x.dtype)
     b, r, ngk = x.shape
-    _check_tables(ngk, x.device, mask_p=mask_p, slot_re=slot_re,
+    _check_tables(ngk, x.device, x.dtype, mask_p=mask_p, slot_re=slot_re,
                   slot_im=slot_im, im_sign=im_sign, scale=scale,
                   fft_index=fft_index)
     if x.device.type == "cpu":
@@ -77,20 +88,22 @@ def unpack_to_box(x, mask_p, slot_re, slot_im, im_sign, scale, fft_index,
     if x.device.type != "cuda":
         raise RuntimeError(f"unpack_to_box: unsupported device {x.device}")
     x = x.contiguous()
-    box = torch.empty((b, r, nbox), dtype=torch.complex128, device=x.device)
+    box = torch.empty((b, r, nbox), dtype=_complex_of(x.dtype),
+                      device=x.device)
     lib = build.library("gamma_pack")
-    rc = lib.unpack_to_box(
+    rc = getattr(lib, "unpack_to_box" + suffix)(
         x.data_ptr(), mask_p.contiguous().data_ptr(),
         slot_re.contiguous().data_ptr(), slot_im.contiguous().data_ptr(),
         im_sign.contiguous().data_ptr(), scale.contiguous().data_ptr(),
         fft_index.contiguous().data_ptr(), box.data_ptr(), b * r, ngk, nbox,
         build.stream_of(x))
-    unpack_to_box.launches += 1
-    build.check(rc, "unpack_to_box")
+    build.count_launch(unpack_to_box, suffix)
+    build.check(rc, "unpack_to_box" + suffix)
     return box
 
 
 unpack_to_box.launches = 0
+unpack_to_box.launches_f32 = 0
 
 
 def box_to_packed_hx_plain(vbox, x, ekin_p, mask_p, rep_box, par_box,
@@ -100,6 +113,8 @@ def box_to_packed_hx_plain(vbox, x, ekin_p, mask_p, rep_box, par_box,
     vp = vbox[..., par_box.long()]
     vpack = torch.zeros_like(x)
     vpack[..., 0] = vbox[..., zero_box].real
+    # a Python float: a float32 block multiplies by its float32 rounding,
+    # as the JAX package's weakly typed float(0.5 * sqrt2)
     vpack[..., 1:1 + npair] = HALF_SQRT2 * vr.real + HALF_SQRT2 * vp.real
     vpack[..., 1 + npair:1 + 2 * npair] = (HALF_SQRT2 * vr.imag
                                            - HALF_SQRT2 * vp.imag)
@@ -112,15 +127,17 @@ def box_to_packed_hx(vbox, x, ekin_p, mask_p, rep_box, par_box,
                      zero_box: int):
     """Gather a transformed box [B, R, nbox] back into the packed real
     slots, fused with the kinetic term and the mask: returns (hx, sx)."""
-    if vbox.dtype != torch.complex128 or vbox.dim() != 3:
-        raise ValueError("vbox must be complex128 [B, rows, nbox]")
     _check_packed("x", x)
+    _, suffix = build.variant(x.dtype)
+    if vbox.dtype != _complex_of(x.dtype) or vbox.dim() != 3:
+        raise ValueError(f"vbox must be {_complex_of(x.dtype)} [B, rows, "
+                         f"nbox] for {x.dtype} x, got {vbox.dtype}")
     b, r, ngk = x.shape
     nbox = vbox.shape[2]
     if tuple(vbox.shape[:2]) != (b, r) or vbox.device != x.device:
         raise ValueError(f"vbox {tuple(vbox.shape)} does not match x "
                          f"{tuple(x.shape)}")
-    _check_tables(ngk, x.device, ekin_p=ekin_p, mask_p=mask_p,
+    _check_tables(ngk, x.device, x.dtype, ekin_p=ekin_p, mask_p=mask_p,
                   rep_box=rep_box, par_box=par_box)
     npair = rep_box.shape[0]
     if par_box.shape[0] != npair or 1 + 2 * npair > ngk:
@@ -136,14 +153,15 @@ def box_to_packed_hx(vbox, x, ekin_p, mask_p, rep_box, par_box,
     hx = torch.empty_like(x)
     sx = torch.empty_like(x)
     lib = build.library("gamma_pack")
-    rc = lib.box_to_packed_hx(
+    rc = getattr(lib, "box_to_packed_hx" + suffix)(
         vbox.data_ptr(), x.data_ptr(), ekin_p.contiguous().data_ptr(),
         mask_p.contiguous().data_ptr(), rep_box.contiguous().data_ptr(),
         par_box.contiguous().data_ptr(), int(zero_box), npair, hx.data_ptr(),
         sx.data_ptr(), b * r, ngk, nbox, build.stream_of(x))
-    box_to_packed_hx.launches += 1
-    build.check(rc, "box_to_packed_hx")
+    build.count_launch(box_to_packed_hx, suffix)
+    build.check(rc, "box_to_packed_hx" + suffix)
     return hx, sx
 
 
 box_to_packed_hx.launches = 0
+box_to_packed_hx.launches_f32 = 0

@@ -8,6 +8,10 @@ Replaces `fr * params.veff_r` of sirius_tpu/ops/hamiltonian.py::apply_h_s
 fr <- Re(fr) * veff + 0i in place (sirius_tpu/ops/gamma.py::apply_h_s_gamma
 :230-233), with its own launch count. A CPU tensor takes the plain PyTorch
 version; a CUDA tensor launches the kernel.
+
+Both modes have two instantiations: complex128 boxes with a float64
+potential (counted in <wrapper>.launches) and complex64 boxes with a float32
+potential (the fp32 wave-function path, <wrapper>.launches_c64).
 """
 
 from __future__ import annotations
@@ -33,12 +37,17 @@ def veff_multiply_real_plain(fr, veff):
     return fr
 
 
-def _check(fr, veff):
-    if fr.dtype != torch.complex128 or fr.dim() != 3 or not fr.is_contiguous():
-        raise ValueError("fr must be a contiguous complex128 [B, R, n] tensor")
+def _check(fr, veff) -> str:
+    """Validate the operands; returns the instantiation's suffix."""
+    if fr.dtype not in (torch.complex128, torch.complex64) or fr.dim() != 3 \
+            or not fr.is_contiguous():
+        raise ValueError("fr must be a contiguous complex128 or complex64 "
+                         "[B, R, n] tensor")
+    real, suffix = build.variant(fr.dtype)
     b, r, n = fr.shape
-    if veff.dtype != torch.float64 or veff.dim() != 2 or veff.shape[1] != n:
-        raise ValueError(f"veff must be float64 [ns, {n}]")
+    if veff.dtype != real or veff.dim() != 2 or veff.shape[1] != n:
+        raise ValueError(f"veff must be {real} [ns, {n}] for {fr.dtype} fr, "
+                         f"got {veff.dtype} {tuple(veff.shape)}")
     ns = veff.shape[0]
     if ns < 1 or b % ns:
         raise ValueError(f"batch {b} is not a multiple of ns = {ns}")
@@ -46,6 +55,7 @@ def _check(fr, veff):
         raise ValueError("fr and veff must be on one device")
     if fr.device.type not in ("cpu", "cuda"):
         raise RuntimeError(f"veff_multiply: unsupported device {fr.device}")
+    return suffix
 
 
 def _launch(fn: str, fr, veff) -> None:
@@ -58,27 +68,28 @@ def _launch(fn: str, fr, veff) -> None:
 
 
 def veff_multiply(fr, veff):
-    """fr [B, R, n] complex128 *= veff[b % ns], in place; returns fr."""
-    _check(fr, veff)
+    """fr [B, R, n] *= veff[b % ns], in place; returns fr."""
+    suffix = _check(fr, veff)
     if fr.device.type == "cpu":
         return veff_multiply_plain(fr, veff)
-    _launch("veff_multiply", fr, veff)
-    veff_multiply.launches += 1
+    _launch("veff_multiply" + suffix, fr, veff)
+    build.count_launch(veff_multiply, suffix)
     return fr
 
 
 veff_multiply.launches = 0
+veff_multiply.launches_c64 = 0
 
 
 def veff_multiply_real(fr, veff):
-    """fr [B, R, n] complex128 <- Re(fr) * veff[b % ns] + 0i, in place;
-    returns fr."""
-    _check(fr, veff)
+    """fr [B, R, n] <- Re(fr) * veff[b % ns] + 0i, in place; returns fr."""
+    suffix = _check(fr, veff)
     if fr.device.type == "cpu":
         return veff_multiply_real_plain(fr, veff)
-    _launch("veff_multiply_real", fr, veff)
-    veff_multiply_real.launches += 1
+    _launch("veff_multiply_real" + suffix, fr, veff)
+    build.count_launch(veff_multiply_real, suffix)
     return fr
 
 
 veff_multiply_real.launches = 0
+veff_multiply_real.launches_c64 = 0

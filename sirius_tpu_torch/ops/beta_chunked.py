@@ -31,6 +31,7 @@ import torch
 from sirius_tpu_torch.core.sht import lm_index, num_lm, ylm_real
 from sirius_tpu_torch.device import resolve_device
 from sirius_tpu_torch.ops.beta import beta_radial_table
+from sirius_tpu_torch.ops.hamiltonian import astype
 
 
 @dataclasses.dataclass
@@ -157,7 +158,10 @@ class ChunkedParams:
     make_chunked_hk dict, with the (-i)^l prefactors complex). ekin, mask,
     fft_index and veff_r carry a leading batch axis of one, as HkParams
     does; veff_r, dmat and the preconditioner diagonals follow the
-    potential and are swapped by the SCF loop."""
+    potential and are swapped by the SCF loop. The types below are the fp64
+    ones; astype(params, complex64) gives the fp32 set, whose K9 builds
+    complex64 projectors from float32 tables (dq and pref stay Python
+    floats, which a float32 operand rounds to float32)."""
 
     ekin: torch.Tensor  # [1, ngk] float64
     mask: torch.Tensor  # [1, ngk] float64
@@ -183,8 +187,8 @@ class ChunkedParams:
         return self.pos.shape[0]
 
     def beta(self, s: int) -> torch.Tensor:
-        """The projectors of chunk step s, [C, nxi, ngk] complex128 (K9),
-        with the G mask baked in as the dense table has it."""
+        """The projectors of chunk step s, [C, nxi, ngk] complex (K9), with
+        the G mask baked in as the dense table has it."""
         from sirius_tpu_torch.kernels.beta_chunk import beta_chunk
 
         return beta_chunk(self.pos[s], self.xi_rf[s], self.xi_lm[s],
@@ -192,11 +196,13 @@ class ChunkedParams:
                           self.dq, self.pref, self.mask[0])
 
 
-def chunked_params_from_arrays(a: dict, device) -> ChunkedParams:
+def chunked_params_from_arrays(a: dict, device,
+                               dtype=torch.complex128) -> ChunkedParams:
     """ChunkedParams from host arrays under the JAX make_chunked_hk names
     (ekin, mask, fft_index, veff_r, dmat, qmat_c, pos, xi_rf, xi_lm, rlm, q,
-    mk, ri_grid, dq, pref) plus complex ``cph``; per-k leaves gain the
-    batch axis of one."""
+    mk, ri_grid, dq, pref) plus complex ``cph``, at the working dtype
+    (complex64: the fp32 tables); per-k leaves gain the batch axis of
+    one."""
     device = resolve_device(device)
 
     def t(x, dtype):
@@ -214,7 +220,7 @@ def chunked_params_from_arrays(a: dict, device) -> ChunkedParams:
         if idx.size and (idx.min() < 0 or idx.max() >= hi):
             raise ValueError(f"{name} outside its table of {hi} rows")
     qmat = np.asarray(a["qmat_c"])
-    return ChunkedParams(
+    return astype(ChunkedParams(
         ekin=t(a["ekin"], f64).reshape(1, -1),
         mask=t(a["mask"], f64).reshape(1, -1),
         fft_index=t(fidx, i32).reshape(1, -1),
@@ -225,14 +231,15 @@ def chunked_params_from_arrays(a: dict, device) -> ChunkedParams:
         xi_lm=t(a["xi_lm"], i32), cph=t(a["cph"], torch.complex128),
         rlm=t(a["rlm"], f64), q=t(a["q"], f64), mk=t(a["mk"], f64),
         ri_grid=t(a["ri_grid"], f64), dq=float(a["dq"]),
-        pref=float(a["pref"]))
+        pref=float(a["pref"])), dtype)
 
 
-def make_chunked_hk(ctx, ik: int, chunk: int = 16,
-                    device=None) -> ChunkedParams:
+def make_chunked_hk(ctx, ik: int, chunk: int = 16, device=None,
+                    dtype=torch.complex128) -> ChunkedParams:
     """Constant tables of apply_h_s_chunked at one k; veff_r (zeros) and
     dmat (the bare D) are placeholders the SCF loop swaps per iteration.
-    device=None is the GPU and raises without CUDA."""
+    device=None is the GPU and raises without CUDA; dtype complex64 gives
+    the fp32 tables (the JAX package's make_chunked_hk(dtype=))."""
     tb = build_tables(ctx, ik, chunk=chunk)
     return chunked_params_from_arrays(dict(
         ekin=ctx.gkvec.kinetic()[ik], mask=ctx.gkvec.mask[ik],
@@ -240,7 +247,7 @@ def make_chunked_hk(ctx, ik: int, chunk: int = 16,
         veff_r=np.zeros(tuple(ctx.fft_coarse.dims)), dmat=tb.dmat,
         qmat_c=tb.qmat, pos=tb.pos, xi_rf=tb.xi_rf, xi_lm=tb.xi_lm,
         cph=tb.xi_cph, rlm=tb.rlm, q=tb.q, mk=tb.mk, ri_grid=tb.ri_grid,
-        dq=tb.dq, pref=tb.pref), device)
+        dq=tb.dq, pref=tb.pref), device, dtype)
 
 
 def chunked_nonlocal(prm: ChunkedParams, psi: torch.Tensor):
@@ -274,7 +281,7 @@ def apply_h_s_chunked(prm: ChunkedParams, psi: torch.Tensor):
 
     apply_h_s_chunked.calls += 1
     ngk = psi.shape[-1]
-    empty = torch.zeros((1, 0, ngk), dtype=torch.complex128, device=psi.device)
+    empty = torch.zeros((1, 0, ngk), dtype=psi.dtype, device=psi.device)
     local = HkParams(veff_r=prm.veff_r, ekin=prm.ekin, mask=prm.mask,
                      fft_index=prm.fft_index, beta=empty,
                      dion=empty.new_zeros((1, 0, 0)))

@@ -21,7 +21,8 @@ products.
 
 Host half (GammaMap, build_gamma_map, pack, unpack, pack_diags): numpy,
 copied from the JAX package. Device half (GammaParams, apply_h_s_gamma,
-davidson_gamma, density_gamma): tensors.
+davidson_gamma, density_gamma): tensors, float64 or, on the fp32
+wave-function path, float32 (packed blocks and tables, complex64 boxes).
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ import numpy as np
 import torch
 
 from sirius_tpu_torch.device import resolve_device
+from sirius_tpu_torch.ops.hamiltonian import astype
 
 SQRT2 = np.sqrt(2.0)
 
@@ -162,7 +164,8 @@ def pack_diags(gm: GammaMap, h_diag, o_diag):
 class GammaParams:
     """Tensors of the packed-real H/S application at Gamma: the JAX
     package's GammaParams leaves plus the box positions of each pair's two
-    members, which K8b gathers from."""
+    members, which K8b gathers from. The types below are the fp64 ones;
+    astype(params, float32) gives the fp32 set."""
 
     veff_r: torch.Tensor  # [n1, n2, n3] float64
     ekin_p: torch.Tensor  # [ngk] kinetic at each packed slot's G
@@ -185,10 +188,12 @@ class GammaParams:
         return tuple(self.veff_r.shape)
 
 
-def gamma_params_from_arrays(a: dict, device) -> GammaParams:
+def gamma_params_from_arrays(a: dict, device,
+                             dtype=torch.float64) -> GammaParams:
     """GammaParams from host arrays under the JAX leaf names (veff_r,
     ekin_p, mask_p, fft_index, slot_re, slot_im, im_sign, scale, zero_idx,
-    beta_p, dion, qmat). The pair tables of K8b are rebuilt from the
+    beta_p, dion, qmat), with real tables of dtype (float64, or float32 for
+    the fp32 path). The pair tables of K8b are rebuilt from the
     gather maps: the representative of packed pair k is the lane with
     im_sign +1 and slot_re 1 + k, its partner the lane with im_sign -1."""
     device = resolve_device(device)
@@ -219,7 +224,7 @@ def gamma_params_from_arrays(a: dict, device) -> GammaParams:
 
     f64, i32 = torch.float64, torch.int32
     qmat = np.asarray(a["qmat"])
-    return GammaParams(
+    return astype(GammaParams(
         veff_r=t(a["veff_r"], f64), ekin_p=t(a["ekin_p"], f64),
         mask_p=t(a["mask_p"], f64), fft_index=t(fidx, i32),
         slot_re=t(slot_re, i32), slot_im=t(a["slot_im"], i32),
@@ -227,15 +232,16 @@ def gamma_params_from_arrays(a: dict, device) -> GammaParams:
         beta_p=t(a["beta_p"], f64), dion=t(np.real(a["dion"]), f64),
         qmat=t(np.real(qmat), f64) if np.any(qmat != 0) else None,
         rep_box=t(rep_box, i32), par_box=t(par_box, i32),
-        zero_box=int(fidx[zero]))
+        zero_box=int(fidx[zero])), dtype)
 
 
 def make_gamma_params(ctx, veff_r_coarse, gm: GammaMap, dmat=None,
-                      device=None) -> GammaParams:
+                      device=None, dtype=torch.float64) -> GammaParams:
     """GammaParams for ik = 0 of a Gamma-only context (D is the bare D_ion
     unless dmat is given). The constant tables (beta_p, gather maps, ekin)
     depend only on ctx: callers build once and swap veff_r and dion per
-    iteration. device=None is the GPU and raises without CUDA."""
+    iteration. device=None is the GPU and raises without CUDA; dtype
+    float32 gives the fp32 tables (the JAX package's rdtype=)."""
     nbeta = ctx.beta.num_beta_total
     ngk = ctx.gkvec.ngk_max
     ekin = ctx.gkvec.kinetic()[0]
@@ -259,12 +265,13 @@ def make_gamma_params(ctx, veff_r_coarse, gm: GammaMap, dmat=None,
         ekin_p=ekin_p, mask_p=mask_p, fft_index=ctx.gkvec.fft_index[0],
         slot_re=gm.slot_re, slot_im=gm.slot_im, im_sign=gm.im_sign,
         scale=gm.scale, zero_idx=gm.zero, beta_p=beta_p, dion=dmat,
-        qmat=qmat), device)
+        qmat=qmat), device, dtype)
 
 
 def unpack_device(gp: GammaParams, x: torch.Tensor) -> torch.Tensor:
     """Packed real [..., ngk] -> complex sphere coefficients [..., ngk]
-    (unpack on tensors)."""
+    (unpack on tensors; the fp64 params on float64 x give complex128, as
+    the JAX package's host unpack of its float32 bands, scf.py:1439)."""
     xr = x[..., gp.slot_re.long()]
     xi = x[..., gp.slot_im.long()]
     return torch.complex(gp.scale * xr, gp.scale * gp.im_sign * xi)

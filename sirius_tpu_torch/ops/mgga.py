@@ -13,7 +13,9 @@ transforms it, K1c multiplies by v_tau in place, cuFFT transforms back and
 K11b gathers and adds the component into H psi; tau takes K11a, the inverse FFT and K3. The three
 components run one after another, so the peak box memory is that of
 apply_h_s plus one box block. The preconditioner has no tau term, as in
-the JAX package.
+the JAX package. On the fp32 wave-function path psi is complex64 and
+v_tau and the G+k vectors float32 (the JAX package's _gkc_dev(float32),
+scf.py:442-448); tau still sums in float64.
 """
 
 from __future__ import annotations
@@ -30,10 +32,10 @@ from sirius_tpu_torch.solvers.davidson import davidson
 def apply_h_s_mgga(params: HkParams, vtau_r: torch.Tensor, gkc: torch.Tensor,
                    psi: torch.Tensor):
     """(H psi, S psi) including the tau term (ops/mgga.py:32-55). vtau_r:
-    [ns, n1, n2, n3] float64 per spin (batch entry b reads vtau_r[b % ns], as
+    [ns, n1, n2, n3] per spin (batch entry b reads vtau_r[b % ns], as
     veff_r); gkc: [B, ngk, 3] or [ngk, 3] Cartesian G+k components; psi
-    [B, R, ngk]. Counts its applications on any device in
-    apply_h_s_mgga.calls."""
+    [B, R, ngk]; vtau_r and gkc of the real type of psi. Counts its
+    applications on any device in apply_h_s_mgga.calls."""
     apply_h_s_mgga.calls += 1
     h, s = apply_h_s(params, psi)
     b, r, ngk = psi.shape

@@ -28,7 +28,8 @@ import torch
 class NcHkParams:
     """Everything needed to apply spinor H and S to a batch of B k-points.
 
-    Spin-block order of dmat and qmat: [uu, dd, ud, du]."""
+    Spin-block order of dmat and qmat: [uu, dd, ud, du]. The types below are
+    the fp64 ones; astype(params, complex64) gives the fp32 set."""
 
     veff: torch.Tensor  # [4, n1, n2, n3] float64: V + Bz, V - Bz, Bx, By
     ekin: torch.Tensor  # [B, ngk] float64
@@ -53,7 +54,8 @@ def _block_matrix(m):
 
 
 def apply_h_s_nc(params: NcHkParams, psi: torch.Tensor):
-    """(H psi, S psi) for flattened spinor blocks psi [B, R, 2 ngk]."""
+    """(H psi, S psi) for flattened spinor blocks psi [B, R, 2 ngk],
+    complex128 with the fp64 params or complex64 with the fp32 ones."""
     from sirius_tpu_torch.kernels.local_hpsi import box_to_pw_hpsi, pw_to_box
     from sirius_tpu_torch.kernels.spinor_veff import spinor_veff
 

@@ -3,7 +3,9 @@
 Mirrors sirius_tpu/parallel/batched.py. The JAX package vmaps the per-k
 solve and splits complex leaves into (re, im) pairs for its TPU backend;
 here the k-set is an explicit leading batch axis and the tensors stay
-complex128 end to end.
+complex end to end: complex128, or complex64 with float32 tables on the
+fp32 wave-function path (precision_wf = "fp32"), where the density and the
+density matrix still sum in float64, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -16,13 +18,15 @@ import torch
 from sirius_tpu_torch.device import resolve_device
 from sirius_tpu_torch.kernels.density_accumulate import density_accumulate
 from sirius_tpu_torch.kernels.local_hpsi import pw_to_box
-from sirius_tpu_torch.ops.hamiltonian import HkParams, apply_h_s
+from sirius_tpu_torch.ops.hamiltonian import HkParams, apply_h_s, astype
 from sirius_tpu_torch.solvers.davidson import davidson, subspace_rotate
 
 
 @dataclasses.dataclass
 class HkSetParams:
-    """Batched-over-(k, spin) Hamiltonian data (the JAX leaves, complex)."""
+    """Batched-over-(k, spin) Hamiltonian data (the JAX leaves, complex).
+    The types below are the fp64 ones; astype(params, complex64) gives the
+    fp32 set (float32 real tables, complex64 complex ones)."""
 
     veff_r: torch.Tensor  # [ns, n1, n2, n3] effective potential per spin
     ekin: torch.Tensor  # [nk, ngk]
@@ -96,12 +100,13 @@ def compute_o_diag(ctx):
 
 
 def make_hkset_params(ctx, veff_r_coarse, d_full=None, v0: float = 0.0,
-                      device=None) -> HkSetParams:
+                      device=None, dtype=torch.complex128) -> HkSetParams:
     """veff_r_coarse: [n1,n2,n3] or [ns, n1,n2,n3]; d_full: [nbeta,nbeta] or
     [ns,nbeta,nbeta] screened D (defaults to the bare dion); v0: average
     effective potential veff(G=0), included in the preconditioner diagonal.
     Host numpy in, tensors on ``device`` out (None: the GPU, raising
-    without CUDA)."""
+    without CUDA) at the working dtype (complex64: the fp32 tables, as the
+    JAX package's make_hkset_params(dtype=))."""
     nbeta = ctx.beta.num_beta_total
     nk = ctx.gkvec.num_kpoints
     veff = np.asarray(veff_r_coarse, dtype=np.float64)
@@ -118,14 +123,17 @@ def make_hkset_params(ctx, veff_r_coarse, d_full=None, v0: float = 0.0,
         veff_r=veff, ekin=ctx.gkvec.kinetic(), mask=ctx.gkvec.mask,
         fft_index=ctx.gkvec.fft_index, beta=beta, dion=dion, qmat=qmat,
         o_diag=compute_o_diag(ctx),
-    ), device, v0=v0)
+    ), device, v0=v0, dtype=dtype)
 
 
-def hkset_from_arrays(a: dict, device, v0: float = 0.0) -> HkSetParams:
-    """HkSetParams from host arrays (complex ``beta``). The projectors are
+def hkset_from_arrays(a: dict, device, v0: float = 0.0,
+                      dtype=torch.complex128) -> HkSetParams:
+    """HkSetParams from host arrays (complex ``beta``) at the working dtype
+    (complex128, or complex64 for the fp32 tables). The projectors are
     masked and D and Q made complex here, once (Q becomes None where it is
     all zero); ``h_diag``, where ``a`` holds none, is computed on the device
-    by compute_h_diag with v0."""
+    by compute_h_diag with v0, in float64 before the cast, as the JAX
+    package computes it on the host."""
     device = resolve_device(device)
 
     # the kernels trust fft_index: check it against the box once, here
@@ -143,12 +151,12 @@ def hkset_from_arrays(a: dict, device, v0: float = 0.0) -> HkSetParams:
     dion = t(a["dion"], c128)
     h_diag = (t(a["h_diag"], f64) if "h_diag" in a
               else compute_h_diag(ekin, mask, beta, dion, v0))
-    return HkSetParams(
+    return astype(HkSetParams(
         veff_r=t(a["veff_r"], f64), ekin=ekin, mask=mask,
         fft_index=t(a["fft_index"], torch.int32), beta=beta, dion=dion,
         qmat=(t(a["qmat"], c128) if np.any(np.asarray(a["qmat"]) != 0)
               else None),
-        h_diag=h_diag, o_diag=t(a["o_diag"], f64))
+        h_diag=h_diag, o_diag=t(a["o_diag"], f64)), dtype)
 
 
 def initialize_subspace_kset(params: HkSetParams, psi, nb: int):
@@ -168,7 +176,8 @@ def davidson_kset(params: HkSetParams, psi, num_steps: int = 20,
                   res_tol: float = 1e-6):
     """Solve bands at every (k, spin) in one batched call.
 
-    psi: [nk, ns, nb, ngk] -> (evals [nk, ns, nb], psi', rnorm [nk, ns, nb])."""
+    psi: [nk, ns, nb, ngk] -> (evals [nk, ns, nb], psi', rnorm [nk, ns, nb]),
+    all at the working type of psi and params (evals float32 at fp32)."""
     nk, ns, nb, ngk = psi.shape
     hk = params.hk()
     ev, x, rn = davidson(
@@ -184,7 +193,9 @@ def density_kset(params: HkSetParams, psi, occ_w):
     """Coarse-box density sum_{k,b} occ_w |psi(r)|^2 per spin, accumulated
     k-point by k-point in k order (K1 scatter, cuFFT, K3).
 
-    psi [nk, ns, nb, ngk]; occ_w [nk, ns, nb] occupation x k-weight.
+    psi [nk, ns, nb, ngk] complex128, or complex64 with the fp32 params
+    (K1 and K3 then run their complex64 instantiations; the sum stays
+    float64); occ_w [nk, ns, nb] occupation x k-weight float64.
     Returns [ns, n1, n2, n3] float64."""
     nk, ns, nb, ngk = psi.shape
     dims = tuple(params.veff_r.shape[-3:])
@@ -206,7 +217,10 @@ def density_matrix_kset(beta, psi, occ_w):
 
     beta [nk, nbeta, ngk] complex128 (zero on padded lanes), psi
     [nk, ns, nb, ngk], occ_w [nk, ns, nb] occupation x k-weight. Returns
-    [ns, nbeta, nbeta] complex128."""
+    [ns, nbeta, nbeta] complex128. complex64 bands are promoted to complex128
+    before the products, so the sum is fp64 whatever the working precision
+    (the JAX package's density_matrix_kset, batched.py:358-360)."""
+    psi = psi.to(torch.promote_types(psi.dtype, beta.dtype))
     bp = torch.matmul(psi, beta.mH[:, None])  # [nk, ns, nb, nbeta]
     dm = torch.matmul((bp.conj() * occ_w[..., None].to(bp.dtype)).mT, bp)
     return dm.sum(dim=0)

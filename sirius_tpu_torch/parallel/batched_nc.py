@@ -7,7 +7,9 @@ k-set as its batch axis. The density is the reference's four real fields
 (rho, m_z, m_x, m_y) (density.cpp:636-700: up = |psi_u|^2, dn = |psi_d|^2,
 m_x = 2 Re psi_u psi_d*, m_y = -2 Im), accumulated k-point by k-point by
 K1's scatter, cuFFT and K12b. The JAX package's (re, im) split of the
-complex leaves is not ported: the tensors stay complex128.
+complex leaves is not ported: the tensors stay complex, complex128 or, on
+the fp32 wave-function path, complex64 with float32 tables (the density and
+the density matrix still sum in float64).
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import torch
 from sirius_tpu_torch.device import resolve_device
 from sirius_tpu_torch.kernels.density_accumulate_nc import density_accumulate_nc
 from sirius_tpu_torch.kernels.local_hpsi import pw_to_box
+from sirius_tpu_torch.ops.hamiltonian import astype
 from sirius_tpu_torch.ops.spinor import NcHkParams, apply_h_s_nc
 from sirius_tpu_torch.parallel.batched import compute_h_diag, compute_o_diag
 from sirius_tpu_torch.solvers.davidson import davidson
@@ -45,24 +48,34 @@ def nc_h_diag(ekin, mask, beta, dmat, v0):
 
 def make_nc_set_params(ctx, veff_boxes, dmat_blocks, qmat_blocks=None,
                        v0=0.0, prev: NcSetParams | None = None,
-                       device=None) -> NcSetParams:
+                       device=None, dtype=torch.complex128) -> NcSetParams:
     """veff_boxes [4, n1, n2, n3] (v_uu, v_dd, bx, by) coarse real boxes;
     dmat_blocks [4, nbeta, nbeta] complex (uu, dd, ud, du); qmat_blocks
     defaults to the spin-diagonal augmentation Q; v0 the average potential
     veff(G=0). Tensors or host arrays in, tensors on ``device`` out (None:
-    the GPU, raising without CUDA).
+    the GPU, raising without CUDA) at the working dtype: complex64 gives
+    the fp32 set (the JAX package's make_nc_set_params(dtype=)), its h_diag
+    computed in float64 and then cast.
 
-    prev: the previous iteration's params, whose constant tables
-    (projectors, kinetic energies, masks, Q, o_diag) are reused; only the
-    potential's leaves are replaced."""
+    prev: the previous iteration's params of the same dtype, whose constant
+    tables (projectors, kinetic energies, masks, Q, o_diag) are reused;
+    only the potential's leaves are replaced (an fp32 prev gives h_diag
+    from its float32 tables, summed in float64)."""
     device = resolve_device(device)
+    if dtype != torch.complex128 and (prev is None or prev.beta.dtype
+                                      != dtype):
+        return astype(make_nc_set_params(ctx, veff_boxes, dmat_blocks,
+                                         qmat_blocks, v0, None, device),
+                      dtype)
     veff = torch.as_tensor(veff_boxes, dtype=torch.float64,
                            device=device).contiguous()
     dmat = torch.as_tensor(dmat_blocks, dtype=torch.complex128, device=device)
-    if prev is not None:
-        return dataclasses.replace(
+    if prev is not None and prev.beta.dtype == dtype:
+        return astype(dataclasses.replace(
             prev, veff=veff, dmat=dmat,
-            h_diag=nc_h_diag(prev.ekin, prev.mask, prev.beta, dmat, v0))
+            h_diag=nc_h_diag(prev.ekin.double(), prev.mask.double(),
+                             prev.beta.to(torch.complex128), dmat, v0)),
+            dtype)
     nbeta = ctx.beta.num_beta_total
     nk = ctx.gkvec.num_kpoints
     if qmat_blocks is None:
@@ -92,7 +105,8 @@ def davidson_kset_nc(params: NcSetParams, psi, num_steps: int = 20,
                      res_tol: float = 1e-6):
     """psi [nk, nb, 2 ngk] flattened spinors -> (evals [nk, nb], psi',
     rnorm [nk, nb]), one batched solve over the k-set with mask2 = the
-    k-point's mask tiled over both spin halves."""
+    k-point's mask tiled over both spin halves; at the working type of psi
+    and params."""
     mask2 = params.mask.repeat(1, 2)
     return davidson(apply_h_s_nc, params, psi, params.h_diag,
                     params.o_diag, mask2, num_steps=num_steps,
@@ -103,8 +117,9 @@ def density_kset_nc(params: NcSetParams, psi, occ_w):
     """Four-component coarse-box density (rho, m_z, m_x, m_y), accumulated
     k-point by k-point in k order (K1 scatter, cuFFT, K12b).
 
-    psi [nk, nb, 2 ngk]; occ_w [nk, nb] occupation x k-weight. Returns
-    [4, n1, n2, n3] float64."""
+    psi [nk, nb, 2 ngk] complex128, or complex64 with the fp32 params;
+    occ_w [nk, nb] occupation x k-weight. Returns [4, n1, n2, n3]
+    float64."""
     nk, nb, ngk2 = psi.shape
     ngk = ngk2 // 2
     dims = tuple(params.veff.shape[-3:])
@@ -127,7 +142,10 @@ def density_matrix_kset_nc(beta, psi, occ_w):
     and not stored). Batched matrix products.
 
     beta [nk, nbeta, ngk] complex128 (zero on padded lanes), psi
-    [nk, nb, 2 ngk], occ_w [nk, nb]. Returns [3, nbeta, nbeta] complex128."""
+    [nk, nb, 2 ngk], occ_w [nk, nb]. Returns [3, nbeta, nbeta] complex128;
+    complex64 bands are promoted to complex128 first, as the JAX package
+    promotes them (batched_nc.py:166-168)."""
+    psi = psi.to(torch.promote_types(psi.dtype, beta.dtype))
     nk, nb, ngk2 = psi.shape
     p = psi.reshape(nk, nb, 2, ngk2 // 2).transpose(1, 2)  # [nk, 2, nb, ngk]
     bp = torch.matmul(p, beta.mH[:, None])  # [nk, 2, nb, nbeta]

@@ -54,7 +54,15 @@ def _rayleigh_ritz(hsub, ssub, nev: int):
     bound of the kept block, so the kept block's eigenpairs come first, as
     with the JAX package's fixed 1e6. The bound keeps the matrix's norm at
     the scale of H: cuSOLVER's eigh on the card is accurate relative to that
-    norm, and a 1e6 entry cost the ultrasoft parity deck ~1e-8 Ha."""
+    norm, and a 1e6 entry cost the ultrasoft parity deck ~1e-8 Ha.
+
+    The reduced matrix t^H H t is averaged with its conjugate transpose
+    before eigh, as jnp.linalg.eigh symmetrizes its input: its triangles
+    differ by rounding, amplified by t's large entries along near-dependent
+    directions, and torch's eigh reads one of them. Reading one let the
+    carried H X / H P blocks drift: the first fp32 band solve of the small
+    US deck ended 1.3e-5 Ha off (2e-7 with the average), and the fp64 SCF
+    of the 2-atom US + 48-op deck stalled at residuals of 1e-11 to 1e-8."""
     s, u = torch.linalg.eigh(ssub)
     smax = torch.amax(s.abs(), dim=-1, keepdim=True)
     eps = torch.finfo(s.dtype).eps
@@ -62,6 +70,7 @@ def _rayleigh_ritz(hsub, ssub, nev: int):
     scale = torch.where(good, torch.rsqrt(torch.where(good, s, 1.0)), 0.0)
     t = u * scale[..., None, :].to(u.dtype)
     at = t.mH @ hsub @ t
+    at = _herm(at)
     shift = 1.0 + torch.amax(at.abs().sum(dim=-1), dim=-1, keepdim=True)
     at = at + torch.diag_embed(torch.where(good, 0.0, shift).to(at.dtype))
     e, y = torch.linalg.eigh(at)

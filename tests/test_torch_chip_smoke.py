@@ -42,6 +42,8 @@ XC_CHECKED = tuple(chip_smoke.XC_CHECKS) + ("xc_gradient.gradient_boxes",
 TAU_CHECKED = ("mgga_tau.grad_to_box", "mgga_tau.box_to_pw_tau")
 SPINOR_CHECKED = ("spinor_veff", "density_accumulate_nc",
                   "symmetrize_vector_pw", "augmentation.rho_aug.4")
+# the fp32 instantiations the fp32 modes of the checks hold
+FP32_CHECKED = tuple(chip_smoke.FP32_SUMMARY)
 
 
 def reference_tool():
@@ -76,7 +78,7 @@ def test_phases_run_on_cpu(monkeypatch, capsys):
     assert sorted(recs) == sorted(NC_CHECKED)
     assert sorted(NC_CHECKED + US_CHECKED + GAMMA_CHECKED + ("beta_chunk",)
                   + XC_CHECKED + ("symmetrize_pw.axial",) + TAU_CHECKED
-                  + SPINOR_CHECKED) == sorted(chip_smoke.SOURCE)
+                  + SPINOR_CHECKED + FP32_CHECKED) == sorted(chip_smoke.SOURCE)
     for rec in recs.values():
         assert rec["max_rel_err"] <= rec["tol_rel"]
         assert rec["bound_ms"] > 0 and rec["bound_by"] in ("bytes", "operations")
@@ -206,7 +208,7 @@ def test_decks_match_the_reference_tool():
             "gamma" if shape["ngridk"] == (1, 1, 1) else "kset")
     # the spinor decks are the tool's own, each with its kernel list
     assert set(chip_smoke.SPINOR_DECK_PATH) == set(tool.SPINOR_DECKS)
-    ctx = chip_smoke.spinor_context("small_spinor_us", tool)
+    ctx = chip_smoke.deck_context("small_spinor_us", tool)
     shape, kind, _, params, moments = tool.deck_spec("small_spinor_us")
     np.testing.assert_array_equal(ctx.unit_cell.moments, np.asarray(moments))
     assert ctx.num_mag_dims == 3 and ctx.num_bands == shape["num_bands"]
@@ -219,7 +221,7 @@ def test_spinor_phases_run_on_cpu(monkeypatch, capsys):
     # parity phase with the spinor path's kernels and vector moments
     monkeypatch.setattr(chip_smoke, "time_ms", lambda fn, **kw: (fn(), 0.0)[1])
     dev = torch.device("cpu")
-    ctx = chip_smoke.spinor_context("small_spinor_pbe_us_sym")
+    ctx = chip_smoke.deck_context("small_spinor_pbe_us_sym")
     assert ctx.symmetry.num_ops == 6
     recs = chip_smoke.check_kernels_spinor("small_spinor_pbe_us_sym", ctx, dev,
                                            "cpu")
@@ -234,7 +236,7 @@ def test_spinor_phases_run_on_cpu(monkeypatch, capsys):
     name = "small_spinor_us"
     ref = reference(name)
     launches = chip_smoke.parity_scf(
-        chip_smoke.spinor_context(name), dev, ref, "cpu",
+        chip_smoke.deck_context(name), dev, ref, "cpu",
         phase="parity_scf_" + name, deck=name,
         required=chip_smoke.SPINOR_DECK_PATH[name], path="kset_nc")
     lines = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
@@ -257,7 +259,7 @@ def test_spinor_yardstick_is_the_symmetrization(monkeypatch):
             seen["lib"], seen["plain"] = fn_lib(), plain_out[0]
 
     monkeypatch.setattr(chip_smoke, "record_kernel", keep)
-    ctx = chip_smoke.spinor_context("small_spinor_pbe_us_sym")
+    ctx = chip_smoke.deck_context("small_spinor_pbe_us_sym")
     chip_smoke.check_kernels_spinor("small_spinor_pbe_us_sym", ctx,
                                     torch.device("cpu"), "cpu")
     err = (seen["lib"] - seen["plain"]).abs().max() / seen["plain"].abs().max()
@@ -276,7 +278,7 @@ def test_spinor_yardsticks_compute_the_kernels_function(monkeypatch, name):
             seen["lib"], seen["plain"] = fn_lib(), plain_out[0]
 
     monkeypatch.setattr(chip_smoke, "record_kernel", keep)
-    ctx = chip_smoke.spinor_context("small_spinor_pbe_us_sym")
+    ctx = chip_smoke.deck_context("small_spinor_pbe_us_sym")
     chip_smoke.check_kernels_spinor("small_spinor_pbe_us_sym", ctx,
                                     torch.device("cpu"), "cpu")
     lib, plain = seen["lib"], seen["plain"]
@@ -384,3 +386,177 @@ def test_launch_checks_follow_the_band_solve_path():
     with pytest.raises(AssertionError, match="spinor_veff"):
         chip_smoke.check_launched("spinor", cuda, launches,
                                   chip_smoke.SPINOR_SYM_KERNELS, "kset_nc", 3)
+
+
+def test_fp32_kernel_phases_run_on_cpu(monkeypatch):
+    # every fp32 instantiation against its plain version (here the plain
+    # version against itself), named, bound against fp32 rates and element
+    # sizes, and summarized from the run that launches it
+    monkeypatch.setattr(chip_smoke, "time_ms", lambda fn, **kw: (fn(), 0.0)[1])
+    dev = torch.device("cpu")
+    us = chip_smoke.make_context(SMALL, chip_smoke.TIGHT, chip_smoke.US_SYM)
+    gamma = chip_smoke.make_context(SMALL_GAMMA, chip_smoke.TIGHT,
+                                    chip_smoke.US_SYM)
+    recs = chip_smoke.check_kernels("small_us_sym", us, dev, "cpu", fp32=True)
+    recs.update(chip_smoke.check_kernels_us("small_us_sym", us, dev, "cpu",
+                                            fp32=True))
+    recs.update(chip_smoke.check_kernels_gamma("small_gamma", gamma, dev, "cpu",
+                                               fp32=True))
+    recs.update(chip_smoke.check_kernel_chunk("small_gamma", gamma, 16, dev,
+                                              "cpu", fp32=True))
+    recs.update(chip_smoke.check_kernels_tau("small_us_sym", us, dev, "cpu",
+                                             fp32=True))
+    recs.update(chip_smoke.check_kernels_spinor(
+        "small_spinor_pbe_us_sym",
+        chip_smoke.deck_context("small_spinor_pbe_us_sym"), dev, "cpu",
+        fp32=True))
+    assert sorted(recs) == sorted(FP32_CHECKED)
+    for name, rec in recs.items():
+        assert rec["tol_rel"] == 1e-5 and rec["max_rel_err"] <= 1e-5
+        assert rec["bound_ms"] > 0 and rec["bound_by"] in ("bytes",
+                                                           "operations")
+        base = chip_smoke.base_name(name)
+        assert chip_smoke.SOURCE[name] == chip_smoke.SOURCE[base]
+        assert chip_smoke.REPLACES[name] == chip_smoke.REPLACES[base]
+    # fp32 operations are counted at the fp32 rate
+    b64, _ = chip_smoke.bound(0.0, 67e9)
+    b32, _ = chip_smoke.bound(0.0, 67e9, fp32=True)
+    assert b32 == pytest.approx(1.0) and b64 == pytest.approx(67 / 34)
+    # each summary row's launches come from a run that launches it
+    paths = {**chip_smoke.FP32_DECK_PATH,
+             "full_width_us_fp32": ("kset", chip_smoke.FP32_US_KERNELS),
+             "full_width_gamma_us_fp32": ("gamma",
+                                          chip_smoke.FP32_GAMMA_US_KERNELS),
+             "full_width_spinor_us_fp32": (
+                 "kset_nc", chip_smoke.FP32_SPINOR_SYM_KERNELS)}
+    for name, run in chip_smoke.FP32_SUMMARY.items():
+        assert name in paths[run][1], (name, run)
+    wr = chip_smoke.wrappers()
+    for name in FP32_CHECKED:
+        fn, attr = wr[name]
+        assert attr == "launches_" + name.rsplit(".", 1)[1]
+        assert getattr(fn, attr) == 0
+
+
+@pytest.mark.parametrize("name", ["local_hpsi.pw_to_box.c64",
+                                  "veff_multiply.c64",
+                                  "veff_multiply.real.c64",
+                                  "mgga_tau.grad_to_box.c64",
+                                  "spinor_veff.c64"])
+def test_fp32_yardsticks_compute_the_kernels_function(monkeypatch, name):
+    # the one-call PyTorch yardsticks of the fp32 rows, given the same
+    # complex64 inputs, compute what the kernels' plain versions compute
+    seen = {}
+
+    def keep(out, deck, gpu, rec_name, kernel_out, plain_out, fn_k, fn_p,
+             fn_lib, nbytes, flops, slow_plain=False):
+        if rec_name == name:
+            seen["plain"] = plain_out[0].clone()
+            seen["lib"] = fn_lib()
+
+    monkeypatch.setattr(chip_smoke, "record_kernel", keep)
+    dev = torch.device("cpu")
+    if name.startswith("spinor"):
+        ctx = chip_smoke.deck_context("small_spinor_pbe_us_sym")
+        chip_smoke.check_kernels_spinor("s", ctx, dev, "cpu", fp32=True)
+    elif name == "veff_multiply.real.c64":
+        ctx = chip_smoke.make_context(SMALL_GAMMA, chip_smoke.TIGHT,
+                                      chip_smoke.US_SYM)
+        chip_smoke.check_kernels_gamma("g", ctx, dev, "cpu", fp32=True)
+    else:
+        ctx = chip_smoke.make_context(SMALL, chip_smoke.TIGHT,
+                                      chip_smoke.US_SYM)
+        check = {"local_hpsi.pw_to_box.c64": chip_smoke.check_kernels,
+                 "veff_multiply.c64": chip_smoke.check_kernels_us,
+                 "mgga_tau.grad_to_box.c64": chip_smoke.check_kernels_tau}
+        check[name]("s", ctx, dev, "cpu", fp32=True)
+    lib, plain = seen["lib"], seen["plain"]
+    if not lib.is_complex():
+        # the real mode's yardstick multiplies the (re, im) pairs
+        lib = torch.view_as_complex(lib)
+    assert lib.dtype == torch.complex64 and plain.dtype == torch.complex64
+    lib = lib.reshape(plain.shape)
+    err = (lib - plain).abs().max() / plain.abs().max()
+    assert float(err) <= 1e-6
+
+
+def test_fp32_parity_phase_runs_on_cpu(capsys):
+    # the polished and the fixed-count rules of the fp32 parity phase on the
+    # deck of tests/test_precision.py (Gamma path), and the band-solve
+    # watcher's record of each solve's precision
+    dev = torch.device("cpu")
+    with open(os.path.join(ROOT, "sirius_tpu_torch", "data",
+                           "jax_reference.json")) as f:
+        refs = json.load(f)["decks"]
+    tool = reference_tool()
+    # on one torch thread, as tests/test_torch_precision.py::
+    # test_fp32_polish_recovers_fp64 takes the polished deck (its stop at
+    # 1e-11 moves with the rounding of the threaded sums)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        for name in ("precision_us_fp32_polish", "precision_us_fp32_fixed10"):
+            chip_smoke.parity_scf_fp32(chip_smoke.deck_context(name, tool),
+                                       dev, refs, name, "cpu", path="gamma",
+                                       required=())
+    finally:
+        torch.set_num_threads(threads)
+    lines = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
+    pol, fixed = [r for r in lines if r.get("phase", "").startswith(
+        "parity_scf_precision")]
+    assert pol["polished"] and pol["term_limit"] == 1e-8
+    assert pol["wf_precision"][0] == "fp32" and pol["wf_precision"][-1] == "fp64"
+    assert [s["precision"] for s in pol["band_solves"]] == pol["wf_precision"]
+    assert not fixed["polished"] and set(fixed["wf_precision"]) == {"fp32"}
+    rec = refs["precision_us_fp32_fixed10"]
+    assert fixed["term_limit"] == min(4 * rec["twin_max_gap"], 1e-4)
+    assert fixed["electron_limit"] == 4 * rec["twin_electron_gap"]
+    assert pol["electron_limit"] == 1e-8
+    assert all(v == 0 for v in chip_smoke.read_launches().values())
+
+
+def test_iteration_gate_takes_the_jax_span():
+    # a count within +-1 of the JAX package's record and of its runs from
+    # perturbed starts passes; one outside fails
+    rec = {"num_scf_iterations": 12, "perturbed_iterations": [10, 13, 12]}
+    assert chip_smoke.iteration_span(rec) == [10, 13]
+    assert chip_smoke.iteration_span({"num_scf_iterations": 14}) == [14, 14]
+    for n in (9, 12, 14):
+        chip_smoke.check_iterations("p", n, rec)
+    for n in (8, 15):
+        with pytest.raises(AssertionError, match="the JAX package 10 to 13"):
+            chip_smoke.check_iterations("p", n, rec)
+
+
+def test_band_solve_check_follows_the_precision():
+    # on the card an fp32 band solve may launch no fp64 band-solve kernel
+    # and must launch an fp32 K2; fp64 solves and the density's fp64
+    # kernels are not its concern
+    cuda = torch.device("cuda")
+    ok = [{"precision": "fp32",
+           "launches": {"davidson_residual.c64": 21,
+                        "local_hpsi.pw_to_box.c64": 25,
+                        "density_accumulate": 1}},
+          {"precision": "fp64", "launches": {"davidson_residual": 21}}]
+    chip_smoke.check_band_solves("p", cuda, ok)
+    bad = [{"precision": "fp32",
+            "launches": {"davidson_residual.c64": 21, "veff_multiply": 1}}]
+    with pytest.raises(AssertionError, match="fp64 kernels"):
+        chip_smoke.check_band_solves("p", cuda, bad)
+    with pytest.raises(AssertionError, match="no fp32 K2"):
+        chip_smoke.check_band_solves("p", cuda, [
+            {"precision": "fp32", "launches": {"spinor_veff.c64": 3}}])
+    chip_smoke.check_band_solves("p", torch.device("cpu"), bad)
+
+
+def test_fp32_decks_are_the_reference_tools():
+    tool = reference_tool()
+    assert set(chip_smoke.FP32_DECK_PATH) <= set(tool.FP32_TWINS)
+    for name, (path, required) in chip_smoke.FP32_DECK_PATH.items():
+        ctx = chip_smoke.deck_context(name, tool)
+        assert ctx.cfg.parameters.precision_wf == "fp32"
+        from sirius_tpu_torch.dft.scf import band_solve_path
+        assert band_solve_path(ctx.cfg, ctx) == path
+        assert all(k in chip_smoke.SOURCE for k in required)
+    assert chip_smoke.deck_context("fp32_us_sym_polish", tool).cfg.settings\
+        .fp32_to_fp64_rms == 1e-4

@@ -231,3 +231,44 @@ def test_rayleigh_ritz_matches_jax_when_rank_deficient(ndrop):
     # the same Ritz vectors up to a phase each: |<x_port|S|x_jax>| = 1
     overlap = np.abs(np.einsum("mi,mn,ni->i", c.conj(), ssub, jc))
     assert np.max(np.abs(overlap - 1.0)) <= 1e-10
+
+
+@pytest.mark.parametrize("dtype", [np.complex64, np.float32, np.complex128,
+                                   np.float64])
+def test_rayleigh_ritz_reads_both_triangles(dtype):
+    # the reduced matrix t^H H t is Hermitian only to rounding, and
+    # jnp.linalg.eigh symmetrizes its input: a subspace pair whose H carries
+    # an error in its lower triangle and one that carries the conjugate
+    # error in its upper triangle have the same Hermitian average, so the
+    # same Ritz values, in the port as in the JAX package, in every
+    # precision (complex on the k-set paths, real on the packed Gamma path).
+    # Reading one triangle set them apart by the error: in fp32 it let the
+    # band solve's carried blocks drift, in fp64 it stalled the SCF's
+    # density residual below 5e-9
+    from sirius_tpu.solvers.davidson import _rayleigh_ritz as jax_rr
+    from sirius_tpu_torch.solvers.davidson import _rayleigh_ritz
+
+    rng = np.random.default_rng(29)
+    m, nev = 12, 5
+    real = dtype == np.float32
+
+    def draw():
+        x = rng.standard_normal((m, m))
+        return x if real else x + 1j * rng.standard_normal((m, m))
+
+    a = draw()
+    h = a + a.conj().T
+    b = draw()
+    s = b @ b.conj().T + m * np.eye(m)
+    err = 1e-3 * np.tril(draw(), -1)
+    lower, upper = h + err, h + err.conj().T
+    got = [_rayleigh_ritz(torch.as_tensor(x.astype(dtype))[None],
+                          torch.as_tensor(s.astype(dtype))[None], nev)[0][0]
+           .double().numpy() for x in (lower, upper)]
+    want = np.asarray(jax_rr(jnp.asarray(lower.astype(dtype)),
+                             jnp.asarray(s.astype(dtype)), nev)[0],
+                      dtype=np.float64)
+    scale = np.max(np.abs(want))
+    tol = 1e-5 if np.finfo(dtype).eps > 1e-10 else 1e-12
+    assert np.max(np.abs(got[0] - got[1])) <= tol * scale
+    assert np.max(np.abs(got[0] - want)) <= tol * scale

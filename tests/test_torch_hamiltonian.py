@@ -128,10 +128,15 @@ def test_g_to_r_r_to_g_match_jax():
 
 
 def test_kernel_wrappers_reject_bad_input():
+    # complex64 blocks are K1's fp32 instantiation; a real block, or a
+    # complex64 block with a float64 mask, is no instantiation
     psi = torch.zeros((1, 2, 4), dtype=torch.complex64)
     idx = torch.zeros((1, 4), dtype=torch.int32)
     with pytest.raises(ValueError):
-        pw_to_box(psi, idx, None, 8)
+        pw_to_box(psi.real, idx, None, 8)
+    with pytest.raises(ValueError):
+        pw_to_box(psi, idx, torch.ones((1, 4), dtype=torch.float64), 8)
+    assert pw_to_box(psi, idx, None, 8).dtype == torch.complex64
     with pytest.raises(TypeError):
         pw_to_box(psi.to(torch.complex128), idx.long(), None, 8)
     with pytest.raises(ValueError):

@@ -519,9 +519,17 @@ def test_noncollinear_loop_never_retries():
 ])
 def test_noncollinear_refusals(key, value, match):
     # the JAX package's refusals (mGGA, scf_nc.py:103-106) and the port's
-    # own (spin-orbit waits for UPF species, fp32 for its path)
+    # own (spin-orbit waits for UPF species); fp32 runs now, the whole run
+    # at fp32 (the JAX non-collinear driver has no fp32_to_fp64_rms polish)
     _, pctx = contexts(use_symmetry=False, ngridk=(1, 1, 1), num_dft_iter=1)
     setattr(pctx.cfg.parameters, key, value)
+    if match == "fp32":
+        pctx.cfg.settings.fp32_to_fp64_rms = 1.0
+        res = run_scf(pctx.cfg, ctx=pctx, device="cpu")
+        assert res["wf_precision"] == ["fp32"]
+        assert res["_state"]["psi"].dtype == torch.complex64
+        assert np.isfinite(res["energy"]["total"])
+        return
     with pytest.raises(NotImplementedError, match=match):
         run_scf(pctx.cfg, ctx=pctx, device="cpu")
 

@@ -72,3 +72,14 @@ def test_runtime_call_classes(name, kind):
 def test_no_device_work_is_all_zero():
     got = tool().idle_breakdown([call("cudaLaunchKernel", 0, 5)])
     assert got["idle_ms"] == 0.0 and got["host_ms"] == 0.0
+
+
+@pytest.mark.parametrize("name", [
+    "void syevbj_batch_32x16<float, float>(long, int const*, int const*)",
+    "void column_rotate_batch<float, 5, 3>(long, int const*, int const*)",
+    "void row_rotate_batch_32x16_phase1<float>(long, int const*)",
+    "void sytrd4_gpu<sytrd_params<double, 32, 8, 512, 32, 16, 1, 2> >(int)"])
+def test_eigh_kernels_count_as_cusolver(name):
+    # the Jacobi kernels cuSOLVER runs for float32 eigh (the fp32 Gamma
+    # path's Rayleigh-Ritz) are eigh time, as the tridiagonal ones are
+    assert tool().category(name) == "cusolver eigh"

@@ -46,12 +46,12 @@ TIGHT = {"num_dft_iter": 40, "density_tol": 5e-9, "energy_tol": 1e-10}
 US_SYM = dict(ultrasoft=True, use_symmetry=True)
 GAMMA_2ATOM = dict(gk_cutoff=6.0, pw_cutoff=20.0, ngridk=(1, 1, 1))
 # the recorded single-k decks: species and symmetry, SCF parameters,
-# control settings, the band solve they take. gamma_nc runs a fixed 14
+# control settings, the band solve they take. gamma_nc runs a fixed 24
 # iterations: its iteration count to a tolerance is not reproducible even in
 # the JAX package (tools/torch_port_reference.py says why)
-FIXED_14 = {"num_dft_iter": 14, "density_tol": 0.0, "energy_tol": 0.0}
+FIXED_24 = {"num_dft_iter": 24, "density_tol": 0.0, "energy_tol": 0.0}
 SINGLE_K = {
-    "gamma_nc": (dict(ultrasoft=False, use_symmetry=False), FIXED_14, {},
+    "gamma_nc": (dict(ultrasoft=False, use_symmetry=False), FIXED_24, {},
                  "gamma"),
     "gamma_us_sym": (US_SYM, TIGHT, {}, "gamma"),
     "chunked_us_sym": (US_SYM, TIGHT,
@@ -230,10 +230,23 @@ def test_reference_file_names_its_command(reference):
     with open(REF_PATH) as f:
         rec = json.load(f)
     assert rec["command"] == _load_reference_tool().COMMAND
+    # the fp32 decks, each beside its fp64 twin with the JAX package's own
+    # fp32-vs-fp64 gap (tests/test_torch_precision.py, chip_smoke.py)
+    twins = _load_reference_tool().FP32_TWINS
     assert set(reference) == {"small", "full_width_2atom", "small_us_sym",
                               "full_width_2atom_us_sym", *SINGLE_K,
                               *SPIN_DECKS, *XC_DECKS, *SCAN_DECKS,
-                              *SPINOR_DECKS}
+                              *SPINOR_DECKS, *twins, *twins.values()}
+    for name, twin in twins.items():
+        assert reference[name]["deck"]["precision_wf"] == "fp32"
+        assert reference[name]["twin"] == twin
+        assert reference[twin]["deck"].get("precision_wf", "fp64") == "fp64"
+        # the largest gap over the deck's fp32 runs: the record alone with
+        # the polish, the record and two from perturbed starts without
+        rec = reference[name]
+        assert rec["twin_runs"] == (1 if "fp32_to_fp64_rms" in rec["deck"].get(
+            "control", {}) else 3)
+        assert rec["twin_max_gap"] >= max(map(abs, rec["twin_gap"].values()))
     for name in SPINOR_DECKS:
         assert reference[name]["deck"]["num_mag_dims"] == 3
         assert len(reference[name]["magnetisation"]["total"]) == 3
@@ -247,6 +260,13 @@ def test_reference_file_names_its_command(reference):
                  "chunked_us_sym"):
         assert reference[name]["deck"]["ultrasoft"]
         assert reference[name]["deck"]["use_symmetry"]
+    # decks whose stop at a tolerance moves with rounding carry the JAX
+    # package's counts from perturbed starts (chip_smoke.iteration_span)
+    tool = _load_reference_tool()
+    for name in tool.PERTURBED:
+        its = reference[name]["perturbed_iterations"]
+        assert len(its) == len(tool.PERTURBED_SEEDS)
+        assert reference[name]["deck"]["num_dft_iter"] > max(its)
     for name in SINGLE_K:
         assert reference[name]["deck"]["ngridk"] == [1, 1, 1]
         assert reference[name]["deck"].get("control", {}) == SINGLE_K[name][2]
@@ -287,8 +307,8 @@ def test_entry_points_default_to_cuda(monkeypatch, entry):
 
 
 # cases that raised in earlier slices and run now: collinear spin, GGA,
-# SCAN and non-collinear spin
-NOW_IN_SLICE = ("magnetism", "GGA", "SCAN", "non-collinear")
+# SCAN, non-collinear spin and the fp32 wave functions
+NOW_IN_SLICE = ("magnetism", "GGA", "SCAN", "non-collinear", "fp32")
 
 
 @pytest.mark.parametrize("section,key,value,match", [
@@ -331,9 +351,18 @@ def test_gamma_only_reduce_gvec_raises():
     assert apply_h_s_gamma.calls > calls
     assert res["num_scf_iterations"] == 2
     assert np.isfinite(res["energy"]["total"])
+    # fp32 runs there too, on float32 packed blocks; another precision
+    # string raises as in the JAX package
+    f32 = context({"num_dft_iter": 2, "precision_wf": "fp32"},
+                  ngridk=(1, 1, 1))
+    calls = apply_h_s_gamma.calls
+    res = run_scf(f32.cfg, ctx=f32, device="cpu")
+    assert apply_h_s_gamma.calls > calls
+    assert res["wf_precision"] == ["fp32", "fp32"]
+    assert np.isfinite(res["energy"]["total"])
     bad = context(ngridk=(1, 1, 1))
-    bad.cfg.parameters.precision_wf = "fp32"
-    with pytest.raises(NotImplementedError, match="fp32"):
+    bad.cfg.parameters.precision_wf = "fp16"
+    with pytest.raises(ValueError, match="fp32 or fp64"):
         run_scf(bad.cfg, ctx=bad, device="cpu")
     # a non-collinear Gamma-only deck takes the spinor k-set solve, as the
     # JAX package hands it to run_scf_nc before the Gamma branch

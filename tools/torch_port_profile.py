@@ -22,7 +22,10 @@ iterations and the device's busy share of it. The decks:
 - --spinor: the 16-atom ultrasoft cell non-collinear (num_mag_dims 3) with
   a starting moment of (0.3, 0.3, 0.3) on every atom, its 48-op magnetic
   space group and 4 k-points, through the spinor k-set solve
-  (chip_smoke.py's full_width_spinor_us).
+  (chip_smoke.py's full_width_spinor_us);
+- --fp32 with any of them: the same deck with precision_wf "fp32" (the band
+  solve in complex64 / float32, chip_smoke.py's *_fp32 runs, without the
+  polish).
 
 The device's idle time (the profiled window less the union of its kernel,
 copy and memset intervals in the exported trace) is split by what the host
@@ -32,7 +35,7 @@ the device's tail), launching work, in the allocator, or none of these
 
     python3 tools/torch_port_profile.py
         [--ultrasoft | --scan | --gamma | --chunked | --gamma-pbe-fm
-         | --spinor] [--iters 3] [--profiled 2] [--out FILE]
+         | --spinor] [--fp32] [--iters 3] [--profiled 2] [--out FILE]
 
 Needs a CUDA card; exits non-zero without one.
 """
@@ -156,7 +159,10 @@ def category(name: str) -> str:
         return "hand kernels"
     if "fft" in n:
         return "cufft"
-    if any(k in n for k in ("syevd", "heevd", "syevj", "heevj", "stedc", "sytrd",
+    # (syevbj / *_rotate_batch: the Jacobi kernels cuSOLVER runs for the
+    # float32 Rayleigh-Ritz of the fp32 Gamma path)
+    if any(k in n for k in ("syevd", "heevd", "syevj", "heevj", "syevbj",
+                            "heevbj", "rotate_batch", "stedc", "sytrd",
                             "hetrd", "ormtr", "unmtr", "larf", "steqr", "lacpy",
                             "cusolver", "sterf", "geqrf", "latrd")):
         return "cusolver eigh"
@@ -192,6 +198,8 @@ def main(argv=None) -> int:
     deck.add_argument("--spinor", action="store_true",
                       help="the 16-atom ultrasoft deck non-collinear with "
                       "(0.3, 0.3, 0.3) on every atom (spinor k-set solve)")
+    ap.add_argument("--fp32", action="store_true",
+                    help="the deck with precision_wf fp32")
     ap.add_argument("--out", default="", help="also write the JSON here")
     args = ap.parse_args(argv)
 
@@ -237,13 +245,15 @@ def main(argv=None) -> int:
     if args.chunked:
         ctx.cfg.control.beta_chunked = True
         ctx.cfg.control.beta_chunk_size = 16
+    if args.fp32:
+        ctx.cfg.parameters.precision_wf = "fp32"
     deck_name = ("si16_supercell2_us_sym_spinor" if args.spinor
                  else "si54_supercell3_chunk16" if args.chunked
                  else "si54_supercell3_gamma_pbe_fm" if args.gamma_pbe_fm
                  else "si54_supercell3_gamma" if args.gamma
                  else "si16_supercell2_us_sym_scan" if args.scan
                  else "si16_supercell2_us_sym" if args.ultrasoft
-                 else "si16_supercell2")
+                 else "si16_supercell2") + ("_fp32" if args.fp32 else "")
     first = args.iters - args.profiled
     if first < 1:
         print("torch_port_profile: --iters must exceed --profiled (one "
