@@ -23,7 +23,15 @@ imports nothing of JAX or of sirius_tpu. Phases, each printing JSON lines:
    complex64 at the 16-atom US deck, K8a, K8b, K1c real and K2 on float32
    packed blocks at 54 atoms, K9 at 54 atoms and 16 a chunk, K11a and K11b
    at the 16-atom coarse box, K12a on the spinor k-set block and K12b on
-   one k-point's): error,
+   one k-point's); K5 also at the 54-atom Gamma cell on one and two
+   channels (records only) and on the spinor deck's four channels, each
+   launched twice on the same inputs for a bitwise-equal D, with the
+   device time of its launches from torch.profiler beside the event time
+   (device_ms); K1c records whether it is bitwise its plain version;
+   before them, the edge shapes of the redesigned K1c and K5
+   (check_kernel_edges: odd row lengths, views off a 16-byte boundary, G
+   counts off every tile and chunk, 1, 2 and 4 channels, more atoms than
+   one launch): error,
    kernel time (CUDA events, median of 21 samples of 5 launches after
    warm-up), the plain version's time, a one-call PyTorch yardstick where
    one exists (library_ms), and the least time the card could take
@@ -213,7 +221,8 @@ TOL = {**{name: 1e-11 for name in XC_CHECKS},
        # bands in order as K3, K6v sums the ops in the plain version's order
        # (sincospi against exp() phases), K4 on four channels as on two
        "spinor_veff": 1e-13, "density_accumulate_nc": 1e-13,
-       "symmetrize_vector_pw": 1e-13, "augmentation.rho_aug.4": 1e-12}
+       "symmetrize_vector_pw": 1e-13, "augmentation.rho_aug.4": 1e-12,
+       "augmentation.d_operator.4": 1e-12}
 SOURCE = {
     "local_hpsi.pw_to_box": "sirius_tpu_torch/csrc/local_hpsi.cu",
     "local_hpsi.box_to_pw_hpsi": "sirius_tpu_torch/csrc/local_hpsi.cu",
@@ -240,6 +249,7 @@ SOURCE = {
     "density_accumulate_nc": "sirius_tpu_torch/csrc/density_accumulate.cu",
     "symmetrize_vector_pw": "sirius_tpu_torch/csrc/symmetrize_pw.cu",
     "augmentation.rho_aug.4": "sirius_tpu_torch/csrc/augmentation.cu",
+    "augmentation.d_operator.4": "sirius_tpu_torch/csrc/augmentation.cu",
 }
 REPLACES = {
     "local_hpsi.pw_to_box": "sirius_tpu/ops/hamiltonian.py:76",
@@ -266,6 +276,7 @@ REPLACES = {
     "density_accumulate_nc": "sirius_tpu/parallel/batched_nc.py:146",
     "symmetrize_vector_pw": "sirius_tpu/dft/potential_nc.py:60",
     "augmentation.rho_aug.4": "sirius_tpu/ops/augmentation.py:250",
+    "augmentation.d_operator.4": "sirius_tpu/ops/augmentation.py:266",
 }
 # the fp32 instantiations (precision_wf "fp32"): each kernel's name with the
 # suffix of the block type it takes (.c64 complex64, .f32 float32 packed
@@ -349,6 +360,29 @@ def time_ms(fn, samples: int = 21, inner: int = 5, warm: int = 3) -> float:
     return times[len(times) // 2]
 
 
+def device_ms(fn, dev, names, calls: int = 20):
+    """Device time of one call of fn: the time of the kernels whose names
+    hold one of names, summed by torch.profiler over `calls` calls after a
+    warm-up, divided by calls. None off the card, or where the profiler
+    shows no device time (then only the event time stands)."""
+    import torch
+
+    if dev.type != "cuda":
+        return None
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(float(getattr(e, "self_device_time_total", 0.0)
+                   or getattr(e, "self_cuda_time_total", 0.0))
+             for e in prof.key_averages() if any(n in e.key for n in names))
+    return us / calls / 1e3 if us > 0 else None
+
+
 def bound(nbytes: float, flops: float,
           fp32: bool = False) -> tuple[float, str]:
     tb = nbytes / HBM_BYTES_PER_S * 1e3
@@ -367,9 +401,10 @@ def rel_err(a, b) -> tuple[float, float]:
 
 
 def record_kernel(out, deck, gpu, name, kernel_out, plain_out, fn_k, fn_p,
-                  fn_lib, nbytes, flops, slow_plain=False):
+                  fn_lib, nbytes, flops, slow_plain=False, extra=None):
     """Compare one kernel with its plain version, time both (and the
-    library yardstick), emit the record and keep it in out[name]."""
+    library yardstick), emit the record (with the fields of extra) and
+    keep it in out[name]."""
     errs = [rel_err(a, b) for a, b in zip(kernel_out, plain_out)
             if a is not None]
     abs_err = max(e[0] for e in errs)
@@ -384,11 +419,169 @@ def record_kernel(out, deck, gpu, name, kernel_out, plain_out, fn_k, fn_p,
            "max_abs_err": abs_err, "max_rel_err": rel, "tol_rel": TOL[name],
            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
-           "flops": flops}
+           "flops": flops, **(extra or {})}
     emit(rec)
     if not rel <= TOL[name]:
         raise AssertionError(f"{name} at {deck}: rel err {rel} > {TOL[name]}")
     out[name] = rec
+
+
+def sm_count(dev) -> int:
+    """The SM count the launch plans read on the card (an H100's 132 off
+    it, for the plans the records print)."""
+    from sirius_tpu_torch.kernels import build
+
+    return build.sm_count(dev) if dev.type == "cuda" else 132
+
+
+def check_d_operator(out, deck: str, gpu: str, name: str, aug: dict, v, dion,
+                     omega: float, dev) -> None:
+    """K5 on the nch channels of v [nch, ng] for one type's tables against
+    its plain version; launched twice on the same inputs, which must give D
+    bit for bit; the device time of its two launches (torch.profiler)
+    beside the event time, which also holds the wrapper's host time.
+    Yardstick: one einsum over the channels, the phases built outside the
+    timing."""
+    import torch
+
+    from sirius_tpu_torch.kernels import augmentation as k45
+
+    nch, ng = v.shape
+    na, nqlm = aug["pos"].shape[0], aug["q"].shape[0]
+    nbeta = dion.shape[-1]
+    dargs = (aug["millers"], aug["pos"], aug["q"], aug["gidx"], aug["lo_idx"],
+             aug["lo_mask"], omega)
+    # the bare D of every channel ([nbeta, nbeta]) or per channel
+    d0 = dion.expand(nch, nbeta, nbeta).contiguous()
+    d_k = k45.d_operator(v, *dargs, d0.clone())
+    if not torch.equal(d_k, k45.d_operator(v, *dargs, d0.clone())):
+        raise AssertionError(f"{name} at {deck}: two launches on the same "
+                             "inputs differ")
+    d_t = d0.clone()
+    ph = k45.structure_phases(aug["millers"], aug["pos"])
+    plan = k45.d_operator_plan(na, nqlm, nch, ng, sm_count(dev))
+    record_kernel(out, deck, gpu, name, [d_k],
+                  [k45.d_operator_plain(v, *dargs, d0.clone())],
+                  lambda: k45.d_operator(v, *dargs, d_t),
+                  lambda: k45.d_operator_plain(v, *dargs, d_t),
+                  lambda: torch.einsum("qg,cg,ga->caq", aug["q"], v.conj(), ph),
+                  nbytes=nqlm * ng * 16 + nch * ng * 16 + ng * 12
+                  + 2 * nch * nbeta * nbeta * 8,
+                  flops=ng * na * (7.0 + nch * (6.0 + nqlm * 4.0)),
+                  extra={"channels": nch, "atoms": na, "num_gvec": ng,
+                         "device_ms": device_ms(
+                             lambda: k45.d_operator(v, *dargs, d_t), dev,
+                             ("d_operator_",)),
+                         "plan": plan, "repeat_bitwise": True})
+
+
+# K1c's edge shapes: (case, row length, view offset in elements); an odd
+# row length puts every other complex64 row 8 bytes off a 16-byte boundary,
+# a one-element offset all of them (a complex128 element stays aligned)
+K1C_EDGES = (("odd n", 27 ** 3, 0), ("offset view", 30 ** 3, 1),
+             ("odd n, offset view", 27 ** 3, 1))
+
+
+def synthetic_aug_tables(rng, na: int, ng: int, dev) -> dict:
+    """One type's K5 tables of random values: na atoms of 4 projectors
+    (nqlm 10 packed pairs), Millers in [-15, 15], the pair indices of
+    ops/augmentation.py::build_aug_device_tables."""
+    import numpy as np
+    import torch
+
+    xi1, xi2 = np.triu_indices(4)
+    nbeta = 4 * na
+    off = 4 * np.arange(na)[:, None]
+    gidx = (off + xi1) * nbeta + off + xi2
+    lo_idx = (off + xi2) * nbeta + off + xi1
+
+    def t(x, dtype):
+        return torch.as_tensor(np.ascontiguousarray(x), dtype=dtype,
+                               device=dev)
+
+    q = rng.standard_normal((10, ng)) + 1j * rng.standard_normal((10, ng))
+    return {"millers": t(rng.integers(-15, 16, (ng, 3)), torch.int32),
+            "pos": t(rng.uniform(0.0, 1.0, (na, 3)), torch.float64),
+            "q": t(q, torch.complex128),
+            "gidx": t(gidx, torch.int32), "lo_idx": t(lo_idx, torch.int32),
+            "lo_mask": t(xi1 != xi2, torch.float64)}
+
+
+def check_kernel_edges(dev, gpu: str) -> None:
+    """K1c and K5 against their plain versions at the shapes their vector
+    paths and launch plans treat apart. K1c, both modes and both
+    precisions, [2, 11, n] with ns = 2 (11 rows: not a whole row group) at
+    the K1C_EDGES cases, bitwise, the elements around the view untouched.
+    K5 at ng = 10007 (no multiple of any tile or chunk) on 7 atoms with 1,
+    2 and 4 channels, at ng = 29 (below one tile), and on four channels of
+    more atoms than one launch takes, each at 1e-12 relative and
+    twice on the same inputs with a bitwise-equal D. Emits one
+    kernel_edges line a case."""
+    import numpy as np
+    import torch
+
+    from sirius_tpu_torch.kernels import augmentation as k45
+    from sirius_tpu_torch.kernels import veff_multiply as k1c
+
+    rng = np.random.default_rng(41)
+    b, r, ns = 2, 11, 2
+    for fp32 in (False, True):
+        real = torch.float32 if fp32 else torch.float64
+        for mode in ("", ".real"):
+            fn, plain = ((k1c.veff_multiply_real, k1c.veff_multiply_real_plain)
+                         if mode else (k1c.veff_multiply,
+                                       k1c.veff_multiply_plain))
+            name = "veff_multiply" + mode + (".c64" if fp32 else "")
+            for case, n, off in K1C_EDGES:
+                total = b * r * n
+                x = torch.as_tensor(rng.standard_normal((2, total + 2)),
+                                    device=dev).to(real)
+                buf = torch.complex(x[0], x[1])
+                veff = torch.as_tensor(rng.uniform(-1.0, 1.0, ns * n + 1),
+                                       device=dev).to(real)[off:off + ns * n]
+                want = buf.clone()
+                plain(want[off:off + total].view(b, r, n), veff.view(ns, n))
+                fr = buf[off:off + total].view(b, r, n)
+                fn(fr, veff.view(ns, n))
+                bitwise = bool(torch.equal(buf, want))
+                emit({"phase": "kernel_edges", "gpu": gpu, "name": name,
+                      "case": case, "shape": [b, r, n], "ns": ns,
+                      "offset_elements": off,
+                      "fr_offset_bytes": fr.data_ptr() % 16,
+                      "bitwise": bitwise})
+                if not bitwise:
+                    raise AssertionError(f"{name} ({case}): not bitwise "
+                                         "equal to its plain version")
+    sm = sm_count(dev)
+    # the fewest atoms (growing by half) that four channels take in more
+    # than one launch
+    many = 8
+    while k45.d_operator_plan(many, 10, 4, 2003, sm)["ngroups"] == 1:
+        many += many // 2
+    cases = [(1, 7, 10007), (2, 7, 10007), (4, 7, 10007), (1, 3, 29),
+             (4, many, 2003)]
+    for nch, na, ng in cases:
+        aug = synthetic_aug_tables(rng, na, ng, dev)
+        nbeta = 4 * na
+        a = rng.standard_normal((nbeta, nbeta))
+        dion = torch.as_tensor(a + a.T, device=dev)
+        v = torch.as_tensor(rng.standard_normal((nch, ng))
+                            + 1j * rng.standard_normal((nch, ng)), device=dev)
+        dargs = (aug["millers"], aug["pos"], aug["q"], aug["gidx"],
+                 aug["lo_idx"], aug["lo_mask"], 0.7)
+        d0 = dion.expand(nch, nbeta, nbeta).contiguous()
+        d_k = k45.d_operator(v, *dargs, d0.clone())
+        repeat = bool(torch.equal(d_k, k45.d_operator(v, *dargs, d0.clone())))
+        abs_err, rel = rel_err(d_k, k45.d_operator_plain(v, *dargs, d0.clone()))
+        plan = k45.d_operator_plan(na, 10, nch, ng, sm)
+        emit({"phase": "kernel_edges", "gpu": gpu,
+              "name": "augmentation.d_operator", "channels": nch, "atoms": na,
+              "num_gvec": ng, "plan": plan, "max_abs_err": abs_err,
+              "max_rel_err": rel, "tol_rel": TOL["augmentation.d_operator"],
+              "repeat_bitwise": repeat})
+        if not (rel <= TOL["augmentation.d_operator"] and repeat):
+            raise AssertionError(f"d_operator at nch {nch}, na {na}, ng {ng}:"
+                                 f" rel err {rel}, repeat bitwise {repeat}")
 
 
 def make_context(spec: dict, extra: dict | None = None, kind: dict = NC):
@@ -570,11 +763,16 @@ def check_kernels_us(deck: str, ctx, dev, gpu: str, fp32: bool = False) -> dict:
     fr_k = k1c.veff_multiply(fr0.clone(), veff)
     fr_p = k1c.veff_multiply_plain(fr0.clone(), veff)
     fr_t = fr0.clone()
+    bitwise = bool(torch.equal(fr_k, fr_p))
     record("veff_multiply" + sfx, [fr_k], [fr_p],
            lambda: k1c.veff_multiply(fr_t, veff),
            lambda: k1c.veff_multiply_plain(fr_t, veff),
            lambda: fr_t.mul_(veff[None]),
-           nbytes=nk * rows * n * 2 * cb + n * rb, flops=nk * rows * n * 2.0)
+           nbytes=nk * rows * n * 2 * cb + n * rb, flops=nk * rows * n * 2.0,
+           extra={"bitwise": bitwise})
+    if not bitwise:
+        raise AssertionError(f"veff_multiply{sfx} at {deck}: not bitwise "
+                             "equal to its plain version")
     del fr0, fr_k, fr_p, fr_t
     if fp32:
         return out
@@ -597,20 +795,11 @@ def check_kernels_us(deck: str, ctx, dev, gpu: str, fp32: bool = False) -> dict:
            lambda: torch.einsum("ga,saq,qg->sg", ph, dmp, aug["q"]),
            nbytes=nqlm * ng * 16 + ng * 16 + ng * 12 + nbeta * nbeta * 16,
            flops=ng * (na * (5.0 + 2.0 + nqlm * 4.0) + nqlm * 8.0))
-    v = pot.veff_g.contiguous()
-    dion = torch.as_tensor(ctx.beta.dion, dtype=torch.float64, device=dev)
-    dargs = (aug["millers"], aug["pos"], aug["q"], aug["gidx"], aug["lo_idx"],
-             aug["lo_mask"], omega)
-    d_t = dion.clone()
-    record("augmentation.d_operator",
-           [k45.d_operator(v, *dargs, dion.clone())],
-           [k45.d_operator_plain(v, *dargs, dion.clone())],
-           lambda: k45.d_operator(v, *dargs, d_t),
-           lambda: k45.d_operator_plain(v, *dargs, d_t),
-           lambda: torch.einsum("qg,g,ga->aq", aug["q"], v.conj(), ph),
-           nbytes=nqlm * ng * 16 + ng * 16 + ng * 12 + 2 * nbeta * nbeta * 8,
-           flops=ng * na * (5.0 + 2.0 + 6.0 + nqlm * 4.0))
     del ph, dmp
+    # K5 on the unpolarized potential (one channel)
+    dion = torch.as_tensor(ctx.beta.dion, dtype=torch.float64, device=dev)
+    check_d_operator(out, deck, gpu, "augmentation.d_operator", aug,
+                     pot.veff_g[None].contiguous(), dion, omega, dev)
 
     # K6: the rho_new symmetrization of the SCF (a scalar field), on the
     # initial density; yardstick: index_add_ over the JAX package's dense
@@ -662,6 +851,7 @@ def check_kernels_gamma(deck: str, ctx, dev, gpu: str,
     from sirius_tpu_torch.kernels import davidson_residual as k2
     from sirius_tpu_torch.kernels import gamma_pack as k8
     from sirius_tpu_torch.kernels import veff_multiply as k1c
+    from sirius_tpu_torch.ops.augmentation import build_aug_device_tables
     from sirius_tpu_torch.ops.gamma import (apply_h_s_gamma, build_gamma_map,
                                             make_gamma_params)
 
@@ -709,13 +899,21 @@ def check_kernels_gamma(deck: str, ctx, dev, gpu: str,
     # (veff, 0), the pair table built once outside the timing
     vz = torch.stack([veff, torch.zeros_like(veff)], dim=-1)
     fr_v = torch.view_as_real(fr_t)
-    record("veff_multiply.real" + sfx_c, [fr_k],
-           [k1c.veff_multiply_real_plain(fr0, veff)],
+    fr_p = k1c.veff_multiply_real_plain(fr0, veff)
+    bitwise = bool(torch.equal(fr_k, fr_p))
+    # bytes: the whole complex element is read, not only its real half (a
+    # warp's reads of the real parts fetch every 32-byte sector, imaginary
+    # halves included), and written; the potential once
+    record("veff_multiply.real" + sfx_c, [fr_k], [fr_p],
            lambda: k1c.veff_multiply_real(fr_t, veff),
            lambda: k1c.veff_multiply_real_plain(fr_t, veff),
            lambda: fr_v.mul_(vz),
-           nbytes=rows * n * (rb + cb) + n * rb, flops=rows * n * 1.0)
-    del fr0, fr_t, fr_v, vz
+           nbytes=rows * n * 2 * cb + n * rb, flops=rows * n * 1.0,
+           extra={"bitwise": bitwise})
+    if not bitwise:
+        raise AssertionError(f"veff_multiply.real{sfx_c} at {deck}: not "
+                             "bitwise equal to its plain version")
+    del fr0, fr_t, fr_v, vz, fr_p
 
     # K8b: the forward transform gathered back into the packed slots
     vbox = torch.fft.fftn(fr_k.view((1, rows) + dims),
@@ -751,6 +949,20 @@ def check_kernels_gamma(deck: str, ctx, dev, gpu: str,
            lambda: k2.davidson_residual_plain(xs, hx, sx, hd, od, mask, tol),
            None, nbytes=nb * ngk * 4 * rb + ngk * 3 * rb + nb * 2 * rb,
            flops=nb * ngk * 15.0)
+    if ctx.aug is not None and not fp32:
+        # K5 at this cell's G sphere, on V and on the collinear (V + B_z,
+        # V - B_z) pair of two channels (a random B_z): records only, the
+        # summary's K5 rows are the 16-atom ones
+        aug = build_aug_device_tables(ctx.unit_cell, ctx.gvec, ctx.aug,
+                                      ctx.beta, dev)[0]
+        dion = torch.as_tensor(ctx.beta.dion, dtype=torch.float64, device=dev)
+        bz = torch.as_tensor(rng.standard_normal(ctx.gvec.num_gvec) * 0.01,
+                             device=dev).to(pot.veff_g.dtype)
+        for v in (pot.veff_g[None], torch.stack([pot.veff_g + bz,
+                                                 pot.veff_g - bz])):
+            check_d_operator({}, deck, gpu, "augmentation.d_operator", aug,
+                             v.contiguous(), dion,
+                             float(ctx.unit_cell.omega), dev)
     return out
 
 
@@ -1061,14 +1273,15 @@ def check_kernel_axial(deck: str, ctx, dev, gpu: str) -> dict:
 
 def check_kernels_spinor(deck: str, ctx, dev, gpu: str,
                          fp32: bool = False) -> dict:
-    """K12a, K12b, K6v and K4 on four channels against their plain versions
-    at a non-collinear deck's main-path shapes: the spinor potential of the
-    initial density and magnetization on the k-set's [nk nb, 2, n] box (a
-    Davidson step's block), the four-component density of one k-point's
-    [nb, 2, n] box, the axial-vector symmetrization of the initial B field
-    over the magnetic group, rho_aug of four Hermitian component blocks;
-    fp32: the complex64 instantiations of K12a (float32 fields) and K12b
-    alone (K6v and K4 have none). Returns {kernel: record}."""
+    """K12a, K12b, K6v, K4 and K5 on four channels against their plain
+    versions at a non-collinear deck's main-path shapes: the spinor
+    potential of the initial density and magnetization on the k-set's
+    [nk nb, 2, n] box (a Davidson step's block), the four-component density
+    of one k-point's [nb, 2, n] box, the axial-vector symmetrization of the
+    initial B field over the magnetic group, rho_aug of four Hermitian
+    component blocks, D of (V, B_x, B_y, B_z); fp32: the complex64
+    instantiations of K12a (float32 fields) and K12b alone (K6v, K4 and K5
+    have none). Returns {kernel: record}."""
     import numpy as np
     import torch
 
@@ -1195,6 +1408,16 @@ def check_kernels_spinor(deck: str, ctx, dev, gpu: str,
            nbytes=nqlm * ng * 16 + 4 * ng * 16 + ng * 12
            + 4 * nbeta * nbeta * 16,
            flops=ng * (na * (5.0 + 4 * nqlm * 4.0) + 4 * nqlm * 8.0))
+    del ph, dmp
+
+    # K5 on the four channels (V, B_x, B_y, B_z) of the initial potential,
+    # D_ion on V alone, as dft/scf_nc.py launches it
+    dion = torch.as_tensor(ctx.beta.dion, dtype=torch.float64, device=dev)
+    zero = torch.zeros_like(dion)
+    check_d_operator(out, deck, gpu, "augmentation.d_operator.4", aug,
+                     torch.cat([pot.veff_g[None], pot.bvec_g]).contiguous(),
+                     torch.stack([dion, zero, zero, zero]),
+                     float(ctx.unit_cell.omega), dev)
     return out
 
 
@@ -1258,7 +1481,8 @@ def wrappers() -> dict:
            "spinor_veff": (k12a.spinor_veff, n),
            "density_accumulate_nc": (k12b.density_accumulate_nc, n),
            "symmetrize_vector_pw": (k6.symmetrize_vector_pw, n),
-           "augmentation.rho_aug.4": (k45.rho_aug, n)}
+           "augmentation.rho_aug.4": (k45.rho_aug, n),
+           "augmentation.d_operator.4": (k45.d_operator, n)}
     for name in FP32_SUMMARY:
         out[name] = (out[base_name(name)][0],
                      "launches_" + name.rsplit(".", 1)[1])
@@ -1314,13 +1538,13 @@ XC_DECK_PATH = {
                                           mgga=True)),
 }
 # the spinor k-set path: K1 over (band, spin) rows, K12a in place of K1c,
-# K2 on the flattened spinors, K12b in place of K3, K4 on four channels, K5
-# four times an iteration, K6 on rho and V_eff and K6v on m and B with
-# symmetry; LDA runs K7, PBE K7g, K10a and K10b
+# K2 on the flattened spinors, K12b in place of K3, K4 and K5 on four
+# channels, K6 on rho and V_eff and K6v on m and B with symmetry; LDA runs
+# K7, PBE K7g, K10a and K10b
 SPINOR_KERNELS = ("local_hpsi.pw_to_box", "local_hpsi.box_to_pw_hpsi",
                   "davidson_residual", "spinor_veff", "density_accumulate_nc",
                   "lda_xc", "augmentation.rho_aug.4",
-                  "augmentation.d_operator")
+                  "augmentation.d_operator.4")
 SPINOR_SYM_KERNELS = SPINOR_KERNELS + ("symmetrize_pw", "symmetrize_vector_pw")
 SPINOR_DECK_PATH = {
     "small_spinor_us": SPINOR_KERNELS,
@@ -1359,8 +1583,9 @@ FP32_SPINOR_SYM_KERNELS = ("local_hpsi.pw_to_box.c64",
                            "local_hpsi.box_to_pw_hpsi.c64",
                            "davidson_residual.c64", "spinor_veff.c64",
                            "density_accumulate_nc.c64",
-                           "augmentation.rho_aug.4", "augmentation.d_operator",
-                           "symmetrize_pw", "symmetrize_vector_pw")
+                           "augmentation.rho_aug.4",
+                           "augmentation.d_operator.4", "symmetrize_pw",
+                           "symmetrize_vector_pw")
 # the fp32 parity decks of the reference tool (each beside its fp64 twin
 # there): the band solve each takes and the kernels it must launch
 FP32_DECK_PATH = {
@@ -1905,6 +2130,7 @@ def main() -> int:
     compiled = build.build_all()
     emit({"phase": "build", "gpu": gpu, "nvcc": build.nvcc_path(),
           "seconds": time.perf_counter() - t0, "compiled": compiled})
+    check_kernel_edges(dev, gpu)
 
     with open(os.path.join(here, "sirius_tpu_torch", "data",
                            "jax_reference.json")) as f:

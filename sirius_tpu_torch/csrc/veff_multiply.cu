@@ -12,65 +12,136 @@
 // holds a Hermitian-symmetric field, so its rounding-level imaginary part
 // is dropped BEFORE the multiply, fr[b, r, i] = Re(fr[b, r, i]) * veff + 0i.
 //
-// Bound on the H100: bytes. Each element is read and written once (32
-// bytes) for two multiplies; veff is re-read per row but a row of it
-// (n * 8 bytes, <= 1.7 MB at a 60^3 box) stays in the 50 MB L2.
-//
-// Design: one grid-stride pass. blockIdx.y walks the rows (b, r), the x
-// dimension walks the n points of a row, so neighbouring threads read
-// neighbouring 16-byte elements of fr and 8-byte elements of veff (both
-// coalesced) and no thread divides a 64-bit index. Elementwise: no sums,
-// no atomics, bit-reproducible.
-//
 // Both modes come in two instantiations of one template: complex128 boxes
 // with a float64 potential, and complex64 boxes with a float32 potential
-// (the *_c64 entry points, the fp32 wave-function path of
-// sirius_tpu/ops/hamiltonian.py and ops/gamma.py with real_dtype_of
-// float32). The fp32 one moves half the bytes with the same design.
+// (the *_c64 entry points, the fp32 wave-function path).
+//
+// Bound on the H100: bytes. Each element of fr is read and written once
+// (32 bytes in fp64, 16 in fp32; the real mode reads the whole element too,
+// since a warp's reads of the real halves fetch every 32-byte sector), the
+// potential once per batch entry; one multiply per real part.
+//
+// Design, for streaming at HBM3 rate in both precisions:
+// - 16-byte accesses: a thread moves one float4 (two complex64 elements)
+//   or one double2 (one complex128 element) with 32-bit in-row indices,
+//   and reads the potential of its columns (served from L2: a row of it is
+//   at most 5.8 MB at a 90^3 box).
+// - One block per work item, a row (b, r) and a column tile of THREADS
+//   vectors, blocks in row-major order, so the resident blocks stream
+//   through fr in address order. On the H100 this ran faster, in every
+//   instantiation, than one resident wave of blocks walking the items with
+//   a grid stride, and than work items of 2 to 8 rows that keep the
+//   potential in registers across them (PERF.md §6).
+// - Alignment and tails: the vector path needs each row's vectors on
+//   16-byte boundaries. A complex128 element is 16 bytes, so its rows are
+//   always aligned (the wrapper refuses a base pointer that is not). A
+//   complex64 row starts 8 bytes off a boundary when n is odd (every other
+//   row) or the tensor is a view at an odd element offset: such a row has
+//   a one-element scalar head and its vectors start one element later; a
+//   row of odd length left has a one-element scalar tail. The head and
+//   tail are taken by the thread of vector column 0. Every row runs on this
+//   kernel: there is no scalar instantiation and no fallback.
+// Each element gets exactly one multiply per part, as in the plain
+// version: the result is bitwise the plain version's. Elementwise: no sums,
+// no atomics.
 //
 // Plain C interface (loaded with ctypes); launches on the stream passed in,
 // allocates nothing, returns cudaGetLastError().
 #include <cuda_runtime.h>
 
+#include <climits>
+#include <cstdint>
+
 #include "precision.cuh"
 
 namespace {
 
-template <typename R, bool kRealMode>
-__global__ void veff_multiply_kernel(cplx_t<R>* __restrict__ fr,
-                                     const R* __restrict__ veff,
-                                     long long rows, int r_per_b, int ns,
-                                     long long n) {
-    for (long long row = blockIdx.y; row < rows; row += gridDim.y) {
-        const long long b = row / r_per_b;
-        const R* v = veff + (b % ns) * n;
-        cplx_t<R>* f = fr + row * n;
-        for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-             i < n; i += (long long)gridDim.x * blockDim.x) {
-            const R s = v[i];
-            cplx_t<R> z = f[i];
-            z.x *= s;
-            z.y = kRealMode ? R(0) : z.y * s;
-            f[i] = z;
-        }
+constexpr int THREADS = 256;  // vectors of a work item
+
+template <typename R>
+struct Vec16;
+template <>
+struct Vec16<float> {
+    using type = float4;  // two complex64 elements
+};
+template <>
+struct Vec16<double> {
+    using type = double2;  // one complex128 element
+};
+
+// elements before the row's first 16-byte boundary: 0, or 1 for a
+// complex64 row that starts 8 bytes off one
+template <typename R>
+__device__ __forceinline__ int head_of(const cplx_t<R>* row) {
+    return (int)(((uintptr_t)row & 15) / sizeof(cplx_t<R>));
+}
+
+template <bool kReal>
+__device__ __forceinline__ void scale(float4& w, const float* s) {
+    w.x *= s[0];
+    w.y = kReal ? 0.0f : w.y * s[0];
+    w.z *= s[1];
+    w.w = kReal ? 0.0f : w.w * s[1];
+}
+
+template <bool kReal>
+__device__ __forceinline__ void scale(double2& w, const double* s) {
+    w.x *= s[0];
+    w.y = kReal ? 0.0 : w.y * s[0];
+}
+
+template <typename R, bool kReal>
+__device__ __forceinline__ void scale_one(cplx_t<R>* z, R s) {
+    cplx_t<R> e = *z;
+    e.x *= s;
+    e.y = kReal ? R(0) : e.y * s;
+    *z = e;
+}
+
+template <typename R, bool kReal>
+__global__ void __launch_bounds__(THREADS)
+veff_multiply_kernel(cplx_t<R>* __restrict__ fr, const R* __restrict__ veff,
+                     int r_per_b, int ns, int n, int coltiles) {
+    using V = typename Vec16<R>::type;
+    constexpr int EPV = (int)(sizeof(V) / sizeof(cplx_t<R>));
+    const int row = blockIdx.x / coltiles;  // b * r_per_b + r
+    const int v = (blockIdx.x - row * coltiles) * THREADS + threadIdx.x;
+    const R* vs = veff + (size_t)((row / r_per_b) % ns) * n;
+    cplx_t<R>* p = fr + (size_t)row * n;
+    const int h = head_of<R>(p);
+    const int nv = (n - h) / EPV;
+    if (v < nv) {
+        const int c = h + EPV * v;  // the vector's first column
+        R s[EPV];
+#pragma unroll
+        for (int k = 0; k < EPV; ++k) s[k] = __ldg(vs + c + k);
+        V w = *reinterpret_cast<const V*>(p + c);
+        scale<kReal>(w, s);
+        *reinterpret_cast<V*>(p + c) = w;
+    }
+    if (v == 0) {  // the row's scalar head and tail
+        if (h) scale_one<R, kReal>(p, __ldg(vs));
+        const int t = h + nv * EPV;
+        if (t < n) scale_one<R, kReal>(p + t, __ldg(vs + t));
     }
 }
 
-template <typename R, bool kRealMode>
+template <typename R, bool kReal>
 int launch(void* fr, const R* veff, int nbatch, int r_per_b, int ns,
            long long n, void* stream) {
-    const int threads = 256;
-    const long long rows = (long long)nbatch * r_per_b;
-    if (rows <= 0 || n <= 0) return (int)cudaGetLastError();
-    long long bx = (n + threads - 1) / threads;
-    // enough blocks per row to fill the card at small row counts, a grid
-    // stride beyond that
-    if (bx > 1024) bx = 1024;
-    const long long by = rows < 65535 ? rows : 65535;
-    dim3 grid((unsigned)bx, (unsigned)by);
-    veff_multiply_kernel<R, kRealMode>
-        <<<grid, threads, 0, (cudaStream_t)stream>>>((cplx_t<R>*)fr, veff,
-                                                     rows, r_per_b, ns, n);
+    using V = typename Vec16<R>::type;
+    constexpr int EPV = (int)(sizeof(V) / sizeof(cplx_t<R>));
+    if (nbatch <= 0 || r_per_b <= 0 || n <= 0) return (int)cudaGetLastError();
+    if (n > INT_MAX || ns <= 0) return (int)cudaErrorInvalidValue;
+    // one block per (row, column tile); a row of n / EPV vectors (at least
+    // one, for the scalar head and tail)
+    const long long nvec = n / EPV > 0 ? n / EPV : 1;
+    const long long coltiles = (nvec + THREADS - 1) / THREADS;
+    const long long blocks = coltiles * nbatch * r_per_b;
+    if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
+    veff_multiply_kernel<R, kReal>
+        <<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(
+            (cplx_t<R>*)fr, veff, r_per_b, ns, (int)n, (int)coltiles);
     return (int)cudaGetLastError();
 }
 

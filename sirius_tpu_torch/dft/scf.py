@@ -314,16 +314,16 @@ def run_scf(cfg: Config, ctx: SimulationContext | None = None,
 
     def refresh(pot):
         """The potential's leaves of the band solve: veff_r, the screened D
-        from the current potential (K5 once per spin, on V + B_z and V - B_z
-        polarized (scf.py:1236-1243); the bare D of norm-conserving species)
-        and h_diag, which reads both."""
+        from the current potential (K5 on V + B_z and V - B_z polarized, both
+        spins in one launch (scf.py:1236-1243); the bare D of
+        norm-conserving species) and h_diag, which reads both."""
         nonlocal d_spin
         v0 = pot.veff_g[0].real
         if aug_tables is not None:
-            v_spin = ([pot.veff_g + pot.bz_g, pot.veff_g - pot.bz_g]
-                      if polarized else [pot.veff_g])
-            d_spin = torch.stack([d_operator_device(v, dion, aug_tables,
-                                                    omega) for v in v_spin])
+            v_spin = (torch.stack([pot.veff_g + pot.bz_g,
+                                   pot.veff_g - pot.bz_g])
+                      if polarized else pot.veff_g[None])
+            d_spin = d_operator_device(v_spin, dion, aug_tables, omega)
         d = d_spin[0]
         d_s = d_spin.to(torch.complex128).contiguous()
         if prm is not None:

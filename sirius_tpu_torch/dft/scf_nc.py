@@ -6,8 +6,9 @@ density (rho, m_x, m_y, m_z), the vector B_xc of the locally diagonal XC
 projection and the spin-block D and Q operators (reference
 dft_ground_state.cpp:178-427 with the num_mag_dims() == 3 branches of
 density.cpp, potential/xc.cpp and local_operator.cpp). The band solve is one
-batched Davidson over the k-set (parallel/batched_nc.py); D is K5 four times
-an iteration (D(V) with D_ion, D(B_x), D(B_y), D(B_z) without), rho_aug K4
+batched Davidson over the k-set (parallel/batched_nc.py); D is one K5
+launch an iteration on four channels (D(V) with D_ion, D(B_x), D(B_y),
+D(B_z) without), rho_aug K4
 once over the four Hermitian component blocks, the symmetrization K6 (rho,
 V_eff) and K6v (m, B). As in the JAX package the loop runs no band-solve
 retry, and spin-orbit is refused (it needs j-resolved projectors, which
@@ -151,11 +152,12 @@ def run_scf_nc(cfg: Config, ctx: SimulationContext, device) -> dict:
     for it in range(p.num_dft_iter):
         synchronize(device)
         it_t0 = time.perf_counter()
-        # --- the spin-block D operator (K5 four times with augmentation) ---
+        # --- the spin-block D operator (K5 on V, B_x, B_y, B_z in one launch
+        # with augmentation; D_ion on V alone) ---
         if aug_tables is not None:
-            d0 = d_operator_device(pot.veff_g, dion, aug_tables, omega)
-            dx, dy, dz = (d_operator_device(pot.bvec_g[i], zero_d, aug_tables,
-                                            omega) for i in range(3))
+            d0, dx, dy, dz = d_operator_device(
+                torch.cat([pot.veff_g[None], pot.bvec_g]),
+                torch.stack([dion, zero_d, zero_d, zero_d]), aug_tables, omega)
         else:
             d0, dx, dy, dz = dion, zero_d, zero_d, zero_d
         dmat = spin_blocks_from_components(d0, dz, dx, dy)

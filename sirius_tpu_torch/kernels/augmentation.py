@@ -6,20 +6,24 @@ atom type, with the structure-factor phases generated on the fly
       out[s, g] (+)= sum_a sum_q e^{-2 pi i m_g . tau_a}
                                 w_q Re(dm[s].flat[gidx[a, q]]) q[q, g]
   d_operator(v, millers, pos, q, gidx, lo_idx, lo_mask, omega, d)
-      vq[a, q] = omega Re sum_g q[q, g] conj(v[g]) e^{-2 pi i m_g . tau_a}
-      d.flat[gidx] += vq; d.flat[lo_idx] += vq * lo_mask   (in place)
+      vq[c, a, q] = omega Re sum_g q[q, g] conj(v[c, g]) e^{-2 pi i m_g . tau_a}
+      d[c].flat[gidx] += vq[c]; d[c].flat[lo_idx] += vq[c] * lo_mask
+      (in place, every channel c of v [nch, ng] and d [nch, nbeta, nbeta]
+      in one launch)
 
 Replace sirius_tpu/ops/augmentation.py::rho_aug_g_device (:250-263) and
 d_operator_device (:266-282) for one type. A CPU tensor takes the plain
 PyTorch versions below (dense phases, einsum); a CUDA tensor launches the
 kernels. Large types are launched in groups of atoms that fit the
-kernels' shared memory and register tiles. The kernels trust gidx and
+kernels' shared memory and register tiles (K5: d_operator_plan, a pure
+function of the shape, tested on the CPU). The kernels trust gidx and
 lo_idx: ops/augmentation.py::build_aug_device_tables checks them against D
 once.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -27,10 +31,16 @@ import torch
 from sirius_tpu_torch.kernels import build
 
 THREADS = 256
-TG = 32  # G tile of the D-operator pass 1 (csrc/augmentation.cu)
-PMAX = 4  # (atom, q) pairs per thread of pass 1
-TARGET_BLOCKS = 264  # pass-1 blocks (2 per SM); fixes the summation order
-SHARED_MAX = 227 * 1024
+SHARED_MAX = 227 * 1024  # dynamic shared memory a block can opt in to
+SHARED_SM = 228 * 1024  # an SM's shared memory (1 KB of it reserved a block)
+# K5 pass 1 (csrc/augmentation.cu): a thread's register tile of TM
+# (channel, atom) rows by TN q, the cp.async pipeline's depth, the G tiles
+# the plan tries (largest first; each divides THREADS) and the resident
+# blocks an SM (__launch_bounds__(THREADS, 3))
+TM, TN = 4, 5
+STAGES = 3
+G_TILES = (32, 16)
+BLOCKS_PER_SM = 3
 
 
 def structure_phases(millers, pos):
@@ -52,12 +62,82 @@ def rho_aug_plain(dm, gidx, w, millers, pos, q):
 
 def d_operator_plain(v, millers, pos, q, gidx, lo_idx, lo_mask, omega, d):
     ph = structure_phases(millers, pos)
-    vq = omega * torch.einsum("qg,g,ga->aq", q, v.conj(), ph).real
-    flat = d.view(-1)
-    flat.index_add_(0, gidx.reshape(-1).long(), vq.reshape(-1))
-    flat.index_add_(0, lo_idx.reshape(-1).long(),
-                    (vq * lo_mask[None, :]).reshape(-1))
+    flat = d.view(d.shape[0], -1)
+    for c, vc in enumerate(v):
+        vq = omega * torch.einsum("qg,g,ga->aq", q, vc.conj(), ph).real
+        flat[c].index_add_(0, gidx.reshape(-1).long(), vq.reshape(-1))
+        flat[c].index_add_(0, lo_idx.reshape(-1).long(),
+                           (vq * lo_mask[None, :]).reshape(-1))
     return d
+
+
+def d_operator_layout(na: int, nqlm: int, nch: int, tg: int) -> dict:
+    """K5 pass 1's shared memory in bytes, as csrc/augmentation.cu's
+    dop_layout counts it, and its output tiles (TM x TN register tiles
+    over the padded (channel, atom) rows and q)."""
+    tgp = tg + 1
+    npad = -(-nqlm // TN) * TN
+    mpad = -(-(nch * na) // TM) * TM
+    stage = npad * tgp * 16 + nch * tg * 16 + tg * 12
+    z_off = max(STAGES * stage, THREADS * TM * TN * 8)
+    total = z_off + mpad * tgp * 16 + -(-(na * 24) // 16) * 16
+    return {"shared": total, "out_tiles": (mpad // TM) * (npad // TN)}
+
+
+def _largest_group(na: int, nqlm: int, nch: int, tg: int) -> int:
+    """The most atoms one launch takes at G tile tg (0: not even one)."""
+    for group in range(na, 0, -1):
+        lay = d_operator_layout(group, nqlm, nch, tg)
+        if lay["out_tiles"] <= THREADS and lay["shared"] <= SHARED_MAX:
+            return group
+    return 0
+
+
+@functools.lru_cache(maxsize=None)
+def d_operator_plan(na: int, nqlm: int, nch: int, ng: int,
+                    sm_count: int) -> dict:
+    """K5's launch plan: the G tile tg, the atoms of a launch (group; the
+    type takes ngroups launches), the G chunk of a pass-1 block and the
+    number of blocks (the chunks cover [0, ng) once, chunk a multiple of
+    tg), the first group's shared memory, output tiles and the threads
+    splitting each tile's G (lanes), and the resident blocks an SM. It
+    prefers the fewest launches (each streams Q once), then two resident
+    blocks an SM or more, then the larger tile, then a third resident
+    block. The summation order, hence D's last bits, follows
+    this plan: it is a function of the shape and the card's SM count."""
+    options = []
+    for tg in G_TILES:
+        group = _largest_group(na, nqlm, nch, tg)
+        if group:
+            lay = d_operator_layout(group, nqlm, nch, tg)
+            bps = max(1, min(BLOCKS_PER_SM,
+                             SHARED_SM // (lay["shared"] + 1024)))
+            options.append(((-(-na // group), -min(bps, 2), -tg, -bps), tg,
+                            group, bps, lay))
+    if not options:
+        raise ValueError(f"d_operator: nqlm = {nqlm} with {nch} channels "
+                         "does not fit the kernel")
+    _, tg, group, bps, lay = min(options, key=lambda o: o[0])
+    tiles = -(-ng // tg)
+    chunk = max(1, -(-tiles // (sm_count * bps))) * tg
+    return {"tg": tg, "group": group, "ngroups": -(-na // group),
+            "chunk": chunk, "nblocks": -(-ng // chunk),
+            "shared": lay["shared"], "out_tiles": lay["out_tiles"],
+            "lanes": THREADS // lay["out_tiles"], "blocks_per_sm": bps}
+
+
+_PARTIAL: dict = {}
+
+
+def _partial(device, numel: int):
+    """K5's pass-1 partial sums: one float64 buffer a device, kept across
+    calls and grown to the largest plan seen (the launches that share it run
+    in order on one stream)."""
+    buf = _PARTIAL.get(device)
+    if buf is None or buf.numel() < numel:
+        buf = torch.empty(max(numel, 1), dtype=torch.float64, device=device)
+        _PARTIAL[device] = buf
+    return buf
 
 
 def _check_type(millers, pos, q, gidx, device):
@@ -133,22 +213,26 @@ rho_aug.launches = 0
 
 
 def d_operator(v, millers, pos, q, gidx, lo_idx, lo_mask, omega: float, d):
-    """Add one type's augmentation term to the real D [nbeta, nbeta] in
-    place and return it."""
-    if v.dtype != torch.complex128 or v.dim() != 1:
-        raise ValueError("v must be complex128 [ng]")
+    """Add one type's augmentation term to the real D of every channel in
+    place and return d: v complex128 [nch, ng], d float64
+    [nch, nbeta, nbeta]."""
+    if v.dtype != torch.complex128 or v.dim() != 2 or not v.is_contiguous():
+        raise ValueError("v must be a contiguous complex128 [nch, ng] tensor")
     ng, nqlm, na = _check_type(millers, pos, q, gidx, v.device)
-    if v.shape[0] != ng or not v.is_contiguous():
-        raise ValueError(f"v must be a contiguous [{ng}] tensor")
+    nch = v.shape[0]
+    if v.shape[1] != ng or nch < 1:
+        raise ValueError(f"v must be [nch, {ng}], got {tuple(v.shape)}")
     if lo_idx.dtype != torch.int32 or lo_idx.shape != gidx.shape \
             or not lo_idx.is_contiguous() or lo_idx.device != v.device:
         raise ValueError("lo_idx must be contiguous int32 with gidx's shape")
     if lo_mask.dtype != torch.float64 or tuple(lo_mask.shape) != (nqlm,) \
             or lo_mask.device != v.device:
         raise ValueError("lo_mask must be float64 [nqlm] on v's device")
-    if d.dtype != torch.float64 or d.dim() != 2 or d.shape[0] != d.shape[1] \
-            or not d.is_contiguous() or d.device != v.device:
-        raise ValueError("d must be a contiguous float64 [nbeta, nbeta] tensor")
+    if d.dtype != torch.float64 or d.dim() != 3 or d.shape[0] != nch \
+            or d.shape[1] != d.shape[2] or not d.is_contiguous() \
+            or d.device != v.device:
+        raise ValueError(f"d must be a contiguous float64 [{nch}, nbeta, "
+                         "nbeta] tensor")
     if v.device.type == "cpu":
         return d_operator_plain(v, millers, pos, q, gidx, lo_idx, lo_mask,
                                 omega, d)
@@ -156,27 +240,25 @@ def d_operator(v, millers, pos, q, gidx, lo_idx, lo_mask, omega: float, d):
         raise RuntimeError(f"d_operator: unsupported device {v.device}")
     if na == 0:
         return d
-    group = min(max(1, (PMAX * THREADS) // nqlm),
-                (SHARED_MAX // 16 - TG * nqlm) // (TG + 2))
-    if group < 1 or nqlm > PMAX * THREADS:
-        raise ValueError(f"d_operator: nqlm = {nqlm} does not fit the kernel")
-    group = min(group, na)
-    tiles = -(-ng // TG)
-    chunk = -(-tiles // TARGET_BLOCKS) * TG
-    nblocks = -(-ng // chunk)
-    partial = torch.empty((nblocks, group * nqlm), dtype=torch.float64,
-                          device=v.device)
+    if millers.data_ptr() % 16:
+        # pass 1 copies the Millers in 16-byte runs
+        raise ValueError("millers must start on a 16-byte boundary")
+    plan = d_operator_plan(na, nqlm, nch, ng, build.sm_count(v.device))
+    group, nblocks = plan["group"], plan["nblocks"]
+    partial = _partial(v.device, nblocks * nch * min(group, na) * nqlm)
     lo_mask = lo_mask.contiguous()
+    nbeta = d.shape[-1]
     lib = build.library("augmentation")
     stream = build.stream_of(v)
     for a0 in range(0, na, group):
         sl = slice(a0, a0 + group)
         g_pos = pos[sl]
         rc = lib.d_operator(millers.data_ptr(), g_pos.data_ptr(), q.data_ptr(),
-                            v.data_ptr(), partial.data_ptr(), nblocks, chunk,
-                            gidx[sl].data_ptr(), lo_idx[sl].data_ptr(),
-                            lo_mask.data_ptr(), float(omega), d.data_ptr(),
-                            g_pos.shape[0], nqlm, ng, stream)
+                            v.data_ptr(), partial.data_ptr(), nblocks,
+                            plan["chunk"], plan["tg"], gidx[sl].data_ptr(),
+                            lo_idx[sl].data_ptr(), lo_mask.data_ptr(),
+                            float(omega), d.data_ptr(), nch, g_pos.shape[0],
+                            nqlm, ng, nbeta * nbeta, stream)
         build.check(rc, "d_operator")
     d_operator.launches += 1
     return d

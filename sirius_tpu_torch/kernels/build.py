@@ -13,6 +13,7 @@ library at once with the compilers running in parallel.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -72,8 +73,8 @@ SIGNATURES = {
     },
     "augmentation": {
         "rho_aug": (_P, _P, _P, _P, _P, _P, _P, _I, _LL, _I, _I, _LL, _I, _P),
-        "d_operator": (_P, _P, _P, _P, _P, _I, _LL, _P, _P, _P, _D, _P, _I,
-                       _I, _LL, _P),
+        "d_operator": (_P, _P, _P, _P, _P, _I, _LL, _I, _P, _P, _P, _D, _P,
+                       _I, _I, _I, _LL, _LL, _P),
     },
     "symmetrize_pw": {
         "symmetrize_pw": (_P, _P, _P, _P, _P, _P, _P, _I, _LL, _I, _I, _I, _P),
@@ -200,6 +201,23 @@ def check(rc: int, what: str) -> None:
     """Raise on a non-zero cudaError_t returned by a kernel's C function."""
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA error {rc} at launch")
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    import torch
+
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device) -> int:
+    """The number of SMs of a CUDA device (the launch plans size their
+    grids by it)."""
+    import torch
+
+    device = torch.device(device)
+    return _sm_count(device.index if device.index is not None
+                     else torch.cuda.current_device())
 
 
 def stream_of(t) -> int:

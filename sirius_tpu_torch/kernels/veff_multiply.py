@@ -12,6 +12,9 @@ version; a CUDA tensor launches the kernel.
 Both modes have two instantiations: complex128 boxes with a float64
 potential (counted in <wrapper>.launches) and complex64 boxes with a float32
 potential (the fp32 wave-function path, <wrapper>.launches_c64).
+
+The kernel moves 16-byte vectors (two complex64 or one complex128
+element), one block per row and tile of 256 vectors.
 """
 
 from __future__ import annotations
@@ -60,6 +63,10 @@ def _check(fr, veff) -> str:
 
 def _launch(fn: str, fr, veff) -> None:
     b, r, n = fr.shape
+    if fr.data_ptr() % fr.element_size():
+        # the kernel's vectors start on element boundaries (a complex128
+        # element is a whole 16-byte vector)
+        raise ValueError("fr's data pointer is not aligned to its element")
     veff = veff.contiguous()
     lib = build.library("veff_multiply")
     rc = getattr(lib, fn)(fr.data_ptr(), veff.data_ptr(), b, r, veff.shape[0],

@@ -218,11 +218,16 @@ def rho_aug_g_device(dm: torch.Tensor, tables: list[dict],
 
 def d_operator_device(veff_g: torch.Tensor, dion: torch.Tensor,
                       tables: list[dict], omega: float) -> torch.Tensor:
-    """d_operator for one effective-potential channel: veff_g complex128
-    [ng], dion float64 [nbeta, nbeta] bare matrix; returns the full real D
-    [nbeta, nbeta] (K5, one launch per type)."""
-    d = dion.clone()
+    """d_operator for every channel of one potential update at once:
+    veff_g complex128 [nch, ng] (V, or V +- B_z collinear, or V, B_x, B_y,
+    B_z non-collinear), dion float64 bare matrix [nbeta, nbeta] (every
+    channel's) or [nch, nbeta, nbeta]; returns the full real D
+    [nch, nbeta, nbeta] (K5, one launch per type for all channels). A 1-D
+    veff_g [ng] is one channel and returns [nbeta, nbeta]."""
+    nbeta = dion.shape[-1]
+    v = veff_g.reshape(-1, veff_g.shape[-1]).contiguous()
+    d = dion.expand(v.shape[0], nbeta, nbeta).clone()
     for t in tables:
-        d_operator(veff_g, t["millers"], t["pos"], t["q"], t["gidx"],
+        d_operator(v, t["millers"], t["pos"], t["q"], t["gidx"],
                    t["lo_idx"], t["lo_mask"], omega, d)
-    return d
+    return d[0] if veff_g.dim() == 1 else d

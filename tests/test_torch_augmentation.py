@@ -122,6 +122,35 @@ def test_d_operator_matches_jax(decks, inputs):
     np.testing.assert_array_equal(got, got.T)
 
 
+@pytest.mark.parametrize("nch", [2, 4])
+def test_multichannel_d_operator_matches_jax_per_channel(decks, inputs, nch):
+    # all channels of a potential update in one call (V +- B_z collinear;
+    # V, B_x, B_y, B_z non-collinear with D_ion on V alone) against the JAX
+    # package's d_operator_device channel by channel
+    jctx, pctx = decks
+    rng = np.random.default_rng(77 + nch)
+    ng = jctx.gvec.num_gvec
+    veff = inputs[1] + 0.1 * (rng.standard_normal((nch, ng))
+                              + 1j * rng.standard_normal((nch, ng)))
+    dion = np.asarray(jctx.beta.dion)
+    dion_c = np.stack([dion] + [np.zeros_like(dion)] * (nch - 1))
+    omega = jctx.unit_cell.omega
+    jtab = jaug.build_aug_device_tables(jctx.unit_cell, jctx.gvec, jctx.aug,
+                                        jctx.beta)
+    ptab = taug.build_aug_device_tables(pctx.unit_cell, pctx.gvec, pctx.aug,
+                                        pctx.beta, "cpu")
+    for bare in (dion, dion_c):
+        got = taug.d_operator_device(torch.as_tensor(veff),
+                                     torch.as_tensor(bare), ptab,
+                                     omega).numpy()
+        assert got.shape == (nch,) + dion.shape
+        for c in range(nch):
+            want = np.asarray(jaug.d_operator_device(
+                jnp.asarray(veff[c]), jnp.asarray(bare if bare.ndim == 2
+                                                  else bare[c]), jtab, omega))
+            assert rel(got[c], want) <= 1e-12
+
+
 def test_augmentation_wrappers_reject_bad_input(decks):
     _, pctx = decks
     t = taug.build_aug_device_tables(pctx.unit_cell, pctx.gvec, pctx.aug,
@@ -135,9 +164,10 @@ def test_augmentation_wrappers_reject_bad_input(decks):
         kaug.rho_aug(dm, t["gidx"].long(), t["w"], t["millers"], t["pos"],
                      t["q"])
     with pytest.raises(ValueError, match="d must"):
-        kaug.d_operator(torch.zeros(t["q"].shape[1], dtype=torch.complex128),
+        kaug.d_operator(torch.zeros((1, t["q"].shape[1]),
+                                    dtype=torch.complex128),
                         t["millers"], t["pos"], t["q"], t["gidx"], t["lo_idx"],
-                        t["lo_mask"], 1.0, torch.zeros((nbeta, nbeta + 1),
+                        t["lo_mask"], 1.0, torch.zeros((1, nbeta, nbeta + 1),
                                                        dtype=torch.float64))
 
 

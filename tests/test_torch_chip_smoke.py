@@ -41,7 +41,8 @@ XC_CHECKED = tuple(chip_smoke.XC_CHECKS) + ("xc_gradient.gradient_boxes",
                                             "xc_gradient.divergence_pw")
 TAU_CHECKED = ("mgga_tau.grad_to_box", "mgga_tau.box_to_pw_tau")
 SPINOR_CHECKED = ("spinor_veff", "density_accumulate_nc",
-                  "symmetrize_vector_pw", "augmentation.rho_aug.4")
+                  "symmetrize_vector_pw", "augmentation.rho_aug.4",
+                  "augmentation.d_operator.4")
 # the fp32 instantiations the fp32 modes of the checks hold
 FP32_CHECKED = tuple(chip_smoke.FP32_SUMMARY)
 
@@ -254,7 +255,7 @@ def test_spinor_yardstick_is_the_symmetrization(monkeypatch):
     seen = {}
 
     def keep(out, deck, gpu, name, kernel_out, plain_out, fn_k, fn_p, fn_lib,
-             nbytes, flops, slow_plain=False):
+             nbytes, flops, slow_plain=False, extra=None):
         if name == "symmetrize_vector_pw":
             seen["lib"], seen["plain"] = fn_lib(), plain_out[0]
 
@@ -273,7 +274,7 @@ def test_spinor_yardsticks_compute_the_kernels_function(monkeypatch, name):
     seen = {}
 
     def keep(out, deck, gpu, rec_name, kernel_out, plain_out, fn_k, fn_p,
-             fn_lib, nbytes, flops, slow_plain=False):
+             fn_lib, nbytes, flops, slow_plain=False, extra=None):
         if rec_name == name:
             seen["lib"], seen["plain"] = fn_lib(), plain_out[0]
 
@@ -346,6 +347,45 @@ def test_magnetic_supercell_context_tiles_like_the_helper():
     np.testing.assert_array_equal(got.unit_cell.moments,
                                   want.unit_cell.moments)
     assert got.symmetry.num_ops == want.symmetry.num_ops == 6
+
+
+def test_real_mode_bound_counts_whole_elements(monkeypatch):
+    # K1c real mode's bytes: every complex element of [1, 2 nb, n] read and
+    # written whole (a warp's reads of the real halves fetch every sector),
+    # the potential once
+    monkeypatch.setattr(chip_smoke, "time_ms", lambda fn, **kw: (fn(), 0.0)[1])
+    ctx = chip_smoke.make_context(SMALL_GAMMA, chip_smoke.TIGHT,
+                                  chip_smoke.US_SYM)
+    n = int(np.prod(ctx.fft_coarse.dims))
+    rows = 2 * ctx.num_bands
+    for fp32, (cb, rb) in ((False, (16, 8)), (True, (8, 4))):
+        recs = chip_smoke.check_kernels_gamma("small_gamma", ctx,
+                                              torch.device("cpu"), "cpu",
+                                              fp32=fp32)
+        rec = recs["veff_multiply.real" + (".c64" if fp32 else "")]
+        assert rec["bytes"] == rows * n * 2 * cb + n * rb
+        assert rec["bitwise"]
+        assert rec["bound_ms"] == pytest.approx(
+            rec["bytes"] / chip_smoke.HBM_BYTES_PER_S * 1e3)
+
+
+def test_edge_shapes_run_on_cpu(capsys):
+    # the K1c and K5 edge cases: each K1c case bitwise, with its view off a
+    # 16-byte boundary where it says so; K5 at every channel count, below
+    # one tile and past one launch group, to 1e-12 and repeat-bitwise
+    chip_smoke.check_kernel_edges(torch.device("cpu"), "cpu")
+    lines = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
+    k1c = [r for r in lines if r["name"].startswith("veff_multiply")]
+    assert len(k1c) == 4 * len(chip_smoke.K1C_EDGES)
+    assert all(r["bitwise"] for r in k1c)
+    assert {r["fr_offset_bytes"] for r in k1c
+            if r["name"].endswith(".c64") and r["offset_elements"]} == {8}
+    k5 = [r for r in lines if r["name"] == "augmentation.d_operator"]
+    assert {r["channels"] for r in k5} == {1, 2, 4}
+    assert any(r["num_gvec"] < r["plan"]["tg"] for r in k5)
+    assert any(r["plan"]["ngroups"] > 1 for r in k5)
+    assert all(r["num_gvec"] % r["plan"]["chunk"] for r in k5)
+    assert all(r["max_rel_err"] <= 1e-12 and r["repeat_bitwise"] for r in k5)
 
 
 def test_launch_checks_follow_the_band_solve_path():
@@ -449,7 +489,7 @@ def test_fp32_yardsticks_compute_the_kernels_function(monkeypatch, name):
     seen = {}
 
     def keep(out, deck, gpu, rec_name, kernel_out, plain_out, fn_k, fn_p,
-             fn_lib, nbytes, flops, slow_plain=False):
+             fn_lib, nbytes, flops, slow_plain=False, extra=None):
         if rec_name == name:
             seen["plain"] = plain_out[0].clone()
             seen["lib"] = fn_lib()
