@@ -28,10 +28,16 @@ imports nothing of JAX or of sirius_tpu. Phases, each printing JSON lines:
    launched twice on the same inputs for a bitwise-equal D, with the
    device time of its launches from torch.profiler beside the event time
    (device_ms); K1c records whether it is bitwise its plain version;
-   before them, the edge shapes of the redesigned K1c and K5
-   (check_kernel_edges: odd row lengths, views off a 16-byte boundary, G
-   counts off every tile and chunk, 1, 2 and 4 channels, more atoms than
-   one launch): error,
+   K6 also at the 54-atom Gamma cell (1296 ops), where its yardstick
+   cannot be built; every K6 and K6v record holds the factorised kernel
+   against the unfactorised plain version on a random field too, and
+   carries the group's factorisation (num_translations, num_reps,
+   num_live) and the unfactorised sum's operations bound; every K2 record
+   its cluster size; before them, the edge shapes of the redesigned K1c,
+   K5 and K2 (check_kernel_edges: odd row lengths, views off a 16-byte
+   boundary, G counts off every tile and chunk, 1, 2 and 4 channels, more
+   atoms than one launch, K2's four instantiations at rows just over and
+   under its cluster threshold, with and without w): error,
    kernel time (CUDA events, median of 21 samples of 5 launches after
    warm-up), the plain version's time, a one-call PyTorch yardstick where
    one exists (library_ms), and the least time the card could take
@@ -434,6 +440,64 @@ def sm_count(dev) -> int:
     return build.sm_count(dev) if dev.type == "cuda" else 132
 
 
+def residual_plan(nrows: int, ngk: int, element_bytes: int, dev) -> dict:
+    """A K2 record's fields: its cluster size C and launch plan."""
+    from sirius_tpu_torch.kernels.davidson_residual import (
+        davidson_residual_plan)
+
+    plan = davidson_residual_plan(nrows, ngk, element_bytes, sm_count(dev))
+    return {"cluster": plan["cluster"], "plan": plan}
+
+
+# the device work of a K6 launch in the profiler: the kernel and the
+# cudaMemsetAsync of the dead G
+K6_DEVICE = ("symmetrize_pw_kernel", "Memset")
+
+
+def symmetrize_work(tb, live, per_pair: float, ncomp: int = 1):
+    """(bytes, operations, record fields) of K6 or K6v (ncomp 3) on the
+    tables tb with the live G list live: bytes written to out over every G
+    and read of the live G's f, Millers and index once; operations of the
+    factorised sum, per_pair a (representative, live G); the group's
+    factorisation, and the operations bound of the unfactorised sum (every
+    op over every G) beside it."""
+    c = tb.cosets
+    ng = tb.millers.shape[0]
+    nlive = int(live.shape[0])
+    return (ncomp * ng * 16 + nlive * (ncomp * 16 + 12 + 4),
+            nlive * c.num_reps * per_pair,
+            {"num_ops": tb.num_ops, "num_translations": c.num_translations,
+             "num_reps": c.num_reps, "num_live": nlive, "num_gvec": ng,
+             "bound_ms_unfactorised": bound(0.0,
+                                            tb.num_ops * ng * per_pair)[0]})
+
+
+def random_field_errors(name: str, fn_k, fn_p, shape, dev) -> dict:
+    """K6 (any form) against its unfactorised plain version on a seeded
+    random field, which unlike a symmetric one is nonzero off the live G:
+    the relative error elementwise (over the plain version's largest
+    value, as record_kernel) and normwise, and the plain version's largest
+    value off the live G, where the kernel writes 0. Raises above the
+    kernel's tolerance."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(59)
+    f = torch.as_tensor(rng.standard_normal(shape)
+                        + 1j * rng.standard_normal(shape), device=dev)
+    k, p = fn_k(f), fn_p(f)
+    _, rel = rel_err(k, p)
+    norm = float(torch.linalg.vector_norm(k - p)
+                 / torch.linalg.vector_norm(p))
+    dead = k == 0
+    off_live = float(p[dead].abs().max()) if bool(dead.any()) else 0.0
+    if not (rel <= TOL[name] and norm <= TOL[name]):
+        raise AssertionError(f"{name} on a random field: rel err {rel}, "
+                             f"normwise {norm} > {TOL[name]}")
+    return {"random_rel_err": rel, "random_norm_rel_err": norm,
+            "random_plain_max_off_live": off_live}
+
+
 def check_d_operator(out, deck: str, gpu: str, name: str, aug: dict, v, dion,
                      omega: float, dev) -> None:
     """K5 on the nch channels of v [nch, ng] for one type's tables against
@@ -582,6 +646,75 @@ def check_kernel_edges(dev, gpu: str) -> None:
         if not (rel <= TOL["augmentation.d_operator"] and repeat):
             raise AssertionError(f"d_operator at nch {nch}, na {na}, ng {ng}:"
                                  f" rel err {rel}, repeat bitwise {repeat}")
+    check_residual_edges(dev, gpu, rng)
+
+
+# K2's edge shapes: (batches, bands, row bytes over SMALL_ROW_BYTES); rows
+# 3 elements longer than a cluster's threshold (odd lengths: slices and w's
+# 16-byte vectors start off their boundaries, the last slice is shorter)
+# and one element shorter (one block a row)
+K2_EDGES = ((3, 14, 3), (1, 129, -1))
+
+
+def check_residual_edges(dev, gpu: str, rng) -> None:
+    """K2's four instantiations against their plain versions at K2_EDGES,
+    with and without w, each at its tolerance and twice on the same inputs
+    for bitwise-equal results. Row 0 of each batch is an exact eigenpair
+    (the converged branch), the mask drops a tenth of the G. Emits one
+    kernel_edges line a case."""
+    import torch
+
+    from sirius_tpu_torch.kernels import davidson_residual as k2
+
+    sm = sm_count(dev)
+    for dtype, sfx in ((torch.complex128, ""), (torch.float64, ".f64"),
+                       (torch.complex64, ".c64"), (torch.float32, ".f32")):
+        name = "davidson_residual" + sfx
+        real = torch.float64 if sfx in ("", ".f64") else torch.float32
+        eb = torch.empty((), dtype=dtype).element_size()
+        tol = 1e-3 if real == torch.float32 else 1e-6
+        for b, nb, extra in K2_EDGES:
+            ngk = k2.SMALL_ROW_BYTES // eb + extra
+
+            def block():
+                z = torch.as_tensor(rng.standard_normal((2, b, nb, ngk)),
+                                    device=dev)
+                return (torch.complex(z[0], z[1]) if dtype.is_complex
+                        else z[0]).to(dtype)
+
+            # S positive and H x near x's span, as a band solve's blocks:
+            # <x|S x> and <x|H x> then sum without cancelling, so the two
+            # summation orders agree to the precision's rounding
+            x = block()
+            sx = x * torch.as_tensor(rng.uniform(1.0, 2.0, (b, nb, ngk)),
+                                     device=dev).to(real)
+            hx = x * torch.as_tensor(rng.uniform(-1.0, 3.0, (b, nb, ngk)),
+                                     device=dev).to(real) + 0.01 * block()
+            hx[:, 0] = 2.0 * sx[:, 0]
+            hd = torch.as_tensor(rng.uniform(1.0, 3.0, (b, ngk)),
+                                 device=dev).to(real)
+            od = torch.ones((b, ngk), dtype=real, device=dev)
+            mask = torch.as_tensor(rng.uniform(0.0, 1.0, (b, ngk)) > 0.1,
+                                   device=dev).to(real)
+            for want_w in (True, False):
+                args = (x, hx, sx, hd, od, mask, tol, want_w)
+                got = k2.davidson_residual(*args)
+                again = k2.davidson_residual(*args)
+                want = k2.davidson_residual_plain(*args)
+                repeat = all(torch.equal(u, v) for u, v in zip(got, again)
+                             if u is not None)
+                abs_err, rel = (max(e) for e in zip(*(
+                    rel_err(u, v) for u, v in zip(got, want)
+                    if u is not None)))
+                plan = k2.davidson_residual_plan(b * nb, ngk, eb, sm)
+                emit({"phase": "kernel_edges", "gpu": gpu, "name": name,
+                      "shape": [b, nb, ngk], "want_w": want_w, "plan": plan,
+                      "max_abs_err": abs_err, "max_rel_err": rel,
+                      "tol_rel": TOL[name], "repeat_bitwise": repeat})
+                if not (rel <= TOL[name] and repeat):
+                    raise AssertionError(
+                        f"{name} at {[b, nb, ngk]}, want_w {want_w}: rel err "
+                        f"{rel}, repeat bitwise {repeat}")
 
 
 def make_context(spec: dict, extra: dict | None = None, kind: dict = NC):
@@ -690,7 +823,12 @@ def check_kernels(deck: str, ctx, dev, gpu: str, fp32: bool = False) -> dict:
            lambda: k2.davidson_residual_plain(x, hx, sx, hd, od, mask, tol),
            None,
            nbytes=nk * nb * ngk * 4 * cb + nk * ngk * 3 * rb + nk * nb * 2 * rb,
-           flops=nk * nb * ngk * 30.0)
+           flops=nk * nb * ngk * 30.0,
+           extra={**residual_plan(nk * nb, ngk, cb, dev),
+                  "device_ms": device_ms(
+                      lambda: k2.davidson_residual(x, hx, sx, hd, od, mask,
+                                                   tol), dev,
+                      ("residual_rows",))})
     del x, hx, sx, r_k, r_p
 
     # K3: |psi(r)|^2 accumulation of one k-point's box, [1, nb, N]
@@ -808,7 +946,6 @@ def check_kernels_us(deck: str, ctx, dev, gpu: str, fp32: bool = False) -> dict:
     f = rho0.contiguous()
     sargs = (tb.millers, tb.lut, tb.rot, tb.trans, tb.dims)
     nops = tb.num_ops
-    n1, n2, n3 = tb.dims
     m = tb.millers.long()
     idx = torch.empty((nops, ng), dtype=torch.int64, device=dev)
     x = m.to(torch.float64) @ tb.trans.T  # [ng, nops]: target phases
@@ -825,13 +962,55 @@ def check_kernels_us(deck: str, ctx, dev, gpu: str, fp32: bool = False) -> dict:
     def lib_sym():
         return torch.zeros_like(f).index_add_(0, idx, vals) / nops
 
-    record("symmetrize_pw", [k6.symmetrize_pw(f, *sargs)],
-           [k6.symmetrize_pw_plain(f, *sargs)],
-           lambda: k6.symmetrize_pw(f, *sargs),
-           lambda: k6.symmetrize_pw_plain(f, *sargs), lib_sym,
-           nbytes=ng * (16 + 12 + 16) + n1 * n2 * n3 * 4 + nops * 60,
-           flops=nops * ng * 15.0, slow_plain=True)
+    def fn_k(field):
+        return k6.symmetrize_pw(field, *sargs, cosets=tb.cosets)
+
+    def fn_p(field):
+        return k6.symmetrize_pw_plain(field, *sargs)
+
+    nbytes, flops, extra = symmetrize_work(tb, tb.cosets.live, 15.0)
+    extra.update(random_field_errors("symmetrize_pw", fn_k, fn_p, (ng,), dev))
+    extra["device_ms"] = device_ms(lambda: fn_k(f), dev, K6_DEVICE)
+    record("symmetrize_pw", [fn_k(f)], [fn_p(f)], lambda: fn_k(f),
+           lambda: fn_p(f), lib_sym, nbytes=nbytes, flops=flops,
+           slow_plain=True, extra=extra)
     del idx, vals
+    return out
+
+
+def check_kernel_symmetrize(deck: str, ctx, dev, gpu: str) -> dict:
+    """K6 on the rho_new symmetrization of a cell whose yardstick cannot be
+    built: the initial density and a random field against the unfactorised
+    plain version. The yardstick of the 16-atom record, index_add_ over the
+    JAX package's dense per-op scatter table, holds nops x ng indices and
+    values (30.6 GB at 54 atoms): it is not built, and the record says so.
+    Returns {kernel: record}."""
+    import torch
+
+    from sirius_tpu_torch.dft.density import (build_sym_pw_tables,
+                                              initial_density_g)
+    from sirius_tpu_torch.kernels import symmetrize_pw as k6
+
+    tb = build_sym_pw_tables(ctx, dev)
+    f = torch.as_tensor(initial_density_g(ctx), device=dev)
+    ng = f.shape[0]
+    sargs = (tb.millers, tb.lut, tb.rot, tb.trans, tb.dims)
+
+    def fn_k(field):
+        return k6.symmetrize_pw(field, *sargs, cosets=tb.cosets)
+
+    def fn_p(field):
+        return k6.symmetrize_pw_plain(field, *sargs)
+
+    nbytes, flops, extra = symmetrize_work(tb, tb.cosets.live, 15.0)
+    extra.update(random_field_errors("symmetrize_pw", fn_k, fn_p, (ng,), dev))
+    extra["library"] = (f"index_add_ over the dense [nops, ng] table: "
+                        f"{tb.num_ops * ng * 24 / 1e9:.1f} GB, not built")
+    extra["device_ms"] = device_ms(lambda: fn_k(f), dev, K6_DEVICE)
+    out = {}
+    record_kernel(out, deck, gpu, "symmetrize_pw", [fn_k(f)], [fn_p(f)],
+                  lambda: fn_k(f), lambda: fn_p(f), None, nbytes=nbytes,
+                  flops=flops, slow_plain=True, extra=extra)
     return out
 
 
@@ -948,7 +1127,12 @@ def check_kernels_gamma(deck: str, ctx, dev, gpu: str,
            lambda: k2.davidson_residual(xs, hx, sx, hd, od, mask, tol),
            lambda: k2.davidson_residual_plain(xs, hx, sx, hd, od, mask, tol),
            None, nbytes=nb * ngk * 4 * rb + ngk * 3 * rb + nb * 2 * rb,
-           flops=nb * ngk * 15.0)
+           flops=nb * ngk * 15.0,
+           extra={**residual_plan(nb, ngk, rb, dev),
+                  "device_ms": device_ms(
+                      lambda: k2.davidson_residual(xs, hx, sx, hd, od, mask,
+                                                   tol), dev,
+                      ("residual_rows",))})
     if ctx.aug is not None and not fp32:
         # K5 at this cell's G sphere, on V and on the collinear (V + B_z,
         # V - B_z) pair of two channels (a random B_z): records only, the
@@ -1258,16 +1442,21 @@ def check_kernel_axial(deck: str, ctx, dev, gpu: str) -> dict:
     tb = build_sym_pw_tables(ctx, dev)
     f = torch.as_tensor(initial_magnetization_g(ctx), device=dev)
     sargs = (tb.millers, tb.lut, tb.rot, tb.trans, tb.dims, tb.sign)
-    ng, nops = f.shape[0], tb.num_ops
-    n1, n2, n3 = tb.dims
+
+    def fn_k(field):
+        return k6.symmetrize_pw(field, *sargs, cosets=tb.cosets)
+
+    def fn_p(field):
+        return k6.symmetrize_pw_plain(field, *sargs)
+
+    nbytes, flops, extra = symmetrize_work(tb, tb.cosets.live_axial, 16.0)
+    extra.update(random_field_errors("symmetrize_pw.axial", fn_k, fn_p,
+                                     (f.shape[0],), dev))
+    extra["device_ms"] = device_ms(lambda: fn_k(f), dev, K6_DEVICE)
     out = {}
-    record_kernel(out, deck, gpu, "symmetrize_pw.axial",
-                  [k6.symmetrize_pw(f, *sargs)],
-                  [k6.symmetrize_pw_plain(f, *sargs)],
-                  lambda: k6.symmetrize_pw(f, *sargs),
-                  lambda: k6.symmetrize_pw_plain(f, *sargs), None,
-                  nbytes=ng * (16 + 12 + 16) + n1 * n2 * n3 * 4 + nops * 68,
-                  flops=nops * ng * 16.0, slow_plain=True)
+    record_kernel(out, deck, gpu, "symmetrize_pw.axial", [fn_k(f)], [fn_p(f)],
+                  lambda: fn_k(f), lambda: fn_p(f), None, nbytes=nbytes,
+                  flops=flops, slow_plain=True, extra=extra)
     return out
 
 
@@ -1358,7 +1547,6 @@ def check_kernels_spinor(deck: str, ctx, dev, gpu: str,
     f = pot.bvec_g.contiguous()
     sargs = (tb.millers, tb.lut, tb.rot, tb.trans, tb.srot, tb.dims)
     nops = tb.num_ops
-    n1, n2, n3 = tb.dims
     m = tb.millers.long()
     idx = torch.empty((nops, ng), dtype=torch.int64, device=dev)
     vals = torch.empty((3, nops, ng), dtype=torch.complex128, device=dev)
@@ -1379,12 +1567,20 @@ def check_kernels_spinor(deck: str, ctx, dev, gpu: str,
     def lib_sym():
         return torch.zeros_like(f).index_add_(1, idx, vals) / nops
 
-    record("symmetrize_vector_pw", [k6.symmetrize_vector_pw(f, *sargs)],
-           [k6.symmetrize_vector_pw_plain(f, *sargs)],
-           lambda: k6.symmetrize_vector_pw(f, *sargs),
-           lambda: k6.symmetrize_vector_pw_plain(f, *sargs), lib_sym,
-           nbytes=ng * (48 + 12 + 48) + n1 * n2 * n3 * 4 + nops * 132,
-           flops=nops * ng * 60.0, slow_plain=True)
+    def fn_k(field):
+        return k6.symmetrize_vector_pw(field, *sargs, cosets=tb.cosets)
+
+    def fn_p(field):
+        return k6.symmetrize_vector_pw_plain(field, *sargs)
+
+    nbytes, flops, extra = symmetrize_work(tb, tb.cosets.live, 60.0, ncomp=3)
+    extra.update(random_field_errors("symmetrize_vector_pw", fn_k, fn_p,
+                                     (3, ng), dev))
+    extra["device_ms"] = device_ms(lambda: fn_k(f), dev,
+                                   ("symmetrize_vector_kernel", "Memset"))
+    record("symmetrize_vector_pw", [fn_k(f)], [fn_p(f)], lambda: fn_k(f),
+           lambda: fn_p(f), lib_sym, nbytes=nbytes, flops=flops,
+           slow_plain=True, extra=extra)
     del idx, vals
 
     # K4 on the four (rho, m_x, m_y, m_z) Hermitian component blocks;
@@ -2166,6 +2362,8 @@ def main() -> int:
     kern16.update(check_kernels_us("si16_supercell2_us_sym", ctx16us, dev, gpu))
     check_kernels_gamma("gamma_us_sym", single["gamma_us_sym"], dev, gpu)
     kern54 = check_kernels_gamma("si54_supercell3_gamma", ctx54, dev, gpu)
+    kern54.update(check_kernel_symmetrize("si54_supercell3_gamma", ctx54, dev,
+                                          gpu))
     check_kernel_chunk("chunked_us_sym", single["chunked_us_sym"], 1, dev, gpu)
     kern54.update(check_kernel_chunk("si54_supercell3_chunk16", ctx54, CHUNK54,
                                      dev, gpu))
@@ -2297,7 +2495,8 @@ def main() -> int:
                             (kern_fp32, launches_fp32)):
         for name, rec in records.items():
             summary.append({
-                "name": name, "route": "cuda", "source": SOURCE[name],
+                "name": name, "deck": rec["deck"], "route": "cuda",
+                "source": SOURCE[name],
                 "replaces": REPLACES[name], "launches": counts[name],
                 "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
                 "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],

@@ -23,6 +23,8 @@ from sirius_tpu_torch.core.fftgrid import g_to_r, r_to_g
 from sirius_tpu_torch.core.radial import sbessel_integral
 from sirius_tpu_torch.device import resolve_device
 from sirius_tpu_torch.kernels.symmetrize_pw import (
+    Cosets,
+    build_cosets,
     source_index,
     symmetrize_pw as symmetrize_pw_kernel,
 )
@@ -219,7 +221,9 @@ def rho_real_space(tables: GridTables, rho_g: torch.Tensor) -> torch.Tensor:
 @dataclasses.dataclass
 class SymPwTables:
     """The space group as K6 (kernels/symmetrize_pw.py) reads it: no
-    per-op G tables, only the ops and a fine-box -> G lookup."""
+    per-op G tables, only the ops and a fine-box -> G lookup; the plain
+    versions sum every op, the kernels the coset representatives over the
+    live G (cosets)."""
 
     millers: torch.Tensor  # [ng, 3] int32, fine G set
     lut: torch.Tensor  # [N_fine] int32, box slot -> G index, -1 off the set
@@ -230,6 +234,7 @@ class SymPwTables:
     # [nops, 3, 3] float64 det(R) R: the Cartesian rotation of an axial
     # vector (K6v, non-collinear magnetization and B)
     srot: torch.Tensor
+    cosets: Cosets  # one op of each rotation, the live G (kernels)
 
     @property
     def num_ops(self) -> int:
@@ -247,7 +252,10 @@ def build_sym_pw_tables(ctx: SimulationContext, device=None) -> SymPwTables:
     """K6's tables from the context's space group. Checks once that every
     op maps the G set onto itself (the sphere is rotation invariant): each
     rotated Miller index must land, after wrapping into the fine box, on a
-    G of the set with exactly that index. The kernel trusts this."""
+    G of the set with exactly that index; and that the ops factor over
+    their pure translations (kernels/symmetrize_pw.py::build_cosets, which
+    raises ValueError naming the op that does not). The kernels trust
+    this."""
     device = resolve_device(device)
     gv = ctx.gvec
     ops = ctx.symmetry.ops
@@ -259,17 +267,19 @@ def build_sym_pw_tables(ctx: SimulationContext, device=None) -> SymPwTables:
         rot[i] = winv
     lut = np.full(gv.fft.num_points, -1, dtype=np.int32)
     lut[gv.fft_index] = np.arange(gv.num_gvec, dtype=np.int32)
+    millers = np.asarray(gv.millers, dtype=np.int32)
+    trans = np.stack([op.t for op in ops]).astype(np.float64)
+    sign = np.array([op.spin_sign for op in ops], dtype=np.float64)
+    srot = _axial_rotations(ops)
     tb = SymPwTables(
-        millers=torch.as_tensor(np.asarray(gv.millers, dtype=np.int32),
-                                device=device),
+        millers=torch.as_tensor(millers, device=device),
         lut=torch.as_tensor(lut, device=device),
         rot=torch.as_tensor(rot, device=device),
-        trans=torch.as_tensor(np.stack([op.t for op in ops]).astype(np.float64),
-                              device=device),
-        sign=torch.as_tensor(np.array([op.spin_sign for op in ops],
-                                      dtype=np.float64), device=device),
+        trans=torch.as_tensor(trans, device=device),
+        sign=torch.as_tensor(sign, device=device),
         dims=tuple(int(x) for x in gv.fft.dims),
-        srot=torch.as_tensor(_axial_rotations(ops), device=device),
+        srot=torch.as_tensor(srot, device=device),
+        cosets=build_cosets(millers, rot, trans, sign, srot, device),
     )
     m = tb.millers.long()
     ok = torch.ones((), dtype=torch.bool, device=device)
@@ -287,7 +297,8 @@ def symmetrize_pw(tb: SymPwTables, f_g: torch.Tensor,
     f'(g') = (1/N) sum_op f(w_k^{-1} g') e^{-2 pi i g' . t_op}, with the
     op's spin sign for the z-component of an axial field (axial_z)."""
     return symmetrize_pw_kernel(f_g, tb.millers, tb.lut, tb.rot, tb.trans,
-                                tb.dims, tb.sign if axial_z else None)
+                                tb.dims, tb.sign if axial_z else None,
+                                tb.cosets)
 
 
 def symmetrize_tau(tb: SymPwTables, tau_g: torch.Tensor) -> torch.Tensor:

@@ -43,7 +43,8 @@ def symmetrize_vector_pw(tb: SymPwTables, mvec_g: torch.Tensor) -> torch.Tensor:
     m'_i(g') = (1/N) sum_S det(R) R_ij m_j(w_k^{-1} g') e^{-2 pi i g'.t}.
     mvec_g [3, ng] complex128 (x, y, z)."""
     return symmetrize_vector_kernel(mvec_g.contiguous(), tb.millers, tb.lut,
-                                    tb.rot, tb.trans, tb.srot, tb.dims)
+                                    tb.rot, tb.trans, tb.srot, tb.dims,
+                                    tb.cosets)
 
 
 def generate_potential_nc(

@@ -42,7 +42,7 @@ _D = ctypes.c_double
 _K1_SCATTER = (_P, _P, _P, _P, _I, _I, _I, _LL, _I, _P)
 _K1_GATHER = (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _LL, _I, _P)
 _K1C = (_P, _P, _I, _I, _I, _LL, _P)
-_K2 = (_P, _P, _P, _P, _P, _P, _D, _P, _P, _P, _I, _I, _I, _P)
+_K2 = (_P, _P, _P, _P, _P, _P, _D, _P, _P, _P, _I, _I, _I, _I, _I, _P)
 _K3 = (_P, _P, _P, _I, _I, _LL, _D, _P)
 _K12B = (_P, _P, _P, _I, _LL, _D, _P)
 _K8A = (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _LL, _P)
@@ -51,6 +51,7 @@ _K9 = (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _D, _D,
        _D, _P)
 _K11 = (_P, _P, _I, _P, _P, _P, _I, _I, _I, _LL, _I, _P)
 _K12A = (_P, _P, _P, _P, _P, _LL, _LL, _P)
+_K6 = (_P, _P, _P, _LL, _P, _P, _P, _P, _P, _I, _LL, _I, _I, _I, _P)
 SIGNATURES = {
     "local_hpsi": {
         "pw_to_box": _K1_SCATTER, "pw_to_box_c64": _K1_SCATTER,
@@ -77,9 +78,8 @@ SIGNATURES = {
                        _I, _I, _I, _LL, _LL, _P),
     },
     "symmetrize_pw": {
-        "symmetrize_pw": (_P, _P, _P, _P, _P, _P, _P, _I, _LL, _I, _I, _I, _P),
-        "symmetrize_vector_pw": (_P, _P, _P, _P, _P, _P, _P, _I, _LL, _I, _I,
-                                 _I, _P),
+        "symmetrize_pw": _K6,
+        "symmetrize_vector_pw": _K6,
     },
     "gamma_pack": {
         "unpack_to_box": _K8A, "unpack_to_box_f32": _K8A,

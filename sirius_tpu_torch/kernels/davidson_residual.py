@@ -17,7 +17,10 @@ float32, with float32 tables and float32 evals and rnorm (reduced in
 float32, as the JAX package's complex64 davidson): one kernel source, four
 instantiations counted apart in davidson_residual.launches, .launches_f64,
 .launches_c64 and .launches_f32. A CPU tensor takes the plain PyTorch
-version; a CUDA tensor launches the kernel.
+version; a CUDA tensor launches the kernel, on the grid
+davidson_residual_plan sizes: one block a row for short rows, else a
+cluster of C blocks a row, each holding its slice of x, hx and sx in shared
+memory.
 """
 
 from __future__ import annotations
@@ -25,6 +28,52 @@ from __future__ import annotations
 import torch
 
 from sirius_tpu_torch.kernels import build
+
+# csrc/davidson_residual.cu: threads a block, and the static shared memory
+# of its cluster kernel (two reals a warp and the partial sums, with room)
+THREADS = 256
+STATIC_SHARED = 512
+# an H100 SM's shared memory (228 KB) and what each resident block
+# reserves of it (1 KB); the clustered kernel plans two blocks an SM
+SHARED_SM = 233472
+BLOCK_RESERVED = 1024
+BLOCKS_PER_SM = 2
+# an SM holds at most 2048 threads: 8 blocks of THREADS
+MAX_BLOCKS_PER_SM = 2048 // THREADS
+SLICE_BUDGET = SHARED_SM // BLOCKS_PER_SM - BLOCK_RESERVED - STATIC_SHARED
+# rows shorter than this (every 2-atom deck's) take one block a row
+SMALL_ROW_BYTES = 32 * 1024
+CLUSTERS = (2, 4, 8)
+
+
+def davidson_residual_plan(nrows: int, ngk: int, element_bytes: int,
+                           sm_count: int) -> dict:
+    """K2's grid for nrows rows of ngk elements of element_bytes bytes.
+
+    cluster 1: one block a row (rows under SMALL_ROW_BYTES, or rows no
+    cluster's slices fit). Else the cluster size C of 2, 4, 8 whose slice of
+    the three blocks x, hx, sx (3 * slice * element_bytes shared bytes,
+    slice = ceil(ngk / C) elements) leaves room for BLOCKS_PER_SM blocks an
+    SM: the smallest such C where its nrows * C blocks all fit on the card
+    at once (one wave: fewer, longer blocks wait less for their clusters),
+    else the largest (more waves: the shorter each block's chain of waits
+    and passes, the sooner the next wave starts). Block r of a row's
+    cluster takes elements [r * slice, min(ngk, (r + 1) * slice))."""
+    row_bytes = ngk * element_bytes
+    cluster = 1
+    if row_bytes >= SMALL_ROW_BYTES:
+        fits = [c for c in CLUSTERS
+                if 3 * -(-ngk // c) * element_bytes <= SLICE_BUDGET]
+        if fits:
+            c = fits[0]
+            resident = sm_count * min(
+                MAX_BLOCKS_PER_SM, (SHARED_SM // (
+                    3 * -(-ngk // c) * element_bytes + STATIC_SHARED
+                    + BLOCK_RESERVED)))
+            cluster = c if nrows * c <= resident else fits[-1]
+    slice_ = -(-ngk // cluster)
+    return {"cluster": cluster, "slice": slice_, "blocks": nrows * cluster,
+            "shared": 3 * slice_ * element_bytes if cluster > 1 else 0}
 
 
 def davidson_residual_plain(x, hx, sx, h_diag, o_diag, mask, res_tol,
@@ -76,6 +125,10 @@ def davidson_residual(x, hx, sx, h_diag, o_diag, mask, res_tol: float,
     rnorm = torch.empty_like(evals)
     w = torch.empty_like(x) if want_w else None
     tabs = [t.contiguous() for t in tables]
+    if w is not None and w.data_ptr() % 16:
+        raise RuntimeError("davidson_residual: w is not 16-byte aligned")
+    plan = davidson_residual_plan(b * nb, ngk, x.element_size(),
+                                  build.sm_count(x.device))
     lib = build.library("davidson_residual")
     fn = getattr(lib, "davidson_residual" + suffix)
     rc = fn(
@@ -85,7 +138,7 @@ def davidson_residual(x, hx, sx, h_diag, o_diag, mask, res_tol: float,
         tabs[2].data_ptr() if want_w else None,
         float(res_tol), evals.data_ptr(), rnorm.data_ptr(),
         None if w is None else w.data_ptr(), b * nb, nb, ngk,
-        build.stream_of(x))
+        plan["cluster"], plan["slice"], build.stream_of(x))
     build.check(rc, "davidson_residual" + suffix)
     build.count_launch(davidson_residual, suffix)
     return evals, rnorm, w
