@@ -25,18 +25,21 @@ imports nothing of JAX or of sirius_tpu. Phases, each printing JSON lines:
    at the 16-atom coarse box, K12a on the spinor k-set block and K12b on
    one k-point's); K5 also at the 54-atom Gamma cell on one and two
    channels (records only) and on the spinor deck's four channels, each
-   launched twice on the same inputs for a bitwise-equal D, with the
-   device time of its launches from torch.profiler beside the event time
-   (device_ms); K1c records whether it is bitwise its plain version;
+   launched twice on the same inputs for a bitwise-equal D; every record
+   carries the device time of the work one call launches, from
+   torch.profiler, beside the event time (device_ms); K1c and K8b record
+   whether they are bitwise their plain versions (K8b raises if not), K8b
+   its launch plan and K9 its grid;
    K6 also at the 54-atom Gamma cell (1296 ops), where its yardstick
    cannot be built; every K6 and K6v record holds the factorised kernel
    against the unfactorised plain version on a random field too, and
    carries the group's factorisation (num_translations, num_reps,
    num_live) and the unfactorised sum's operations bound; every K2 record
    its cluster size; before them, the edge shapes of the redesigned K1c,
-   K5 and K2 (check_kernel_edges: odd row lengths, views off a 16-byte
+   K5, K8b and K2 (check_kernel_edges: odd row lengths, views off a 16-byte
    boundary, G counts off every tile and chunk, 1, 2 and 4 channels, more
-   atoms than one launch, K2's four instantiations at rows just over and
+   atoms than one launch, K8b's two instantiations on a half row tile, one
+   row and padding slots, K2's four instantiations at rows just over and
    under its cluster threshold, with and without w): error,
    kernel time (CUDA events, median of 21 samples of 5 launches after
    warm-up), the plain version's time, a one-call PyTorch yardstick where
@@ -421,11 +424,17 @@ def record_kernel(out, deck, gpu, name, kernel_out, plain_out, fn_k, fn_p,
                 else time_ms(fn_p))
     lib_ms = time_ms(fn_lib) if fn_lib is not None else None
     b_ms, b_by = bound(nbytes, flops, name.endswith(FP32_SUFFIXES))
+    extra = dict(extra or {})
+    # the device time of every kernel and fill one call of fn_k launches,
+    # where the record has none of its own
+    if "device_ms" not in extra:
+        dev = next(a for a in kernel_out if a is not None).device
+        extra["device_ms"] = device_ms(fn_k, dev, ("",))
     rec = {"phase": "kernel", "deck": deck, "name": name, "gpu": gpu,
            "max_abs_err": abs_err, "max_rel_err": rel, "tol_rel": TOL[name],
            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
-           "flops": flops, **(extra or {})}
+           "flops": flops, **extra}
     emit(rec)
     if not rel <= TOL[name]:
         raise AssertionError(f"{name} at {deck}: rel err {rel} > {TOL[name]}")
@@ -571,20 +580,54 @@ def synthetic_aug_tables(rng, na: int, ng: int, dev) -> dict:
             "lo_mask": t(xi1 != xi2, torch.float64)}
 
 
+def synthetic_pack_tables(rng, rows: int, npair: int, npad: int, nbox: int,
+                          real, dev):
+    """K8b's inputs on random tables: (vbox [1, rows, nbox], x [1, rows,
+    ngk], (ekin_p, mask_p, rep_box, par_box, zero_box)) at real, with P =
+    npair pairs at distinct random box addresses and npad padding slots
+    (mask 0) past 1 + 2P, which no deck here has."""
+    import numpy as np
+    import torch
+
+    ngk = 1 + 2 * npair + npad
+    addr = rng.permutation(nbox)[:2 * npair + 1]
+    mask = np.r_[np.ones(1 + 2 * npair), np.zeros(npad)]
+    tables = (torch.as_tensor(rng.uniform(0.0, 5.0, ngk), device=dev).to(real),
+              torch.as_tensor(mask, device=dev).to(real),
+              torch.as_tensor(addr[:npair], dtype=torch.int32, device=dev),
+              torch.as_tensor(addr[npair:2 * npair], dtype=torch.int32,
+                              device=dev),
+              int(addr[-1]))
+    x = torch.as_tensor(rng.standard_normal((1, rows, ngk)),
+                        device=dev).to(real)
+    z = torch.as_tensor(rng.standard_normal((2, 1, rows, nbox)), device=dev)
+    vbox = torch.complex(z[0], z[1]).to(
+        torch.complex128 if real == torch.float64 else torch.complex64)
+    return vbox, x, tables
+
+
+# K8b's edge shapes: (rows, pairs, padding slots, box entries); 129 rows
+# end on a half tile, 1 row is less than one tile, 1 + P + npad threads
+# leave the last block part empty
+K8B_EDGES = ((129, 2999, 7, 8192), (1, 2999, 7, 8192), (129, 2999, 0, 8192))
+
+
 def check_kernel_edges(dev, gpu: str) -> None:
-    """K1c and K5 against their plain versions at the shapes their vector
-    paths and launch plans treat apart. K1c, both modes and both
+    """K1c, K5 and K8b against their plain versions at the shapes their
+    vector paths and launch plans treat apart. K1c, both modes and both
     precisions, [2, 11, n] with ns = 2 (11 rows: not a whole row group) at
     the K1C_EDGES cases, bitwise, the elements around the view untouched.
     K5 at ng = 10007 (no multiple of any tile or chunk) on 7 atoms with 1,
     2 and 4 channels, at ng = 29 (below one tile), and on four channels of
     more atoms than one launch takes, each at 1e-12 relative and
-    twice on the same inputs with a bitwise-equal D. Emits one
+    twice on the same inputs with a bitwise-equal D. K8b, both
+    instantiations, at the K8B_EDGES cases, bitwise. Emits one
     kernel_edges line a case."""
     import numpy as np
     import torch
 
     from sirius_tpu_torch.kernels import augmentation as k45
+    from sirius_tpu_torch.kernels import gamma_pack as k8
     from sirius_tpu_torch.kernels import veff_multiply as k1c
 
     rng = np.random.default_rng(41)
@@ -646,6 +689,22 @@ def check_kernel_edges(dev, gpu: str) -> None:
         if not (rel <= TOL["augmentation.d_operator"] and repeat):
             raise AssertionError(f"d_operator at nch {nch}, na {na}, ng {ng}:"
                                  f" rel err {rel}, repeat bitwise {repeat}")
+    for real, sfx in ((torch.float64, ""), (torch.float32, ".f32")):
+        name = "gamma_pack.box_to_packed_hx" + sfx
+        for rows, npair, npad, nbox in K8B_EDGES:
+            vbox, x, pargs = synthetic_pack_tables(rng, rows, npair, npad,
+                                                   nbox, real, dev)
+            got = k8.box_to_packed_hx(vbox, x, *pargs)
+            want = k8.box_to_packed_hx_plain(vbox, x, *pargs)
+            bitwise = all(bool(torch.equal(a, b)) for a, b in zip(got, want))
+            emit({"phase": "kernel_edges", "gpu": gpu, "name": name,
+                  "rows": rows, "npair": npair, "padding_slots": npad,
+                  "nbox": nbox, "plan": k8.pack_plan(rows, x.shape[-1], npair),
+                  "bitwise": bitwise})
+            if not bitwise:
+                raise AssertionError(f"{name} at {rows} rows, {npad} padding "
+                                     "slots: not bitwise equal to its plain "
+                                     "version")
     check_residual_edges(dev, gpu, rng)
 
 
@@ -1099,15 +1158,21 @@ def check_kernels_gamma(deck: str, ctx, dev, gpu: str,
                           dim=(-3, -2, -1)).view(1, rows, n)
     del fr_k
     pargs = (gp.ekin_p, gp.mask_p, gp.rep_box, gp.par_box, gp.zero_box)
-    record("gamma_pack.box_to_packed_hx" + sfx_r,
-           list(k8.box_to_packed_hx(vbox, x, *pargs)),
-           list(k8.box_to_packed_hx_plain(vbox, x, *pargs)),
+    hs_k = k8.box_to_packed_hx(vbox, x, *pargs)
+    hs_p = k8.box_to_packed_hx_plain(vbox, x, *pargs)
+    bitwise = all(bool(torch.equal(a, b)) for a, b in zip(hs_k, hs_p))
+    record("gamma_pack.box_to_packed_hx" + sfx_r, list(hs_k), list(hs_p),
            lambda: k8.box_to_packed_hx(vbox, x, *pargs),
            lambda: k8.box_to_packed_hx_plain(vbox, x, *pargs), None,
            nbytes=(rows * (2 * npair + 1) * cb + rows * ngk * 3 * rb
                    + ngk * 2 * rb + npair * 8),
-           flops=rows * ngk * 6.0)
-    del vbox
+           flops=rows * ngk * 6.0,
+           extra={"bitwise": bitwise,
+                  "plan": k8.pack_plan(rows, ngk, npair)})
+    if not bitwise:
+        raise AssertionError(f"gamma_pack.box_to_packed_hx{sfx_r} at {deck}: "
+                             "not bitwise equal to its plain version")
+    del vbox, hs_k, hs_p
 
     # K2 on float64 blocks: x, H x, S x of the packed operator; row 0 an
     # exact eigenpair so the converged branch is exercised
@@ -1179,7 +1244,9 @@ def check_kernel_chunk(deck: str, ctx, chunk: int, dev, gpu: str,
                   lambda: k9.beta_chunk_plain(*args), None,
                   nbytes=(c * nxi * ngk * cb + ngk * rb * (5 + lmmax)
                           + nrf * nread * rb + c * (3 * rb + nxi * (8 + cb))),
-                  flops=c * nxi * ngk * 14.0 + c * ngk * 7.0 + ngk * 3.0)
+                  flops=c * nxi * ngk * 14.0 + c * ngk * 7.0 + ngk * 3.0,
+                  extra={"plan": {"threads": 256,
+                                  "blocks": [-(-ngk // 256), int(c)]}})
     return out
 
 

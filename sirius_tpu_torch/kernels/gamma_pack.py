@@ -16,8 +16,10 @@ tensor and takes the plain PyTorch version below for a CPU tensor:
       hx = (where(mask_p > 0, ekin_p, 0) * x' + vpack) * mask_p, sx = x' * mask_p.
 
 The lane tables are [ngk] (one Gamma sphere); rep_box / par_box [P] are the
-box positions of each pair's two members. Replaces sirius_tpu/ops/gamma.py::
-apply_h_s_gamma (:216-226, :230-245) and _pack_device (:248-268).
+box positions of each pair's two members; K8b's kernel takes one thread
+a pair and PACK_ROWS rows a thread (pack_plan). Replaces
+sirius_tpu/ops/gamma.py::apply_h_s_gamma (:216-226, :230-245) and
+_pack_device (:248-268).
 
 Two instantiations: float64 packed blocks with complex128 boxes and float64
 tables (counted in <wrapper>.launches), and float32 packed blocks with
@@ -104,6 +106,20 @@ def unpack_to_box(x, mask_p, slot_re, slot_im, im_sign, scale, fft_index,
 
 unpack_to_box.launches = 0
 unpack_to_box.launches_f32 = 0
+
+
+# K8b's threads a block and rows a thread (csrc/gamma_pack.cu's PACK_ROWS)
+PACK_THREADS = 256
+PACK_ROWS = 2
+
+
+def pack_plan(nrows: int, ngk: int, npair: int) -> dict:
+    """K8b's grid: one thread a pair in sphere order (the threads past P on
+    slot 0 and the padding slots), PACK_THREADS a block along x, and
+    PACK_ROWS rows a thread, a block along y."""
+    blocks = (-(-(ngk - npair) // PACK_THREADS), -(-nrows // PACK_ROWS))
+    return {"rows_per_thread": PACK_ROWS, "blocks": blocks,
+            "threads": PACK_THREADS}
 
 
 def box_to_packed_hx_plain(vbox, x, ekin_p, mask_p, rep_box, par_box,

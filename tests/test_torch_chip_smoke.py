@@ -137,6 +137,30 @@ def test_single_k_phases_run_on_cpu(monkeypatch, capsys):
     assert all(v == 0 for v in chip_smoke.read_launches().values())
 
 
+@pytest.mark.parametrize("fp32", [False, True])
+def test_gather_records_carry_plans_and_device_time(monkeypatch, fp32):
+    # K8b's record says it is bitwise its plain version and which kernel
+    # and grid it launched; K9's its grid; every record has a device time
+    # (None off the card)
+    monkeypatch.setattr(chip_smoke, "time_ms", lambda fn, **kw: (fn(), 0.0)[1])
+    dev = torch.device("cpu")
+    ctx = chip_smoke.make_context(SMALL_GAMMA, chip_smoke.TIGHT,
+                                  chip_smoke.US_SYM)
+    sfx_r, sfx_c = (".f32", ".c64") if fp32 else ("", "")
+    recs = chip_smoke.check_kernels_gamma("small_gamma", ctx, dev, "cpu",
+                                          fp32=fp32)
+    recs.update(chip_smoke.check_kernel_chunk("small_gamma", ctx, 16, dev,
+                                              "cpu", fp32=fp32))
+    k8b = recs["gamma_pack.box_to_packed_hx" + sfx_r]
+    assert k8b["bitwise"] is True and k8b["max_abs_err"] == 0.0
+    assert k8b["plan"]["rows_per_thread"] == 2
+    assert k8b["plan"]["blocks"][1] == ctx.num_bands  # 2 nb rows
+    k9 = recs["beta_chunk" + sfx_c]
+    assert k9["plan"]["blocks"][1] == 16
+    assert all("device_ms" in r and r["device_ms"] is None
+               for r in recs.values())
+
+
 def test_xc_phases_run_on_cpu(monkeypatch, capsys):
     monkeypatch.setattr(chip_smoke, "time_ms", lambda fn, **kw: (fn(), 0.0)[1])
     dev = torch.device("cpu")
@@ -370,9 +394,10 @@ def test_real_mode_bound_counts_whole_elements(monkeypatch):
 
 
 def test_edge_shapes_run_on_cpu(capsys):
-    # the K1c and K5 edge cases: each K1c case bitwise, with its view off a
-    # 16-byte boundary where it says so; K5 at every channel count, below
-    # one tile and past one launch group, to 1e-12 and repeat-bitwise
+    # the K1c, K5 and K8b edge cases: each K1c case bitwise, with its view
+    # off a 16-byte boundary where it says so; K5 at every channel count,
+    # below one tile and past one launch group, to 1e-12 and
+    # repeat-bitwise
     chip_smoke.check_kernel_edges(torch.device("cpu"), "cpu")
     lines = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
     k1c = [r for r in lines if r["name"].startswith("veff_multiply")]
@@ -386,6 +411,12 @@ def test_edge_shapes_run_on_cpu(capsys):
     assert any(r["plan"]["ngroups"] > 1 for r in k5)
     assert all(r["num_gvec"] % r["plan"]["chunk"] for r in k5)
     assert all(r["max_rel_err"] <= 1e-12 and r["repeat_bitwise"] for r in k5)
+    # K8b in both instantiations on a half tile, one row and padding slots
+    k8b = [r for r in lines if r["name"].startswith("gamma_pack")]
+    assert len(k8b) == 2 * len(chip_smoke.K8B_EDGES)
+    assert all(r["bitwise"] for r in k8b)
+    assert {r["rows"] % r["plan"]["rows_per_thread"] for r in k8b} == {1}
+    assert {r["padding_slots"] > 0 for r in k8b} == {True, False}
 
 
 def test_launch_checks_follow_the_band_solve_path():

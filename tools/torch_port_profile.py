@@ -58,7 +58,7 @@ HAND_KERNELS = ("scatter_valid", "gather_hpsi", "residual_rows",
                 "accumulate", "lda_xc_points", "veff_multiply_kernel",
                 "rho_aug_kernel", "d_operator_partial_kernel",
                 "d_operator_finish_kernel", "symmetrize_pw_kernel",
-                "unpack_scatter", "pack_gather", "beta_chunk_kernel",
+                "unpack_scatter", "pack_pairs", "beta_chunk_kernel",
                 "gga_xc_polarized", "gga_xc_unpolarized", "gradient_scatter",
                 "divergence_gather", "mgga_xc_polarized",
                 "mgga_xc_unpolarized", "grad_scatter", "grad_gather",
