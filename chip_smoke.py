@@ -13,9 +13,11 @@ imports nothing of JAX or of sirius_tpu. Phases, each printing JSON lines:
    K2, K3, K7; ultrasoft + symmetry: K1c, K4, K5, K6; Gamma packed-real:
    K8a, K8b, K1c in real mode, K2 on float64 blocks; chunked projectors:
    K9; the XC kernels at the fine boxes of the 16- and 54-atom cells: K7b
-   for X + PW92 and X + VWN5, K7g for PBE and PBEsol, K7s for SCAN, each
-   polarized and unpolarized, on densities with dead channels and fully
-   polarized points, K10a and K10b, and K6 on an axial field; the tau
+   for X + PW92 and X + VWN5, K7g for PBE and PBEsol and K7s for SCAN (each
+   set its own instantiation) and both kernels' runtime-mask instantiation
+   on a mixed list, each polarized and unpolarized, on densities with dead
+   channels and fully polarized points, K10a and K10b, and K6 on an axial
+   field; the tau
    operator's K11a and K11b at the 16-atom coarse box; the non-collinear
    kernels at the 2-atom and 16-atom spinor decks: K12a, K12b, K6v and K4
    on four channels; and the fp32 instantiations, at the full-width shapes
@@ -40,7 +42,9 @@ imports nothing of JAX or of sirius_tpu. Phases, each printing JSON lines:
    boundary, G counts off every tile and chunk, 1, 2 and 4 channels, more
    atoms than one launch, K8b's two instantiations on a half row tile, one
    row and padding slots, K2's four instantiations at rows just over and
-   under its cluster threshold, with and without w): error,
+   under its cluster threshold, with and without w; every K7g and K7s
+   instantiation at one point, a point count off the block, all points
+   dead, sigma = 0 at zeta = +-1 and, for SCAN, alpha at 1): error,
    kernel time (CUDA events, median of 21 samples of 5 launches after
    warm-up), the plain version's time, a one-call PyTorch yardstick where
    one exists (library_ms), and the least time the card could take
@@ -94,11 +98,15 @@ path: full_width_us for K1-K7, full_width_gamma_us for K8a, K8b, K1c real
 and K2 float64, full_width_chunked_us for K9, full_width_gamma_pbe_fm for
 K7g (PBE), K10a, K10b and K6 on axial fields, full_width_scan_us for K7s
 unpolarized, K11a and K11b, full_width_spinor_us for K12a, K12b, K6v and
-K4 on four channels; K7b's X + PW92 and X + VWN5 rows, K7g's PBEsol
-row and K7s's polarized row take theirs from the parity decks that run
-them (parity_scf_pw_us_afm, parity_scf_gamma_nc_vwn,
-parity_scf_gamma_nc_pbesol, parity_scf_scan_us_fm); the fp32 rows from
-the run FP32_SUMMARY names.
+K4 on four channels; K7b's X + PW92 and X + VWN5 rows, K7g's
+unpolarized PBE and PBEsol rows and K7s's polarized row take theirs from
+the parity decks that run them (parity_scf_pw_us_afm,
+parity_scf_gamma_nc_vwn, parity_scf_pbe_us, parity_scf_gamma_nc_pbesol,
+parity_scf_scan_us_fm); the fp32 rows from the run FP32_SUMMARY names.
+K7g and K7s count each instantiation apart, so a row's launches are those
+of its compiled set; the runtime-mask instantiations, which no deck runs,
+have records and no row. Each full-width record counts the run's eigh
+calls by the type and order of the matrix (eigh_calls).
 
 The last three lines are the kernels summary, the nvidia-smi name/power
 line and {"ok": true, "device": {...}}. Any failure exits non-zero before
@@ -198,6 +206,12 @@ XC_CHECKS = {
                                   False),
     "mgga_xc.scan": (SCAN, True),
     "mgga_xc.scan.unpolarized": (SCAN, False),
+    # the runtime-mask instantiations, which serve every list that is not
+    # a compiled set
+    "gga_xc.mask": (["XC_GGA_X_PBE", "XC_LDA_C_PW"], True),
+    "gga_xc.mask.unpolarized": (["XC_GGA_X_PBE", "XC_LDA_C_PW"], False),
+    "mgga_xc.mask": (["XC_GGA_X_PBE", "XC_MGGA_C_SCAN"], True),
+    "mgga_xc.mask.unpolarized": (["XC_GGA_X_PBE", "XC_MGGA_C_SCAN"], False),
 }
 # relative tolerance of each kernel against its plain version on the card:
 # K1/K2 are a store/gather and three fixed-order row sums (rounding only);
@@ -212,10 +226,13 @@ XC_CHECKS = {
 # dual numbers against autograd of the same expressions (a different order
 # of the chain rule's products, a few ulp), normwise over the box; K10a and
 # K10b are products and sums in the plain version's order (rounding only).
-# K7s as K7g, held to 1e-12; K11a / K11b are a store and a gather with
-# products and sums in the plain version's order (rounding only)
+# K7g and K7s, each instantiation, are held to 1e-12 (their compiled sets
+# take powers from cbrt and sqrt, a few ulp from pow); K11a / K11b are a
+# store and a gather with products and sums in the plain version's order
+# (rounding only)
 TOL = {**{name: 1e-11 for name in XC_CHECKS},
-       "mgga_xc.scan": 1e-12, "mgga_xc.scan.unpolarized": 1e-12,
+       **{name: 1e-12 for name in XC_CHECKS if name.startswith(("gga_xc",
+                                                                "mgga_xc"))},
        "mgga_tau.grad_to_box": 1e-14, "mgga_tau.box_to_pw_tau": 1e-14,
        "xc_gradient.gradient_boxes": 1e-12,
        "xc_gradient.divergence_pw": 1e-12, "symmetrize_pw.axial": 1e-13,"local_hpsi.pw_to_box": 1e-12, "local_hpsi.box_to_pw_hpsi": 1e-12,
@@ -327,6 +344,7 @@ REPLACES.update({name: REPLACES[base_name(name)] for name in FP32_SUMMARY})
 SUMMARY_XC = {"lda_xc.pw92": "pw_us_sym_afm",
               "lda_xc.vwn.unpolarized": "gamma_nc_vwn",
               "gga_xc.pbe": "full_width_gamma_pbe_fm",
+              "gga_xc.pbe.unpolarized": "pbe_us_sym",
               "gga_xc.pbesol.unpolarized": "gamma_nc_pbesol"}
 # the SCAN rows (records at the 16-atom boxes: fine 96^3 for K7s, coarse
 # for K11) and the run their launches come from
@@ -706,6 +724,91 @@ def check_kernel_edges(dev, gpu: str) -> None:
                                      "slots: not bitwise equal to its plain "
                                      "version")
     check_residual_edges(dev, gpu, rng)
+    check_xc_edges(dev, gpu, rng)
+
+
+# the XC edge cases: name, points (one point; 933, no multiple of the
+# 128-thread block)
+XC_EDGES = (("one point", 1), ("off the block", 933), ("all dead", 933),
+            ("sigma 0 at zeta +-1", 933), ("alpha at 1", 933))
+
+
+def xc_edge_fields(case: str, n: int, rng, dev) -> dict:
+    """Seeded inputs of one XC edge case: spin densities, their gradients
+    and kinetic-energy densities, and the total density, gradient and tau
+    of the unpolarized form. "all dead": every channel below DENS_TH;
+    "sigma 0 at zeta +-1": one channel exactly 0 on alternate points, zero
+    gradients; "alpha at 1": tau_s = tau_W + tau_unif, so SCAN's alpha
+    sits at 1 up to rounding, where scan_interp switches branch."""
+    import numpy as np
+    import torch
+
+    rho = np.exp(rng.uniform(np.log(1e-4), np.log(1.0), n))
+    frac = rng.uniform(-0.9, 0.9, n)
+    grad_scale = rho ** (4.0 / 3.0)
+    if case == "all dead":
+        rho = rng.choice([0.0, 1e-14, 1.9e-13], n)
+        frac = rng.uniform(-0.05, 0.05, n)
+    if case == "sigma 0 at zeta +-1":
+        frac = np.where(np.arange(n) % 2 == 0, 1.0, -1.0)
+        grad_scale = np.zeros(n)
+    nu, nd = 0.5 * rho * (1.0 + frac), 0.5 * rho * (1.0 - frac)
+    gu = rng.standard_normal((3, n)) * grad_scale
+    gd = rng.standard_normal((3, n)) * grad_scale
+    tau_unif = 0.3 * (6.0 * math.pi**2) ** (2.0 / 3.0)
+
+    def tau(n_s, g):
+        w = 1.0 if case == "alpha at 1" else rng.uniform(0.5, 2.0, n)
+        return (tau_unif * n_s ** (5.0 / 3.0) * w
+                + (g * g).sum(0) / np.maximum(8.0 * n_s, 1e-30))
+
+    tu, td = tau(nu, gu), tau(nd, gd)
+    g1 = gu + gd
+    tt = (tau_unif / 2.0 ** (2.0 / 3.0) * rho ** (5.0 / 3.0)
+          + (g1 * g1).sum(0) / np.maximum(8.0 * rho, 1e-30)
+          if case == "alpha at 1" else tu + td)
+    return {k: torch.as_tensor(v, device=dev) for k, v in dict(
+        nu=nu, nd=nd, gu=gu, gd=gd, tu=tu, td=td, rho=rho, g1=g1,
+        tt=tt).items()}
+
+
+def check_xc_edges(dev, gpu: str, rng) -> None:
+    """Every K7g and K7s instantiation (the compiled sets and the runtime
+    mask, polarized and unpolarized: the K7g and K7s names of XC_CHECKS)
+    against its plain version at the XC_EDGES cases, each at its XC_CHECKS
+    tolerance. Emits one kernel_edges line a case."""
+    from sirius_tpu_torch.kernels import gga_xc as k7g
+    from sirius_tpu_torch.kernels import mgga_xc as k7s
+
+    for case, n in XC_EDGES:
+        f = xc_edge_fields(case, n, rng, dev)
+        for name, (names, pol) in XC_CHECKS.items():
+            mgga = name.startswith("mgga_xc")
+            if not (mgga or name.startswith("gga_xc")):
+                continue
+            mod = k7s if mgga else k7g
+            if pol:
+                args = ((f["nu"], f["nd"], f["gu"], f["gd"])
+                        + ((f["tu"], f["td"]) if mgga else ()))
+                got = (k7s.mgga_xc if mgga else k7g.gga_xc)(*args, names)
+                want = (k7s.mgga_xc_plain if mgga else k7g.gga_xc_plain)(
+                    *args, names)
+            else:
+                args = (f["rho"], f["g1"]) + ((f["tt"],) if mgga else ())
+                got = (k7s.mgga_xc_unpolarized if mgga
+                       else k7g.gga_xc_unpolarized)(*args, names)
+                want = (k7s.mgga_xc_unpolarized_plain if mgga
+                        else k7g.gga_xc_unpolarized_plain)(*args, names)
+            errs = [rel_err(a, b) for a, b in zip(got, want)]
+            finite = all(bool(a.isfinite().all()) for a in got)
+            rel = max(e[1] for e in errs)
+            emit({"phase": "kernel_edges", "gpu": gpu, "name": name,
+                  "instantiation": mod.instantiation(names)[0], "case": case,
+                  "points": n, "max_abs_err": max(e[0] for e in errs),
+                  "max_rel_err": rel, "tol_rel": TOL[name], "finite": finite})
+            if not (rel <= TOL[name] and finite):
+                raise AssertionError(f"{name} ({case}): rel err {rel}, "
+                                     f"finite {finite}")
 
 
 # K2's edge shapes: (batches, bands, row bytes over SMALL_ROW_BYTES); rows
@@ -1255,18 +1358,25 @@ def xc_operations(names, polarized: bool) -> float:
     torch operations of each functional's energy in the plain version (each
     elementary function, pow, exp, expm1, log, sqrt, atan, counted as one),
     times 1 + the number of partial derivatives the kernel carries for that
-    term, plus the sigma and flux products of GGA and mGGA. K7b / K7g carry
-    5 partials polarized GGA, 2 otherwise. K7s, term by term: SCAN exchange
-    is one scan_x_half per spin channel on Dual<3> polarized (two halves),
-    one unpolarized (0.5 (x + x)); SCAN correlation runs on Dual<4>
-    polarized, Dual<3> unpolarized; the LDA and GGA names of a mixed list
-    on Dual<5> polarized, Dual<3> unpolarized."""
+    term, plus the sigma and flux products of GGA and mGGA. K7b and K7g's
+    runtime-mask instantiation carry 5 partials polarized GGA, 2 otherwise;
+    K7g's compiled sets (PBE, PBEsol), term by term: exchange is one
+    pbe_x_half per spin channel on Dual<2> polarized (two halves), one
+    unpolarized (0.5 (x + x) = x), correlation runs on Dual<3> polarized,
+    Dual<2> unpolarized. K7s, term by term: SCAN exchange is one
+    scan_x_half per spin channel on Dual<3> polarized (two halves), one
+    unpolarized; SCAN correlation runs on Dual<4> polarized, Dual<3>
+    unpolarized; the LDA and GGA names of a mixed list on Dual<5>
+    polarized, Dual<3> unpolarized."""
     import torch
     from torch.overrides import TorchFunctionMode
 
+    from sirius_tpu_torch.kernels.gga_xc import COMPILED_SETS
     from sirius_tpu_torch.kernels.xc_functionals import (GGA_FUNCS,
-                                                        MGGA_FUNCS, energy,
-                                                        scan_c_e, scan_x_half)
+                                                        MGGA_FUNCS, PBE_MU,
+                                                        _pbe_x_half, energy,
+                                                        func_mask, scan_c_e,
+                                                        scan_x_half)
 
     count = [0]
 
@@ -1287,6 +1397,12 @@ def xc_operations(names, polarized: bool) -> float:
     gga = any(n in GGA_FUNCS for n in names)
     mgga = any(n in MGGA_FUNCS for n in names)
     extra = (30.0 if polarized else 10.0) if (gga or mgga) else 0.0
+    if gga and not mgga and func_mask(names) in COMPILED_SETS:
+        half = ops(lambda n, s: _pbe_x_half(2 * n, 4 * s, PBE_MU), x[0], x[2])
+        corr = next(n for n in names if "_C_" in n)
+        return (((2 * half + 2) if polarized else half) * (1 + 2)
+                + ops(GGA_FUNCS[corr], *x[:5]) * (1 + (3 if polarized else 2))
+                + extra)
     if not mgga:
         partials = 5 if (gga and polarized) else 2
         return ops(energy, list(names), *x) * (1.0 + partials) + extra
@@ -1394,9 +1510,12 @@ def check_kernels_xc(deck: str, ctx, dev, gpu: str) -> dict:
                 plain = functools.partial(k7g.gga_xc_unpolarized_plain, rho,
                                           g1, names)
             nbytes = n * (136.0 if pol else 72.0)
+        kind = {"gga_xc": k7g, "mgga_xc": k7s}.get(name.split(".")[0])
         # no single PyTorch call evaluates a functional: library_ms null
         record(name, list(kern()), list(plain()), kern, plain, None,
-               nbytes=nbytes, flops=n * ops, slow_plain=True)
+               nbytes=nbytes, flops=n * ops, slow_plain=True,
+               extra=None if kind is None else {
+                   "instantiation": kind.instantiation(names)[0]})
     # K10b takes the forward FFT of the polarized PBE fluxes
     _, _, _, fu, fd = k7g.gga_xc(nu, nd, gu, gd, PBE)
     boxes = torch.fft.fftn(torch.stack([fu, fd]).view((2, 3) + dims).to(
@@ -1716,11 +1835,16 @@ def wrappers() -> dict:
     from sirius_tpu_torch.kernels import xc_gradient as k10
 
     n = "launches"
-    # every functional sum counts on its kernel's wrapper: each summary row
-    # reads the count of the run that only launches its sum
-    kernel = {"lda_xc": k7.lda_xc, "gga_xc": k7g.gga_xc,
-              "mgga_xc": k7s.mgga_xc}
-    xc = {name: (kernel[name.split(".")[0]], n) for name in XC_CHECKS}
+    # K7b's functional sums count on its wrapper: each summary row reads the
+    # count of the run that only launches its sum; K7g and K7s count each
+    # instantiation apart (launches_pbe, launches_scan, ...)
+    xc = {name: (k7.lda_xc, n) for name in XC_CHECKS
+          if name.startswith("lda_xc")}
+    for name, (names, _) in XC_CHECKS.items():
+        mod = {"gga_xc": k7g, "mgga_xc": k7s}.get(name.split(".")[0])
+        if mod is not None:
+            fn = getattr(mod, name.split(".")[0])
+            xc[name] = (fn, n + "_" + mod.instantiation(names)[0])
     out = {"local_hpsi.pw_to_box": (k1.pw_to_box, n),
            "local_hpsi.box_to_pw_hpsi": (k1.box_to_pw_hpsi, n),
            "davidson_residual": (k2.davidson_residual, n),
@@ -1780,13 +1904,15 @@ MGGA_KERNELS = ("mgga_xc.scan", "xc_gradient.gradient_boxes",
                 "mgga_tau.box_to_pw_tau")
 
 
-def xc_kernels(base, gga: bool, axial: bool, mgga: bool = False) -> tuple:
+def xc_kernels(base, gga: bool, axial: bool, mgga: bool = False,
+               gga_set: str = "gga_xc.pbe") -> tuple:
     """A path's kernels for a deck of other functionals or spin: GGA runs
-    K7g, K10a and K10b in place of K7, SCAN K7s, K10a, K10b, K11a and K11b;
-    a polarized deck with symmetry runs K6 on its axial fields too."""
+    K7g (its instantiation gga_set), K10a and K10b in place of K7, SCAN
+    K7s, K10a, K10b, K11a and K11b; a polarized deck with symmetry runs K6
+    on its axial fields too."""
     out = tuple(k for k in base if not ((gga or mgga) and k == "lda_xc"))
-    return out + (MGGA_KERNELS if mgga else GGA_KERNELS if gga else ()) + (
-        ("symmetrize_pw.axial",) if axial else ())
+    return out + (MGGA_KERNELS if mgga else (gga_set,) + GGA_KERNELS[1:]
+                  if gga else ()) + (("symmetrize_pw.axial",) if axial else ())
 
 
 # the band solve each deck of XC_DECKS takes, and the kernels it must launch
@@ -1795,7 +1921,8 @@ XC_DECK_PATH = {
     "pw_us_sym_afm": ("kset", xc_kernels(US_KERNELS, False, True)),
     "gamma_pbe_us_sym_fm": ("gamma", xc_kernels(GAMMA_US_KERNELS, True, True)),
     "gamma_nc_vwn": ("gamma", GAMMA_KERNELS),
-    "gamma_nc_pbesol": ("gamma", xc_kernels(GAMMA_KERNELS, True, False)),
+    "gamma_nc_pbesol": ("gamma", xc_kernels(GAMMA_KERNELS, True, False,
+                                            gga_set="gga_xc.pbesol")),
     "scan_us_sym": ("kset", xc_kernels(US_KERNELS, False, False, mgga=True)),
     "scan_us_sym_fm": ("kset", xc_kernels(US_KERNELS, False, True,
                                           mgga=True)),
@@ -1929,6 +2056,28 @@ def check_launched(phase: str, dev, launches: dict, required,
     if path == "kset_nc" and scalar:
         raise AssertionError(f"{phase}: scalar kernels on the spinor path: "
                              f"{scalar}")
+
+
+@contextlib.contextmanager
+def watch_eigh():
+    """Count the run's torch.linalg.eigh calls by the type and order of
+    the matrix cuSOLVER is handed ({"torch.float64 387": n, ...}): the
+    route each subspace type takes (solvers/davidson.py::EIGH_TYPE)."""
+    import torch
+
+    calls: dict = {}
+    eigh = torch.linalg.eigh
+
+    def counted(a, *args, **kw):
+        key = f"{a.dtype} {a.shape[-1]}"
+        calls[key] = calls.get(key, 0) + 1
+        return eigh(a, *args, **kw)
+
+    torch.linalg.eigh = counted
+    try:
+        yield calls
+    finally:
+        torch.linalg.eigh = eigh
 
 
 @contextlib.contextmanager
@@ -2213,7 +2362,7 @@ def full_width(ctx, dev, gpu: str, phase: str = "full_width",
 
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    with watch_band_solves() as solves:
+    with watch_band_solves() as solves, watch_eigh() as eigh_calls:
         res = run_scf(ctx.cfg, ctx=ctx, device=dev)
     launches = read_launches()
     iters = res["num_scf_iterations"]
@@ -2248,7 +2397,7 @@ def full_width(ctx, dev, gpu: str, phase: str = "full_width",
               zip(secs, prec)) if i and w == "fp32"],
           "fp64_iteration_seconds": [t for i, (t, w) in enumerate(
               zip(secs, prec)) if i and w == "fp64"],
-          "band_solves": solves,
+          "band_solves": solves, "eigh_calls": eigh_calls,
           "max_memory_allocated": torch.cuda.max_memory_allocated(),
           "electrons": nel, "electron_tol": electron_tol,
           "e_total": res["energy"]["total"],

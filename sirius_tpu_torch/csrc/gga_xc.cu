@@ -12,25 +12,32 @@
 // the gradients (as potential.py:116-118 sums them, component 0 first),
 // applies the dead-channel sanitizing of xc.py:350-356 (a channel below
 // _DENS_TH is evaluated at the threshold with its sigma, and the cross
-// sigma, set to 0), evaluates the energy sum of xc_dual.cuh on dual numbers
-// -- Dual<5> over (n_up, n_dn, sigma_uu, sigma_ud, sigma_dd) polarized,
-// Dual<2> over (rho, sigma) unpolarized, where n_up = n_dn = rho/2 and every
-// sigma is sigma/4 (xc.py:399-415) -- masks a dead channel's v and vsigma
-// to 0 (:360-366), and writes e, v and the flux fields. sigma and vsigma
-// never leave registers.
+// sigma, set to 0), evaluates the energy and its partials on dual numbers,
+// masks a dead channel's v and vsigma to 0 (:360-366), and writes e, v and
+// the flux fields. sigma and vsigma never leave registers.
 //
-// LDA functionals of the same list (PBE X + PW C is legal) are summed in
-// the same launch, on the same duals.
+// Three instantiations (kSet):
+// - kPbe, kPbeSol: PBE or PBEsol exchange plus correlation, the sets the
+//   port's decks run, on xc_sets.cuh. Polarized, each exchange half runs on
+//   Dual<2> over (n_s, sigma_ss) (xc_dual.cuh's pbe_x_half, kF from pow:
+//   see point_polarized) and correlation on Dual<3> over (n_up, n_dn,
+//   sigma = sigma_uu + 2 sigma_ud + sigma_dd), chained back with the
+//   weights (1, 2, 1); unpolarized, one Dual<2> over (rho, sigma) at
+//   zeta = 0, one exchange half (0.5 (x + x) = x) and n^(1/3) shared.
+// - kMask: any other sum of the LDA and PBE-family names (PBE X + PW C is
+//   legal), the runtime mask over xc_dual.cuh's energies on Dual<5> over
+//   (n_up, n_dn, sigma_uu, sigma_ud, sigma_dd) polarized, Dual<2> over
+//   (rho, sigma) unpolarized, where n_up = n_dn = rho/2 and every sigma is
+//   sigma/4 (xc.py:399-415).
 //
-// Bound on the H100: bytes, by chip_smoke.py's counting rule. Bytes a
+// Bound on the H100: by chip_smoke.py's counting rule, bytes. Bytes a
 // point: polarized 64 in (n_up, n_dn, 6 gradient components) and 72 out
 // (e, v_up, v_dn, 6 flux components); unpolarized 32 in and 40 out. The
-// rule counts PBE exchange plus correlation on Dual<5> as ~1,050 fp64
-// operations a point (175 operations of the energy, each elementary
-// function one, times 1 + 5 partials), under the card's ~10 fp64
-// operations a byte. pow, exp, log1p and atan are tens of instructions
-// each in fp64, so the kernel itself is likely to run at the pace of its
-// arithmetic, well above that bound.
+// kernel itself runs at the pace of its fp64 instructions: on the mask
+// form's Dual<5> each dpow is two fp64 pow calls, and PBE polarized takes
+// sixteen. The compiled sets take three cube roots and four pow calls
+// polarized and one cube root unpolarized in their place, carry two or
+// three partials in place of five, and fold the set's constants.
 //
 // Design: one thread per point, grid-stride, no shared state.
 //
@@ -38,12 +45,94 @@
 // allocates nothing, returns cudaGetLastError().
 #include <cuda_runtime.h>
 
-#include "xc_dual.cuh"
+#include "xc_sets.cuh"
 
 namespace {
 
 using xc::kDensTh;
 
+// instantiations; kernels/gga_xc.py::COMPILED_SETS passes the same numbers
+enum : int { kMask = 0, kPbe = 1, kPbeSol = 2 };
+
+template <int kSet>
+struct SetOf;
+template <>
+struct SetOf<kPbe> {
+    using T = xc::PbeSet;
+    static constexpr int mask = xc::kGgaXPbe | xc::kGgaCPbe;
+};
+template <>
+struct SetOf<kPbeSol> {
+    using T = xc::PbeSolSet;
+    static constexpr int mask = xc::kGgaXPbeSol | xc::kGgaCPbeSol;
+};
+
+// e and its partials along (n_up, n_dn, sigma_uu, sigma_ud, sigma_dd) at
+// one sanitized point
+template <int kSet>
+__device__ __forceinline__ void point_polarized(int mask, double nu, double nd,
+                                                double suu, double sud,
+                                                double sdd, double* e,
+                                                double* p) {
+    if constexpr (kSet == kMask) {
+        const xc::Dual<5> r = xc::energy<5>(
+            mask, xc::seed<5>(nu, 0), xc::seed<5>(nd, 1), xc::seed<5>(suu, 2),
+            xc::seed<5>(sud, 3), xc::seed<5>(sdd, 4));
+        *e = r.v;
+#pragma unroll
+        for (int k = 0; k < 5; ++k) p[k] = r.d[k];
+    } else {
+        using S = typename SetOf<kSet>::T;
+        using D2 = xc::Dual<2>;
+        using D3 = xc::Dual<3>;
+        // exchange, 0.5 (X(2 n_up, 4 sigma_uu) + X(2 n_dn, 4 sigma_dd)), each
+        // half the mask form's pbe_x_half (its kF from pow). At a nearly
+        // unpolarized point v_up - v_dn, the non-collinear path's B_xc, is
+        // the difference of the two halves' rounding; with a cube root's
+        // slope that noise was larger and moved a non-magnetic deck's
+        // moment off its gate (PERF.md §6)
+        const D2 xu = xc::pbe_x_half(2.0 * xc::seed<2>(nu, 0),
+                                     4.0 * xc::seed<2>(suu, 1), S::kMu);
+        const D2 xd = xc::pbe_x_half(2.0 * xc::seed<2>(nd, 0),
+                                     4.0 * xc::seed<2>(sdd, 1), S::kMu);
+        // correlation on (n_up, n_dn, sigma_uu + 2 sigma_ud + sigma_dd)
+        const D3 u = xc::seed<3>(nu, 0);
+        const D3 d = xc::seed<3>(nd, 1);
+        const D3 n = u + d;
+        const D3 c = xc::pbe_c_k<false>(u, d, xc::seed<3>(suu + 2.0 * sud + sdd, 2),
+                                        n, xc::dcbrt(n), S::kBeta);
+        *e = 0.5 * (xu.v + xd.v) + c.v;
+        p[0] = 0.5 * xu.d[0] + c.d[0];
+        p[1] = 0.5 * xd.d[0] + c.d[1];
+        p[2] = 0.5 * xu.d[1] + c.d[2];
+        p[3] = 2.0 * c.d[2];
+        p[4] = 0.5 * xd.d[1] + c.d[2];
+    }
+}
+
+// the energy at n_up = n_dn = rho/2, every sigma sigma/4, on Dual<2> over
+// (rho, sigma): its partials are (v_up + v_dn)/2 and
+// (vsigma_uu + vsigma_ud + vsigma_dd)/4
+template <int kSet>
+__device__ __forceinline__ xc::Dual<2> point_unpolarized(int mask, double half,
+                                                         double sigma,
+                                                         bool dead) {
+    using D = xc::Dual<2>;
+    const D nh = xc::seed<2>(dead ? kDensTh : half, 0, 0.5);
+    const D s4 = dead ? xc::constant<2>(0.0) : xc::seed<2>(0.25 * sigma, 1, 0.25);
+    if constexpr (kSet == kMask) {
+        return xc::energy<2>(mask, nh, nh, s4, s4, s4);
+    } else {
+        using S = typename SetOf<kSet>::T;
+        // n = 2 n_h is exchange's 2 n_s too: one n^(1/3), one kF
+        const D n = nh + nh;
+        const D cn = xc::dcbrt(n);
+        const D x = xc::pbe_x_half_k(n, xc::kKfK * cn, 4.0 * s4, S::kMu);
+        return x + xc::pbe_c_k<true>(nh, nh, s4 + 2.0 * s4 + s4, n, cn, S::kBeta);
+    }
+}
+
+template <int kSet>
 __global__ void gga_xc_polarized(int mask, const double* __restrict__ nu_in,
                                  const double* __restrict__ nd_in,
                                  const double* __restrict__ gu,
@@ -53,7 +142,6 @@ __global__ void gga_xc_polarized(int mask, const double* __restrict__ nu_in,
                                  double* __restrict__ vd_out,
                                  double* __restrict__ fu_out,
                                  double* __restrict__ fd_out, long long n) {
-    using D = xc::Dual<5>;
     for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
          i += (long long)gridDim.x * blockDim.x) {
         double a[3], b[3];
@@ -73,17 +161,16 @@ __global__ void gga_xc_polarized(int mask, const double* __restrict__ nu_in,
         const double nd = nd_in[i];
         const bool up0 = nu < kDensTh;
         const bool dn0 = nd < kDensTh;
-        const D e = xc::energy<5>(
-            mask, xc::seed<5>(up0 ? kDensTh : nu, 0),
-            xc::seed<5>(dn0 ? kDensTh : nd, 1), xc::seed<5>(up0 ? 0.0 : suu, 2),
-            xc::seed<5>((up0 || dn0) ? 0.0 : sud, 3),
-            xc::seed<5>(dn0 ? 0.0 : sdd, 4));
-        const double vsuu = up0 ? 0.0 : e.d[2];
-        const double vsud = (up0 || dn0) ? 0.0 : e.d[3];
-        const double vsdd = dn0 ? 0.0 : e.d[4];
-        e_out[i] = e.v;
-        vu_out[i] = up0 ? 0.0 : e.d[0];
-        vd_out[i] = dn0 ? 0.0 : e.d[1];
+        double e, p[5];
+        point_polarized<kSet>(mask, up0 ? kDensTh : nu, dn0 ? kDensTh : nd,
+                              up0 ? 0.0 : suu, (up0 || dn0) ? 0.0 : sud,
+                              dn0 ? 0.0 : sdd, &e, p);
+        const double vsuu = up0 ? 0.0 : p[2];
+        const double vsud = (up0 || dn0) ? 0.0 : p[3];
+        const double vsdd = dn0 ? 0.0 : p[4];
+        e_out[i] = e;
+        vu_out[i] = up0 ? 0.0 : p[0];
+        vd_out[i] = dn0 ? 0.0 : p[1];
 #pragma unroll
         for (int c = 0; c < 3; ++c) {
             fu_out[c * n + i] =
@@ -94,12 +181,12 @@ __global__ void gga_xc_polarized(int mask, const double* __restrict__ nu_in,
     }
 }
 
+template <int kSet>
 __global__ void gga_xc_unpolarized(int mask, const double* __restrict__ rho_in,
                                    const double* __restrict__ g,
                                    double* __restrict__ e_out,
                                    double* __restrict__ v_out,
                                    double* __restrict__ f_out, long long n) {
-    using D = xc::Dual<2>;
     for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
          i += (long long)gridDim.x * blockDim.x) {
         double a[3];
@@ -110,11 +197,7 @@ __global__ void gga_xc_unpolarized(int mask, const double* __restrict__ rho_in,
         for (int c = 0; c < 3; ++c) sigma = __dadd_rn(sigma, __dmul_rn(a[c], a[c]));
         const double half = 0.5 * rho_in[i];
         const bool dead = half < kDensTh;
-        // d/drho of e(rho/2, rho/2, sigma/4, sigma/4, sigma/4) is
-        // (v_up + v_dn)/2 and d/dsigma is (vsuu + vsud + vsdd)/4
-        const D nh = xc::seed<2>(dead ? kDensTh : half, 0, 0.5);
-        const D s4 = dead ? xc::constant<2>(0.0) : xc::seed<2>(0.25 * sigma, 1, 0.25);
-        const D e = xc::energy<2>(mask, nh, nh, s4, s4, s4);
+        const xc::Dual<2> e = point_unpolarized<kSet>(mask, half, sigma, dead);
         const double vs = dead ? 0.0 : e.d[1];
         e_out[i] = e.v;
         v_out[i] = dead ? 0.0 : e.d[0];
@@ -130,27 +213,46 @@ inline int grid_for(long long n, int threads) {
     return (int)blocks;
 }
 
+template <int kSet>
+void launch(const double* nu, const double* nd, const double* gu,
+            const double* gd, double* e, double* vu, double* vd, double* fu,
+            double* fd, long long n, int unpolarized, int mask,
+            cudaStream_t s) {
+    const int threads = 128;
+    if (unpolarized)
+        gga_xc_unpolarized<kSet><<<grid_for(n, threads), threads, 0, s>>>(
+            mask, nu, gu, e, vu, fu, n);
+    else
+        gga_xc_polarized<kSet><<<grid_for(n, threads), threads, 0, s>>>(
+            mask, nu, nd, gu, gd, e, vu, vd, fu, fd, n);
+}
+
 }  // namespace
 
 // Polarized (unpolarized == 0): nu, nd [n], gu, gd [3, n] -> e, vu, vd [n],
 // fu, fd [3, n]. Unpolarized: nu holds rho, gu its gradient [3, n]; nd, gd,
 // vd and fd are unused, vu receives v and fu the flux 2 vsigma grad rho.
-// Any mask bit outside the functionals of xc_dual.cuh, or an empty mask,
-// returns cudaErrorInvalidValue without a launch.
+// set picks the instantiation (kMask, kPbe, kPbeSol); a compiled set's mask
+// must be that set's. Any mask bit outside the functionals of xc_dual.cuh,
+// an empty mask, an unknown set or a set whose mask differs returns
+// cudaErrorInvalidValue without a launch.
 extern "C" int gga_xc(const double* nu, const double* nd, const double* gu,
                       const double* gd, double* e, double* vu, double* vd,
                       double* fu, double* fd, long long n, int unpolarized,
-                      int mask, void* stream) {
+                      int mask, int set, void* stream) {
     if (mask <= 0 || mask > 255) return (int)cudaErrorInvalidValue;
+    if ((set == kPbe && mask != SetOf<kPbe>::mask) ||
+        (set == kPbeSol && mask != SetOf<kPbeSol>::mask) ||
+        set < kMask || set > kPbeSol)
+        return (int)cudaErrorInvalidValue;
     cudaStream_t s = (cudaStream_t)stream;
-    const int threads = 128;
     if (n > 0) {
-        if (unpolarized)
-            gga_xc_unpolarized<<<grid_for(n, threads), threads, 0, s>>>(
-                mask, nu, gu, e, vu, fu, n);
+        if (set == kPbe)
+            launch<kPbe>(nu, nd, gu, gd, e, vu, vd, fu, fd, n, unpolarized, mask, s);
+        else if (set == kPbeSol)
+            launch<kPbeSol>(nu, nd, gu, gd, e, vu, vd, fu, fd, n, unpolarized, mask, s);
         else
-            gga_xc_polarized<<<grid_for(n, threads), threads, 0, s>>>(
-                mask, nu, nd, gu, gd, e, vu, vd, fu, fd, n);
+            launch<kMask>(nu, nd, gu, gd, e, vu, vd, fu, fd, n, unpolarized, mask, s);
     }
     return (int)cudaGetLastError();
 }

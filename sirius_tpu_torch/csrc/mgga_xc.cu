@@ -30,12 +30,20 @@
 // seeds carry the slopes 1/2, 1/4, 1/2: its partials are (v_up + v_dn)/2,
 // (vsigma_uu + vsigma_ud + vsigma_dd)/4 and (vtau_up + vtau_dn)/2.
 //
+// Three instantiations (kKind): kScanSet, SCAN exchange plus correlation
+// alone, the set the port's decks run, on xc_sets.cuh (cube roots and
+// square roots in place of pow, n^(1/3) and (1 +- zeta)^(1/3) shared, and
+// unpolarized one exchange half, 0.5 (x + x) = x, at zeta = 0); kMask, a
+// SCAN name alone, and kMaskLdaGga, SCAN names with LDA / PBE-family ones,
+// on xc_dual.cuh's runtime mask.
+//
 // Bound on the H100: polarized, the bytes (80 in and 88 out a point), the
 // operations by chip_smoke.py's counting rule (each SCAN term times 1 +
 // the partials of the dual it runs on) within 3 % of them; unpolarized,
-// the operations, above the bytes (40 in, 48 out). The fp64
-// pow/exp/expm1/log1p calls are tens of instructions each, so the kernel
-// runs at the pace of its arithmetic, 12-16x that bound.
+// the operations, above the bytes (40 in, 48 out). The kernel runs at the
+// pace of its fp64 instructions: xc_dual.cuh's dpow is two fp64 pow calls,
+// and SCAN polarized takes seventeen dpow on the mask form; the compiled
+// set takes five cube roots (seven where |zeta| > 0.999999) and two rsqrt.
 //
 // Design: one thread per point, grid-stride, no shared state.
 //
@@ -43,26 +51,150 @@
 // allocates nothing, returns cudaGetLastError().
 #include <cuda_runtime.h>
 
-#include "xc_dual.cuh"
+#include "xc_sets.cuh"
 
 namespace {
 
 using xc::kDensTh;
 
-template <bool kWithLdaGga>
-__global__ void mgga_xc_polarized(int mask, const double* __restrict__ nu_in,
-                                  const double* __restrict__ nd_in,
-                                  const double* __restrict__ gu,
-                                  const double* __restrict__ gd,
-                                  const double* __restrict__ tu_in,
-                                  const double* __restrict__ td_in,
-                                  double* __restrict__ e_out,
-                                  double* __restrict__ vu_out,
-                                  double* __restrict__ vd_out,
-                                  double* __restrict__ fu_out,
-                                  double* __restrict__ fd_out,
-                                  double* __restrict__ vtu_out,
-                                  double* __restrict__ vtd_out, long long n) {
+// instantiations; kernels/mgga_xc.py::COMPILED_SETS passes kScanSet's number
+enum : int { kMask = 0, kScanSet = 1, kMaskLdaGga = 2 };
+constexpr int kScanSetMask = xc::kMggaXScan | xc::kMggaCScan;
+// blocks of 128 an SM the compiled set is held to: its inlined cube roots
+// took 218 registers polarized (124 unpolarized), 4 (8) of the SM's 64
+// warps; capped at 128 (80) registers, with 232 (256) bytes of spills, it
+// ran 1.08 -> 0.79 ms (0.36 -> 0.32) on the 54-atom field (H100,
+// chip_smoke.py records, PERF.md §6)
+constexpr int kScanPolBlocks = 4;
+constexpr int kScanUnpolBlocks = 6;
+
+// e and its partials along (n_up, n_dn, sigma_uu, sigma_ud, sigma_dd,
+// tau_up, tau_dn) at one sanitized point
+template <int kKind>
+__device__ __forceinline__ void point_polarized(int mask, double nu, double nd,
+                                                double suu, double sud,
+                                                double sdd, double tu,
+                                                double td, double* e,
+                                                double* p) {
+    *e = 0.0;
+#pragma unroll
+    for (int k = 0; k < 7; ++k) p[k] = 0.0;
+    if constexpr (kKind == kMaskLdaGga) {
+        if (mask & xc::kLdaGgaBits) {
+            const xc::Dual<5> g = xc::energy<5>(
+                mask & xc::kLdaGgaBits, xc::seed<5>(nu, 0), xc::seed<5>(nd, 1),
+                xc::seed<5>(suu, 2), xc::seed<5>(sud, 3), xc::seed<5>(sdd, 4));
+            *e += g.v;
+#pragma unroll
+            for (int k = 0; k < 5; ++k) p[k] += g.d[k];
+        }
+    }
+    if (kKind == kScanSet || (mask & xc::kMggaXScan)) {
+        // 0.5 (X(2 nu, 4 suu, 2 tu) + X(2 nd, 4 sdd, 2 td))
+        using D = xc::Dual<3>;
+        D xu, xd;
+        if constexpr (kKind == kScanSet) {
+            xu = xc::scan_x_channel(xc::seed<3>(nu, 0), xc::seed<3>(suu, 1),
+                                    xc::seed<3>(tu, 2));
+            xd = xc::scan_x_channel(xc::seed<3>(nd, 0), xc::seed<3>(sdd, 1),
+                                    xc::seed<3>(td, 2));
+        } else {
+            xu = xc::scan_x_half(2.0 * xc::seed<3>(nu, 0),
+                                 4.0 * xc::seed<3>(suu, 1),
+                                 2.0 * xc::seed<3>(tu, 2));
+            xd = xc::scan_x_half(2.0 * xc::seed<3>(nd, 0),
+                                 4.0 * xc::seed<3>(sdd, 1),
+                                 2.0 * xc::seed<3>(td, 2));
+        }
+        *e += 0.5 * (xu.v + xd.v);
+        p[0] += 0.5 * xu.d[0];
+        p[2] += 0.5 * xu.d[1];
+        p[5] += 0.5 * xu.d[2];
+        p[1] += 0.5 * xd.d[0];
+        p[4] += 0.5 * xd.d[1];
+        p[6] += 0.5 * xd.d[2];
+    }
+    if (kKind == kScanSet || (mask & xc::kMggaCScan)) {
+        using D = xc::Dual<4>;
+        const D u = xc::seed<4>(nu, 0);
+        const D d = xc::seed<4>(nd, 1);
+        const D sigma = xc::seed<4>(suu + 2.0 * sud + sdd, 2);
+        const D tau = xc::seed<4>(tu + td, 3);
+        D c;
+        if constexpr (kKind == kScanSet) {
+            const D n = xc::dmaximum(u + d, xc::kTiny);
+            const D cn = xc::dcbrt(n);
+            const D kf = xc::kKfK * cn;
+            c = xc::scan_c_k<false>(u, d, sigma, tau, n, cn, n * xc::dsq(cn),
+                                    xc::dmaximum(4.0 * xc::dsq(kf) * xc::dsq(n),
+                                                 xc::kTiny));
+        } else {
+            c = xc::scan_c_e(u, d, sigma, tau);
+        }
+        *e += c.v;
+        p[0] += c.d[0];
+        p[1] += c.d[1];
+        p[2] += c.d[2];
+        p[3] += 2.0 * c.d[2];
+        p[4] += c.d[2];
+        p[5] += c.d[3];
+        p[6] += c.d[3];
+    }
+}
+
+// the energy at n_up = n_dn = rho/2, every sigma sigma/4, tau_up = tau_dn =
+// tau/2, on Dual<3> over (rho, sigma, tau): its partials are
+// (v_up + v_dn)/2, (vsigma_uu + vsigma_ud + vsigma_dd)/4 and
+// (vtau_up + vtau_dn)/2
+template <int kKind>
+__device__ __forceinline__ xc::Dual<3> point_unpolarized(int mask, double half,
+                                                         double sigma,
+                                                         double tau2,
+                                                         bool dead) {
+    using D = xc::Dual<3>;
+    const D nh = xc::seed<3>(dead ? kDensTh : half, 0, 0.5);
+    const D s4 = dead ? xc::constant<3>(0.0) : xc::seed<3>(0.25 * sigma, 1, 0.25);
+    const D t2 = xc::seed<3>(tau2, 2, 0.5);
+    if constexpr (kKind == kScanSet) {
+        // n = max(2 n_h, _TINY) is exchange's max(2 n_s, _TINY) too: one
+        // n^(1/3), n^(5/3) and max(4 kF^2 n^2, _TINY) for both
+        const D n = xc::dmaximum(nh + nh, xc::kTiny);
+        const D cn = xc::dcbrt(n);
+        const D kf = xc::kKfK * cn;
+        const D n53 = n * xc::dsq(cn);
+        const D den = xc::dmaximum(4.0 * xc::dsq(kf) * xc::dsq(n), xc::kTiny);
+        const D x = xc::scan_x_half_k(n, kf, n53, den, 4.0 * s4, 2.0 * t2);
+        return x + xc::scan_c_k<true>(nh, nh, s4 + 2.0 * s4 + s4, t2 + t2, n,
+                                      cn, n53, den);
+    } else {
+        D e = xc::constant<3>(0.0);
+        if (kKind == kMaskLdaGga && (mask & xc::kLdaGgaBits))
+            e = e + xc::energy<3>(mask & xc::kLdaGgaBits, nh, nh, s4, s4, s4);
+        if (mask & xc::kMggaXScan) {
+            const D x = xc::scan_x_half(2.0 * nh, 4.0 * s4, 2.0 * t2);
+            e = e + 0.5 * (x + x);
+        }
+        if (mask & xc::kMggaCScan)
+            e = e + xc::scan_c_e(nh, nh, s4 + 2.0 * s4 + s4, t2 + t2);
+        return e;
+    }
+}
+
+template <int kKind>
+__global__ void __launch_bounds__(128, kKind == kScanSet ? kScanPolBlocks : 1)
+mgga_xc_polarized(int mask, const double* __restrict__ nu_in,
+                  const double* __restrict__ nd_in,
+                  const double* __restrict__ gu,
+                  const double* __restrict__ gd,
+                  const double* __restrict__ tu_in,
+                  const double* __restrict__ td_in,
+                  double* __restrict__ e_out,
+                  double* __restrict__ vu_out,
+                  double* __restrict__ vd_out,
+                  double* __restrict__ fu_out,
+                  double* __restrict__ fd_out,
+                  double* __restrict__ vtu_out,
+                  double* __restrict__ vtd_out, long long n) {
     for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
          i += (long long)gridDim.x * blockDim.x) {
         double a[3], b[3];
@@ -85,49 +217,10 @@ __global__ void mgga_xc_polarized(int mask, const double* __restrict__ nu_in,
         if (up0) suu = 0.0;
         if (dn0) sdd = 0.0;
         if (up0 || dn0) sud = 0.0;
-        const double tu = tu_in[i];
-        const double td = td_in[i];
-        // e and its partials along (nu, nd, suu, sud, sdd, tu, td)
-        double e = 0.0, p[7] = {0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0};
-        if (kWithLdaGga && (mask & xc::kLdaGgaBits)) {
-            const xc::Dual<5> g = xc::energy<5>(
-                mask & xc::kLdaGgaBits, xc::seed<5>(nu, 0), xc::seed<5>(nd, 1),
-                xc::seed<5>(suu, 2), xc::seed<5>(sud, 3), xc::seed<5>(sdd, 4));
-            e += g.v;
-#pragma unroll
-            for (int k = 0; k < 5; ++k) p[k] += g.d[k];
-        }
-        if (mask & xc::kMggaXScan) {
-            // 0.5 (X(2 nu, 4 suu, 2 tu) + X(2 nd, 4 sdd, 2 td))
-            using D = xc::Dual<3>;
-            const D xu = xc::scan_x_half(2.0 * xc::seed<3>(nu, 0),
-                                         4.0 * xc::seed<3>(suu, 1),
-                                         2.0 * xc::seed<3>(tu, 2));
-            const D xd = xc::scan_x_half(2.0 * xc::seed<3>(nd, 0),
-                                         4.0 * xc::seed<3>(sdd, 1),
-                                         2.0 * xc::seed<3>(td, 2));
-            e += 0.5 * (xu.v + xd.v);
-            p[0] += 0.5 * xu.d[0];
-            p[2] += 0.5 * xu.d[1];
-            p[5] += 0.5 * xu.d[2];
-            p[1] += 0.5 * xd.d[0];
-            p[4] += 0.5 * xd.d[1];
-            p[6] += 0.5 * xd.d[2];
-        }
-        if (mask & xc::kMggaCScan) {
-            using D = xc::Dual<4>;
-            const D c = xc::scan_c_e(xc::seed<4>(nu, 0), xc::seed<4>(nd, 1),
-                                     xc::seed<4>(suu + 2.0 * sud + sdd, 2),
-                                     xc::seed<4>(tu + td, 3));
-            e += c.v;
-            p[0] += c.d[0];
-            p[1] += c.d[1];
-            p[2] += c.d[2];
-            p[3] += 2.0 * c.d[2];
-            p[4] += c.d[2];
-            p[5] += c.d[3];
-            p[6] += c.d[3];
-        }
+        // tau enters as given
+        double e, p[7];
+        point_polarized<kKind>(mask, nu, nd, suu, sud, sdd, tu_in[i], td_in[i],
+                               &e, p);
         const double vsuu = up0 ? 0.0 : p[2];
         const double vsud = (up0 || dn0) ? 0.0 : p[3];
         const double vsdd = dn0 ? 0.0 : p[4];
@@ -146,15 +239,15 @@ __global__ void mgga_xc_polarized(int mask, const double* __restrict__ nu_in,
     }
 }
 
-template <bool kWithLdaGga>
-__global__ void mgga_xc_unpolarized(int mask, const double* __restrict__ rho_in,
-                                    const double* __restrict__ g,
-                                    const double* __restrict__ tau_in,
-                                    double* __restrict__ e_out,
-                                    double* __restrict__ v_out,
-                                    double* __restrict__ f_out,
-                                    double* __restrict__ vt_out, long long n) {
-    using D = xc::Dual<3>;
+template <int kKind>
+__global__ void __launch_bounds__(128, kKind == kScanSet ? kScanUnpolBlocks : 1)
+mgga_xc_unpolarized(int mask, const double* __restrict__ rho_in,
+                    const double* __restrict__ g,
+                    const double* __restrict__ tau_in,
+                    double* __restrict__ e_out,
+                    double* __restrict__ v_out,
+                    double* __restrict__ f_out,
+                    double* __restrict__ vt_out, long long n) {
     for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
          i += (long long)gridDim.x * blockDim.x) {
         double a[3];
@@ -165,19 +258,8 @@ __global__ void mgga_xc_unpolarized(int mask, const double* __restrict__ rho_in,
         for (int c = 0; c < 3; ++c) sigma = __dadd_rn(sigma, __dmul_rn(a[c], a[c]));
         const double half = 0.5 * rho_in[i];
         const bool dead = half < kDensTh;
-        // n_up = n_dn = rho/2, every sigma sigma/4, tau_up = tau_dn = tau/2
-        const D nh = xc::seed<3>(dead ? kDensTh : half, 0, 0.5);
-        const D s4 = dead ? xc::constant<3>(0.0) : xc::seed<3>(0.25 * sigma, 1, 0.25);
-        const D t2 = xc::seed<3>(0.5 * tau_in[i], 2, 0.5);
-        D e = xc::constant<3>(0.0);
-        if (kWithLdaGga && (mask & xc::kLdaGgaBits))
-            e = e + xc::energy<3>(mask & xc::kLdaGgaBits, nh, nh, s4, s4, s4);
-        if (mask & xc::kMggaXScan) {
-            const D x = xc::scan_x_half(2.0 * nh, 4.0 * s4, 2.0 * t2);
-            e = e + 0.5 * (x + x);
-        }
-        if (mask & xc::kMggaCScan)
-            e = e + xc::scan_c_e(nh, nh, s4 + 2.0 * s4 + s4, t2 + t2);
+        const xc::Dual<3> e =
+            point_unpolarized<kKind>(mask, half, sigma, 0.5 * tau_in[i], dead);
         const double vs = dead ? 0.0 : e.d[1];
         e_out[i] = e.v;
         v_out[i] = dead ? 0.0 : e.d[0];
@@ -194,41 +276,53 @@ inline int grid_for(long long n, int threads) {
     return (int)blocks;
 }
 
+template <int kKind>
+void launch(const double* nu, const double* nd, const double* gu,
+            const double* gd, const double* tu, const double* td, double* e,
+            double* vu, double* vd, double* fu, double* fd, double* vtu,
+            double* vtd, long long n, int unpolarized, int mask,
+            cudaStream_t s) {
+    const int threads = 128;
+    const int blocks = grid_for(n, threads);
+    if (unpolarized)
+        mgga_xc_unpolarized<kKind><<<blocks, threads, 0, s>>>(
+            mask, nu, gu, tu, e, vu, fu, vtu, n);
+    else
+        mgga_xc_polarized<kKind><<<blocks, threads, 0, s>>>(
+            mask, nu, nd, gu, gd, tu, td, e, vu, vd, fu, fd, vtu, vtd, n);
+}
+
 }  // namespace
 
 // Polarized (unpolarized == 0): nu, nd, tu, td [n], gu, gd [3, n] -> e, vu,
 // vd, vtu, vtd [n], fu, fd [3, n]. Unpolarized: nu holds rho, gu its
 // gradient [3, n], tu the total tau; nd, gd, td, vd, fd and vtd are unused,
 // vu receives v, fu the flux 2 vsigma grad rho and vtu v_tau. The mask
-// must hold a SCAN bit; any bit outside the functionals of xc_dual.cuh
+// must hold a SCAN bit; set 1 (kScanSet) runs the compiled SCAN X + C set
+// and needs exactly its mask, set 0 the runtime mask. Any bit outside the
+// functionals of xc_dual.cuh, an unknown set or a set whose mask differs
 // returns cudaErrorInvalidValue without a launch.
 extern "C" int mgga_xc(const double* nu, const double* nd, const double* gu,
                        const double* gd, const double* tu, const double* td,
                        double* e, double* vu, double* vd, double* fu,
                        double* fd, double* vtu, double* vtd, long long n,
-                       int unpolarized, int mask, void* stream) {
+                       int unpolarized, int mask, int set, void* stream) {
     if (mask <= 0 || mask > 1023 || !(mask & xc::kMggaBits))
         return (int)cudaErrorInvalidValue;
+    if ((set != kMask && set != kScanSet) ||
+        (set == kScanSet && mask != kScanSetMask))
+        return (int)cudaErrorInvalidValue;
     cudaStream_t s = (cudaStream_t)stream;
-    const int threads = 128;
-    const bool lda_gga = (mask & xc::kLdaGgaBits) != 0;
     if (n > 0) {
-        const int blocks = grid_for(n, threads);
-        if (unpolarized) {
-            if (lda_gga)
-                mgga_xc_unpolarized<true><<<blocks, threads, 0, s>>>(
-                    mask, nu, gu, tu, e, vu, fu, vtu, n);
-            else
-                mgga_xc_unpolarized<false><<<blocks, threads, 0, s>>>(
-                    mask, nu, gu, tu, e, vu, fu, vtu, n);
-        } else {
-            if (lda_gga)
-                mgga_xc_polarized<true><<<blocks, threads, 0, s>>>(
-                    mask, nu, nd, gu, gd, tu, td, e, vu, vd, fu, fd, vtu, vtd, n);
-            else
-                mgga_xc_polarized<false><<<blocks, threads, 0, s>>>(
-                    mask, nu, nd, gu, gd, tu, td, e, vu, vd, fu, fd, vtu, vtd, n);
-        }
+        if (set == kScanSet)
+            launch<kScanSet>(nu, nd, gu, gd, tu, td, e, vu, vd, fu, fd, vtu,
+                             vtd, n, unpolarized, mask, s);
+        else if (mask & xc::kLdaGgaBits)
+            launch<kMaskLdaGga>(nu, nd, gu, gd, tu, td, e, vu, vd, fu, fd, vtu,
+                                vtd, n, unpolarized, mask, s);
+        else
+            launch<kMask>(nu, nd, gu, gd, tu, td, e, vu, vd, fu, fd, vtu, vtd,
+                          n, unpolarized, mask, s);
     }
     return (int)cudaGetLastError();
 }

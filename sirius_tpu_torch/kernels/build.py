@@ -87,7 +87,7 @@ SIGNATURES = {
     },
     "beta_chunk": {"beta_chunk": _K9, "beta_chunk_c64": _K9},
     "gga_xc": {
-        "gga_xc": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _P),
+        "gga_xc": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _P),
     },
     "xc_gradient": {
         "gradient_boxes": (_P, _P, _P, _P, _I, _I, _LL, _P),
@@ -95,7 +95,7 @@ SIGNATURES = {
     },
     "mgga_xc": {
         "mgga_xc": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL,
-                    _I, _I, _P),
+                    _I, _I, _I, _P),
     },
     "mgga_tau": {
         "grad_to_box": _K11, "grad_to_box_c64": _K11,

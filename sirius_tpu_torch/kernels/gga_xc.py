@@ -10,6 +10,12 @@ gga_xc_unpolarized(rho, g, names) -> (e, v, flux) with flux = 2 vsigma g
 (potential.py:144-160). names: any sum of the LDA and PBE-family
 functionals (kernels/xc_functionals.py).
 
+The kernel has one instantiation for each functional set the port's
+decks run (COMPILED_SETS: PBE and PBEsol exchange plus correlation) and a
+runtime-mask one for every other legal list; instantiation(names) picks
+it. Each launch counts on gga_xc.launches and on the instantiation's own
+counter (launches_pbe, launches_pbesol, launches_mask).
+
 The plain PyTorch version forms sigma as the JAX package does, takes e, v
 and vsigma from torch.autograd over the JAX package's energy expressions
 (xc_functionals.eval_plain) and forms the products. A CPU tensor takes the
@@ -57,6 +63,21 @@ def _gga_mask(names) -> int:
     return func_mask(names)
 
 
+# the functional sets compiled as their own instantiations, by mask: (name,
+# the set number csrc/gga_xc.cu takes)
+COMPILED_SETS = {
+    func_mask(["XC_GGA_X_PBE", "XC_GGA_C_PBE"]): ("pbe", 1),
+    func_mask(["XC_GGA_X_PBE_SOL", "XC_GGA_C_PBE_SOL"]): ("pbesol", 2),
+}
+MASK_SET = ("mask", 0)
+
+
+def instantiation(names) -> tuple[str, int]:
+    """(name, set number) of the kernel instantiation a functional list
+    runs: its compiled set, else the runtime mask."""
+    return COMPILED_SETS.get(_gga_mask(names), MASK_SET)
+
+
 def _check(n, fields, grads):
     for t in fields:
         if t.dtype != torch.float64 or tuple(t.shape) != (n,):
@@ -72,7 +93,7 @@ def _check(n, fields, grads):
     return dev.type == "cuda"
 
 
-def _launch(nu, nd, gu, gd, mask: int):
+def _launch(nu, nd, gu, gd, names):
     unpolarized = nd is None
     n = nu.shape[0]
     nu, gu = nu.contiguous(), gu.contiguous()
@@ -83,33 +104,37 @@ def _launch(nu, nd, gu, gd, mask: int):
     fu = torch.empty_like(gu)
     vd = None if unpolarized else torch.empty_like(nu)
     fd = None if unpolarized else torch.empty_like(gu)
+    kind, number = instantiation(names)
     lib = build.library("gga_xc")
     rc = lib.gga_xc(nu.data_ptr(), nd.data_ptr(), gu.data_ptr(), gd.data_ptr(),
                     e.data_ptr(), vu.data_ptr(),
                     None if vd is None else vd.data_ptr(), fu.data_ptr(),
                     None if fd is None else fd.data_ptr(), n,
-                    int(unpolarized), mask, build.stream_of(nu))
+                    int(unpolarized), func_mask(names), number,
+                    build.stream_of(nu))
     gga_xc.launches += 1
+    build.count_launch(gga_xc, "_" + kind)
     build.check(rc, "gga_xc")
     return e, vu, vd, fu, fd
 
 
 def gga_xc(nu, nd, gu, gd, names):
     """Polarized: (e, v_up, v_dn, flux_up, flux_dn)."""
-    mask = _gga_mask(names)
+    _gga_mask(names)
     if not _check(nu.shape[0], (nu, nd), (gu, gd)):
         return gga_xc_plain(nu, nd, gu, gd, names)
-    return _launch(nu, nd, gu, gd, mask)
+    return _launch(nu, nd, gu, gd, names)
 
 
 gga_xc.launches = 0
+gga_xc.launches_pbe = gga_xc.launches_pbesol = gga_xc.launches_mask = 0
 
 
 def gga_xc_unpolarized(rho, g, names):
     """Unpolarized: (e, v, flux). Launches the same kernel as gga_xc
-    (counted on gga_xc.launches)."""
-    mask = _gga_mask(names)
+    (counted on gga_xc's counters)."""
+    _gga_mask(names)
     if not _check(rho.shape[0], (rho,), (g,)):
         return gga_xc_unpolarized_plain(rho, g, names)
-    e, v, _, f, _ = _launch(rho, None, g, None, mask)
+    e, v, _, f, _ = _launch(rho, None, g, None, names)
     return e, v, f

@@ -14,6 +14,12 @@ flux = 2 vsigma g and tau the total kinetic-energy density
 correlation, with any LDA and PBE-family functionals besides
 (kernels/xc_functionals.py), all summed in one launch.
 
+The kernel has one instantiation for the functional set the port's decks
+run (COMPILED_SETS: SCAN exchange plus correlation) and runtime-mask ones
+for every other legal list; instantiation(names) picks it. Each launch
+counts on mgga_xc.launches and on the instantiation's own counter
+(launches_scan, launches_mask).
+
 The plain PyTorch version forms sigma as the JAX package does, takes e, v,
 vsigma and vtau from torch.autograd over the JAX package's energy
 expressions (xc_functionals.eval_plain) and forms the products. A CPU
@@ -34,6 +40,18 @@ def _mgga_mask(names) -> int:
     if not any(n in MGGA_FUNCS for n in names):
         raise ValueError(f"mgga_xc needs a SCAN functional, got {list(names)}")
     return func_mask(names)
+
+
+# the functional set compiled as its own instantiation, by mask: (name, the
+# set number csrc/mgga_xc.cu takes)
+COMPILED_SETS = {func_mask(["XC_MGGA_X_SCAN", "XC_MGGA_C_SCAN"]): ("scan", 1)}
+MASK_SET = ("mask", 0)
+
+
+def instantiation(names) -> tuple[str, int]:
+    """(name, set number) of the kernel instantiation a functional list
+    runs: its compiled set, else the runtime mask."""
+    return COMPILED_SETS.get(_mgga_mask(names), MASK_SET)
 
 
 def mgga_xc_plain(nu, nd, gu, gd, tu, td, names):
@@ -71,7 +89,7 @@ def _check(n, fields, grads):
     return dev.type == "cuda"
 
 
-def _launch(nu, nd, gu, gd, tu, td, mask: int):
+def _launch(nu, nd, gu, gd, tu, td, names):
     unpolarized = nd is None
     n = nu.shape[0]
     nu, gu, tu = nu.contiguous(), gu.contiguous(), tu.contiguous()
@@ -89,31 +107,35 @@ def _launch(nu, nd, gu, gd, tu, td, mask: int):
     def ptr(t):
         return None if t is None else t.data_ptr()
 
+    kind, number = instantiation(names)
     lib = build.library("mgga_xc")
     rc = lib.mgga_xc(ptr(nu), ptr(nd), ptr(gu), ptr(gd), ptr(tu), ptr(td),
                      ptr(e), ptr(vu), ptr(vd), ptr(fu), ptr(fd), ptr(vtu),
-                     ptr(vtd), n, int(unpolarized), mask, build.stream_of(nu))
+                     ptr(vtd), n, int(unpolarized), func_mask(names), number,
+                     build.stream_of(nu))
     mgga_xc.launches += 1
+    build.count_launch(mgga_xc, "_" + kind)
     build.check(rc, "mgga_xc")
     return e, vu, vd, fu, fd, vtu, vtd
 
 
 def mgga_xc(nu, nd, gu, gd, tu, td, names):
     """Polarized: (e, v_up, v_dn, flux_up, flux_dn, vtau_up, vtau_dn)."""
-    mask = _mgga_mask(names)
+    _mgga_mask(names)
     if not _check(nu.shape[0], (nu, nd, tu, td), (gu, gd)):
         return mgga_xc_plain(nu, nd, gu, gd, tu, td, names)
-    return _launch(nu, nd, gu, gd, tu, td, mask)
+    return _launch(nu, nd, gu, gd, tu, td, names)
 
 
 mgga_xc.launches = 0
+mgga_xc.launches_scan = mgga_xc.launches_mask = 0
 
 
 def mgga_xc_unpolarized(rho, g, tau, names):
     """Unpolarized: (e, v, flux, vtau). Launches the same kernel as mgga_xc
-    (counted on mgga_xc.launches)."""
-    mask = _mgga_mask(names)
+    (counted on mgga_xc's counters)."""
+    _mgga_mask(names)
     if not _check(rho.shape[0], (rho, tau), (g,)):
         return mgga_xc_unpolarized_plain(rho, g, tau, names)
-    e, v, _, f, _, vt, _ = _launch(rho, None, g, None, tau, None, mask)
+    e, v, _, f, _, vt, _ = _launch(rho, None, g, None, tau, None, names)
     return e, v, f, vt

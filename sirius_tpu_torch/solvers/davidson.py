@@ -45,6 +45,46 @@ def _herm(a):
     return 0.5 * (a + a.mH)
 
 
+# PyTorch's CUDA eigh hands a float32 matrix of order 32 to SYEVJ_MAX to
+# cuSOLVER's Jacobi syevj, and every other one to syevd, the divide and
+# conquer LAPACK runs on the CPU. Padded past SYEVJ_MAX, a float32 matrix
+# of order PAD_FROM or more reaches syevd sooner than Jacobi solves it
+# (H100: Jacobi 4.9 ms against 5.4 padded at 256, 6.0 against 5.5 at 288,
+# 10.7 against 5.6 at 387, the 54-atom Gamma subspace; PERF.md §5)
+SYEVJ_MAX = 512
+PAD_FROM = 288
+
+
+def takes_syevj(a) -> bool:
+    """Whether torch.linalg.eigh would run a through cuSOLVER's Jacobi."""
+    return (a.device.type == "cuda" and a.dtype == torch.float32
+            and 32 <= a.shape[-1] <= SYEVJ_MAX)
+
+
+def eigh_padded(a, m: int):
+    """torch.linalg.eigh of a batched Hermitian [..., n, n] through a
+    matrix of order m > n: a, then a diagonal block above a's Gershgorin
+    bound, so its n lowest eigenpairs are a's (its eigenvectors' trailing
+    rows are zero)."""
+    n = a.shape[-1]
+    top = 1.0 + a.abs().sum(-1).amax(-1)
+    big = torch.zeros(a.shape[:-2] + (m, m), dtype=a.dtype, device=a.device)
+    big[..., :n, :n] = a
+    big[..., n:, n:] = torch.diag_embed(
+        top[..., None].expand(a.shape[:-2] + (m - n,)))
+    e, v = torch.linalg.eigh(big)
+    return e[..., :n], v[..., :n, :n]
+
+
+def _eigh(a):
+    """torch.linalg.eigh in its working type; a matrix of order PAD_FROM
+    or more that the card would solve by Jacobi is padded past SYEVJ_MAX
+    to reach syevd, as the CPU's LAPACK solves it."""
+    if takes_syevj(a) and a.shape[-1] >= PAD_FROM:
+        return eigh_padded(a, SYEVJ_MAX + 1)
+    return torch.linalg.eigh(a)
+
+
 def _rayleigh_ritz(hsub, ssub, nev: int):
     """Lowest-nev gen-EVP of a possibly rank-deficient batched subspace pair
     [B, m, m]. Returns (e [B, nev], c [B, m, nev]).
@@ -63,9 +103,11 @@ def _rayleigh_ritz(hsub, ssub, nev: int):
     carried H X / H P blocks drift: the first fp32 band solve of the small
     US deck ended 1.3e-5 Ha off (2e-7 with the average), and the fp64 SCF
     of the 2-atom US + 48-op deck stalled at residuals of 1e-11 to 1e-8."""
-    s, u = torch.linalg.eigh(ssub)
+    s, u = _eigh(ssub)
     smax = torch.amax(s.abs(), dim=-1, keepdim=True)
-    eps = torch.finfo(s.dtype).eps
+    # the working precision's eps: the subspace carries its rounding
+    # (sirius_tpu/solvers/davidson.py:67-75)
+    eps = torch.finfo(ssub.dtype).eps
     good = s > max(50.0 * eps, 1e-11) * smax
     scale = torch.where(good, torch.rsqrt(torch.where(good, s, 1.0)), 0.0)
     t = u * scale[..., None, :].to(u.dtype)
@@ -73,7 +115,7 @@ def _rayleigh_ritz(hsub, ssub, nev: int):
     at = _herm(at)
     shift = 1.0 + torch.amax(at.abs().sum(dim=-1), dim=-1, keepdim=True)
     at = at + torch.diag_embed(torch.where(good, 0.0, shift).to(at.dtype))
-    e, y = torch.linalg.eigh(at)
+    e, y = _eigh(at)
     c = t @ y
     return e[..., :nev], c[..., :nev]
 
@@ -104,8 +146,8 @@ def davidson(apply_fn, params, x0, h_diag, o_diag, mask,
     def ortho(x):
         xm = x * m
         g = xm @ xm.mH
-        s, u = torch.linalg.eigh(g)
-        good = s > 50.0 * torch.finfo(s.dtype).eps * torch.amax(
+        s, u = _eigh(g)
+        good = s > 50.0 * torch.finfo(g.dtype).eps * torch.amax(
             s.abs(), dim=-1, keepdim=True)
         scale = torch.where(good, torch.rsqrt(torch.where(good, s, 1.0)), 0.0)
         t = u * scale[..., None, :].to(u.dtype)

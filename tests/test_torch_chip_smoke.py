@@ -10,6 +10,7 @@ launches, and its decks to the reference tool's."""
 import importlib.util
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -171,6 +172,17 @@ def test_xc_phases_run_on_cpu(monkeypatch, capsys):
         assert rec["max_rel_err"] <= rec["tol_rel"]
         assert rec["library_ms"] is None
         assert rec["bound_ms"] > 0 and rec["bound_by"] in ("bytes", "operations")
+    # K7g and K7s: each record names the instantiation it ran, the decks'
+    # sets their own, the mixed lists the runtime mask, all held to 1e-12
+    kinds = {name: rec["instantiation"] for name, rec in recs.items()
+             if name.startswith(("gga_xc", "mgga_xc"))}
+    assert kinds == {
+        "gga_xc.pbe": "pbe", "gga_xc.pbe.unpolarized": "pbe",
+        "gga_xc.pbesol": "pbesol", "gga_xc.pbesol.unpolarized": "pbesol",
+        "mgga_xc.scan": "scan", "mgga_xc.scan.unpolarized": "scan",
+        "gga_xc.mask": "mask", "gga_xc.mask.unpolarized": "mask",
+        "mgga_xc.mask": "mask", "mgga_xc.mask.unpolarized": "mask"}
+    assert all(recs[name]["tol_rel"] == 1e-12 for name in kinds)
     name = "small_gamma_pbe_fm"
     ref = reference(name)
     spec = dict(SMALL_GAMMA, ultrasoft=True, use_symmetry=True)
@@ -417,6 +429,52 @@ def test_edge_shapes_run_on_cpu(capsys):
     assert all(r["bitwise"] for r in k8b)
     assert {r["rows"] % r["plan"]["rows_per_thread"] for r in k8b} == {1}
     assert {r["padding_slots"] > 0 for r in k8b} == {True, False}
+
+
+def test_xc_edges_run_on_cpu(capsys):
+    # every K7g and K7s instantiation at every XC edge case, to 1e-12 and
+    # finite; the cases plant what they name
+    from sirius_tpu_torch.kernels.xc_functionals import DENS_TH
+
+    rng = np.random.default_rng(41)
+    chip_smoke.check_xc_edges(torch.device("cpu"), "cpu", rng)
+    lines = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
+    names = [n for n in chip_smoke.XC_CHECKS
+             if n.startswith(("gga_xc", "mgga_xc"))]
+    assert len(lines) == len(names) * len(chip_smoke.XC_EDGES)
+    assert {(r["name"], r["case"]) for r in lines} == {
+        (n, c) for n in names for c, _ in chip_smoke.XC_EDGES}
+    assert all(r["max_rel_err"] <= 1e-12 and r["finite"] for r in lines)
+    cpu = torch.device("cpu")
+    f = chip_smoke.xc_edge_fields("one point", 1, rng, cpu)
+    assert f["nu"].shape == (1,) and f["gu"].shape == (3, 1)
+    f = chip_smoke.xc_edge_fields("off the block", 933, rng, cpu)
+    assert f["nu"].shape[0] % 128
+    f = chip_smoke.xc_edge_fields("all dead", 933, rng, cpu)
+    assert bool((f["nu"] < DENS_TH).all() and (f["nd"] < DENS_TH).all())
+    f = chip_smoke.xc_edge_fields("sigma 0 at zeta +-1", 933, rng, cpu)
+    assert float(f["gu"].abs().max()) == float(f["gd"].abs().max()) == 0.0
+    assert bool(((f["nu"] == 0) | (f["nd"] == 0)).all())
+    assert bool((f["nu"] == 0).any() and (f["nd"] == 0).any())
+    # SCAN's alpha of each channel, (tau - tau_W) / tau_unif, at 1
+    f = chip_smoke.xc_edge_fields("alpha at 1", 933, rng, cpu)
+    tau_w = (f["gu"] ** 2).sum(0) / (8.0 * f["nu"])
+    tau_unif = 0.3 * (6.0 * math.pi**2) ** (2.0 / 3.0) * f["nu"] ** (5 / 3)
+    alpha = (f["tu"] - tau_w) / tau_unif
+    assert float((alpha - 1.0).abs().max()) <= 1e-12
+
+
+def test_eigh_calls_are_counted_by_type_and_order():
+    # the full-width records name the eigh route they ran: a float32
+    # Rayleigh-Ritz on the CPU runs both its eigh in float32, of its order
+    from sirius_tpu_torch.solvers.davidson import _rayleigh_ritz
+
+    rng = np.random.default_rng(3)
+    v = rng.standard_normal((1, 12, 40))
+    s = torch.as_tensor(v @ v.transpose(0, 2, 1), dtype=torch.float32)
+    with chip_smoke.watch_eigh() as calls:
+        _rayleigh_ritz(s + 0.0, s, 4)
+    assert calls == {"torch.float32 12": 2}
 
 
 def test_launch_checks_follow_the_band_solve_path():

@@ -7,6 +7,8 @@ matrix of the two channels). num_steps is 40, where residuals are ~1e-10 and the
 projector is therefore defined to 1e-10. Compared: eigenvalues and the projector onto the occupied subspace
 (the vectors' phases differ between LAPACK builds). Bound: 1e-10 Ha."""
 
+import sys
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -272,3 +274,139 @@ def test_rayleigh_ritz_reads_both_triangles(dtype):
     tol = 1e-5 if np.finfo(dtype).eps > 1e-10 else 1e-12
     assert np.max(np.abs(got[0] - got[1])) <= tol * scale
     assert np.max(np.abs(got[0] - want)) <= tol * scale
+
+
+def fp32_subspace_pair(dtype, seed, n=60, m=16, ndrop=3):
+    """A subspace pair built in float64 from m trial vectors of which ndrop
+    are exact combinations of the others, cast to the working type."""
+    rng = np.random.default_rng(seed)
+    cplx = np.dtype(dtype).kind == "c"
+
+    def draw(*shape):
+        x = rng.standard_normal(shape)
+        return x + 1j * rng.standard_normal(shape) if cplx else x
+
+    a = draw(n, n)
+    h = a + a.conj().T + 8.0 * np.eye(n)
+    v = draw(m, n)
+    v[-ndrop:] = rng.standard_normal((ndrop, m - ndrop)) @ v[:m - ndrop]
+    hsub = v.conj() @ h @ v.T
+    ssub = v.conj() @ v.T
+    hsub, ssub = 0.5 * (hsub + hsub.conj().T), 0.5 * (ssub + ssub.conj().T)
+    return hsub.astype(dtype), ssub.astype(dtype)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.complex64])
+def test_rayleigh_ritz_fp32_keeps_the_jax_directions(dtype):
+    # the fp32 band solves' subspaces, rank-deficient by construction: the
+    # port returns the type it was given, with the JAX package's float32
+    # Ritz pairs to fp32 rounding: eigenvalues to 2e-5 relative to the
+    # largest, vectors to 1e-3 in |<x|S|x_jax>|
+    from sirius_tpu.solvers.davidson import _rayleigh_ritz as jax_rr
+    from sirius_tpu_torch.solvers.davidson import _rayleigh_ritz
+
+    nev = 5
+    hsub, ssub = fp32_subspace_pair(dtype, 71)
+    je, jc = (np.asarray(x) for x in jax_rr(jnp.asarray(hsub),
+                                             jnp.asarray(ssub), nev))
+    e, c = _rayleigh_ritz(torch.as_tensor(hsub)[None],
+                          torch.as_tensor(ssub)[None], nev)
+    assert e.dtype == torch.float32
+    assert c.dtype == torch.as_tensor(ssub).dtype
+    e, c = e[0].double().numpy(), c[0].numpy().astype(np.complex128)
+    assert np.max(np.abs(e - je)) <= 2e-5 * np.max(np.abs(je))
+    s64 = ssub.astype(np.complex128)
+    overlap = np.abs(np.einsum("mi,mn,ni->i", c.conj(), s64,
+                               jc.astype(np.complex128)))
+    assert np.max(np.abs(overlap - 1.0)) <= 1e-3
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.complex64, np.float64,
+                                   np.complex128])
+def test_rayleigh_ritz_cutoff_takes_the_working_eps(dtype):
+    # an overlap direction at 1e-6 of the largest: above the float64 cutoff
+    # (max(50 eps, 1e-11) smax) and below float32's (50 eps = 6e-6 smax).
+    # With H = -1 along it, keeping it gives a Ritz value near -1e6. A
+    # float32 or complex64 pair drops it, as the JAX package's float32 solve
+    # does; a float64 pair keeps it
+    from sirius_tpu.solvers.davidson import _rayleigh_ritz as jax_rr
+    from sirius_tpu_torch.solvers.davidson import _rayleigh_ritz
+
+    rng = np.random.default_rng(83)
+    m = 8
+    q, _ = np.linalg.qr(rng.standard_normal((m, m))
+                        + 1j * rng.standard_normal((m, m)))
+    if np.dtype(dtype).kind != "c":
+        q, _ = np.linalg.qr(rng.standard_normal((m, m)))
+    s = np.r_[np.linspace(1.0, 2.0, m - 1), 1e-6]
+    h = np.r_[np.linspace(-1.0, 1.0, m - 1), -1.0]
+    ssub = (q * s) @ q.conj().T
+    hsub = (q * h) @ q.conj().T
+    hsub, ssub = hsub.astype(dtype), ssub.astype(dtype)
+    e = _rayleigh_ritz(torch.as_tensor(hsub)[None],
+                       torch.as_tensor(ssub)[None], 3)[0][0].double().numpy()
+    je = np.asarray(jax_rr(jnp.asarray(hsub), jnp.asarray(ssub), 3)[0])
+    if np.finfo(dtype).eps > 1e-10:
+        assert e[0] > -2.0 and je[0] > -2.0
+        assert np.max(np.abs(e - je)) <= 2e-5
+    else:
+        assert e[0] < -1e5 and je[0] < -1e5
+
+
+@pytest.mark.parametrize("batch", [(), (3,)])
+def test_padded_eigh_gives_the_leading_block(batch):
+    # the card's route for float32 subspaces of order 32 to 512: padded to
+    # order 513 with a diagonal block above the Gershgorin bound, eigh
+    # returns the matrix's own eigenpairs (float32 rounding: 2e-6 of the
+    # norm in the values, the vectors up to sign to 1e-4), in float32
+    from sirius_tpu_torch.solvers.davidson import SYEVJ_MAX, eigh_padded
+
+    rng = np.random.default_rng(7)
+    v = rng.standard_normal(batch + (129, 260))
+    a = torch.as_tensor(v @ np.swapaxes(v, -1, -2) / 260.0 - 0.5 * np.eye(129),
+                        dtype=torch.float32)
+    e, u = eigh_padded(a, SYEVJ_MAX + 1)
+    want_e, want_u = torch.linalg.eigh(a.double())
+    assert e.dtype == u.dtype == torch.float32
+    assert e.shape == a.shape[:-1] and u.shape == a.shape
+    scale = float(want_e.abs().max())
+    assert float((e.double() - want_e).abs().max()) <= 2e-6 * scale
+    # well separated ends of the spectrum: vectors defined up to sign
+    for k in (0, 1, -1):
+        dot = (u[..., k].double() * want_u[..., k]).sum(-1).abs()
+        assert float((dot - 1.0).abs().max()) <= 1e-4
+
+
+def test_only_float32_on_the_card_takes_the_padded_route():
+    from sirius_tpu_torch.solvers.davidson import SYEVJ_MAX, takes_syevj
+
+    class Card:
+        def __init__(self, dtype, n):
+            self.device = torch.device("cuda")
+            self.dtype = dtype
+            self.shape = (1, n, n)
+
+    assert takes_syevj(Card(torch.float32, 387))
+    assert takes_syevj(Card(torch.float32, 32))
+    assert takes_syevj(Card(torch.float32, SYEVJ_MAX))
+    assert not takes_syevj(Card(torch.float32, 31))
+    assert not takes_syevj(Card(torch.float32, SYEVJ_MAX + 1))
+    for dtype in (torch.complex64, torch.float64, torch.complex128):
+        assert not takes_syevj(Card(dtype, 387))
+    assert not takes_syevj(torch.zeros(1, 387, 387, dtype=torch.float32))
+
+
+def test_only_large_orders_are_padded(monkeypatch):
+    # on the card, among the matrices Jacobi would take, those of order
+    # PAD_FROM or more are padded; smaller ones stay Jacobi's
+    import sirius_tpu_torch.solvers.davidson  # noqa: F401
+    mod = sys.modules["sirius_tpu_torch.solvers.davidson"]
+
+    padded = []
+    monkeypatch.setattr(mod, "takes_syevj", lambda a: True)
+    monkeypatch.setattr(mod, "eigh_padded",
+                        lambda a, m: padded.append(a.shape[-1]) or
+                        torch.linalg.eigh(a))
+    for n in (mod.PAD_FROM - 1, mod.PAD_FROM):
+        mod._eigh(torch.eye(n, dtype=torch.float32)[None])
+    assert padded == [mod.PAD_FROM]

@@ -2,8 +2,10 @@
 
 Runs chip_smoke.py's full-width runs (full_width_us and its fp32 twin
 polished as chip_smoke.py polishes it, full_width_gamma_us and its fp32
-twin, full_width_chunked_us, full_width_gamma_pbe_fm,
-full_width_spinor_us) from this checkout (A) and from another one (B),
+twin, full_width_chunked_us, full_width_gamma_pbe_fm, full_width_scan_us,
+full_width_spinor_us and its fp32 twin; --runs names a subset, by the
+first of each group: us, gamma, chunked, gamma_pbe_fm, scan, spinor) from
+this checkout (A) and from another one (B),
 each in its own process, in the order A B B A, and prints one JSON line a
 run: the checkout, each phase's iteration seconds and peak device memory.
 Two versions are compared only inside one call: a card's speed moves
@@ -16,6 +18,7 @@ saying whether the two checkouts gave the same numbers bit for bit (a
 gate that fails is reported, not raised).
 
     python3 tools/torch_port_ab.py --other DIR [--order ABBA] [--parity]
+        [--runs us,gamma,chunked,gamma_pbe_fm,scan,spinor]
 
 DIR is a checkout of another commit (for instance `git archive` of the
 parent unpacked into a git-ignored directory). Needs a CUDA card.
@@ -60,41 +63,59 @@ def run(phase, ctx, **kw):
     torch.cuda.empty_cache()
     return res
 
-ctx = cs.make_context(cs.FULL, {"num_dft_iter": cs.FULL_ITERS["full_width_us"],
-                                **cs.RUN_TO_END}, cs.US_SYM)
-_, rms = run("full_width_us", ctx, required=cs.US_KERNELS, with_rms=True)
-ctx.cfg.parameters.precision_wf = "fp32"
-ctx.cfg.settings.fp32_to_fp64_rms = cs.polish_threshold(rms)
-run("full_width_us_fp32", ctx, required=cs.FP32_US_KERNELS,
-    deck="si16_supercell2_us_sym",
-    electron_tol=cs.fp32_electron_tol(refs, ctx.unit_cell.num_valence_electrons))
-del ctx
-ctx = cs.make_context(cs.GAMMA54, {"num_dft_iter": cs.FULL_ITERS[
-    "full_width_gamma_us"], **cs.RUN_TO_END}, cs.US_SYM)
-run("full_width_gamma_us", ctx, required=cs.GAMMA_US_KERNELS,
-    deck="si54_supercell3_gamma", path="gamma")
-ctx.cfg.parameters.precision_wf = "fp32"
-run("full_width_gamma_us_fp32", ctx, required=cs.FP32_GAMMA_US_KERNELS,
-    deck="si54_supercell3_gamma", path="gamma",
-    electron_tol=cs.fp32_electron_tol(refs, ctx.unit_cell.num_valence_electrons))
-ctx.cfg.parameters.precision_wf = "fp64"
-ctx.cfg.control.beta_chunked = True
-ctx.cfg.control.beta_chunk_size = cs.CHUNK54
-run("full_width_chunked_us", ctx, required=cs.CHUNKED_US_KERNELS,
-    deck="si54_supercell3_gamma", path="chunked")
-del ctx
-ctx = cs.magnetic_supercell_context(
-    3, cs.GAMMA54, {"num_dft_iter": cs.FULL_ITERS["full_width_gamma_pbe_fm"],
-                    **cs.RUN_TO_END, "xc_functionals": cs.PBE, **cs.SPIN},
-    cs.US_SYM, 0.5)
-run("full_width_gamma_pbe_fm", ctx, required=cs.FULL_GAMMA_PBE_FM_KERNELS,
-    deck="si54_supercell3_gamma_fm", path="gamma")
-del ctx
-ctx = cs.magnetic_supercell_context(
-    2, cs.FULL, {"num_dft_iter": cs.FULL_ITERS["full_width_spinor_us"],
-                 **cs.RUN_TO_END, **cs.NONCOLLINEAR}, cs.US_SYM, cs.CANTED[0])
-run("full_width_spinor_us", ctx, required=cs.SPINOR_SYM_KERNELS,
-    deck="si16_supercell2_us_sym_spinor", path="kset_nc")
+RUNS = sys.argv[1].split(",")
+if "us" in RUNS:
+    ctx = cs.make_context(cs.FULL, {"num_dft_iter": cs.FULL_ITERS["full_width_us"],
+                                    **cs.RUN_TO_END}, cs.US_SYM)
+    _, rms = run("full_width_us", ctx, required=cs.US_KERNELS, with_rms=True)
+    ctx.cfg.parameters.precision_wf = "fp32"
+    ctx.cfg.settings.fp32_to_fp64_rms = cs.polish_threshold(rms)
+    run("full_width_us_fp32", ctx, required=cs.FP32_US_KERNELS,
+        deck="si16_supercell2_us_sym",
+        electron_tol=cs.fp32_electron_tol(refs, ctx.unit_cell.num_valence_electrons))
+    del ctx
+if "gamma" in RUNS or "chunked" in RUNS:
+    ctx = cs.make_context(cs.GAMMA54, {"num_dft_iter": cs.FULL_ITERS[
+        "full_width_gamma_us"], **cs.RUN_TO_END}, cs.US_SYM)
+    if "gamma" in RUNS:
+        run("full_width_gamma_us", ctx, required=cs.GAMMA_US_KERNELS,
+            deck="si54_supercell3_gamma", path="gamma")
+        ctx.cfg.parameters.precision_wf = "fp32"
+        run("full_width_gamma_us_fp32", ctx, required=cs.FP32_GAMMA_US_KERNELS,
+            deck="si54_supercell3_gamma", path="gamma",
+            electron_tol=cs.fp32_electron_tol(refs, ctx.unit_cell.num_valence_electrons))
+        ctx.cfg.parameters.precision_wf = "fp64"
+    if "chunked" in RUNS:
+        ctx.cfg.control.beta_chunked = True
+        ctx.cfg.control.beta_chunk_size = cs.CHUNK54
+        run("full_width_chunked_us", ctx, required=cs.CHUNKED_US_KERNELS,
+            deck="si54_supercell3_gamma", path="chunked")
+    del ctx
+if "gamma_pbe_fm" in RUNS:
+    ctx = cs.magnetic_supercell_context(
+        3, cs.GAMMA54, {"num_dft_iter": cs.FULL_ITERS["full_width_gamma_pbe_fm"],
+                        **cs.RUN_TO_END, "xc_functionals": cs.PBE, **cs.SPIN},
+        cs.US_SYM, 0.5)
+    run("full_width_gamma_pbe_fm", ctx, required=cs.FULL_GAMMA_PBE_FM_KERNELS,
+        deck="si54_supercell3_gamma_fm", path="gamma")
+    del ctx
+if "scan" in RUNS:
+    ctx = cs.make_context(cs.FULL, {
+        "num_dft_iter": cs.FULL_ITERS["full_width_scan_us"], **cs.RUN_TO_END,
+        "xc_functionals": cs.SCAN}, cs.US_SYM)
+    run("full_width_scan_us", ctx, required=cs.FULL_SCAN_KERNELS,
+        deck="si16_supercell2_us_sym_scan")
+    del ctx
+if "spinor" in RUNS:
+    ctx = cs.magnetic_supercell_context(
+        2, cs.FULL, {"num_dft_iter": cs.FULL_ITERS["full_width_spinor_us"],
+                     **cs.RUN_TO_END, **cs.NONCOLLINEAR}, cs.US_SYM, cs.CANTED[0])
+    run("full_width_spinor_us", ctx, required=cs.SPINOR_SYM_KERNELS,
+        deck="si16_supercell2_us_sym_spinor", path="kset_nc")
+    ctx.cfg.parameters.precision_wf = "fp32"
+    run("full_width_spinor_us_fp32", ctx, required=cs.FP32_SPINOR_SYM_KERNELS,
+        deck="si16_supercell2_us_sym_spinor", path="kset_nc",
+        electron_tol=cs.fp32_electron_tol(refs, ctx.unit_cell.num_valence_electrons))
 print(json.dumps({"gpu": gpu, "runs": out}))
 '''
 
@@ -165,6 +186,8 @@ def main(argv=None) -> int:
     ap.add_argument("--other", required=True,
                     help="the other checkout's root (B)")
     ap.add_argument("--order", default="ABBA")
+    ap.add_argument("--runs", default="us,gamma,chunked,gamma_pbe_fm,scan,"
+                    "spinor", help="the full-width groups to run")
     ap.add_argument("--parity", action="store_true",
                     help="then the 2-atom parity decks, A then B")
     args = ap.parse_args(argv)
@@ -178,13 +201,13 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True).stdout.strip()
-    runs = [(CHILD, which) for which in args.order]
+    runs = [(CHILD, which) for which in args.order if args.runs]
     if args.parity:
         runs += [(PARITY_CHILD, "A"), (PARITY_CHILD, "B")]
     parity = {}
     for i, (child, which) in enumerate(runs):
-        proc = subprocess.run([sys.executable, "-c", child], cwd=trees[which],
-                              capture_output=True, text=True)
+        proc = subprocess.run([sys.executable, "-c", child, args.runs],
+                              cwd=trees[which], capture_output=True, text=True)
         if proc.returncode != 0:
             print(proc.stderr[-3000:], file=sys.stderr)
             return proc.returncode
