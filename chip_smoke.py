@@ -12,11 +12,14 @@ imports nothing of JAX or of sirius_tpu. Phases, each printing JSON lines:
    of the parity decks and of the full-width decks (norm-conserving: K1,
    K2, K3, K7; ultrasoft + symmetry: K1c, K4, K5, K6; Gamma packed-real:
    K8a, K8b, K1c in real mode, K2 on float64 blocks; chunked projectors:
-   K9; the XC kernels at the fine boxes of the 16- and 54-atom cells: K7b
+   K9; the XC kernels at the fine boxes of the 16- and 54-atom cells: K7
+   for X + PZ (unpolarized, its zeta = 0 kernel, also bit for bit against
+   the polarized launch at (rho/2, rho/2)), K7b
    for X + PW92 and X + VWN5, K7g for PBE and PBEsol and K7s for SCAN (each
    set its own instantiation) and both kernels' runtime-mask instantiation
    on a mixed list, each polarized and unpolarized, on densities with dead
-   channels and fully polarized points, K10a and K10b, and K6 on an axial
+   channels and fully polarized points, K10a (bit for bit its plain
+   version on two fields and on one) and K10b, and K6 on an axial
    field; the tau
    operator's K11a and K11b at the 16-atom coarse box; the non-collinear
    kernels at the 2-atom and 16-atom spinor decks: K12a, K12b, K6v and K4
@@ -38,13 +41,17 @@ imports nothing of JAX or of sirius_tpu. Phases, each printing JSON lines:
    carries the group's factorisation (num_translations, num_reps,
    num_live) and the unfactorised sum's operations bound; every K2 record
    its cluster size; before them, the edge shapes of the redesigned K1c,
-   K5, K8b and K2 (check_kernel_edges: odd row lengths, views off a 16-byte
-   boundary, G counts off every tile and chunk, 1, 2 and 4 channels, more
-   atoms than one launch, K8b's two instantiations on a half row tile, one
-   row and padding slots, K2's four instantiations at rows just over and
+   K5, K8b, K10a, K2 and K7 (check_kernel_edges: odd row lengths, views off
+   a 16-byte boundary, G counts off every tile and chunk, 1, 2 and 4
+   channels, more atoms than one launch, K8b's two instantiations on a half
+   row tile, one row and padding slots, K10a bit for bit on 1, 2 and 3
+   fields, on a box of 1001 slots and one of 3, a G at the last slot, K2's
+   four instantiations at rows just over and
    under its cluster threshold, with and without w; every K7g and K7s
    instantiation at one point, a point count off the block, all points
-   dead, sigma = 0 at zeta = +-1 and, for SCAN, alpha at 1): error,
+   dead, sigma = 0 at zeta = +-1 and, for SCAN, alpha at 1; unpolarized
+   X + PZ at one point, off the block, all dead and at and just below
+   rho = 2 DENS_TH, also bit for bit against its polarized launch): error,
    kernel time (CUDA events, median of 21 samples of 5 launches after
    warm-up), the plain version's time, a one-call PyTorch yardstick where
    one exists (library_ms), and the least time the card could take
@@ -92,9 +99,11 @@ imports nothing of JAX or of sirius_tpu. Phases, each printing JSON lines:
    moment, finite energies.
 
 Every SCF phase sets the launch counts to 0 just before its run and reads
-them just after, and fails if a kernel of its path was not launched. The
+them just after, and fails if a kernel of its path was not launched (an
+unpolarized X + PZ deck must launch K7's zeta = 0 kernel). The
 kernels summary takes each kernel's launches from the full-width run of its
-path: full_width_us for K1-K7, full_width_gamma_us for K8a, K8b, K1c real
+path: full_width_us for K1-K7, full_width_gamma_us for K7 at 144^3
+(lda_xc.pz.unpolarized), K8a, K8b, K1c real
 and K2 float64, full_width_chunked_us for K9, full_width_gamma_pbe_fm for
 K7g (PBE), K10a, K10b and K6 on axial fields, full_width_scan_us for K7s
 unpolarized, K11a and K11b, full_width_spinor_us for K12a, K12b, K6v and
@@ -193,8 +202,13 @@ CANTED = [[0.3, 0.3, 0.3], [0.3, 0.3, 0.3]]
 # the 16-atom ultrasoft cell with (0.3, 0.3, 0.3) on every atom: 48
 # magnetic ops, 4 k-points (time reversal off), 84 spinor bands
 FULL_ITERS["full_width_spinor_us"] = 4
+X_PZ = ["XC_LDA_X", "XC_LDA_C_PZ"]
+# unpolarized X + PZ launches its own kernel, the closed form at zeta = 0
+PZ0 = "lda_xc.pz.unpolarized"
 # the XC kernel checks: functionals, polarized
 XC_CHECKS = {
+    "lda_xc.pz": (X_PZ, True),
+    PZ0: (X_PZ, False),
     "lda_xc.pw92": (["XC_LDA_X", "XC_LDA_C_PW"], True),
     "lda_xc.pw92.unpolarized": (["XC_LDA_X", "XC_LDA_C_PW"], False),
     "lda_xc.vwn": (["XC_LDA_X", "XC_LDA_C_VWN"], True),
@@ -339,9 +353,11 @@ def base_name(name: str) -> str:
 TOL.update({name: 1e-5 for name in FP32_SUMMARY})
 SOURCE.update({name: SOURCE[base_name(name)] for name in FP32_SUMMARY})
 REPLACES.update({name: REPLACES[base_name(name)] for name in FP32_SUMMARY})
-# the kernels summary: the new rows of K7b / K7g (a record at the 54-atom
-# box, in the mode its deck runs) and the run their launches come from
-SUMMARY_XC = {"lda_xc.pw92": "pw_us_sym_afm",
+# the kernels summary: the rows of K7 at 144^3, K7b and K7g (a record at the
+# 54-atom box, in the mode its deck runs) and the run their launches come
+# from
+SUMMARY_XC = {PZ0: "full_width_gamma_us",
+              "lda_xc.pw92": "pw_us_sym_afm",
               "lda_xc.vwn.unpolarized": "gamma_nc_vwn",
               "gga_xc.pbe": "full_width_gamma_pbe_fm",
               "gga_xc.pbe.unpolarized": "pbe_us_sym",
@@ -415,6 +431,29 @@ def bound(nbytes: float, flops: float,
     tb = nbytes / HBM_BYTES_PER_S * 1e3
     tf = flops / (FP32_FLOPS_PER_S if fp32 else FP64_FLOPS_PER_S) * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def bits_equal(a, b) -> bool:
+    """Bit for bit: the same float64 (or complex128) values, signs of zero
+    and NaN payloads included."""
+    import torch
+
+    if a.is_complex():
+        a, b = torch.view_as_real(a), torch.view_as_real(b)
+    return a.shape == b.shape and torch.equal(
+        a.contiguous().view(torch.int64), b.contiguous().view(torch.int64))
+
+
+def pz0_bitwise(rho) -> bool:
+    """Unpolarized X + PZ (on the card its zeta = 0 kernel) against the
+    polarized launch at (rho/2, rho/2), the parent kernel's code: e against
+    e and v against v_up, bit for bit."""
+    from sirius_tpu_torch.kernels import lda_xc as k7
+
+    e, v = k7.lda_xc_unpolarized(rho)
+    half = 0.5 * rho
+    e_p, vu_p, _ = k7.lda_xc(half, half)
+    return bits_equal(e, e_p) and bits_equal(v, vu_p)
 
 
 def rel_err(a, b) -> tuple[float, float]:
@@ -723,14 +762,58 @@ def check_kernel_edges(dev, gpu: str) -> None:
                 raise AssertionError(f"{name} at {rows} rows, {npad} padding "
                                      "slots: not bitwise equal to its plain "
                                      "version")
+    check_gradient_edges(dev, gpu, rng)
     check_residual_edges(dev, gpu, rng)
     check_xc_edges(dev, gpu, rng)
 
 
+# K10a's edge shapes: (fields, box); 7 x 11 x 13 = 1001 slots, no multiple
+# of the kernel's 256-thread block, and a box of 3 slots
+K10A_EDGES = ((1, (7, 11, 13)), (2, (7, 11, 13)), (3, (7, 11, 13)),
+              (1, (1, 1, 3)))
+
+
+def check_gradient_edges(dev, gpu: str, rng) -> None:
+    """K10a against its plain version at K10A_EDGES, bit for bit: a G set
+    of a third of the box's slots (at least one) in random order, the last
+    slot among them. Emits one kernel_edges line a case."""
+    import numpy as np
+    import torch
+
+    from sirius_tpu_torch.kernels import xc_gradient as k10
+
+    for nfield, dims in K10A_EDGES:
+        nbox = int(np.prod(dims))
+        ng = max(1, nbox // 3)
+        slots = rng.choice(nbox - 1, ng - 1, replace=False)
+        slots = rng.permutation(np.append(slots, nbox - 1)).astype(np.int32)
+        box_to_g = np.full(nbox, -1, dtype=np.int32)
+        box_to_g[slots] = np.arange(ng, dtype=np.int32)
+        z = rng.standard_normal((2, nfield, ng))
+        f = torch.as_tensor(z[0] + 1j * z[1], device=dev)
+        gcart = torch.as_tensor(rng.standard_normal((ng, 3)), device=dev)
+        fft_index = torch.as_tensor(slots, device=dev)
+        got = k10.gradient_boxes(f, gcart, fft_index, nbox,
+                                 torch.as_tensor(box_to_g, device=dev))
+        bitwise = bits_equal(got, k10.gradient_boxes_plain(f, gcart,
+                                                           fft_index, nbox))
+        emit({"phase": "kernel_edges", "gpu": gpu,
+              "name": "xc_gradient.gradient_boxes", "fields": nfield,
+              "dims": list(dims), "nbox": nbox, "num_gvec": ng,
+              "last_slot_live": bool(box_to_g[-1] >= 0), "bitwise": bitwise})
+        if not bitwise:
+            raise AssertionError(f"gradient_boxes at {nfield} fields, box "
+                                 f"{dims}: not bitwise equal to its plain "
+                                 "version")
+
+
 # the XC edge cases: name, points (one point; 933, no multiple of the
-# 128-thread block)
+# 128- or 256-thread block)
 XC_EDGES = (("one point", 1), ("off the block", 933), ("all dead", 933),
             ("sigma 0 at zeta +-1", 933), ("alpha at 1", 933))
+# unpolarized X + PZ's: its threshold falls at rho = 2 DENS_TH
+PZ0_EDGES = (("one point", 1), ("off the block", 933), ("all dead", 933),
+             ("at and below 2 DENS_TH", 933))
 
 
 def xc_edge_fields(case: str, n: int, rng, dev) -> dict:
@@ -739,9 +822,13 @@ def xc_edge_fields(case: str, n: int, rng, dev) -> dict:
     of the unpolarized form. "all dead": every channel below DENS_TH;
     "sigma 0 at zeta +-1": one channel exactly 0 on alternate points, zero
     gradients; "alpha at 1": tau_s = tau_W + tau_unif, so SCAN's alpha
-    sits at 1 up to rounding, where scan_interp switches branch."""
+    sits at 1 up to rounding, where scan_interp switches branch; "at and
+    below 2 DENS_TH": rho alternately 2 DENS_TH and the next float below,
+    where each half channel is just live and just dead."""
     import numpy as np
     import torch
+
+    from sirius_tpu_torch.kernels.xc_functionals import DENS_TH
 
     rho = np.exp(rng.uniform(np.log(1e-4), np.log(1.0), n))
     frac = rng.uniform(-0.9, 0.9, n)
@@ -752,6 +839,9 @@ def xc_edge_fields(case: str, n: int, rng, dev) -> dict:
     if case == "sigma 0 at zeta +-1":
         frac = np.where(np.arange(n) % 2 == 0, 1.0, -1.0)
         grad_scale = np.zeros(n)
+    if case == "at and below 2 DENS_TH":
+        rho = np.where(np.arange(n) % 2 == 0, 2.0 * DENS_TH,
+                       np.nextafter(2.0 * DENS_TH, 0.0))
     nu, nd = 0.5 * rho * (1.0 + frac), 0.5 * rho * (1.0 - frac)
     gu = rng.standard_normal((3, n)) * grad_scale
     gd = rng.standard_normal((3, n)) * grad_scale
@@ -776,9 +866,28 @@ def check_xc_edges(dev, gpu: str, rng) -> None:
     """Every K7g and K7s instantiation (the compiled sets and the runtime
     mask, polarized and unpolarized: the K7g and K7s names of XC_CHECKS)
     against its plain version at the XC_EDGES cases, each at its XC_CHECKS
-    tolerance. Emits one kernel_edges line a case."""
+    tolerance; unpolarized X + PZ at the PZ0_EDGES cases against its plain
+    version and bit for bit against the polarized launch at (rho/2, rho/2).
+    Emits one kernel_edges line a case."""
     from sirius_tpu_torch.kernels import gga_xc as k7g
+    from sirius_tpu_torch.kernels import lda_xc as k7
     from sirius_tpu_torch.kernels import mgga_xc as k7s
+
+    for case, n in PZ0_EDGES:
+        rho = xc_edge_fields(case, n, rng, dev)["rho"]
+        got = k7.lda_xc_unpolarized(rho)
+        errs = [rel_err(a, b) for a, b in
+                zip(got, k7.lda_xc_unpolarized_plain(rho))]
+        rel = max(e[1] for e in errs)
+        bitwise = pz0_bitwise(rho)
+        finite = all(bool(a.isfinite().all()) for a in got)
+        emit({"phase": "kernel_edges", "gpu": gpu, "name": PZ0, "case": case,
+              "points": n, "max_abs_err": max(e[0] for e in errs),
+              "max_rel_err": rel, "tol_rel": TOL[PZ0], "finite": finite,
+              "bitwise_polarized": bitwise})
+        if not (rel <= TOL[PZ0] and finite and bitwise):
+            raise AssertionError(f"{PZ0} ({case}): rel err {rel}, finite "
+                                 f"{finite}, bitwise polarized {bitwise}")
 
     for case, n in XC_EDGES:
         f = xc_edge_fields(case, n, rng, dev)
@@ -1020,7 +1129,7 @@ def check_kernels(deck: str, ctx, dev, gpu: str, fp32: bool = False) -> dict:
     record("lda_xc", list(x_k), list(x_p),
            lambda: k7.lda_xc_unpolarized(rho_r),
            lambda: k7.lda_xc_unpolarized_plain(rho_r), None,
-           nbytes=nfine * 24, flops=nfine * 60.0)
+           nbytes=nfine * 24, flops=nfine * K7_OPERATIONS)
     return out
 
 
@@ -1353,6 +1462,11 @@ def check_kernel_chunk(deck: str, ctx, chunk: int, dev, gpu: str,
     return out
 
 
+# fp64 operations a point of K7's closed form (X + PZ), cbrt, pow, log and
+# sqrt counted as one each
+K7_OPERATIONS = 60.0
+
+
 def xc_operations(names, polarized: bool) -> float:
     """fp64 operations a point of K7b / K7g / K7s, by a stated rule: the
     torch operations of each functional's energy in the plain version (each
@@ -1428,7 +1542,10 @@ def check_kernels_xc(deck: str, ctx, dev, gpu: str) -> dict:
     points (one channel exactly 0) and dead points; for SCAN a kinetic-
     energy density per spin of random multiples (0.5 to 2) of the uniform-
     gas value plus the von Weizsaecker term, 0 (the first SCF potential's)
-    on some points. Returns {kernel: record}."""
+    on some points. Unpolarized X + PZ also bit for bit against the
+    polarized launch at (rho/2, rho/2), and K10a bit for bit against its
+    plain version on both fields and on one; either raises if not.
+    Returns {kernel: record}."""
     import numpy as np
     import torch
 
@@ -1477,7 +1594,7 @@ def check_kernels_xc(deck: str, ctx, dev, gpu: str) -> dict:
     tt = tu + td
 
     for name, (names, pol) in XC_CHECKS.items():
-        ops = xc_operations(names, pol)
+        ops = K7_OPERATIONS if names == X_PZ else xc_operations(names, pol)
         if name.startswith("mgga_xc"):
             if pol:
                 kern = functools.partial(k7s.mgga_xc, nu, nd, gu, gd, tu, td,
@@ -1511,26 +1628,39 @@ def check_kernels_xc(deck: str, ctx, dev, gpu: str) -> dict:
                                           g1, names)
             nbytes = n * (136.0 if pol else 72.0)
         kind = {"gga_xc": k7g, "mgga_xc": k7s}.get(name.split(".")[0])
+        extra = None if kind is None else {
+            "instantiation": kind.instantiation(names)[0]}
+        if name == PZ0:
+            extra = {"bitwise_polarized": pz0_bitwise(rho)}
         # no single PyTorch call evaluates a functional: library_ms null
         record(name, list(kern()), list(plain()), kern, plain, None,
-               nbytes=nbytes, flops=n * ops, slow_plain=True,
-               extra=None if kind is None else {
-                   "instantiation": kind.instantiation(names)[0]})
+               nbytes=nbytes, flops=n * ops, slow_plain=True, extra=extra)
+        if name == PZ0 and not extra["bitwise_polarized"]:
+            raise AssertionError(f"{PZ0} at {deck}: not bitwise the polarized "
+                                 "launch at (rho/2, rho/2)")
     # K10b takes the forward FFT of the polarized PBE fluxes
     _, _, _, fu, fd = k7g.gga_xc(nu, nd, gu, gd, PBE)
     boxes = torch.fft.fftn(torch.stack([fu, fd]).view((2, 3) + dims).to(
         torch.complex128), dim=(-3, -2, -1), norm="forward").view(2, 3, n)
     del fu, fd, gu, gd, g1, tu, td, tt
     gargs = (tables.gcart, tables.fft_index)
+    # K10a bitwise its plain version on both fields and on one (the SCAN
+    # run's unpolarized gradient)
+    bitwise = {f"bitwise_{s}_fields": bits_equal(
+        k10.gradient_boxes(fields[:s], *gargs, n, tables.box_to_g),
+        k10.gradient_boxes_plain(fields[:s], *gargs, n)) for s in (1, 2)}
     # no single PyTorch call forms i G_c f and scatters it, or gathers and
     # sums it: library_ms null
     record("xc_gradient.gradient_boxes",
-           [k10.gradient_boxes(fields, *gargs, n)],
+           [k10.gradient_boxes(fields, *gargs, n, tables.box_to_g)],
            [k10.gradient_boxes_plain(fields, *gargs, n)],
-           lambda: k10.gradient_boxes(fields, *gargs, n),
+           lambda: k10.gradient_boxes(fields, *gargs, n, tables.box_to_g),
            lambda: k10.gradient_boxes_plain(fields, *gargs, n), None,
            nbytes=2 * ng * 16 + ng * 28 + 2 * 3 * n * 16,
-           flops=2 * ng * 6.0)
+           flops=2 * ng * 6.0, extra=bitwise)
+    if not all(bitwise.values()):
+        raise AssertionError(f"gradient_boxes at {deck}: not bitwise equal to "
+                             f"its plain version: {bitwise}")
     record("xc_gradient.divergence_pw", [k10.divergence_pw(boxes, *gargs)],
            [k10.divergence_pw_plain(boxes, *gargs)],
            lambda: k10.divergence_pw(boxes, *gargs),
@@ -1836,10 +1966,12 @@ def wrappers() -> dict:
 
     n = "launches"
     # K7b's functional sums count on its wrapper: each summary row reads the
-    # count of the run that only launches its sum; K7g and K7s count each
-    # instantiation apart (launches_pbe, launches_scan, ...)
+    # count of the run that only launches its sum; unpolarized X + PZ counts
+    # its own kernel apart, K7g and K7s each instantiation (launches_pbe,
+    # launches_scan, ...)
     xc = {name: (k7.lda_xc, n) for name in XC_CHECKS
           if name.startswith("lda_xc")}
+    xc[PZ0] = (k7.lda_xc, "launches_pz_unpolarized")
     for name, (names, _) in XC_CHECKS.items():
         mod = {"gga_xc": k7g, "mgga_xc": k7s}.get(name.split(".")[0])
         if mod is not None:
@@ -1877,16 +2009,17 @@ def wrappers() -> dict:
 
 
 # the kernels each SCF path must launch: the norm-conserving k-set path runs
-# K1, K1c, K2, K3 and K7; ultrasoft + symmetry adds K4, K5 and K6. The Gamma
+# K1, K1c, K2, K3 and K7 (unpolarized X + PZ: its zeta = 0 kernel); ultrasoft
+# + symmetry adds K4, K5 and K6. The Gamma
 # path applies H through K8a, K1c real, K8b and solves with K2 float64 (the
 # density keeps K1's scatter and K3); the chunked path adds K9 to the k-set
 # path's kernels
 NC_KERNELS = ("local_hpsi.pw_to_box", "local_hpsi.box_to_pw_hpsi",
-              "davidson_residual", "density_accumulate", "lda_xc",
+              "davidson_residual", "density_accumulate", "lda_xc", PZ0,
               "veff_multiply")
 US_KERNELS = NC_KERNELS + ("augmentation.rho_aug", "augmentation.d_operator",
                            "symmetrize_pw")
-GAMMA_KERNELS = ("local_hpsi.pw_to_box", "density_accumulate", "lda_xc",
+GAMMA_KERNELS = ("local_hpsi.pw_to_box", "density_accumulate", "lda_xc", PZ0,
                  "gamma_pack.unpack_to_box", "gamma_pack.box_to_packed_hx",
                  "veff_multiply.real", "davidson_residual.f64")
 GAMMA_US_KERNELS = GAMMA_KERNELS + ("augmentation.rho_aug",
@@ -1906,11 +2039,12 @@ MGGA_KERNELS = ("mgga_xc.scan", "xc_gradient.gradient_boxes",
 
 def xc_kernels(base, gga: bool, axial: bool, mgga: bool = False,
                gga_set: str = "gga_xc.pbe") -> tuple:
-    """A path's kernels for a deck of other functionals or spin: GGA runs
-    K7g (its instantiation gga_set), K10a and K10b in place of K7, SCAN
-    K7s, K10a, K10b, K11a and K11b; a polarized deck with symmetry runs K6
-    on its axial fields too."""
-    out = tuple(k for k in base if not ((gga or mgga) and k == "lda_xc"))
+    """A path's kernels for a deck of other functionals or spin: none runs
+    unpolarized X + PZ's kernel; GGA runs K7g (its instantiation gga_set),
+    K10a and K10b in place of K7, SCAN K7s, K10a, K10b, K11a and K11b; a
+    polarized deck with symmetry runs K6 on its axial fields too."""
+    out = tuple(k for k in base if k != PZ0
+                and not ((gga or mgga) and k == "lda_xc"))
     return out + (MGGA_KERNELS if mgga else (gga_set,) + GGA_KERNELS[1:]
                   if gga else ()) + (("symmetrize_pw.axial",) if axial else ())
 
@@ -1920,7 +2054,7 @@ XC_DECK_PATH = {
     "pbe_us_sym": ("kset", xc_kernels(US_KERNELS, True, False)),
     "pw_us_sym_afm": ("kset", xc_kernels(US_KERNELS, False, True)),
     "gamma_pbe_us_sym_fm": ("gamma", xc_kernels(GAMMA_US_KERNELS, True, True)),
-    "gamma_nc_vwn": ("gamma", GAMMA_KERNELS),
+    "gamma_nc_vwn": ("gamma", xc_kernels(GAMMA_KERNELS, False, False)),
     "gamma_nc_pbesol": ("gamma", xc_kernels(GAMMA_KERNELS, True, False,
                                             gga_set="gga_xc.pbesol")),
     "scan_us_sym": ("kset", xc_kernels(US_KERNELS, False, False, mgga=True)),
@@ -1950,23 +2084,25 @@ FULL_SCAN_KERNELS = xc_kernels(US_KERNELS, False, False, mgga=True)
 # fp64 scatter and K3), as the JAX package does
 FP32_US_KERNELS = ("local_hpsi.pw_to_box.c64", "local_hpsi.box_to_pw_hpsi.c64",
                    "veff_multiply.c64", "davidson_residual.c64",
-                   "density_accumulate.c64", "lda_xc", "augmentation.rho_aug",
-                   "augmentation.d_operator", "symmetrize_pw")
+                   "density_accumulate.c64", "lda_xc", PZ0,
+                   "augmentation.rho_aug", "augmentation.d_operator",
+                   "symmetrize_pw")
 FP32_GAMMA_US_KERNELS = ("gamma_pack.unpack_to_box.f32",
                          "veff_multiply.real.c64",
                          "gamma_pack.box_to_packed_hx.f32",
                          "davidson_residual.f32", "local_hpsi.pw_to_box",
-                         "density_accumulate", "lda_xc",
+                         "density_accumulate", "lda_xc", PZ0,
                          "augmentation.rho_aug", "augmentation.d_operator",
                          "symmetrize_pw")
 FP32_CHUNKED_US_KERNELS = ("local_hpsi.pw_to_box.c64",
                            "local_hpsi.box_to_pw_hpsi.c64",
                            "veff_multiply.c64", "davidson_residual.c64",
                            "beta_chunk.c64", "local_hpsi.pw_to_box",
-                           "density_accumulate", "lda_xc",
+                           "density_accumulate", "lda_xc", PZ0,
                            "augmentation.rho_aug", "augmentation.d_operator",
                            "symmetrize_pw")
-FP32_SCAN_KERNELS = tuple(k for k in FP32_US_KERNELS if k != "lda_xc") + (
+FP32_SCAN_KERNELS = tuple(k for k in FP32_US_KERNELS
+                          if k not in ("lda_xc", PZ0)) + (
     "mgga_xc.scan", "xc_gradient.gradient_boxes", "xc_gradient.divergence_pw",
     "mgga_tau.grad_to_box.c64", "mgga_tau.box_to_pw_tau.c64")
 FP32_SPINOR_SYM_KERNELS = ("local_hpsi.pw_to_box.c64",
@@ -2650,7 +2786,7 @@ def main() -> int:
         required=CHUNKED_US_KERNELS, deck="si54_supercell3_gamma",
         path="chunked")["beta_chunk"])
     del ctx54
-    runs = {}
+    runs = {"full_width_gamma_us": launches54}
     for name, ctx in xc_decks.items():
         path, required = XC_DECK_PATH[name]
         runs[name] = parity_scf(

@@ -22,6 +22,18 @@
 // Design: one thread per point, no shared state. The unpolarized form feeds
 // n_up = n_dn = rho/2 and returns e and v = (v_up + v_dn)/2 in place of
 // (v_up, v_dn), as xc.py:403-410 does, so no half-density arrays exist.
+// Unpolarized X + PZ (K7 on most decks) launches its own kernel,
+// x_pz_zeta0_points: the polarized form at zeta = 0 with every term that is
+// exactly zero or an exact duplicate there left out (one pow and two cbrt a
+// point in place of four pow and five cbrt, constants aside; one PZ channel
+// in place of two), each remaining expression written operand for operand
+// as x_pz writes it, so the compiler contracts the same multiply-adds. For
+// finite densities its e and v are the bits of lda_xc_points' e and v_up
+// at (rho/2, rho/2): zeta = 0/n = +0, pow(1, 4/3) = 1 and
+// cbrt(1) - cbrt(1) = 0 exactly, so f(zeta) = f'(zeta) = 0 and eps,
+// deps/drs are the unpolarized channel's own; the two exchange powers are
+// equal, v_up = v_dn, and (v_up + v_dn)/2 = v_up. The entry picks the
+// kernel; lda_xc_points serves every other launch.
 //
 // Plain C interface (loaded with ctypes); launches on the stream passed in,
 // allocates nothing, returns cudaGetLastError().
@@ -89,6 +101,21 @@ __device__ void x_pz(double nu, double nd, double* e, double* vu, double* vd) {
     *vd = vxd + common - (1.0 + zeta) * deps_dz;
 }
 
+// x_pz at nu = nd = nh (thresholded): e and v = v_up = v_dn
+__device__ void x_pz_zeta0(double nh, double* e, double* v) {
+    nh = fmax(nh, kTiny);
+    const double cx = 0.75 * cbrt(3.0 / kPi);
+    const double px = pow(2.0 * nh, 4.0 / 3.0);
+    const double ex = -cx / 2.0 * (px + px);
+    const double vx = -(4.0 / 3.0) * cx * cbrt(2.0 * nh);
+    const double n = nh + nh;
+    const double rs = cbrt(3.0 / (4.0 * kPi * n));
+    const Pz u = pz_eps(rs, false);
+    const double common = u.eps - rs / 3.0 * u.deps;
+    *e = ex + n * u.eps;
+    *v = vx + common;
+}
+
 // any LDA sum on duals (inputs already thresholded)
 __device__ void lda_dual(int mask, double nu, double nd, double* e, double* vu,
                          double* vd) {
@@ -135,6 +162,21 @@ __global__ void lda_xc_points(const double* __restrict__ nu_in,
     }
 }
 
+// unpolarized X + PZ: rho -> e, v
+__global__ void x_pz_zeta0_points(const double* __restrict__ rho,
+                                  double* __restrict__ e_out,
+                                  double* __restrict__ v_out, long long n) {
+    for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
+         i += (long long)gridDim.x * blockDim.x) {
+        const double nh = 0.5 * rho[i];
+        const bool dead = nh < kDensTh;
+        double e, v;
+        x_pz_zeta0(dead ? kDensTh : nh, &e, &v);
+        e_out[i] = e;
+        v_out[i] = dead ? 0.0 : v;
+    }
+}
+
 }  // namespace
 
 // Polarized: nu, nd -> e, vu, vd. Unpolarized (unpolarized != 0): nu holds
@@ -148,7 +190,11 @@ extern "C" int lda_xc(const double* nu, const double* nd, double* e, double* vu,
     const int threads = 256;
     long long blocks = (n + threads - 1) / threads;
     if (blocks > 65535LL * 16) blocks = 65535LL * 16;
-    if (blocks > 0)
+    if (blocks <= 0) return (int)cudaGetLastError();
+    if (unpolarized && mask == (xc::kLdaX | xc::kLdaCPz))
+        x_pz_zeta0_points<<<(int)blocks, threads, 0, (cudaStream_t)stream>>>(
+            nu, e, vu, n);
+    else
         lda_xc_points<<<(int)blocks, threads, 0, (cudaStream_t)stream>>>(
             nu, nd, e, vu, vd, n, unpolarized, mask);
     return (int)cudaGetLastError();

@@ -13,15 +13,18 @@
 // Bound on the H100: bytes. K10a writes three whole complex boxes per field
 // (48 bytes a box point) and reads 16 + 24 + 4 bytes a G vector; K10b reads
 // 48 + 24 + 4 bytes a G vector and writes 16. The fine G set is a sphere of
-// about a third of the box, so K10a's zero fill dominates its traffic.
+// about a third of the box, so K10a's stores of whole boxes dominate.
 //
-// Design: K10a is a cudaMemsetAsync of the boxes, then one thread per
-// (field, G) that reads f(G) once and stores its three products; the fine G
-// set has no padded lanes and fft_index is one-to-one on it (the wrapper's
-// caller checks both once, dft/density.py::grid_tables), so the stores
-// never collide. K10b is one thread per (field, G), three gathers and the
-// sum in registers. Products and sums use __dmul_rn / __dadd_rn, so the
-// compiler cannot fuse them: the results are the plain version's bits.
+// Design: K10a walks the box in slot order, one thread a slot. It reads the
+// slot's G index from box_to_g (the inverse of fft_index, -1 off the G set,
+// built once by dft/density.py::grid_tables), gathers G's Cartesian
+// components once and f(G) of each field, and stores i G_c f(G), or an
+// exact zero off the G set, into each of the 3 S boxes. Neighbouring threads
+// store to neighbouring slots, so every store is coalesced and each box byte
+// is written once (no zero fill before a scatter). K10b is one thread per
+// (field, G), three gathers and the sum in registers. Products and sums use
+// __dmul_rn / __dadd_rn, so the compiler cannot fuse them: the results are
+// the plain version's bits, whatever order the walk takes.
 //
 // Plain C interface (loaded with ctypes); every launch goes on the stream
 // passed in, allocates nothing, and each function returns
@@ -31,24 +34,29 @@
 
 namespace {
 
-// f [nfield, ng] -> box [nfield, 3, nbox]
-__global__ void gradient_scatter(const cuDoubleComplex* __restrict__ f,
-                                 const double* __restrict__ gcart,
-                                 const int* __restrict__ fft_index,
-                                 cuDoubleComplex* __restrict__ box, int ng,
-                                 long long nbox, long long total) {
-    for (long long t = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-         t < total; t += (long long)gridDim.x * blockDim.x) {
-        const int g = (int)(t % ng);
-        const long long s = t / ng;
-        const cuDoubleComplex v = f[t];
-        const long long slot = fft_index[g];
+// f [nfield, ng] -> box [nfield, 3, nbox], one thread a box slot
+__global__ void gradient_walk(const cuDoubleComplex* __restrict__ f,
+                              const double* __restrict__ gcart,
+                              const int* __restrict__ box_to_g,
+                              cuDoubleComplex* __restrict__ box, int nfield,
+                              int ng, long long nbox) {
+    for (long long slot = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+         slot < nbox; slot += (long long)gridDim.x * blockDim.x) {
+        const int g = box_to_g[slot];
+        if (g < 0) {
+            const cuDoubleComplex zero = make_cuDoubleComplex(0.0, 0.0);
+            for (int sc = 0; sc < 3 * nfield; ++sc) box[sc * nbox + slot] = zero;
+            continue;
+        }
+        const double gc[3] = {gcart[3 * g], gcart[3 * g + 1], gcart[3 * g + 2]};
+        for (int s = 0; s < nfield; ++s) {
+            const cuDoubleComplex v = f[(long long)s * ng + g];
 #pragma unroll
-        for (int c = 0; c < 3; ++c) {
-            const double gc = gcart[3 * g + c];
-            // i G_c f = (-G_c Im f, G_c Re f)
-            box[(s * 3 + c) * nbox + slot] =
-                make_cuDoubleComplex(-__dmul_rn(gc, v.y), __dmul_rn(gc, v.x));
+            for (int c = 0; c < 3; ++c) {
+                // i G_c f = (-G_c Im f, G_c Re f)
+                box[(s * 3 + c) * nbox + slot] = make_cuDoubleComplex(
+                    -__dmul_rn(gc[c], v.y), __dmul_rn(gc[c], v.x));
+            }
         }
     }
 }
@@ -85,20 +93,16 @@ inline int grid_for(long long n, int threads) {
 
 }  // namespace
 
+// box_to_g [nbox] int32: the G index of each box slot, -1 off the G set
 extern "C" int gradient_boxes(const void* f, const double* gcart,
-                              const int* fft_index, void* box, int nfield,
+                              const int* box_to_g, void* box, int nfield,
                               int ng, long long nbox, void* stream) {
-    cudaStream_t s = (cudaStream_t)stream;
     const int threads = 256;
-    // all-zero bits are a complex128 zero
-    const cudaError_t e = cudaMemsetAsync(
-        box, 0, (size_t)nfield * 3 * nbox * sizeof(cuDoubleComplex), s);
-    if (e != cudaSuccess) return (int)e;
-    const long long total = (long long)nfield * ng;
-    if (total > 0)
-        gradient_scatter<<<grid_for(total, threads), threads, 0, s>>>(
-            (const cuDoubleComplex*)f, gcart, fft_index, (cuDoubleComplex*)box,
-            ng, nbox, total);
+    if (nbox > 0 && nfield > 0)
+        gradient_walk<<<grid_for(nbox, threads), threads, 0,
+                        (cudaStream_t)stream>>>(
+            (const cuDoubleComplex*)f, gcart, box_to_g, (cuDoubleComplex*)box,
+            nfield, ng, nbox);
     return (int)cudaGetLastError();
 }
 

@@ -40,6 +40,7 @@ class GridTables:
     dims_coarse: tuple[int, int, int]
     omega: float
     fft_index: torch.Tensor  # [ng] int32, fine G -> fine box, one-to-one
+    box_to_g: torch.Tensor  # [nbox] int32, its inverse, -1 off the G set
     glen2: torch.Tensor  # [ng] float64
     gcart: torch.Tensor  # [ng, 3] float64 Cartesian G (GGA gradients)
     fft_index_coarse: torch.Tensor  # [ngc] int32, coarse G -> coarse box
@@ -58,10 +59,12 @@ def grid_tables(ctx: SimulationContext, device) -> GridTables:
                      (ctx.gvec_coarse.fft_index, ctx.fft_coarse)):
         if idx.min() < 0 or idx.max() >= fft.num_points:
             raise ValueError(f"fft_index outside the {fft.dims} box")
-    # the fine G set has no padded lanes: the gradient scatter (K10a) stores
-    # each G at its own box slot
+    # the fine G set has no padded lanes: fft_index is one-to-one, and the
+    # gradient boxes (K10a) walk the box through its inverse
     if len(np.unique(ctx.gvec.fft_index)) != ctx.gvec.num_gvec:
         raise ValueError("fine fft_index is not one-to-one on the G set")
+    box_to_g = np.full(ctx.gvec.fft.num_points, -1, dtype=np.int32)
+    box_to_g[ctx.gvec.fft_index] = np.arange(ctx.gvec.num_gvec, dtype=np.int32)
     dims = tuple(ctx.gvec.fft.dims)
     # the JAX package's do_symmetrize
     symmetrizes = bool(ctx.cfg.parameters.use_symmetry
@@ -77,6 +80,7 @@ def grid_tables(ctx: SimulationContext, device) -> GridTables:
         dims_coarse=tuple(ctx.fft_coarse.dims),
         omega=float(ctx.unit_cell.omega),
         fft_index=fidx,
+        box_to_g=torch.as_tensor(box_to_g, device=device),
         glen2=torch.as_tensor(ctx.gvec.glen2, device=device),
         gcart=torch.as_tensor(np.asarray(ctx.gvec.gcart, dtype=np.float64),
                               device=device),

@@ -54,7 +54,8 @@ def gradient_r(tables: GridTables, f_g: torch.Tensor) -> torch.Tensor:
     dims = tables.dims
     s = f_g.shape[0]
     n = dims[0] * dims[1] * dims[2]
-    box = gradient_boxes(f_g, tables.gcart, tables.fft_index, n)
+    box = gradient_boxes(f_g, tables.gcart, tables.fft_index, n,
+                         tables.box_to_g)
     fr = torch.fft.ifftn(box.view((s, 3) + dims), dim=(-3, -2, -1),
                          norm="forward")
     del box

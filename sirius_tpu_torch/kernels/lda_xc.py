@@ -7,6 +7,10 @@ n_up = n_dn = rho/2 and v = (v_up + v_dn)/2 (sirius_tpu/dft/xc.py:399-415).
 names defaults to X + PZ. The plain PyTorch version is torch.autograd over
 the JAX package's energy expressions (kernels/xc_functionals.py); the
 kernel evaluates X + PZ in closed form and every other sum on dual numbers.
+Unpolarized X + PZ launches its own kernel, the closed form at zeta = 0,
+which gives the bits of the polarized launch at (rho/2, rho/2): e and v_up.
+Every launch counts on lda_xc.launches, that one also on
+lda_xc.launches_pz_unpolarized.
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel.
 """
 
@@ -54,6 +58,8 @@ def _launch(nu, nd, unpolarized: bool, mask: int):
                     None if vd is None else vd.data_ptr(), n,
                     int(unpolarized), mask, build.stream_of(nu))
     lda_xc.launches += 1
+    if unpolarized and mask == func_mask(X_PZ):
+        lda_xc.launches_pz_unpolarized += 1
     build.check(rc, "lda_xc")
     return e, vu, vd
 
@@ -69,7 +75,7 @@ def lda_xc(nu, nd, names=X_PZ):
     return _launch(nu, nd, False, mask)
 
 
-lda_xc.launches = 0
+lda_xc.launches = lda_xc.launches_pz_unpolarized = 0
 
 
 def lda_xc_unpolarized_plain(rho, names=X_PZ):
@@ -80,7 +86,8 @@ def lda_xc_unpolarized_plain(rho, names=X_PZ):
 
 def lda_xc_unpolarized(rho, names=X_PZ):
     """Unpolarized LDA sum: (e, v) with n_up = n_dn = rho/2. Launches the
-    same kernel as lda_xc (counted on lda_xc.launches)."""
+    kernel of lda_xc, or for X + PZ its zeta = 0 form (counted on
+    lda_xc.launches, the latter also on lda_xc.launches_pz_unpolarized)."""
     mask = _lda_mask(names)
     _check(rho)
     if rho.device.type == "cpu":

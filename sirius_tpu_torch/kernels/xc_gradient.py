@@ -1,16 +1,19 @@
 """K10a / K10b: the G-space halves of the GGA gradient and divergence
 (csrc/xc_gradient.cu).
 
-  gradient_boxes(f, gcart, fft_index, nbox)  f [S, ng] complex128 ->
-      [S, 3, nbox] complex128: i G_c f(G) at fft_index[G], zero elsewhere
-      (the boxes the three inverse FFTs of potential.py::_gradient_r take);
+  gradient_boxes(f, gcart, fft_index, nbox, box_to_g)  f [S, ng]
+      complex128 -> [S, 3, nbox] complex128: i G_c f(G) at fft_index[G],
+      zero elsewhere (the boxes the three inverse FFTs of
+      potential.py::_gradient_r take);
   divergence_pw(boxes, gcart, fft_index)  [S, 3, nbox] complex128 (the
       forward FFTs of the three flux components) -> [S, ng]:
       sum_c i G_c boxes[s, c, fft_index[G]] (potential.py::_divergence_g).
 
 gcart [ng, 3] float64 Cartesian G; fft_index [ng] int32, one-to-one on the
-fine G set (dft/density.py::grid_tables checks it). A CPU tensor takes the
-plain version; a CUDA tensor launches the kernel.
+fine G set (dft/density.py::grid_tables checks it); box_to_g [nbox] int32
+its inverse, -1 off the G set (GridTables.box_to_g), which the kernel walks
+in box order. A CPU tensor takes the plain version (it reads fft_index, not
+box_to_g); a CUDA tensor launches the kernel.
 """
 
 from __future__ import annotations
@@ -58,18 +61,24 @@ def _check(name, t, gcart, fft_index):
     return t.device.type == "cuda"
 
 
-def gradient_boxes(f, gcart, fft_index, nbox: int):
+def gradient_boxes(f, gcart, fft_index, nbox: int, box_to_g):
     """[S, ng] -> [S, 3, nbox]: the three zero-filled boxes of i G_c f."""
     if f.dim() != 2 or f.shape[1] != fft_index.shape[0]:
         raise ValueError(f"f {tuple(f.shape)} is not [S, ng]")
-    if not _check("f", f, gcart, fft_index):
+    cuda = _check("f", f, gcart, fft_index)
+    if (box_to_g.dtype != torch.int32 or box_to_g.dim() != 1
+            or box_to_g.shape[0] != nbox):
+        raise ValueError(f"box_to_g must be int32 [{nbox}]")
+    if box_to_g.device != f.device:
+        raise ValueError("inputs on more than one device")
+    if not cuda:
         return gradient_boxes_plain(f, gcart, fft_index, nbox)
     f = f.contiguous()
     s, ng = f.shape
     box = torch.empty((s, 3, nbox), dtype=f.dtype, device=f.device)
     lib = build.library("xc_gradient")
     rc = lib.gradient_boxes(f.data_ptr(), gcart.contiguous().data_ptr(),
-                            fft_index.contiguous().data_ptr(), box.data_ptr(),
+                            box_to_g.contiguous().data_ptr(), box.data_ptr(),
                             s, ng, nbox, build.stream_of(f))
     gradient_boxes.launches += 1
     build.check(rc, "gradient_boxes")

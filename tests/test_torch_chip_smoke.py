@@ -183,6 +183,13 @@ def test_xc_phases_run_on_cpu(monkeypatch, capsys):
         "gga_xc.mask": "mask", "gga_xc.mask.unpolarized": "mask",
         "mgga_xc.mask": "mask", "mgga_xc.mask.unpolarized": "mask"}
     assert all(recs[name]["tol_rel"] == 1e-12 for name in kinds)
+    # unpolarized X + PZ bit for bit its polarized launch at (rho/2, rho/2),
+    # K10a bit for bit its plain version on two fields and on one
+    assert recs[chip_smoke.PZ0]["bitwise_polarized"] is True
+    k10a = recs["xc_gradient.gradient_boxes"]
+    assert k10a["bitwise_1_fields"] is True
+    assert k10a["bitwise_2_fields"] is True
+    assert k10a["max_abs_err"] == 0.0
     name = "small_gamma_pbe_fm"
     ref = reference(name)
     spec = dict(SMALL_GAMMA, ultrasoft=True, use_symmetry=True)
@@ -429,6 +436,12 @@ def test_edge_shapes_run_on_cpu(capsys):
     assert all(r["bitwise"] for r in k8b)
     assert {r["rows"] % r["plan"]["rows_per_thread"] for r in k8b} == {1}
     assert {r["padding_slots"] > 0 for r in k8b} == {True, False}
+    # K10a bit for bit on 1, 2 and 3 fields, off the 256-thread block, a G
+    # at the box's last slot
+    k10a = [r for r in lines if r["name"] == "xc_gradient.gradient_boxes"]
+    assert {r["fields"] for r in k10a} == {1, 2, 3}
+    assert all(r["bitwise"] and r["last_slot_live"] for r in k10a)
+    assert any(r["nbox"] % 256 for r in k10a)
 
 
 def test_xc_edges_run_on_cpu(capsys):
@@ -441,10 +454,16 @@ def test_xc_edges_run_on_cpu(capsys):
     lines = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
     names = [n for n in chip_smoke.XC_CHECKS
              if n.startswith(("gga_xc", "mgga_xc"))]
+    pz0 = [r for r in lines if r["name"] == chip_smoke.PZ0]
+    lines = [r for r in lines if r["name"] != chip_smoke.PZ0]
     assert len(lines) == len(names) * len(chip_smoke.XC_EDGES)
     assert {(r["name"], r["case"]) for r in lines} == {
         (n, c) for n in names for c, _ in chip_smoke.XC_EDGES}
     assert all(r["max_rel_err"] <= 1e-12 and r["finite"] for r in lines)
+    # unpolarized X + PZ at its own cases, bit for bit its polarized launch
+    assert [r["case"] for r in pz0] == [c for c, _ in chip_smoke.PZ0_EDGES]
+    assert all(r["max_rel_err"] <= 1e-11 and r["finite"]
+               and r["bitwise_polarized"] for r in pz0)
     cpu = torch.device("cpu")
     f = chip_smoke.xc_edge_fields("one point", 1, rng, cpu)
     assert f["nu"].shape == (1,) and f["gu"].shape == (3, 1)
@@ -452,6 +471,10 @@ def test_xc_edges_run_on_cpu(capsys):
     assert f["nu"].shape[0] % 128
     f = chip_smoke.xc_edge_fields("all dead", 933, rng, cpu)
     assert bool((f["nu"] < DENS_TH).all() and (f["nd"] < DENS_TH).all())
+    # each half channel just live (at DENS_TH) or just dead (below it)
+    f = chip_smoke.xc_edge_fields("at and below 2 DENS_TH", 933, rng, cpu)
+    half = 0.5 * f["rho"]
+    assert bool((half[::2] == DENS_TH).all() and (half[1::2] < DENS_TH).all())
     f = chip_smoke.xc_edge_fields("sigma 0 at zeta +-1", 933, rng, cpu)
     assert float(f["gu"].abs().max()) == float(f["gd"].abs().max()) == 0.0
     assert bool(((f["nu"] == 0) | (f["nd"] == 0)).all())
@@ -493,6 +516,15 @@ def test_launch_checks_follow_the_band_solve_path():
         chip_smoke.check_launched("chunked", cuda, launches,
                                   chip_smoke.CHUNKED_US_KERNELS, "chunked", 3)
     chip_smoke.check_launched("kset", cuda, launches, chip_smoke.US_KERNELS)
+    # an unpolarized X + PZ deck launches K7's zeta = 0 kernel; no deck of
+    # other functionals or spin needs it
+    launches[chip_smoke.PZ0] = 0
+    with pytest.raises(AssertionError, match=chip_smoke.PZ0):
+        chip_smoke.check_launched("kset", cuda, launches,
+                                  chip_smoke.US_KERNELS)
+    for _, required in chip_smoke.XC_DECK_PATH.values():
+        assert chip_smoke.PZ0 not in required
+    launches[chip_smoke.PZ0] = 1
     # polarized Gamma: two r -> G transforms a potential (V_xc, B_z)
     launches["beta_chunk"] = 1
     launches["local_hpsi.box_to_pw_hpsi"] = 2 * 4 + 3

@@ -150,7 +150,8 @@ def test_gradient_boxes_zero_fill_and_one_to_one(deck):
     _, pctx, tables, rho, _ = deck
     n = int(np.prod(tables.dims))
     f = torch.as_tensor(rho)[None]
-    box = k10.gradient_boxes(f, tables.gcart, tables.fft_index, n)
+    box = k10.gradient_boxes(f, tables.gcart, tables.fft_index, n,
+                             tables.box_to_g)
     idx = tables.fft_index.long()
     off = torch.ones(n, dtype=torch.bool)
     off[idx] = False
@@ -168,8 +169,65 @@ def test_gradient_boxes_zero_fill_and_one_to_one(deck):
 def test_wrappers_check_their_inputs(deck):
     _, _, tables, rho, _ = deck
     f = torch.as_tensor(rho)[None]
+    n = int(np.prod(tables.dims))
     with pytest.raises(ValueError, match="gcart"):
-        k10.gradient_boxes(f, tables.gcart.T.contiguous(), tables.fft_index, 8)
+        k10.gradient_boxes(f, tables.gcart.T.contiguous(), tables.fft_index, n,
+                           tables.box_to_g)
     with pytest.raises(ValueError, match="complex128"):
         k10.divergence_pw(torch.zeros((1, 3, 8)), tables.gcart,
                           tables.fft_index)
+
+
+@pytest.mark.parametrize("nfield", [1, 3])
+def test_gradient_r_matches_jax_for_any_field_count(deck, nfield):
+    # gradient_r on one and three fields (the SCAN run's unpolarized density,
+    # and more fields than a spin pair) against the JAX package's
+    # _gradient_r, field by field
+    jctx, _, tables, rho, mag = deck
+    fields = np.stack([rho, mag, 0.5 * (rho - mag)])[:nfield]
+    got = gradient_r(tables, torch.as_tensor(fields)).numpy()
+    assert got.shape == (nfield, 3) + tables.dims
+    for s in range(nfield):
+        want = np.stack(jax_potential._gradient_r(jctx, fields[s]))
+        assert rel(got[s], want) <= 1e-12
+
+
+SMALL = dict(gk_cutoff=3.0, pw_cutoff=7.0, num_bands=8)
+BOX_TO_G_DECKS = {
+    "nc": dict(SMALL, ngridk=(2, 2, 2), ultrasoft=False, use_symmetry=False),
+    "us_sym": dict(SMALL, ngridk=(2, 2, 2)),
+    "gamma": dict(SMALL, ngridk=(1, 1, 1), ultrasoft=False,
+                  use_symmetry=False),
+}
+
+
+@pytest.mark.parametrize("name", sorted(BOX_TO_G_DECKS))
+def test_box_to_g_inverts_fft_index(name):
+    # the table K10a walks: the G index of each fine-box slot, -1 off the G
+    # set, on the 2-atom NC, US and Gamma decks
+    ctx = port_context(**BOX_TO_G_DECKS[name])
+    tables = grid_tables(ctx, "cpu")
+    table, idx = tables.box_to_g, tables.fft_index.long()
+    ng = ctx.gvec.num_gvec
+    assert table.dtype == torch.int32
+    assert table.shape == (int(np.prod(tables.dims)),)
+    assert torch.equal(table[idx], torch.arange(ng, dtype=torch.int32))
+    off = torch.ones(table.shape[0], dtype=torch.bool)
+    off[idx] = False
+    assert bool(off.any()) and bool((table[off] == -1).all())
+
+
+def test_gradient_boxes_refuses_a_wrong_table(deck):
+    # box_to_g must be int32 [nbox] on the fields' device
+    _, _, tables, rho, _ = deck
+    f = torch.as_tensor(rho)[None]
+    n = int(np.prod(tables.dims))
+    args = (f, tables.gcart, tables.fft_index, n)
+    with pytest.raises(ValueError, match="box_to_g"):
+        k10.gradient_boxes(*args, tables.box_to_g.long())
+    with pytest.raises(ValueError, match="box_to_g"):
+        k10.gradient_boxes(*args, tables.box_to_g[:-1])
+    with pytest.raises(ValueError, match="more than one device"):
+        k10.gradient_boxes(*args, tables.box_to_g.to("meta"))
+    box = k10.gradient_boxes(*args, tables.box_to_g)
+    assert box.shape == (1, 3, n)
