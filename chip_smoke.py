@@ -28,7 +28,10 @@ imports nothing of JAX or of sirius_tpu. Phases, each printing JSON lines:
    complex64 at the 16-atom US deck, K8a, K8b, K1c real and K2 on float32
    packed blocks at 54 atoms, K9 at 54 atoms and 16 a chunk, K11a and K11b
    at the 16-atom coarse box, K12a on the spinor k-set block and K12b on
-   one k-point's); K5 also at the 54-atom Gamma cell on one and two
+   one k-point's); K4 also at the 54-atom Gamma cell on one and two
+   channels (check_kernels_aug54), each K4 record with its plan and the
+   card's check that the phase of -G is the conjugate of G's bit for bit
+   (raising otherwise); K5 also at the 54-atom Gamma cell on one and two
    channels (records only) and on the spinor deck's four channels, each
    launched twice on the same inputs for a bitwise-equal D; every record
    carries the device time of the work one call launches, from
@@ -47,7 +50,11 @@ imports nothing of JAX or of sirius_tpu. Phases, each printing JSON lines:
    row tile, one row and padding slots, K10a bit for bit on 1, 2 and 3
    fields, on a box of 1001 slots and one of 3, a G at the last slot, K2's
    four instantiations at rows just over and
-   under its cluster threshold, with and without w; every K7g and K7s
+   under its cluster threshold, with and without w, K4 at K4_EDGES on 1, 2
+   and 4 channels (G below one row tile and off it, one atom, the smaller
+   row tile, atom tiles, nqlm 3 and 15, q split over two threads a row,
+   G = 0 last, into a given out);
+   every K7g and K7s
    instantiation at one point, a point count off the block, all points
    dead, sigma = 0 at zeta = +-1 and, for SCAN, alpha at 1; unpolarized
    X + PZ at one point, off the block, all dead and at and just below
@@ -107,9 +114,10 @@ path: full_width_us for K1-K7, full_width_gamma_us for K7 at 144^3
 and K2 float64, full_width_chunked_us for K9, full_width_gamma_pbe_fm for
 K7g (PBE), K10a, K10b and K6 on axial fields, full_width_scan_us for K7s
 unpolarized, K11a and K11b, full_width_spinor_us for K12a, K12b, K6v and
-K4 on four channels; K7b's X + PW92 and X + VWN5 rows, K7g's
-unpolarized PBE and PBEsol rows and K7s's polarized row take theirs from
-the parity decks that run them (parity_scf_pw_us_afm,
+K4 on four channels, full_width_gamma_us and full_width_gamma_pbe_fm for
+K4's 54-atom rows on one and two channels; K7b's X + PW92 and X + VWN5
+rows, K7g's unpolarized PBE and PBEsol rows and K7s's polarized row take
+theirs from the parity decks that run them (parity_scf_pw_us_afm,
 parity_scf_gamma_nc_vwn, parity_scf_pbe_us, parity_scf_gamma_nc_pbesol,
 parity_scf_scan_us_fm); the fp32 rows from the run FP32_SUMMARY names.
 K7g and K7s count each instantiation apart, so a row's launches are those
@@ -134,10 +142,12 @@ import sys
 import time
 
 # H100 SXM data-sheet peaks (dense): device memory, and fp64 and fp32
-# outside the tensor cores, the rates of these kernels' elementwise work
+# outside the tensor cores, the rates of these kernels' elementwise work;
+# fp64 in the tensor cores, the rate of work shaped as a matrix product
 HBM_BYTES_PER_S = 3.35e12
 FP64_FLOPS_PER_S = 34e12
 FP32_FLOPS_PER_S = 67e12
+FP64_TENSOR_FLOPS_PER_S = 67e12
 
 TIGHT = {"num_dft_iter": 40, "density_tol": 5e-9, "energy_tol": 1e-10}
 PARITY = dict(gk_cutoff=6.0, pw_cutoff=20.0, ngridk=(2, 2, 2))
@@ -262,7 +272,9 @@ TOL = {**{name: 1e-11 for name in XC_CHECKS},
        # (sincospi against exp() phases), K4 on four channels as on two
        "spinor_veff": 1e-13, "density_accumulate_nc": 1e-13,
        "symmetrize_vector_pw": 1e-13, "augmentation.rho_aug.4": 1e-12,
-       "augmentation.d_operator.4": 1e-12}
+       "augmentation.d_operator.4": 1e-12,
+       # K4 at the 54-atom cell, on one channel and on two
+       "augmentation.rho_aug.54": 1e-12, "augmentation.rho_aug.2.54": 1e-12}
 SOURCE = {
     "local_hpsi.pw_to_box": "sirius_tpu_torch/csrc/local_hpsi.cu",
     "local_hpsi.box_to_pw_hpsi": "sirius_tpu_torch/csrc/local_hpsi.cu",
@@ -290,6 +302,8 @@ SOURCE = {
     "symmetrize_vector_pw": "sirius_tpu_torch/csrc/symmetrize_pw.cu",
     "augmentation.rho_aug.4": "sirius_tpu_torch/csrc/augmentation.cu",
     "augmentation.d_operator.4": "sirius_tpu_torch/csrc/augmentation.cu",
+    "augmentation.rho_aug.54": "sirius_tpu_torch/csrc/augmentation.cu",
+    "augmentation.rho_aug.2.54": "sirius_tpu_torch/csrc/augmentation.cu",
 }
 REPLACES = {
     "local_hpsi.pw_to_box": "sirius_tpu/ops/hamiltonian.py:76",
@@ -317,6 +331,8 @@ REPLACES = {
     "symmetrize_vector_pw": "sirius_tpu/dft/potential_nc.py:60",
     "augmentation.rho_aug.4": "sirius_tpu/ops/augmentation.py:250",
     "augmentation.d_operator.4": "sirius_tpu/ops/augmentation.py:266",
+    "augmentation.rho_aug.54": "sirius_tpu/ops/augmentation.py:250",
+    "augmentation.rho_aug.2.54": "sirius_tpu/ops/augmentation.py:250",
 }
 # the fp32 instantiations (precision_wf "fp32"): each kernel's name with the
 # suffix of the block type it takes (.c64 complex64, .f32 float32 packed
@@ -426,10 +442,14 @@ def device_ms(fn, dev, names, calls: int = 20):
     return us / calls / 1e3 if us > 0 else None
 
 
-def bound(nbytes: float, flops: float,
-          fp32: bool = False) -> tuple[float, str]:
+def bound(nbytes: float, flops: float, fp32: bool = False,
+          tensor_flops: float = 0.0) -> tuple[float, str]:
+    """The least time in ms and what sets it: nbytes over the memory rate,
+    or flops over the elementwise rate plus tensor_flops (fp64 work shaped
+    as a matrix product) over the fp64 tensor-core rate."""
     tb = nbytes / HBM_BYTES_PER_S * 1e3
-    tf = flops / (FP32_FLOPS_PER_S if fp32 else FP64_FLOPS_PER_S) * 1e3
+    tf = (flops / (FP32_FLOPS_PER_S if fp32 else FP64_FLOPS_PER_S)
+          + tensor_flops / FP64_TENSOR_FLOPS_PER_S) * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
@@ -467,10 +487,12 @@ def rel_err(a, b) -> tuple[float, float]:
 
 
 def record_kernel(out, deck, gpu, name, kernel_out, plain_out, fn_k, fn_p,
-                  fn_lib, nbytes, flops, slow_plain=False, extra=None):
+                  fn_lib, nbytes, flops, slow_plain=False, extra=None,
+                  tensor_flops=0.0):
     """Compare one kernel with its plain version, time both (and the
     library yardstick), emit the record (with the fields of extra) and
-    keep it in out[name]."""
+    keep it in out[name]. The bound counts tensor_flops at the fp64
+    tensor-core rate (bound)."""
     errs = [rel_err(a, b) for a, b in zip(kernel_out, plain_out)
             if a is not None]
     abs_err = max(e[0] for e in errs)
@@ -480,7 +502,8 @@ def record_kernel(out, deck, gpu, name, kernel_out, plain_out, fn_k, fn_p,
     plain_ms = (time_ms(fn_p, samples=5, inner=1, warm=1) if slow_plain
                 else time_ms(fn_p))
     lib_ms = time_ms(fn_lib) if fn_lib is not None else None
-    b_ms, b_by = bound(nbytes, flops, name.endswith(FP32_SUFFIXES))
+    b_ms, b_by = bound(nbytes, flops, name.endswith(FP32_SUFFIXES),
+                       tensor_flops)
     extra = dict(extra or {})
     # the device time of every kernel and fill one call of fn_k launches,
     # where the record has none of its own
@@ -492,6 +515,8 @@ def record_kernel(out, deck, gpu, name, kernel_out, plain_out, fn_k, fn_p,
            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
            "flops": flops, **extra}
+    if tensor_flops:
+        rec["tensor_flops"] = tensor_flops
     emit(rec)
     if not rel <= TOL[name]:
         raise AssertionError(f"{name} at {deck}: rel err {rel} > {TOL[name]}")
@@ -605,6 +630,56 @@ def check_d_operator(out, deck: str, gpu: str, name: str, aug: dict, v, dion,
                          "plan": plan, "repeat_bitwise": True})
 
 
+def check_rho_aug(out, deck: str, gpu: str, name: str, aug: dict, ns: int,
+                  nbeta: int, rng, dev) -> None:
+    """K4 on ns channels of a seeded Hermitian density matrix for one
+    type's tables against its plain version, on the tables' (G, -G) rows;
+    the record carries K4's plan and the phase check of those rows (the
+    count of (G, atom) arguments whose -G phase is not the conjugate of
+    G's, bit for bit; raises if one differs by more than a zero's sign).
+    Yardstick: K4's einsum, the phases and packed blocks built outside the
+    timing. Bound: Q and the Millers read and out written once; a phase (7
+    operations) and the atom sum (4 ns nqlm a (row, atom), the product of
+    [nrow, na] phases and [na, ns nqlm] coefficients, at the fp64
+    tensor-core rate) once a (G, -G) row, as -G's sum is the conjugate of
+    G's; the contraction with Q (8 ns nqlm) for every G."""
+    import torch
+
+    from sirius_tpu_torch.kernels import augmentation as k45
+
+    na, nqlm = aug["pos"].shape[0], aug["q"].shape[0]
+    ng = aug["millers"].shape[0]
+    a = (rng.standard_normal((ns, nbeta, nbeta))
+         + 1j * rng.standard_normal((ns, nbeta, nbeta)))
+    dm = torch.as_tensor((a + a.conj().transpose(0, 2, 1)) * 0.05, device=dev)
+    pairs = aug["pairs"]
+    nrow = pairs.shape[0]
+    targs = (aug["gidx"], aug["w"], aug["millers"], aug["pos"], aug["q"])
+    ph = k45.structure_phases(aug["millers"], aug["pos"])
+    dmp = (aug["w"][None, None, :]
+           * dm.reshape(ns, -1)[:, aug["gidx"].long()].real
+           ).to(torch.complex128)
+    extra = {"channels": ns, "atoms": na, "num_gvec": ng,
+             "rows": nrow, "plan": k45.rho_aug_plan(na, nqlm, ns, nrow)}
+    if dev.type == "cuda":
+        check = k45.phase_check(aug["millers"], aug["pos"], pairs)
+        extra["phase_check"] = check
+        if check["argument_differs"] or check["sin_differs"] \
+                or check["cos_differs"]:
+            raise AssertionError(f"{name} at {deck}: the phase of -G is not "
+                                 f"the conjugate of G's: {check}")
+    record_kernel(out, deck, gpu, name,
+                  [k45.rho_aug(dm, *targs, pairs=pairs)],
+                  [k45.rho_aug_plain(dm, *targs)],
+                  lambda: k45.rho_aug(dm, *targs, pairs=pairs),
+                  lambda: k45.rho_aug_plain(dm, *targs),
+                  lambda: torch.einsum("ga,saq,qg->sg", ph, dmp, aug["q"]),
+                  nbytes=nqlm * ng * 16 + ns * ng * 16 + ng * 12
+                  + ns * nbeta * nbeta * 16,
+                  flops=nrow * na * 7.0 + ng * ns * nqlm * 8.0,
+                  tensor_flops=nrow * na * ns * nqlm * 4.0, extra=extra)
+
+
 # K1c's edge shapes: (case, row length, view offset in elements); an odd
 # row length puts every other complex64 row 8 bytes off a 16-byte boundary,
 # a one-element offset all of them (a complex128 element stays aligned)
@@ -612,16 +687,21 @@ K1C_EDGES = (("odd n", 27 ** 3, 0), ("offset view", 30 ** 3, 1),
              ("odd n, offset view", 27 ** 3, 1))
 
 
-def synthetic_aug_tables(rng, na: int, ng: int, dev) -> dict:
-    """One type's K5 tables of random values: na atoms of 4 projectors
-    (nqlm 10 packed pairs), Millers in [-15, 15], the pair indices of
-    ops/augmentation.py::build_aug_device_tables."""
+def synthetic_aug_tables(rng, na: int, ng: int, dev, nproj: int = 4,
+                         symmetric: bool = False,
+                         g0_last: bool = False) -> dict:
+    """One type's K4 / K5 tables of random values: na atoms of nproj
+    projectors (nqlm = nproj (nproj + 1) / 2 packed pairs), Millers in
+    [-15, 15], the pair indices of ops/augmentation.py::
+    build_aug_device_tables. symmetric: ng (odd) distinct Millers closed
+    under G -> -G with G = 0 among them (last with g0_last), as K4's
+    (G, -G) rows need."""
     import numpy as np
     import torch
 
-    xi1, xi2 = np.triu_indices(4)
-    nbeta = 4 * na
-    off = 4 * np.arange(na)[:, None]
+    xi1, xi2 = np.triu_indices(nproj)
+    nbeta = nproj * na
+    off = nproj * np.arange(na)[:, None]
     gidx = (off + xi1) * nbeta + off + xi2
     lo_idx = (off + xi2) * nbeta + off + xi1
 
@@ -629,12 +709,27 @@ def synthetic_aug_tables(rng, na: int, ng: int, dev) -> dict:
         return torch.as_tensor(np.ascontiguousarray(x), dtype=dtype,
                                device=dev)
 
-    q = rng.standard_normal((10, ng)) + 1j * rng.standard_normal((10, ng))
-    return {"millers": t(rng.integers(-15, 16, (ng, 3)), torch.int32),
+    nqlm = len(xi1)
+    q = rng.standard_normal((nqlm, ng)) + 1j * rng.standard_normal((nqlm, ng))
+    if symmetric:
+        # one of each (G, -G): the triples whose first nonzero entry is
+        # positive, (ng - 1) / 2 of them, their negations, then G = 0
+        box = np.stack(np.meshgrid(*[np.arange(-15, 16)] * 3,
+                                   indexing="ij"), -1).reshape(-1, 3)
+        lead = box[np.arange(len(box)), np.argmax(box != 0, axis=1)]
+        half = box[lead > 0]
+        half = half[rng.choice(len(half), (ng - 1) // 2, replace=False)]
+        millers = rng.permutation(np.concatenate([half, -half]))
+        at = len(millers) if g0_last else int(rng.integers(0, ng))
+        millers = np.insert(millers, at, 0, axis=0)
+    else:
+        millers = rng.integers(-15, 16, (ng, 3))
+    return {"millers": t(millers, torch.int32),
             "pos": t(rng.uniform(0.0, 1.0, (na, 3)), torch.float64),
-            "q": t(q, torch.complex128),
+            "q": t(q, torch.complex128), "w": t(np.where(xi1 == xi2, 1.0, 2.0),
+                                                torch.float64),
             "gidx": t(gidx, torch.int32), "lo_idx": t(lo_idx, torch.int32),
-            "lo_mask": t(xi1 != xi2, torch.float64)}
+            "lo_mask": t(xi1 != xi2, torch.float64), "nbeta": nbeta}
 
 
 def synthetic_pack_tables(rng, rows: int, npair: int, npad: int, nbox: int,
@@ -669,6 +764,73 @@ def synthetic_pack_tables(rng, rows: int, npair: int, npad: int, nbox: int,
 K8B_EDGES = ((129, 2999, 7, 8192), (1, 2999, 7, 8192), (129, 2999, 0, 8192))
 
 
+# K4's edge shapes: (case, atoms, G, projectors); 41 G is 21 rows, below
+# one row tile, 10007 G ends off every tile, 54 atoms make the plan take a
+# smaller row tile (on one channel, and split q over two threads a row),
+# "atom tiles" takes the fewest atoms (growing by half) that one tile of
+# shared memory does not hold, 2 and 5 projectors give nqlm 3 (q chunks
+# 2 + 1) and 15 (8 + 4 + 2 + 1; split on one channel at 54 atoms: 4 + 2 + 1
+# and 8); "G = 0 last" puts G = 0 at the last index, "accumulate" adds into
+# a random out
+K4_EDGES = (("below one row tile", 7, 41, 4),
+            ("off the row tile", 7, 10007, 4), ("one atom", 1, 2001, 4),
+            ("tile shrinks", 54, 2001, 4),
+            ("atom tiles", 0, 2001, 4), ("nqlm 3", 7, 2001, 2),
+            ("nqlm 15", 7, 2001, 5), ("q split, nqlm 15", 54, 2001, 5),
+            ("G = 0 last", 7, 2001, 4), ("accumulate", 7, 2001, 4))
+
+
+def check_rho_aug_edges(dev, gpu: str, rng) -> None:
+    """K4 against its plain version at K4_EDGES with 1, 2 and 4 channels, on
+    symmetric random G sets through gvec_pairs, each at 1e-12 relative.
+    Emits one kernel_edges line a case and channel count, with the plan and
+    whether G = 0's row is (g, g)."""
+    import torch
+
+    from sirius_tpu_torch.kernels import augmentation as k45
+
+    tol = TOL["augmentation.rho_aug"]
+    for ns in (1, 2, 4):
+        for case, na, ng, nproj in K4_EDGES:
+            if case == "atom tiles":
+                na = 8
+                while k45.rho_aug_plan(na, 10, ns, ng // 2 + 1)[
+                        "atom_tiles"] == 1:
+                    na += na // 2
+            aug = synthetic_aug_tables(rng, na, ng, dev, nproj=nproj,
+                                       symmetric=True,
+                                       g0_last=case == "G = 0 last")
+            nbeta, nqlm = aug["nbeta"], aug["q"].shape[0]
+            a = (rng.standard_normal((ns, nbeta, nbeta))
+                 + 1j * rng.standard_normal((ns, nbeta, nbeta)))
+            dm = torch.as_tensor((a + a.conj().transpose(0, 2, 1)) * 0.05,
+                                 device=dev)
+            pairs = k45.gvec_pairs(aug["millers"])
+            targs = (aug["gidx"], aug["w"], aug["millers"], aug["pos"],
+                     aug["q"])
+            want = k45.rho_aug_plain(dm, *targs)
+            out = None
+            if case == "accumulate":
+                base = torch.as_tensor(rng.standard_normal((ns, ng))
+                                       + 1j * rng.standard_normal((ns, ng)),
+                                       device=dev)
+                out, want = base.clone(), base + want
+            got = k45.rho_aug(dm, *targs, out=out, pairs=pairs)
+            abs_err, rel = rel_err(got, want)
+            g0 = int((aug["millers"] == 0).all(1).nonzero()[0, 0])
+            g0_rows = pairs[(pairs[:, 0] == g0) | (pairs[:, 1] == g0)]
+            plan = k45.rho_aug_plan(na, nqlm, ns, pairs.shape[0])
+            emit({"phase": "kernel_edges", "gpu": gpu,
+                  "name": "augmentation.rho_aug", "case": case,
+                  "channels": ns, "atoms": na, "num_gvec": ng, "nqlm": nqlm,
+                  "rows": pairs.shape[0], "g0_index": g0,
+                  "g0_row_self": g0_rows.tolist() == [[g0, g0]], "plan": plan,
+                  "max_abs_err": abs_err, "max_rel_err": rel, "tol_rel": tol})
+            if not (rel <= tol and g0_rows.tolist() == [[g0, g0]]):
+                raise AssertionError(f"rho_aug ({case}, {ns} channels): rel "
+                                     f"err {rel}, G = 0 rows {g0_rows}")
+
+
 def check_kernel_edges(dev, gpu: str) -> None:
     """K1c, K5 and K8b against their plain versions at the shapes their
     vector paths and launch plans treat apart. K1c, both modes and both
@@ -678,8 +840,9 @@ def check_kernel_edges(dev, gpu: str) -> None:
     2 and 4 channels, at ng = 29 (below one tile), and on four channels of
     more atoms than one launch takes, each at 1e-12 relative and
     twice on the same inputs with a bitwise-equal D. K8b, both
-    instantiations, at the K8B_EDGES cases, bitwise. Emits one
-    kernel_edges line a case."""
+    instantiations, at the K8B_EDGES cases, bitwise. Then K10a, K2 and the
+    XC kernels at theirs, and K4 at K4_EDGES (check_rho_aug_edges). Emits
+    one kernel_edges line a case."""
     import numpy as np
     import torch
 
@@ -765,6 +928,7 @@ def check_kernel_edges(dev, gpu: str) -> None:
     check_gradient_edges(dev, gpu, rng)
     check_residual_edges(dev, gpu, rng)
     check_xc_edges(dev, gpu, rng)
+    check_rho_aug_edges(dev, gpu, np.random.default_rng(43))
 
 
 # K10a's edge shapes: (fields, box); 7 x 11 x 13 = 1001 slots, no multiple
@@ -1144,7 +1308,6 @@ def check_kernels_us(deck: str, ctx, dev, gpu: str, fp32: bool = False) -> dict:
                                               initial_density_g)
     from sirius_tpu_torch.dft.potential import generate_potential
     from sirius_tpu_torch.dft.xc import XCFunctional
-    from sirius_tpu_torch.kernels import augmentation as k45
     from sirius_tpu_torch.kernels import symmetrize_pw as k6
     from sirius_tpu_torch.kernels import veff_multiply as k1c
     from sirius_tpu_torch.ops.augmentation import build_aug_device_tables
@@ -1190,21 +1353,8 @@ def check_kernels_us(deck: str, ctx, dev, gpu: str, fp32: bool = False) -> dict:
     # of the initial density
     aug = build_aug_device_tables(ctx.unit_cell, ctx.gvec, ctx.aug, ctx.beta,
                                   dev)[0]
-    na, nqlm = aug["pos"].shape[0], aug["q"].shape[0]
-    a = rng.standard_normal((nbeta, nbeta)) + 1j * rng.standard_normal((nbeta, nbeta))
-    dm = torch.as_tensor((a + a.conj().T)[None] * 0.05, device=dev)
-    targs = (aug["gidx"], aug["w"], aug["millers"], aug["pos"], aug["q"])
-    ph = k45.structure_phases(aug["millers"], aug["pos"])
-    dmp = (aug["w"][None, None, :] * dm.reshape(1, -1)[:, aug["gidx"].long()].real
-           ).to(torch.complex128)
-    record("augmentation.rho_aug", [k45.rho_aug(dm, *targs)],
-           [k45.rho_aug_plain(dm, *targs)],
-           lambda: k45.rho_aug(dm, *targs),
-           lambda: k45.rho_aug_plain(dm, *targs),
-           lambda: torch.einsum("ga,saq,qg->sg", ph, dmp, aug["q"]),
-           nbytes=nqlm * ng * 16 + ng * 16 + ng * 12 + nbeta * nbeta * 16,
-           flops=ng * (na * (5.0 + 2.0 + nqlm * 4.0) + nqlm * 8.0))
-    del ph, dmp
+    check_rho_aug(out, deck, gpu, "augmentation.rho_aug", aug, 1, nbeta, rng,
+                  dev)
     # K5 on the unpolarized potential (one channel)
     dion = torch.as_tensor(ctx.beta.dion, dtype=torch.float64, device=dev)
     check_d_operator(out, deck, gpu, "augmentation.d_operator", aug,
@@ -1246,6 +1396,26 @@ def check_kernels_us(deck: str, ctx, dev, gpu: str, fp32: bool = False) -> dict:
            lambda: fn_p(f), lib_sym, nbytes=nbytes, flops=flops,
            slow_plain=True, extra=extra)
     del idx, vals
+    return out
+
+
+def check_kernels_aug54(deck: str, ctx, dev, gpu: str, fm: dict) -> dict:
+    """K4 at the 54-atom cell, where its launches cost the most: one
+    channel, as the packed-real, chunked and fp32 runs launch it (returned),
+    and two, as the PBE FM run does (into fm)."""
+    import numpy as np
+
+    from sirius_tpu_torch.ops.augmentation import build_aug_device_tables
+
+    aug = build_aug_device_tables(ctx.unit_cell, ctx.gvec, ctx.aug, ctx.beta,
+                                  dev)[0]
+    rng = np.random.default_rng(54)
+    out = {}
+    nbeta = ctx.beta.num_beta_total
+    check_rho_aug(out, deck, gpu, "augmentation.rho_aug.54", aug, 1, nbeta,
+                  rng, dev)
+    check_rho_aug(fm, deck + "_fm", gpu, "augmentation.rho_aug.2.54", aug, 2,
+                  nbeta, rng, dev)
     return out
 
 
@@ -1795,7 +1965,6 @@ def check_kernels_spinor(deck: str, ctx, dev, gpu: str,
                                               initial_magnetization_vec_g)
     from sirius_tpu_torch.dft.potential_nc import generate_potential_nc
     from sirius_tpu_torch.dft.xc import XCFunctional
-    from sirius_tpu_torch.kernels import augmentation as k45
     from sirius_tpu_torch.kernels import density_accumulate_nc as k12b
     from sirius_tpu_torch.kernels import spinor_veff as k12a
     from sirius_tpu_torch.kernels import symmetrize_pw as k6
@@ -1899,28 +2068,11 @@ def check_kernels_spinor(deck: str, ctx, dev, gpu: str,
            slow_plain=True, extra=extra)
     del idx, vals
 
-    # K4 on the four (rho, m_x, m_y, m_z) Hermitian component blocks;
-    # yardstick: K4's einsum on four channels (phases and packed blocks
-    # built outside the timing)
+    # K4 on the four (rho, m_x, m_y, m_z) Hermitian component blocks
     aug = build_aug_device_tables(ctx.unit_cell, ctx.gvec, ctx.aug, ctx.beta,
                                   dev)[0]
-    na, nqlm = aug["pos"].shape[0], aug["q"].shape[0]
-    a = (rng.standard_normal((4, nbeta, nbeta))
-         + 1j * rng.standard_normal((4, nbeta, nbeta)))
-    dm = torch.as_tensor((a + a.conj().transpose(0, 2, 1)) * 0.05, device=dev)
-    targs = (aug["gidx"], aug["w"], aug["millers"], aug["pos"], aug["q"])
-    ph = k45.structure_phases(aug["millers"], aug["pos"])
-    dmp = (aug["w"][None, None, :] * dm.reshape(4, -1)[:, aug["gidx"].long()].real
-           ).to(torch.complex128)
-    record("augmentation.rho_aug.4", [k45.rho_aug(dm, *targs)],
-           [k45.rho_aug_plain(dm, *targs)],
-           lambda: k45.rho_aug(dm, *targs),
-           lambda: k45.rho_aug_plain(dm, *targs),
-           lambda: torch.einsum("ga,saq,qg->sg", ph, dmp, aug["q"]),
-           nbytes=nqlm * ng * 16 + 4 * ng * 16 + ng * 12
-           + 4 * nbeta * nbeta * 16,
-           flops=ng * (na * (5.0 + 4 * nqlm * 4.0) + 4 * nqlm * 8.0))
-    del ph, dmp
+    check_rho_aug(out, deck, gpu, "augmentation.rho_aug.4", aug, 4, nbeta,
+                  rng, dev)
 
     # K5 on the four channels (V, B_x, B_y, B_z) of the initial potential,
     # D_ion on V alone, as dft/scf_nc.py launches it
@@ -2001,7 +2153,9 @@ def wrappers() -> dict:
            "density_accumulate_nc": (k12b.density_accumulate_nc, n),
            "symmetrize_vector_pw": (k6.symmetrize_vector_pw, n),
            "augmentation.rho_aug.4": (k45.rho_aug, n),
-           "augmentation.d_operator.4": (k45.d_operator, n)}
+           "augmentation.d_operator.4": (k45.d_operator, n),
+           "augmentation.rho_aug.54": (k45.rho_aug, n),
+           "augmentation.rho_aug.2.54": (k45.rho_aug, n)}
     for name in FP32_SUMMARY:
         out[name] = (out[base_name(name)][0],
                      "launches_" + name.rsplit(".", 1)[1])
@@ -2714,6 +2868,9 @@ def main() -> int:
     kern16.update(check_kernels_us("si16_supercell2_us_sym", ctx16us, dev, gpu))
     check_kernels_gamma("gamma_us_sym", single["gamma_us_sym"], dev, gpu)
     kern54 = check_kernels_gamma("si54_supercell3_gamma", ctx54, dev, gpu)
+    kern54fm = {}
+    kern54.update(check_kernels_aug54("si54_supercell3_gamma", ctx54, dev, gpu,
+                                      kern54fm))
     kern54.update(check_kernel_symmetrize("si54_supercell3_gamma", ctx54, dev,
                                           gpu))
     check_kernel_chunk("chunked_us_sym", single["chunked_us_sym"], 1, dev, gpu)
@@ -2841,6 +2998,7 @@ def main() -> int:
     launches_fp32 = {name: runs_fp32[run][name]
                      for name, run in FP32_SUMMARY.items()}
     for records, counts in ((kern16, launches), (kern54, launches54),
+                            (kern54fm, runs["full_width_gamma_pbe_fm"]),
                             (kern54xc, launches_xc),
                             (kern_mgga, launches_mgga),
                             (kern_spinor, launches_spinor),

@@ -2,7 +2,7 @@
 // the atomic structure-factor phases generated on the fly.
 //
 // K4 replaces sirius_tpu/ops/augmentation.py::rho_aug_g_device (:250-263)
-// for one atom type (a group of its atoms):
+// for one atom type:
 //   out[s, g] (+)= sum_a sum_q e^{-2 pi i m_g . tau_a}
 //                              w_q Re(dm[s, gidx[a, q]]) Q[q, g]
 // K5 replaces d_operator_device (:266-282) for one atom type and every
@@ -20,15 +20,32 @@
 // index and the fractional position, as SIRIUS's
 // generate_phase_factors.cu does.
 //
-// Bound on the H100: bytes. K4 reads Q once and writes out once; K5 reads
-// Q, V and the Millers once. The operations side is one sincospi per
-// (G, atom) and per chunk of 8 q (K4), or per (G, atom) (K5), and K5's
-// contraction, 4 nch na nqlm flops a G.
+// Bound on the H100 (as chip_smoke.py counts it): bytes, at every shape
+// of K4 and K5. K4 reads Q once and writes out once; its operations, a
+// sincospi and the atom sum (2 ns nqlm fused multiply-adds, the shape of
+// a matrix product) once a (G, -G) row, take less time at the data-sheet
+// rates. K5 reads Q, V and the Millers once.
 //
 // Design, deterministic, no atomics:
-// - K4: one thread per G (grid stride). The tiny dmp[s, a, q] table is
-//   staged in shared memory; the thread sums over atoms into 8-wide
-//   registers per q chunk, then contracts with its column of Q.
+// - K4 (kernels/augmentation.py::rho_aug_plan sizes it): a block walks tiles
+//   of tg rows of the (G, -G) table (kernels/augmentation.py::gvec_pairs;
+//   G = 0 is its own row). Per tile it asks for the rows' Q columns in L2,
+//   computes each row's phases once per atom into shared memory, where the
+//   packed coefficients dmp[s, a, q] = w_q Re dm[s, gidx[a, q]] also lie,
+//   and thread (s, k, r) of the block's ns x ksplit x tg threads sums
+//   channel s of row r over the atoms in registers, q chunk by q chunk (8,
+//   then 4, 2, 1 wide) over its share k of q; thread k = 0 contracts every
+//   chunk with Q's columns of G and of -G in the order of q, taking the
+//   other share's sums from shared memory. Re(dm) is real, so the atom sum
+//   of -G is the conjugate of G's: one sum serves both (the card's
+//   sincospi(-y) is (-sin, cos) of y bit for bit but for a zero's sign;
+//   tools/torch_port_k4.py counts it over every (G, atom) argument of the
+//   decks). Every sum keeps its order and every update its expression,
+//   operand for operand, as the one-thread-a-G kernel before it, so nvcc
+//   contracts the same fused multiply-adds and the output keeps its bits;
+//   a fused fp64 tensor-core product would sum in an order of its own. A
+//   type whose atoms do not fit shared memory at once is summed over atom
+//   tiles in the same chain, its phases then recomputed per q chunk.
 // - K5 is a skinny real GEMM, M = nch na rows (channel, atom), N = nqlm,
 //   K = 2 ng, split over K. Pass 1: enough blocks to fill the card
 //   (kernels/augmentation.py::d_operator_plan), each streaming a fixed
@@ -49,11 +66,11 @@
 // Plain C interface (loaded with ctypes); launches on the stream passed in,
 // allocates nothing, returns cudaGetLastError().
 #include <cuda_runtime.h>
-#include <cuComplex.h>
 
 namespace {
 
-constexpr int QC = 8;        // q chunk held in registers by K4
+constexpr int QC = 8;        // widest q chunk a K4 thread holds in registers
+constexpr int RA_MAX_THREADS = 512;  // K4's largest block: 4 channels x 128
 constexpr int THREADS = 256;
 constexpr int TM = 4;        // (channel, atom) rows of a K5 thread's tile
 constexpr int TN = 5;        // q columns of a K5 thread's tile
@@ -63,79 +80,336 @@ __device__ __forceinline__ double miller_dot(const int* m, const double* t) {
     return (double)m[0] * t[0] + (double)m[1] * t[1] + (double)m[2] * t[2];
 }
 
-template <int NS>
-__global__ void rho_aug_kernel(const cuDoubleComplex* __restrict__ dm,
-                               const int* __restrict__ gidx,
-                               const double* __restrict__ w,
-                               const int* __restrict__ millers,
-                               const double* __restrict__ pos,
-                               const cuDoubleComplex* __restrict__ q,
-                               cuDoubleComplex* __restrict__ out,
-                               long long nbeta2, int na, int nqlm,
-                               long long ng, int accumulate) {
-    extern __shared__ double smem[];
-    double* dmp = smem;                      // [NS][na][nqlm]
-    double* tau = smem + NS * na * nqlm;     // [na][3]
-    const int nd = NS * na * nqlm;
-    for (int i = threadIdx.x; i < nd; i += blockDim.x) {
-        const int s = i / (na * nqlm);
-        const int aq = i - s * na * nqlm;
-        const int qq = aq % nqlm;
-        dmp[i] = w[qq] * dm[s * nbeta2 + gidx[aq]].x;
-    }
-    for (int i = threadIdx.x; i < 3 * na; i += blockDim.x) tau[i] = pos[i];
-    __syncthreads();
+// e^{-2 pi i m . tau} as (sin, cos) of -2 m . tau, the expression K4 has
+// always evaluated
+__device__ __forceinline__ double2 aug_phase(const int* m, const double* t) {
+    double sn, cs;
+    sincospi(-2.0 * miller_dot(m, t), &sn, &cs);
+    return make_double2(sn, cs);
+}
 
-    for (long long g = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-         g < ng; g += (long long)gridDim.x * blockDim.x) {
-        const int* m = millers + 3 * g;
-        double acc_re[NS], acc_im[NS];
+// -x, out of the compiler's sight, so that the update of -G below keeps
+// the form of G's (and so its fused multiply-adds)
+__device__ __forceinline__ double neg_opaque(double x) {
+    double r;
+    asm("neg.f64 %0, %1;" : "=d"(r) : "d"(x));
+    return r;
+}
+
+// asks for the 32-byte sector of p in L2, without waiting for it
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+    asm volatile("prefetch.global.L2 [%0];" ::"l"(p));
+}
+
+// K4's shared memory in bytes; kernels/augmentation.py::rho_aug_layout
+// mirrors it: the packed coefficients dmp [ns][atoms][nqlm], the
+// positions [atoms][3], the phases [atoms][tg] (sin, cos) of one atom tile
+// and, with ksplit 2, the atom sums [ns][nqlm - nqlm / 2][tg] of the upper
+// q half, which its threads hand to the lower half's for the contraction
+struct RaLayout {
+    size_t tau_off, ph_off, u_off, total;
+};
+
+__host__ __device__ inline RaLayout ra_layout(int ns, int nqlm, int tg,
+                                              int atoms, int ksplit) {
+    RaLayout L;
+    L.tau_off = ((size_t)ns * atoms * nqlm * 8 + 15) / 16 * 16;
+    L.ph_off = L.tau_off + ((size_t)atoms * 24 + 15) / 16 * 16;
+    L.u_off = L.ph_off + (size_t)atoms * tg * 16;
+    L.total = L.u_off + (size_t)ns * (nqlm - nqlm / ksplit) * tg * 16;
+    return L;
+}
+
+struct RaArgs {
+    const double2* dm;    // [ns, nbeta2]
+    const int* gidx;      // [na, nqlm]
+    const double* w;      // [nqlm]
+    const int* millers;   // [ng, 3]
+    const double* pos;    // [na, 3]
+    const int2* pairs;    // [nrow]: (g, index of -g)
+    const double2* q;     // [nqlm, ng]
+    double2* out;         // [ns, ng]
+    long long nbeta2, ng;
+    int nrow, ns, na, nqlm, tg, atoms, ksplit, accumulate;
+};
+
+// the widest q chunk (8, 4, 2 or 1) that fits in the left q of a range
+__device__ __forceinline__ int chunk_width(int left) {
+    return left >= QC ? QC : left >= 4 ? 4 : left >= 2 ? 2 : 1;
+}
+
+// channel s of one row, atoms [0, acnt) of the staged tile: the running
+// sums u of NQ q (the coefficients from c, a row of nqlm an atom)
+template <int NQ>
+__device__ __forceinline__ void ra_sum(const double2* ph, const double* c,
+                                       int acnt, int tg, int r, int nqlm,
+                                       double* u_re, double* u_im) {
+#pragma unroll 2
+    for (int a = 0; a < acnt; ++a) {
+        const double2 p = ph[a * tg + r];
+        const double sn = p.x, cs = p.y;
+        const double* ca = c + a * nqlm;
 #pragma unroll
-        for (int s = 0; s < NS; ++s) acc_re[s] = acc_im[s] = 0.0;
-        for (int q0 = 0; q0 < nqlm; q0 += QC) {
-            double u_re[NS][QC], u_im[NS][QC];
+        for (int j = 0; j < NQ; ++j) {
+            u_re[j] += cs * ca[j];
+            u_im[j] += sn * ca[j];
+        }
+    }
+}
+
+// the chunk's q into the sums of G (g) and, where it is another G, of -G
+// (gp), whose atom sum is the conjugate of G's
+template <int NQ>
+__device__ __forceinline__ void ra_contract(const double2* __restrict__ q,
+                                            long long ng, int q0,
+                                            long long g, long long gp,
+                                            const double* u_re,
+                                            const double* u_im, double& acc_re,
+                                            double& acc_im, double& accp_re,
+                                            double& accp_im) {
 #pragma unroll
-            for (int s = 0; s < NS; ++s)
+    for (int j = 0; j < NQ; ++j) {
+        const double2 qv = q[(long long)(q0 + j) * ng + g];
+        acc_re += u_re[j] * qv.x - u_im[j] * qv.y;
+        acc_im += u_re[j] * qv.y + u_im[j] * qv.x;
+    }
+    if (gp != g) {
 #pragma unroll
-                for (int j = 0; j < QC; ++j) u_re[s][j] = u_im[s][j] = 0.0;
-            for (int a = 0; a < na; ++a) {
-                double sn, cs;
-                sincospi(-2.0 * miller_dot(m, tau + 3 * a), &sn, &cs);
+        for (int j = 0; j < NQ; ++j) {
+            const double2 qv = q[(long long)(q0 + j) * ng + gp];
+            const double ui = neg_opaque(u_im[j]);
+            accp_re += u_re[j] * qv.x - ui * qv.y;
+            accp_im += u_re[j] * qv.y + ui * qv.x;
+        }
+    }
+}
+
+__device__ __forceinline__ void ra_store(double2* o, double re, double im,
+                                         int accumulate) {
+    if (accumulate) {
+        o->x += re;
+        o->y += im;
+    } else {
+        *o = make_double2(re, im);
+    }
+}
+
+// Block: ns x ksplit x tg threads, thread (s, k, r) with r = threadIdx.x %
+// tg, k and s the next digits. It walks the row tiles blockIdx.x,
+// + gridDim.x, ...; thread (s, k, r) sums channel s of row r over q in
+// [k nqlm / ksplit, (k + 1) nqlm / ksplit); k = 0 contracts all of them,
+// in the order of q (ksplit 2 only where one atom tile holds the type).
+__global__ void __launch_bounds__(RA_MAX_THREADS)
+rho_aug_kernel(const RaArgs A) {
+    extern __shared__ __align__(16) unsigned char ra_smem[];
+    const RaLayout L = ra_layout(A.ns, A.nqlm, A.tg, A.atoms, A.ksplit);
+    double* dmp = (double*)ra_smem;
+    double* tau = (double*)(ra_smem + L.tau_off);
+    double2* ph = (double2*)(ra_smem + L.ph_off);
+    double2* ubuf = (double2*)(ra_smem + L.u_off);
+    const int t = threadIdx.x;
+    const int r = t % A.tg;
+    const int k = (t / A.tg) % A.ksplit;
+    const int s = t / (A.tg * A.ksplit);
+    const int qlo = k * A.nqlm / A.ksplit;
+    const int qhi = (k + 1) * A.nqlm / A.ksplit;
+    const int qmid = A.nqlm / A.ksplit;  // the q of thread k = 0
+    const int ntiles = (A.nrow + A.tg - 1) / A.tg;
+    const int atiles = (A.na + A.atoms - 1) / A.atoms;
+    bool staged = false;  // the coefficients of atom tile 0 lie in dmp
+    for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+        const int row = tile * A.tg + r;
+        const bool live = row < A.nrow;
+        long long g = 0, gp = 0;
+        if (live) {
+            const int2 pr = A.pairs[row];
+            g = pr.x;
+            gp = pr.y;
+        }
+        // stage atoms [a0, a0 + acnt): every thread is done with the
+        // previous tile; the coefficients and positions when they change,
+        // then the rows' phases, thread (s, k, r) taking row r's atoms
+        // s ksplit + k, + ns ksplit, ...
+        auto stage = [&](int a0, int acnt) {
+            __syncthreads();
+            if (atiles > 1 || !staged) {
+                const int nd = A.ns * acnt * A.nqlm;
+                for (int i = t; i < nd; i += blockDim.x) {
+                    const int c = i / (acnt * A.nqlm);
+                    const int aq = i - c * acnt * A.nqlm;
+                    const int qq = aq % A.nqlm;
+                    dmp[i] = A.w[qq] *
+                             A.dm[c * A.nbeta2 + A.gidx[a0 * A.nqlm + aq]].x;
+                }
+                for (int i = t; i < 3 * acnt; i += blockDim.x)
+                    tau[i] = A.pos[3 * a0 + i];
+                staged = true;
+                __syncthreads();
+            }
+            if (live) {
+                const int* m = A.millers + 3 * g;
+                const int step = A.ns * A.ksplit;
+#pragma unroll 4
+                for (int a = s * A.ksplit + k; a < acnt; a += step)
+                    ph[a * A.tg + r] = aug_phase(m, tau + 3 * a);
+            }
+            __syncthreads();
+        };
+        // Q's columns of the row, which the contraction reads after the
+        // phases and atom sums: on their way to L2 meanwhile, thread
+        // (s, k) of a row taking q = s ksplit + k, + ns ksplit, ...
+        if (live) {
+            for (int qq = s * A.ksplit + k; qq < A.nqlm;
+                 qq += A.ns * A.ksplit) {
+                prefetch_l2(A.q + (long long)qq * A.ng + g);
+                if (gp != g) prefetch_l2(A.q + (long long)qq * A.ng + gp);
+            }
+        }
+        if (atiles == 1) stage(0, A.na);
+        double acc_re = 0.0, acc_im = 0.0, accp_re = 0.0, accp_im = 0.0;
+        for (int q0 = qlo; q0 < qhi;) {
+            const int nq = chunk_width(qhi - q0);
+            double u_re[QC], u_im[QC];
 #pragma unroll
-                for (int s = 0; s < NS; ++s) {
-                    const double* c = dmp + (s * na + a) * nqlm + q0;
+            for (int j = 0; j < QC; ++j) u_re[j] = u_im[j] = 0.0;
+            for (int a0 = 0; a0 < A.na; a0 += A.atoms) {
+                const int acnt = A.na - a0 < A.atoms ? A.na - a0 : A.atoms;
+                if (atiles > 1) stage(a0, acnt);
+                if (live) {
+                    const double* c = dmp + (size_t)s * acnt * A.nqlm + q0;
+                    switch (nq) {
+                        case QC:
+                            ra_sum<QC>(ph, c, acnt, A.tg, r, A.nqlm, u_re,
+                                       u_im);
+                            break;
+                        case 4:
+                            ra_sum<4>(ph, c, acnt, A.tg, r, A.nqlm, u_re,
+                                      u_im);
+                            break;
+                        case 2:
+                            ra_sum<2>(ph, c, acnt, A.tg, r, A.nqlm, u_re,
+                                      u_im);
+                            break;
+                        default:
+                            ra_sum<1>(ph, c, acnt, A.tg, r, A.nqlm, u_re,
+                                      u_im);
+                    }
+                }
+            }
+            if (live && k == 0) {
+                switch (nq) {
+                    case QC:
+                        ra_contract<QC>(A.q, A.ng, q0, g, gp, u_re, u_im,
+                                        acc_re, acc_im, accp_re, accp_im);
+                        break;
+                    case 4:
+                        ra_contract<4>(A.q, A.ng, q0, g, gp, u_re, u_im,
+                                       acc_re, acc_im, accp_re, accp_im);
+                        break;
+                    case 2:
+                        ra_contract<2>(A.q, A.ng, q0, g, gp, u_re, u_im,
+                                       acc_re, acc_im, accp_re, accp_im);
+                        break;
+                    default:
+                        ra_contract<1>(A.q, A.ng, q0, g, gp, u_re, u_im,
+                                       acc_re, acc_im, accp_re, accp_im);
+                }
+            } else if (live) {
+                double2* u = ubuf + ((size_t)s * (A.nqlm - qmid) + q0 - qmid) *
+                                        A.tg + r;
+#pragma unroll
+                for (int j = 0; j < QC; ++j)
+                    if (j < nq) u[j * A.tg] = make_double2(u_re[j], u_im[j]);
+            }
+            q0 += nq;
+        }
+        if (A.ksplit > 1) {
+            // the upper half's sums, contracted on in the order of q
+            __syncthreads();
+            if (live && k == 0) {
+                const double2* u =
+                    ubuf + (size_t)s * (A.nqlm - qmid) * A.tg + r;
+                for (int q0 = qmid; q0 < A.nqlm;) {
+                    const int nq = chunk_width(A.nqlm - q0);
+                    double u_re[QC], u_im[QC];
 #pragma unroll
                     for (int j = 0; j < QC; ++j) {
-                        if (q0 + j < nqlm) {
-                            u_re[s][j] += cs * c[j];
-                            u_im[s][j] += sn * c[j];
-                        }
+                        const double2 v = j < nq ? u[(q0 - qmid + j) * A.tg]
+                                                 : make_double2(0.0, 0.0);
+                        u_re[j] = v.x;
+                        u_im[j] = v.y;
                     }
-                }
-            }
-#pragma unroll
-            for (int j = 0; j < QC; ++j) {
-                if (q0 + j < nqlm) {
-                    const cuDoubleComplex qv = q[(long long)(q0 + j) * ng + g];
-#pragma unroll
-                    for (int s = 0; s < NS; ++s) {
-                        acc_re[s] += u_re[s][j] * qv.x - u_im[s][j] * qv.y;
-                        acc_im[s] += u_re[s][j] * qv.y + u_im[s][j] * qv.x;
+                    switch (nq) {
+                        case QC:
+                            ra_contract<QC>(A.q, A.ng, q0, g, gp, u_re, u_im,
+                                            acc_re, acc_im, accp_re, accp_im);
+                            break;
+                        case 4:
+                            ra_contract<4>(A.q, A.ng, q0, g, gp, u_re, u_im,
+                                           acc_re, acc_im, accp_re, accp_im);
+                            break;
+                        case 2:
+                            ra_contract<2>(A.q, A.ng, q0, g, gp, u_re, u_im,
+                                           acc_re, acc_im, accp_re, accp_im);
+                            break;
+                        default:
+                            ra_contract<1>(A.q, A.ng, q0, g, gp, u_re, u_im,
+                                           acc_re, acc_im, accp_re, accp_im);
                     }
+                    q0 += nq;
                 }
             }
         }
-#pragma unroll
-        for (int s = 0; s < NS; ++s) {
-            cuDoubleComplex* o = out + s * ng + g;
-            if (accumulate) {
-                o->x += acc_re[s];
-                o->y += acc_im[s];
-            } else {
-                *o = make_cuDoubleComplex(acc_re[s], acc_im[s]);
-            }
+        if (live && k == 0) {
+            ra_store(A.out + s * A.ng + g, acc_re, acc_im, A.accumulate);
+            if (gp != g)
+                ra_store(A.out + s * A.ng + gp, accp_re, accp_im,
+                         A.accumulate);
         }
     }
+}
+
+// The premise of one atom sum a (G, -G) row, on this card: for every row
+// (g, gp != g) of pairs and atom a, the phase of gp is (-sin, cos) of g's
+// bit for bit, from an argument -2 m . tau that is the exact negation of
+// g's. A difference in a zero's sign alone is counted apart: such a zero
+// adds nothing to a sum that holds any nonzero term. counts: [0] the
+// (row, atom) arguments checked; arguments, sines and cosines that differ
+// otherwise [1], [3], [5] and only in a zero's sign [2], [4], [6].
+__device__ __forceinline__ void bits_differ(double want, double got,
+                                            unsigned long long& other,
+                                            unsigned long long& zero) {
+    const long long a = __double_as_longlong(want);
+    const long long b = __double_as_longlong(got);
+    if (a == b) return;
+    if (want == 0.0 && got == 0.0)
+        zero += 1;
+    else
+        other += 1;
+}
+
+__global__ void rho_aug_phase_check_kernel(const int* __restrict__ millers,
+                                           const double* __restrict__ pos,
+                                           const int2* __restrict__ pairs,
+                                           long long nrow, int na,
+                                           unsigned long long* counts) {
+    unsigned long long c[7] = {0, 0, 0, 0, 0, 0, 0};
+    for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+         i < nrow * na; i += (long long)gridDim.x * blockDim.x) {
+        const int2 pr = pairs[i / na];
+        if (pr.x == pr.y) continue;
+        const double* t = pos + 3 * (i % na);
+        const int* m = millers + 3 * (long long)pr.x;
+        const int* mp = millers + 3 * (long long)pr.y;
+        const double2 p = aug_phase(m, t);
+        const double2 pp = aug_phase(mp, t);
+        c[0] += 1;
+        bits_differ(-(-2.0 * miller_dot(m, t)), -2.0 * miller_dot(mp, t),
+                    c[1], c[2]);
+        bits_differ(-p.x, pp.x, c[3], c[4]);
+        bits_differ(p.y, pp.y, c[5], c[6]);
+    }
+    for (int k = 0; k < 7; ++k) atomicAdd(counts + k, c[k]);
 }
 
 // ---- K5 -----------------------------------------------------------------
@@ -384,50 +658,81 @@ __global__ void d_operator_finish_kernel(const double* __restrict__ partial,
     }
 }
 
-template <int NS>
-int launch_rho_aug(const void* dm, const int* gidx, const double* w,
-                   const int* millers, const double* pos, const void* q,
-                   void* out, long long nbeta2, int na, int nqlm, long long ng,
-                   int accumulate, size_t shmem, long long blocks,
-                   cudaStream_t st) {
-    // above the default 48 KB a block must opt in to dynamic shared memory
-    if (shmem > 48 * 1024)
-        cudaFuncSetAttribute(rho_aug_kernel<NS>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)shmem);
-    rho_aug_kernel<NS><<<(int)blocks, THREADS, shmem, st>>>(
-        (const cuDoubleComplex*)dm, gidx, w, millers, pos,
-        (const cuDoubleComplex*)q, (cuDoubleComplex*)out, nbeta2, na, nqlm,
-        ng, accumulate);
-    return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 // ns is the number of channels: 1 (unpolarized), 2 (collinear spins) or 4
-// (the non-collinear (rho, m_x, m_y, m_z) component blocks).
+// (the non-collinear (rho, m_x, m_y, m_z) component blocks); pairs the
+// nrow (G, -G) rows; tg, atoms and ksplit the plan of
+// kernels/augmentation.py::rho_aug_plan. The grid is every block the card
+// holds resident at once (at most one a row tile).
 extern "C" int rho_aug(const void* dm, const int* gidx, const double* w,
-                       const int* millers, const double* pos, const void* q,
-                       void* out, int ns, long long nbeta2, int na, int nqlm,
-                       long long ng, int accumulate, void* stream) {
-    const size_t shmem = (size_t)(ns * na * nqlm + 3 * na) * sizeof(double);
-    long long blocks = (ng + THREADS - 1) / THREADS;
-    if (blocks > 65535LL * 16) blocks = 65535LL * 16;
-    if (blocks <= 0) return (int)cudaGetLastError();
-    cudaStream_t st = (cudaStream_t)stream;
-    switch (ns) {
-        case 1:
-            return launch_rho_aug<1>(dm, gidx, w, millers, pos, q, out, nbeta2,
-                                     na, nqlm, ng, accumulate, shmem, blocks, st);
-        case 2:
-            return launch_rho_aug<2>(dm, gidx, w, millers, pos, q, out, nbeta2,
-                                     na, nqlm, ng, accumulate, shmem, blocks, st);
-        case 4:
-            return launch_rho_aug<4>(dm, gidx, w, millers, pos, q, out, nbeta2,
-                                     na, nqlm, ng, accumulate, shmem, blocks, st);
-        default:
-            return (int)cudaErrorInvalidValue;
+                       const int* millers, const double* pos, const int* pairs,
+                       const void* q, void* out, int ns, long long nbeta2,
+                       int na, int nqlm, long long ng, long long nrow, int tg,
+                       int atoms, int ksplit, int accumulate, void* stream) {
+    if (nrow <= 0) return (int)cudaGetLastError();
+    if ((ns != 1 && ns != 2 && ns != 4) || na <= 0 || nqlm <= 0 || tg <= 0 ||
+        (ksplit != 1 && ksplit != 2) || ksplit > nqlm ||
+        (ksplit > 1 && atoms < na) || ns * ksplit * tg > RA_MAX_THREADS ||
+        atoms <= 0 || atoms > na || nrow > ng || ng > 0x7fffffffLL)
+        return (int)cudaErrorInvalidValue;
+    const RaLayout L = ra_layout(ns, nqlm, tg, atoms, ksplit);
+    if (L.total > 227 * 1024) return (int)cudaErrorInvalidValue;
+    // above the default 48 KB a block must opt in to dynamic shared memory
+    if (L.total > 48 * 1024)
+        cudaFuncSetAttribute(rho_aug_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)L.total);
+    int device = 0, sms = 0, resident = 0;
+    cudaGetDevice(&device);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, rho_aug_kernel,
+                                                  ns * ksplit * tg, L.total);
+    const long long tiles = (nrow + tg - 1) / tg;
+    long long blocks = (long long)resident * sms;
+    if (blocks > tiles) blocks = tiles;
+    if (blocks <= 0) {
+        const int rc = (int)cudaGetLastError();
+        return rc ? rc : (int)cudaErrorInvalidConfiguration;
     }
+    RaArgs A;
+    A.dm = (const double2*)dm;
+    A.gidx = gidx;
+    A.w = w;
+    A.millers = millers;
+    A.pos = pos;
+    A.pairs = (const int2*)pairs;
+    A.q = (const double2*)q;
+    A.out = (double2*)out;
+    A.nbeta2 = nbeta2;
+    A.ng = ng;
+    A.nrow = (int)nrow;
+    A.ns = ns;
+    A.na = na;
+    A.nqlm = nqlm;
+    A.tg = tg;
+    A.atoms = atoms;
+    A.ksplit = ksplit;
+    A.accumulate = accumulate;
+    rho_aug_kernel<<<(int)blocks, ns * ksplit * tg, L.total,
+                     (cudaStream_t)stream>>>(A);
+    return (int)cudaGetLastError();
+}
+
+// counts [7] unsigned 64-bit, zeroed by the caller: see
+// rho_aug_phase_check_kernel
+extern "C" int rho_aug_phase_check(const int* millers, const double* pos,
+                                   const int* pairs, long long nrow, int na,
+                                   void* counts, void* stream) {
+    if (nrow <= 0 || na <= 0) return (int)cudaGetLastError();
+    const long long n = nrow * na;
+    long long blocks = (n + THREADS - 1) / THREADS;
+    if (blocks > 65535LL * 16) blocks = 65535LL * 16;
+    rho_aug_phase_check_kernel<<<(int)blocks, THREADS, 0,
+                                 (cudaStream_t)stream>>>(
+        millers, pos, (const int2*)pairs, nrow, na,
+        (unsigned long long*)counts);
+    return (int)cudaGetLastError();
 }
 
 extern "C" int d_operator(const int* millers, const double* pos,

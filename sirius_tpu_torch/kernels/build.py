@@ -73,7 +73,9 @@ SIGNATURES = {
         "veff_multiply_c64": _K1C, "veff_multiply_real_c64": _K1C,
     },
     "augmentation": {
-        "rho_aug": (_P, _P, _P, _P, _P, _P, _P, _I, _LL, _I, _I, _LL, _I, _P),
+        "rho_aug": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _LL, _I, _I, _LL,
+                    _LL, _I, _I, _I, _I, _P),
+        "rho_aug_phase_check": (_P, _P, _P, _LL, _I, _P, _P),
         "d_operator": (_P, _P, _P, _P, _P, _I, _LL, _I, _P, _P, _P, _D, _P,
                        _I, _I, _I, _LL, _LL, _P),
     },

@@ -35,7 +35,11 @@ from sirius_tpu_torch.core.radial import RadialIntegralTable
 from sirius_tpu_torch.core.sht import gaunt_rlm, lm_index, num_lm, ylm_real
 from sirius_tpu_torch.crystal.unit_cell import UnitCell
 from sirius_tpu_torch.device import resolve_device
-from sirius_tpu_torch.kernels.augmentation import d_operator, rho_aug
+from sirius_tpu_torch.kernels.augmentation import (
+    d_operator,
+    gvec_pairs,
+    rho_aug,
+)
 
 
 @dataclasses.dataclass
@@ -153,20 +157,23 @@ def build_aug_device_tables(uc: UnitCell, gvec: Gvec, aug: Augmentation,
                             beta, device=None) -> list[dict]:
     """Per-type tensors for rho_aug_g_device / d_operator_device.
 
-    Each entry holds the Millers [ng, 3] int32 (one tensor shared by the
-    types), the type's fractional positions [na, 3], q_pw [nqlm, ng]
-    complex128, the packed-pair weights w, and gidx / lo_idx / lo_mask:
-    gidx flattens the (off + xi1, off + xi2) positions of each atom's packed
-    pairs into the [nbeta * nbeta] D matrix (the upper/packed site); lo_idx
-    is the mirrored (off + xi2, off + xi1) site with lo_mask zeroing the
-    diagonal pairs — together they reproduce the host d_operator's
-    symmetric block fill without double-counting xi1 == xi2. No phase table:
-    the kernels generate e^{-2 pi i G . tau} from the Millers."""
+    Each entry holds the Millers [ng, 3] int32 and K4's (G, -G) rows
+    (kernels/augmentation.py::gvec_pairs of the Millers; one tensor each,
+    shared by the types), the type's fractional positions [na, 3], q_pw
+    [nqlm, ng] complex128, the packed-pair weights w, and gidx / lo_idx /
+    lo_mask: gidx flattens the (off + xi1, off + xi2) positions of each
+    atom's packed pairs into the [nbeta * nbeta] D matrix (the upper/packed
+    site); lo_idx is the mirrored (off + xi2, off + xi1) site with lo_mask
+    zeroing the diagonal pairs — together they reproduce the host
+    d_operator's symmetric block fill without double-counting xi1 == xi2.
+    No phase table: the kernels generate e^{-2 pi i G . tau} from the
+    Millers."""
     device = resolve_device(device)
     nbeta = beta.num_beta_total
     offs = {ia: off for ia, off, _ in beta.atom_blocks(uc)}
     millers = torch.as_tensor(np.asarray(gvec.millers, dtype=np.int32),
                               device=device)
+    pairs = gvec_pairs(millers)
     out = []
     for it, at in enumerate(aug.per_type):
         if at is None:
@@ -191,6 +198,7 @@ def build_aug_device_tables(uc: UnitCell, gvec: Gvec, aug: Augmentation,
 
         out.append({
             "millers": millers,
+            "pairs": pairs,
             "pos": t(uc.positions[atoms], torch.float64),
             "q": t(at.q_pw, torch.complex128),
             "w": t(np.where(at.xi1 == at.xi2, 1.0, 2.0), torch.float64),
@@ -209,7 +217,7 @@ def rho_aug_g_device(dm: torch.Tensor, tables: list[dict],
     out = None
     for t in tables:
         out = rho_aug(dm, t["gidx"], t["w"], t["millers"], t["pos"], t["q"],
-                      out=out)
+                      out=out, pairs=t["pairs"])
     if out is None:
         out = torch.zeros((dm.shape[0], ng), dtype=torch.complex128,
                           device=dm.device)

@@ -1,11 +1,13 @@
 """Port parity for the ultrasoft augmentation: the host tables (q_pw, q_mtrx,
-the block-diagonal S integrals qmat), the augmentation charge (K4), the D
-operator (K5), the beta density matrix and H/S application with Q, against
-the JAX package on the small ultrasoft + symmetry deck, from numpy inputs
-made with a fixed seed. On the CPU the kernel wrappers take their plain
-PyTorch versions. Bounds: the host tables bit-equal; K4 and K5 1e-12
-relative (the phases are reduced before the exponential, the JAX package
-exponentiates the full argument); the density matrix 1e-13; H/S 1e-12."""
+the block-diagonal S integrals qmat), the augmentation charge (K4, on 1, 2
+and 4 channels), the D operator (K5), the beta density matrix and H/S
+application with Q, against the JAX package on the small ultrasoft +
+symmetry deck, from numpy inputs made with a fixed seed. On the CPU the
+kernel wrappers take their plain PyTorch versions. Bounds: the host tables
+bit-equal; K4 and K5 1e-12 relative (the phases are reduced before the
+exponential, the JAX package exponentiates the full argument); the density
+matrix 1e-13; H/S 1e-12. K4's (G, -G) rows (gvec_pairs) and its launch
+plan (rho_aug_plan) are pure functions, held here too."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -77,10 +79,18 @@ def test_q_pw_at_matches_jax(decks):
     np.testing.assert_array_equal(got, want)
 
 
-@pytest.mark.parametrize("ns", [1, 2])
+@pytest.mark.parametrize("ns", [1, 2, 4])
 def test_rho_aug_matches_jax(decks, inputs, ns):
+    # ns 4: the non-collinear (rho, m_x, m_y, m_z) blocks, two more
+    # Hermitian blocks beside the collinear two
     jctx, pctx = decks
     dm = inputs[0][:ns]
+    if ns == 4:
+        rng = np.random.default_rng(2025)
+        nbeta = dm.shape[-1]
+        a = (rng.standard_normal((2, nbeta, nbeta))
+             + 1j * rng.standard_normal((2, nbeta, nbeta)))
+        dm = np.concatenate([dm, 0.1 * (a + np.conj(np.swapaxes(a, 1, 2)))])
     jtab = jaug.build_aug_device_tables(jctx.unit_cell, jctx.gvec, jctx.aug,
                                         jctx.beta)
     ng = jctx.gvec.num_gvec
@@ -96,6 +106,97 @@ def test_rho_aug_matches_jax(decks, inputs, ns):
     assert got.shape == (ns, ng)
     assert rel(got, want_dev) <= 1e-12
     assert rel(got, want_host) <= 1e-12
+
+
+def test_gvec_pairs_negate_and_cover(decks):
+    # every row pairs G with -G, each G lies in one row, the map is an
+    # involution and G = 0 is its own partner; the order is that of g
+    _, pctx = decks
+    m = np.asarray(pctx.gvec.millers)
+    rows = kaug.gvec_pairs(torch.as_tensor(m, dtype=torch.int32)).numpy()
+    assert rows.dtype == np.int32 and rows.shape[1] == 2
+    np.testing.assert_array_equal(m[rows[:, 1]], -m[rows[:, 0]])
+    assert (rows[:, 0] <= rows[:, 1]).all()
+    assert (np.diff(rows[:, 0]) > 0).all()
+    partner = np.full(len(m), -1)
+    partner[rows[:, 0]] = rows[:, 1]
+    partner[rows[:, 1]] = rows[:, 0]
+    assert (partner >= 0).all()
+    np.testing.assert_array_equal(partner[partner], np.arange(len(m)))
+    g0 = int(np.nonzero((m == 0).all(1))[0][0])
+    assert partner[g0] == g0
+    self_rows = rows[rows[:, 0] == rows[:, 1]]
+    np.testing.assert_array_equal(self_rows, [[g0, g0]])
+    assert 2 * len(rows) - 1 == len(m)
+    # the device tables hold these rows, one tensor shared by the types
+    tabs = taug.build_aug_device_tables(pctx.unit_cell, pctx.gvec, pctx.aug,
+                                        pctx.beta, "cpu")
+    assert all(t["pairs"] is tabs[0]["pairs"] for t in tabs)
+    np.testing.assert_array_equal(tabs[0]["pairs"].numpy(), rows)
+
+
+def test_gvec_pairs_reject_unpaired_sets():
+    m = np.array([[0, 0, 0], [1, 2, 3], [-1, -2, -3], [0, 1, 0]])
+    with pytest.raises(ValueError, match="no -G"):
+        kaug.gvec_pairs(m)
+    with pytest.raises(ValueError, match="share"):
+        kaug.gvec_pairs(np.array([[0, 0, 0], [1, 0, 0], [-1, 0, 0],
+                                  [1, 0, 0]]))
+    rows = kaug.gvec_pairs(m[:3])
+    np.testing.assert_array_equal(rows.numpy(), [[0, 0], [1, 2]])
+
+
+def parent_group(ns, nqlm):
+    """The most atoms the one-thread-a-G K4 took in one launch (its wrapper
+    split a type into groups past it)."""
+    return kaug.SHARED_MAX // (8 * (ns * nqlm + 3))
+
+
+@pytest.mark.parametrize("ns", [1, 2, 4])
+@pytest.mark.parametrize("nqlm", [1, 3, 10, 36, 171])
+def test_rho_aug_plan_fits_and_keeps_one_chain(ns, nqlm):
+    # every plan fits the 227 KB a block may opt in to, with at most 512
+    # threads; where the earlier kernel summed a type in one launch (and
+    # past it), the plan takes one launch, the atoms of a shared-memory
+    # tile summed in one chain; at the decks' shapes (nqlm 10, up to 54
+    # atoms) one atom tile, so each phase is computed once
+    group = parent_group(ns, nqlm)
+    for na in (1, 2, 16, 54, 500, group, group + 1):
+        plan = kaug.rho_aug_plan(na, nqlm, ns, 4999)
+        tg, ksplit = plan["tg"], plan["ksplit"]
+        shared = kaug.rho_aug_layout(ns, nqlm, tg, plan["atoms"], ksplit)
+        assert plan["shared"] == shared <= kaug.SHARED_MAX
+        assert plan["threads"] == ns * ksplit * tg <= kaug.RA_MAX_THREADS
+        assert 1 <= plan["atoms"] <= na
+        assert plan["atom_tiles"] == -(-na // plan["atoms"])
+        assert plan["row_tiles"] == -(-4999 // tg)
+        # the q split only where one atom tile holds the type
+        assert ksplit in (1, 2) and ksplit <= nqlm
+        assert ksplit == 1 or plan["atom_tiles"] == 1
+        if nqlm == 10 and na <= 54:
+            assert plan["atom_tiles"] == 1
+
+
+@pytest.mark.parametrize("na,ns,tg,ksplit", [
+    (2, 1, 128, 1), (16, 1, 128, 1), (16, 2, 64, 1), (16, 4, 32, 1),
+    (54, 1, 64, 2), (54, 2, 64, 1), (54, 4, 32, 1)])
+def test_rho_aug_plan_at_the_deck_shapes(na, ns, tg, ksplit):
+    # 128-thread blocks; the q split only on one channel at 54 atoms, where
+    # shared memory holds 128 rows an SM at the 128-row tile (864 B of
+    # phases a row)
+    nrow = {2: 18163, 16: 145847, 54: 492081}[na]
+    plan = kaug.rho_aug_plan(na, 10, ns, nrow)
+    assert (plan["tg"], plan["ksplit"], plan["threads"]) == (tg, ksplit, 128)
+    assert plan["atom_tiles"] == 1
+
+
+def test_rho_aug_plan_raises_where_no_atom_fits():
+    # one atom's coefficients, position and 32 rows of phases must fit
+    with pytest.raises(ValueError, match="do not fit"):
+        kaug.rho_aug_plan(1, 30000, 1, 100)
+    with pytest.raises(ValueError, match="do not fit"):
+        kaug.rho_aug_plan(2, 7500, 4, 100)
+    assert kaug.rho_aug_plan(1, 28900, 1, 100)["atoms"] == 1
 
 
 def test_d_operator_matches_jax(decks, inputs):
@@ -163,6 +264,11 @@ def test_augmentation_wrappers_reject_bad_input(decks):
     with pytest.raises(ValueError, match="gidx"):
         kaug.rho_aug(dm, t["gidx"].long(), t["w"], t["millers"], t["pos"],
                      t["q"])
+    pairs = t["pairs"]
+    for bad in (pairs.long(), pairs[:, :1], pairs[: pairs.shape[0] // 2 - 1]):
+        with pytest.raises(ValueError, match="pairs"):
+            kaug.rho_aug(dm, t["gidx"], t["w"], t["millers"], t["pos"],
+                         t["q"], pairs=bad)
     with pytest.raises(ValueError, match="d must"):
         kaug.d_operator(torch.zeros((1, t["q"].shape[1]),
                                     dtype=torch.complex128),

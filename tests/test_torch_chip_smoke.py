@@ -44,6 +44,8 @@ TAU_CHECKED = ("mgga_tau.grad_to_box", "mgga_tau.box_to_pw_tau")
 SPINOR_CHECKED = ("spinor_veff", "density_accumulate_nc",
                   "symmetrize_vector_pw", "augmentation.rho_aug.4",
                   "augmentation.d_operator.4")
+# K4 at the 54-atom cell, one channel and two (check_kernels_aug54)
+AUG54_CHECKED = ("augmentation.rho_aug.54", "augmentation.rho_aug.2.54")
 # the fp32 instantiations the fp32 modes of the checks hold
 FP32_CHECKED = tuple(chip_smoke.FP32_SUMMARY)
 
@@ -80,7 +82,8 @@ def test_phases_run_on_cpu(monkeypatch, capsys):
     assert sorted(recs) == sorted(NC_CHECKED)
     assert sorted(NC_CHECKED + US_CHECKED + GAMMA_CHECKED + ("beta_chunk",)
                   + XC_CHECKED + ("symmetrize_pw.axial",) + TAU_CHECKED
-                  + SPINOR_CHECKED + FP32_CHECKED) == sorted(chip_smoke.SOURCE)
+                  + SPINOR_CHECKED + AUG54_CHECKED + FP32_CHECKED
+                  ) == sorted(chip_smoke.SOURCE)
     for rec in recs.values():
         assert rec["max_rel_err"] <= rec["tol_rel"]
         assert rec["bound_ms"] > 0 and rec["bound_by"] in ("bytes", "operations")
@@ -298,7 +301,7 @@ def test_spinor_yardstick_is_the_symmetrization(monkeypatch):
     seen = {}
 
     def keep(out, deck, gpu, name, kernel_out, plain_out, fn_k, fn_p, fn_lib,
-             nbytes, flops, slow_plain=False, extra=None):
+             nbytes, flops, slow_plain=False, extra=None, tensor_flops=0.0):
         if name == "symmetrize_vector_pw":
             seen["lib"], seen["plain"] = fn_lib(), plain_out[0]
 
@@ -317,7 +320,8 @@ def test_spinor_yardsticks_compute_the_kernels_function(monkeypatch, name):
     seen = {}
 
     def keep(out, deck, gpu, rec_name, kernel_out, plain_out, fn_k, fn_p,
-             fn_lib, nbytes, flops, slow_plain=False, extra=None):
+             fn_lib, nbytes, flops, slow_plain=False, extra=None,
+             tensor_flops=0.0):
         if rec_name == name:
             seen["lib"], seen["plain"] = fn_lib(), plain_out[0]
 
@@ -442,6 +446,59 @@ def test_edge_shapes_run_on_cpu(capsys):
     assert {r["fields"] for r in k10a} == {1, 2, 3}
     assert all(r["bitwise"] and r["last_slot_live"] for r in k10a)
     assert any(r["nbox"] % 256 for r in k10a)
+
+
+def test_rho_aug_edges_run_on_cpu(capsys):
+    # K4 at every case of K4_EDGES on 1, 2 and 4 channels, to 1e-12, with
+    # G = 0 its own row; the cases plant what they name
+    chip_smoke.check_rho_aug_edges(torch.device("cpu"), "cpu",
+                                   np.random.default_rng(43))
+    lines = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
+    assert {(r["case"], r["channels"]) for r in lines} == {
+        (c[0], ns) for c in chip_smoke.K4_EDGES for ns in (1, 2, 4)}
+    assert len(lines) == 3 * len(chip_smoke.K4_EDGES)
+    assert all(r["name"] == "augmentation.rho_aug" and r["g0_row_self"]
+               and r["max_rel_err"] <= 1e-12 for r in lines)
+    by = {(r["case"], r["channels"]): r for r in lines}
+    for ns in (1, 2, 4):
+        assert by["below one row tile", ns]["rows"] < 32
+        assert by["off the row tile", ns]["rows"] % 32
+        assert by["one atom", ns]["atoms"] == 1
+        assert by["tile shrinks", ns]["plan"]["tg"] < 128
+        assert by["atom tiles", ns]["plan"]["atom_tiles"] > 1
+        assert {by["nqlm 3", ns]["nqlm"], by["nqlm 15", ns]["nqlm"]} == {3, 15}
+        assert by["q split, nqlm 15", ns]["nqlm"] == 15
+        last = by["G = 0 last", ns]
+        assert last["g0_index"] == last["num_gvec"] - 1
+    # one channel at 54 atoms splits q over two threads a row
+    for case in ("tile shrinks", "q split, nqlm 15"):
+        assert by[case, 1]["plan"]["ksplit"] == 2
+
+
+def test_aug54_records_run_on_cpu(monkeypatch):
+    # the 54-atom K4 records on a small deck: one channel returned, two
+    # into the FM dict, each with its plan and the einsum yardstick
+    monkeypatch.setattr(chip_smoke, "time_ms", lambda fn, **kw: (fn(), 0.0)[1])
+    ctx = chip_smoke.make_context(SMALL_GAMMA, chip_smoke.TIGHT,
+                                  chip_smoke.US_SYM)
+    fm = {}
+    recs = chip_smoke.check_kernels_aug54("small_gamma", ctx,
+                                          torch.device("cpu"), "cpu", fm)
+    assert sorted(recs) + sorted(fm) == list(AUG54_CHECKED)
+    for ns, rec in ((1, recs[AUG54_CHECKED[0]]), (2, fm[AUG54_CHECKED[1]])):
+        assert rec["channels"] == ns and rec["max_rel_err"] <= 1e-12
+        assert rec["plan"]["threads"] == ns * rec["plan"]["tg"]
+        assert rec["library_ms"] is not None and rec["bound_ms"] > 0
+        # the bound counts the phases and the atom sum (at the tensor-core
+        # rate) once a (G, -G) row, the contraction for every G
+        na, ng, nrow = rec["atoms"], rec["num_gvec"], rec["rows"]
+        assert 2 * nrow - 1 == ng
+        nqlm = (rec["flops"] - nrow * na * 7.0) / (ng * ns * 8.0)
+        assert nqlm == int(nqlm) >= 1
+        assert rec["tensor_flops"] == nrow * na * ns * nqlm * 4.0
+        assert (rec["bound_ms"], rec["bound_by"]) == chip_smoke.bound(
+            rec["bytes"], rec["flops"], tensor_flops=rec["tensor_flops"])
+    assert fm[AUG54_CHECKED[1]]["deck"] == "small_gamma_fm"
 
 
 def test_xc_edges_run_on_cpu(capsys):
@@ -610,7 +667,8 @@ def test_fp32_yardsticks_compute_the_kernels_function(monkeypatch, name):
     seen = {}
 
     def keep(out, deck, gpu, rec_name, kernel_out, plain_out, fn_k, fn_p,
-             fn_lib, nbytes, flops, slow_plain=False, extra=None):
+             fn_lib, nbytes, flops, slow_plain=False, extra=None,
+             tensor_flops=0.0):
         if rec_name == name:
             seen["plain"] = plain_out[0].clone()
             seen["lib"] = fn_lib()

@@ -1,4 +1,4 @@
-"""The launch plans of the redesigned K1c and K5 kernels, off the card.
+"""The launch plans of the redesigned K1c, K4 and K5 kernels, off the card.
 
 csrc/veff_multiply.cu launches one block per (row, tile of 256 16-byte
 vectors); kernels/augmentation.py::d_operator_plan sizes K5's grid and
@@ -7,7 +7,14 @@ here in numpy and held to cover every element of fr, and every G and every
 (channel, atom, q) of D, exactly once, over shapes with odd row lengths,
 views off a 16-byte boundary, tiny G counts, G below one tile and many
 atoms. The multi-channel plain D operator is held to one call per channel
-(bitwise: it is that loop)."""
+(bitwise: it is that loop).
+
+K4's walk (rho_aug_plan's row tiles over the (G, -G) rows of gvec_pairs,
+the q chunks 8, 4, 2, 1 and the atom tiles) is mirrored in numpy too, with
+the one-thread-a-G kernel it replaced beside it: without fused
+multiply-adds, and with phases whose sine is odd bit for bit (the premise
+the card's sincospi is checked for), the walk writes every (channel, G)
+once and gives the earlier kernel's bits, a zero's sign at most apart."""
 
 import itertools
 
@@ -152,3 +159,129 @@ def test_multichannel_d_operator_plain_is_one_call_per_channel(nch):
         assert torch.equal(got[c:c + 1], want)
     assert not torch.equal(got, d0)
     assert k45.d_operator.launches == 0
+
+
+def k4_phases(millers, pos):
+    """(sin, cos) [ng, na] of -2 m . tau, the sine odd bit for bit."""
+    m = millers.astype(np.float64)
+    y = -2.0 * (m[:, None, 0] * pos[None, :, 0]
+                + m[:, None, 1] * pos[None, :, 1]
+                + m[:, None, 2] * pos[None, :, 2])
+    return np.copysign(np.sin(np.pi * np.abs(y)), y), np.cos(np.pi * y)
+
+
+def k4_one_thread_a_g(dmp, millers, pos, q):
+    """The earlier K4: each G alone, q chunks of 8 summed over the atoms in
+    order, each chunk then contracted into the running sum, q in order."""
+    sn, cs = k4_phases(millers, pos)
+    ns, na, nqlm = dmp.shape
+    acc_re = np.zeros((ns, q.shape[1]))
+    acc_im = np.zeros((ns, q.shape[1]))
+    for j in range(nqlm):
+        u_re = np.zeros_like(acc_re)
+        u_im = np.zeros_like(acc_im)
+        for a in range(na):
+            u_re = u_re + cs[:, a] * dmp[:, a, j][:, None]
+            u_im = u_im + sn[:, a] * dmp[:, a, j][:, None]
+        acc_re = acc_re + (u_re * q[j].real - u_im * q[j].imag)
+        acc_im = acc_im + (u_re * q[j].imag + u_im * q[j].real)
+    return acc_re + 1j * acc_im
+
+
+def k4_walk(dmp, millers, pos, q, pairs, plan, nblocks):
+    """The redesigned K4 as csrc/augmentation.cu walks it: block b takes
+    row tiles b, b + nblocks, ...; thread (s, k, r) row r of the tile on
+    channel s and the q in [k nqlm / K, (k + 1) nqlm / K), K = ksplit, in
+    chunks 8, 4, 2, 1 wide; the atoms in tiles of plan["atoms"], one chain;
+    thread k > 0 hands its atom sums to k = 0 through shared memory, which
+    contracts every q in order; -G from G's sums, the imaginary part
+    negated. Returns the output and how often each (channel, G) was
+    written."""
+    ns, na, nqlm = dmp.shape
+    ng = q.shape[1]
+    tg, atoms, ks = plan["tg"], plan["atoms"], plan["ksplit"]
+    nrow = pairs.shape[0]
+    out = np.zeros((ns, ng), dtype=np.complex128)
+    hits = np.zeros((ns, ng), dtype=np.int64)
+
+    def width(left):
+        return 8 if left >= 8 else 4 if left >= 4 else 2 if left >= 2 else 1
+
+    def contract(acc, j, u_re, u_im, g, gp):
+        qv, qp = q[j, g], q[j, gp]
+        acc[0] = acc[0] + (u_re * qv.real - u_im * qv.imag)
+        acc[1] = acc[1] + (u_re * qv.imag + u_im * qv.real)
+        ui = -u_im
+        acc[2] = acc[2] + (u_re * qp.real - ui * qp.imag)
+        acc[3] = acc[3] + (u_re * qp.imag + ui * qp.real)
+
+    for b in range(nblocks):
+        for tile in range(b, -(-nrow // tg), nblocks):
+            rows = np.arange(tile * tg, min(tile * tg + tg, nrow))
+            g, gp = pairs[rows, 0], pairs[rows, 1]
+            sn, cs = k4_phases(millers[g], pos)
+            acc = np.zeros((4, ns, len(rows)))  # re, im of G; of -G
+            ubuf = {}  # q -> the atom sums thread k > 0 hands over
+            for k in range(ks):
+                q0, qhi = k * nqlm // ks, (k + 1) * nqlm // ks
+                while q0 < qhi:
+                    nq = width(qhi - q0)
+                    u_re = np.zeros((nq, ns, len(rows)))
+                    u_im = np.zeros((nq, ns, len(rows)))
+                    for a0 in range(0, na, atoms):
+                        for a in range(a0, min(a0 + atoms, na)):
+                            for j in range(nq):
+                                c = dmp[:, a, q0 + j][:, None]
+                                u_re[j] = u_re[j] + cs[:, a] * c
+                                u_im[j] = u_im[j] + sn[:, a] * c
+                    for j in range(nq):
+                        if k == 0:
+                            contract(acc, q0 + j, u_re[j], u_im[j], g, gp)
+                        else:
+                            ubuf[q0 + j] = (u_re[j], u_im[j])
+                    q0 += nq
+            for j in sorted(ubuf):
+                contract(acc, j, *ubuf[j], g, gp)
+            out[:, g] = acc[0] + 1j * acc[1]
+            hits[:, g] += 1
+            other = gp != g
+            out[:, gp[other]] = acc[2][:, other] + 1j * acc[3][:, other]
+            hits[:, gp[other]] += 1
+    return out, hits
+
+
+def symmetric_millers(rng, ng):
+    """ng (odd) distinct Millers closed under G -> -G, G = 0 among them."""
+    half = rng.choice(6 ** 3, (ng - 1) // 2, replace=False)
+    m = np.stack(np.unravel_index(half, (6, 6, 6)), 1) + [1, -2, -2]
+    m = rng.permutation(np.concatenate([m, -m, np.zeros((1, 3), int)]))
+    return m.astype(np.int32)
+
+
+@pytest.mark.parametrize("ns,nqlm,na,ng,atoms,ksplit", [
+    (1, 10, 7, 41, None, 1), (1, 10, 7, 41, None, 2),
+    (2, 10, 16, 301, None, 2), (4, 10, 5, 201, None, 1),
+    (1, 3, 4, 101, None, 2), (2, 15, 3, 101, None, 2),
+    (1, 10, 9, 101, 4, 1), (4, 3, 11, 61, 2, 1), (1, 10, 54, 101, None, None)])
+def test_k4_walk_writes_once_and_keeps_the_earlier_bits(ns, nqlm, na, ng,
+                                                        atoms, ksplit):
+    rng = np.random.default_rng(ng + 7 * nqlm + ns)
+    millers = symmetric_millers(rng, ng)
+    pos = rng.uniform(0.0, 1.0, (na, 3))
+    # one exact zero coefficient: a chain of zero terms must stay harmless
+    dmp = rng.standard_normal((ns, na, nqlm))
+    dmp[0, :, 0] = 0.0
+    q = rng.standard_normal((nqlm, ng)) + 1j * rng.standard_normal((nqlm, ng))
+    pairs = k45.gvec_pairs(millers).numpy()
+    plan = dict(k45.rho_aug_plan(na, nqlm, ns, pairs.shape[0]))
+    if atoms is not None:  # force atom tiles
+        plan["atoms"] = atoms
+    if ksplit is not None:  # force the q split
+        plan["ksplit"] = ksplit
+    got, hits = k4_walk(dmp, millers, pos, q, pairs, plan, nblocks=3)
+    assert (hits == 1).all()
+    want = k4_one_thread_a_g(dmp, millers, pos, q)
+    x = got.view(np.float64)
+    y = want.view(np.float64)
+    differ = x.view(np.int64) != y.view(np.int64)
+    assert not (differ & ~((x == 0.0) & (y == 0.0))).any()

@@ -37,7 +37,12 @@ One JSON line a checkout and kernel function, then the card's name and
 power limit.
 
     python3 tools/torch_port_xc_sass.py [--tree DIR] [--out FILE] [--dump DIR]
+                                        [--source NAME ...]
     python3 tools/torch_port_xc_sass.py --sass-dir DIR --rate R
+
+--source NAME reads csrc/NAME.cu in place of the three XC sources (e.g.
+`--source augmentation` for K4 and K5; the issue times per point are then
+not the kernel's).
 
 --dump writes each library's `cuobjdump -sass` text into DIR; --sass-dir
 reads such a directory back instead of compiling (no toolkit or card), the
@@ -228,6 +233,8 @@ def main(argv=None) -> int:
                     help="read dumped SASS from here instead of compiling")
     ap.add_argument("--rate", type=float, default=0.0,
                     help="fp64 instructions a second, with --sass-dir")
+    ap.add_argument("--source", action="append", default=[],
+                    help="a csrc/ source to read in place of the XC ones")
     args = ap.parse_args(argv)
     if args.sass_dir:
         for path in sorted(os.listdir(args.sass_dir)):
@@ -262,12 +269,14 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         for tree in [ROOT] + [os.path.abspath(t) for t in args.tree]:
             csrc = os.path.join(tree, "sirius_tpu_torch", "csrc")
-            paths = {src: os.path.join(csrc, f"{src}.cu") for src in SOURCES}
-            probe = os.path.join(tmp, f"{abs(hash(tree))}-x_pz_probe.cu")
-            with open(probe, "w") as f:
-                f.write(X_PZ_PROBE.format(
-                    source=os.path.join(csrc, "lda_xc.cu")))
-            paths["lda_xc.x_pz_probe"] = probe
+            paths = {src: os.path.join(csrc, f"{src}.cu")
+                     for src in args.source or SOURCES}
+            if not args.source:
+                probe = os.path.join(tmp, f"{abs(hash(tree))}-x_pz_probe.cu")
+                with open(probe, "w") as f:
+                    f.write(X_PZ_PROBE.format(
+                        source=os.path.join(csrc, "lda_xc.cu")))
+                paths["lda_xc.x_pz_probe"] = probe
             for src, path in paths.items():
                 lib = os.path.join(tmp, f"{abs(hash(tree))}-{src}.so")
                 proc = subprocess.run(
