@@ -14,11 +14,11 @@ imports nothing of JAX or of sirius_tpu. Phases, each printing JSON lines:
    K8a, K8b, K1c in real mode, K2 on float64 blocks; chunked projectors:
    K9; the XC kernels at the fine boxes of the 16- and 54-atom cells: K7
    for X + PZ (unpolarized, its zeta = 0 kernel, also bit for bit against
-   the polarized launch at (rho/2, rho/2)), K7b
-   for X + PW92 and X + VWN5, K7g for PBE and PBEsol and K7s for SCAN (each
-   set its own instantiation) and both kernels' runtime-mask instantiation
-   on a mixed list, each polarized and unpolarized, on densities with dead
-   channels and fully polarized points, K10a (bit for bit its plain
+   the polarized kernel at (rho/2, rho/2)), K7b for X + PW92 and X + VWN5,
+   K7g for PBE and PBEsol and K7s for SCAN (each set its own
+   instantiation) and the three kernels' runtime-mask instantiation on a
+   list no set covers, each polarized and unpolarized, on densities with
+   dead channels and fully polarized points, K10a (bit for bit its plain
    version on two fields and on one) and K10b, and K6 on an axial
    field; the tau
    operator's K11a and K11b at the 16-atom coarse box; the non-collinear
@@ -54,11 +54,14 @@ imports nothing of JAX or of sirius_tpu. Phases, each printing JSON lines:
    and 4 channels (G below one row tile and off it, one atom, the smaller
    row tile, atom tiles, nqlm 3 and 15, q split over two threads a row,
    G = 0 last, into a given out);
-   every K7g and K7s
+   every K7, K7b, K7g and K7s
    instantiation at one point, a point count off the block, all points
-   dead, sigma = 0 at zeta = +-1 and, for SCAN, alpha at 1; unpolarized
-   X + PZ at one point, off the block, all dead and at and just below
-   rho = 2 DENS_TH, also bit for bit against its polarized launch): error,
+   dead, sigma = 0 at zeta = +-1, fully polarized points with gradients,
+   zeta within a few ulp of +-1 on live channels, n_up = n_dn (where
+   polarized X + PZ must be the zeta = 0 kernel's bits) and, for SCAN,
+   alpha at 1; unpolarized X + PZ at one point, off the block, all dead
+   and at and just below rho = 2 DENS_TH, also bit for bit against the
+   polarized kernel): error,
    kernel time (CUDA events, median of 21 samples of 5 launches after
    warm-up), the plain version's time, a one-call PyTorch yardstick where
    one exists (library_ms), and the least time the card could take
@@ -107,7 +110,9 @@ imports nothing of JAX or of sirius_tpu. Phases, each printing JSON lines:
 
 Every SCF phase sets the launch counts to 0 just before its run and reads
 them just after, and fails if a kernel of its path was not launched (an
-unpolarized X + PZ deck must launch K7's zeta = 0 kernel). The
+unpolarized X + PZ deck must launch K7's zeta = 0 kernel, a non-collinear
+LDA deck its polarized X + PZ kernel, an X + PW92 or X + VWN5 deck its own
+K7b instantiation). The
 kernels summary takes each kernel's launches from the full-width run of its
 path: full_width_us for K1-K7, full_width_gamma_us for K7 at 144^3
 (lda_xc.pz.unpolarized), K8a, K8b, K1c real
@@ -119,10 +124,11 @@ K4's 54-atom rows on one and two channels; K7b's X + PW92 and X + VWN5
 rows, K7g's unpolarized PBE and PBEsol rows and K7s's polarized row take
 theirs from the parity decks that run them (parity_scf_pw_us_afm,
 parity_scf_gamma_nc_vwn, parity_scf_pbe_us, parity_scf_gamma_nc_pbesol,
-parity_scf_scan_us_fm); the fp32 rows from the run FP32_SUMMARY names.
-K7g and K7s count each instantiation apart, so a row's launches are those
-of its compiled set; the runtime-mask instantiations, which no deck runs,
-have records and no row. Each full-width record counts the run's eigh
+parity_scf_scan_us_fm); polarized X + PZ (lda_xc.pz, at 96^3) from
+full_width_spinor_us; the fp32 rows from the run FP32_SUMMARY names.
+K7, K7g and K7s count each instantiation apart, so a row's launches are
+those of its own instantiation, named in the row; the runtime-mask
+instantiations, which no deck runs, have records and no row. Each full-width record counts the run's eigh
 calls by the type and order of the matrix (eigh_calls).
 
 The last three lines are the kernels summary, the nvidia-smi name/power
@@ -232,6 +238,8 @@ XC_CHECKS = {
     "mgga_xc.scan.unpolarized": (SCAN, False),
     # the runtime-mask instantiations, which serve every list that is not
     # a compiled set
+    "lda_xc.mask": (["XC_LDA_X"], True),
+    "lda_xc.mask.unpolarized": (["XC_LDA_X"], False),
     "gga_xc.mask": (["XC_GGA_X_PBE", "XC_LDA_C_PW"], True),
     "gga_xc.mask.unpolarized": (["XC_GGA_X_PBE", "XC_LDA_C_PW"], False),
     "mgga_xc.mask": (["XC_GGA_X_PBE", "XC_MGGA_C_SCAN"], True),
@@ -250,18 +258,17 @@ XC_CHECKS = {
 # dual numbers against autograd of the same expressions (a different order
 # of the chain rule's products, a few ulp), normwise over the box; K10a and
 # K10b are products and sums in the plain version's order (rounding only).
-# K7g and K7s, each instantiation, are held to 1e-12 (their compiled sets
-# take powers from cbrt and sqrt, a few ulp from pow); K11a / K11b are a
+# K7, K7b, K7g and K7s, each instantiation, are held to 1e-12 (the compiled
+# sets take powers from cbrt and sqrt, a few ulp from pow; the LDA forms
+# land within a few 1e-15 of their plain versions); K11a / K11b are a
 # store and a gather with products and sums in the plain version's order
 # (rounding only)
-TOL = {**{name: 1e-11 for name in XC_CHECKS},
-       **{name: 1e-12 for name in XC_CHECKS if name.startswith(("gga_xc",
-                                                                "mgga_xc"))},
+TOL = {**{name: 1e-12 for name in XC_CHECKS},
        "mgga_tau.grad_to_box": 1e-14, "mgga_tau.box_to_pw_tau": 1e-14,
        "xc_gradient.gradient_boxes": 1e-12,
        "xc_gradient.divergence_pw": 1e-12, "symmetrize_pw.axial": 1e-13,"local_hpsi.pw_to_box": 1e-12, "local_hpsi.box_to_pw_hpsi": 1e-12,
        "davidson_residual": 1e-12, "density_accumulate": 1e-11,
-       "lda_xc": 1e-11, "veff_multiply": 1e-12,
+       "lda_xc": 1e-12, "veff_multiply": 1e-12,
        "augmentation.rho_aug": 1e-12, "augmentation.d_operator": 1e-12,
        "symmetrize_pw": 1e-13, "gamma_pack.unpack_to_box": 1e-12,
        "gamma_pack.box_to_packed_hx": 1e-12, "veff_multiply.real": 1e-12,
@@ -371,13 +378,15 @@ SOURCE.update({name: SOURCE[base_name(name)] for name in FP32_SUMMARY})
 REPLACES.update({name: REPLACES[base_name(name)] for name in FP32_SUMMARY})
 # the kernels summary: the rows of K7 at 144^3, K7b and K7g (a record at the
 # 54-atom box, in the mode its deck runs) and the run their launches come
-# from
+# from; polarized X + PZ's row (a record at the 16-atom box, 96^3) in
+# SUMMARY_XC96
 SUMMARY_XC = {PZ0: "full_width_gamma_us",
               "lda_xc.pw92": "pw_us_sym_afm",
               "lda_xc.vwn.unpolarized": "gamma_nc_vwn",
               "gga_xc.pbe": "full_width_gamma_pbe_fm",
               "gga_xc.pbe.unpolarized": "pbe_us_sym",
               "gga_xc.pbesol.unpolarized": "gamma_nc_pbesol"}
+SUMMARY_XC96 = {"lda_xc.pz": "full_width_spinor_us"}
 # the SCAN rows (records at the 16-atom boxes: fine 96^3 for K7s, coarse
 # for K11) and the run their launches come from
 SUMMARY_MGGA = {"mgga_xc.scan": "scan_us_sym_fm",
@@ -974,7 +983,13 @@ def check_gradient_edges(dev, gpu: str, rng) -> None:
 # the XC edge cases: name, points (one point; 933, no multiple of the
 # 128- or 256-thread block)
 XC_EDGES = (("one point", 1), ("off the block", 933), ("all dead", 933),
-            ("sigma 0 at zeta +-1", 933), ("alpha at 1", 933))
+            ("sigma 0 at zeta +-1", 933), ("fully polarized", 933),
+            ("zeta within ulp of +-1", 933), ("n_up == n_dn", 933),
+            ("alpha at 1", 933))
+# the cases K7's instantiations alone run: at zeta = +-1 with both channels
+# live, PBE correlation's phi = ((1 + zeta)^(2/3) + (1 - zeta)^(2/3)) / 2
+# has an unbounded slope, and v is not finite in the JAX package either
+LDA_ONLY_EDGES = ("zeta within ulp of +-1",)
 # unpolarized X + PZ's: its threshold falls at rho = 2 DENS_TH
 PZ0_EDGES = (("one point", 1), ("off the block", 933), ("all dead", 933),
              ("at and below 2 DENS_TH", 933))
@@ -985,7 +1000,11 @@ def xc_edge_fields(case: str, n: int, rng, dev) -> dict:
     and kinetic-energy densities, and the total density, gradient and tau
     of the unpolarized form. "all dead": every channel below DENS_TH;
     "sigma 0 at zeta +-1": one channel exactly 0 on alternate points, zero
-    gradients; "alpha at 1": tau_s = tau_W + tau_unif, so SCAN's alpha
+    gradients; "fully polarized": the same with gradients; "zeta within
+    ulp of +-1": one channel 1e3 to 1e4, the other 1 to 8 DENS_TH (both
+    live), so zeta rounds to +-1 or to at most 14 ulp from it; "n_up == n_dn":
+    equal channels, rho = n_up + n_dn exactly; "alpha at 1": tau_s =
+    tau_W + tau_unif, so SCAN's alpha
     sits at 1 up to rounding, where scan_interp switches branch; "at and
     below 2 DENS_TH": rho alternately 2 DENS_TH and the next float below,
     where each half channel is just live and just dead."""
@@ -1000,13 +1019,26 @@ def xc_edge_fields(case: str, n: int, rng, dev) -> dict:
     if case == "all dead":
         rho = rng.choice([0.0, 1e-14, 1.9e-13], n)
         frac = rng.uniform(-0.05, 0.05, n)
-    if case == "sigma 0 at zeta +-1":
+    if case in ("sigma 0 at zeta +-1", "fully polarized"):
         frac = np.where(np.arange(n) % 2 == 0, 1.0, -1.0)
+    if case == "sigma 0 at zeta +-1":
         grad_scale = np.zeros(n)
+    if case == "n_up == n_dn":
+        frac = np.zeros(n)
+        # dead, at and just below the threshold of each channel
+        edge = [0.0, 1e-14, 2.0 * DENS_TH, np.nextafter(2.0 * DENS_TH, 0.0)]
+        rho[:min(n, 4)] = edge[:min(n, 4)]
     if case == "at and below 2 DENS_TH":
         rho = np.where(np.arange(n) % 2 == 0, 2.0 * DENS_TH,
                        np.nextafter(2.0 * DENS_TH, 0.0))
     nu, nd = 0.5 * rho * (1.0 + frac), 0.5 * rho * (1.0 - frac)
+    if case == "zeta within ulp of +-1":
+        big = 10.0 ** rng.uniform(3.0, 4.0, n)
+        small = DENS_TH * rng.uniform(1.0, 8.0, n)
+        up = np.arange(n) % 2 == 0
+        nu, nd = np.where(up, big, small), np.where(up, small, big)
+        rho = nu + nd
+        grad_scale = rho ** (4.0 / 3.0)
     gu = rng.standard_normal((3, n)) * grad_scale
     gd = rng.standard_normal((3, n)) * grad_scale
     tau_unif = 0.3 * (6.0 * math.pi**2) ** (2.0 / 3.0)
@@ -1026,13 +1058,38 @@ def xc_edge_fields(case: str, n: int, rng, dev) -> dict:
         tt=tt).items()}
 
 
+def xc_call(name: str, f: dict, plain: bool = False):
+    """The kernel (or its plain version) of an XC_CHECKS name on the fields
+    f of xc_edge_fields: polarized on (n_up, n_dn [, gradients [, tau]]),
+    unpolarized on (rho [, gradient [, tau]])."""
+    from sirius_tpu_torch.kernels import gga_xc as k7g
+    from sirius_tpu_torch.kernels import lda_xc as k7
+    from sirius_tpu_torch.kernels import mgga_xc as k7s
+
+    names, pol = XC_CHECKS[name]
+    kind = name.split(".")[0]
+    mod = {"lda_xc": k7, "gga_xc": k7g, "mgga_xc": k7s}[kind]
+    fn = kind + ("" if pol else "_unpolarized") + ("_plain" if plain else "")
+    if pol:
+        args = ((f["nu"], f["nd"]) + ((f["gu"], f["gd"])
+                                      if kind != "lda_xc" else ())
+                + ((f["tu"], f["td"]) if kind == "mgga_xc" else ()))
+    else:
+        args = ((f["rho"],) + ((f["g1"],) if kind != "lda_xc" else ())
+                + ((f["tt"],) if kind == "mgga_xc" else ()))
+    return getattr(mod, fn)(*args, names)
+
+
 def check_xc_edges(dev, gpu: str, rng) -> None:
-    """Every K7g and K7s instantiation (the compiled sets and the runtime
-    mask, polarized and unpolarized: the K7g and K7s names of XC_CHECKS)
-    against its plain version at the XC_EDGES cases, each at its XC_CHECKS
-    tolerance; unpolarized X + PZ at the PZ0_EDGES cases against its plain
-    version and bit for bit against the polarized launch at (rho/2, rho/2).
-    Emits one kernel_edges line a case."""
+    """Every K7, K7b, K7g and K7s instantiation (the compiled sets and the
+    runtime masks, polarized and unpolarized: the names of XC_CHECKS)
+    against its plain version at the XC_EDGES cases (LDA_ONLY_EDGES for K7's
+    alone), each at its XC_CHECKS tolerance, and at "n_up == n_dn"
+    polarized X + PZ bit for bit the zeta = 0 kernel at rho = n_up + n_dn
+    (e, and v_up and v_dn against v);
+    unpolarized X + PZ at the PZ0_EDGES cases against its plain version and
+    bit for bit against the polarized kernel at (rho/2, rho/2). Emits one
+    kernel_edges line a case; raises on a miss."""
     from sirius_tpu_torch.kernels import gga_xc as k7g
     from sirius_tpu_torch.kernels import lda_xc as k7
     from sirius_tpu_torch.kernels import mgga_xc as k7s
@@ -1056,32 +1113,31 @@ def check_xc_edges(dev, gpu: str, rng) -> None:
     for case, n in XC_EDGES:
         f = xc_edge_fields(case, n, rng, dev)
         for name, (names, pol) in XC_CHECKS.items():
-            mgga = name.startswith("mgga_xc")
-            if not (mgga or name.startswith("gga_xc")):
+            mod = {"lda_xc": k7, "gga_xc": k7g,
+                   "mgga_xc": k7s}[name.split(".")[0]]
+            if case in LDA_ONLY_EDGES and mod is not k7:
                 continue
-            mod = k7s if mgga else k7g
-            if pol:
-                args = ((f["nu"], f["nd"], f["gu"], f["gd"])
-                        + ((f["tu"], f["td"]) if mgga else ()))
-                got = (k7s.mgga_xc if mgga else k7g.gga_xc)(*args, names)
-                want = (k7s.mgga_xc_plain if mgga else k7g.gga_xc_plain)(
-                    *args, names)
-            else:
-                args = (f["rho"], f["g1"]) + ((f["tt"],) if mgga else ())
-                got = (k7s.mgga_xc_unpolarized if mgga
-                       else k7g.gga_xc_unpolarized)(*args, names)
-                want = (k7s.mgga_xc_unpolarized_plain if mgga
-                        else k7g.gga_xc_unpolarized_plain)(*args, names)
+            got = xc_call(name, f)
+            want = xc_call(name, f, plain=True)
             errs = [rel_err(a, b) for a, b in zip(got, want)]
             finite = all(bool(a.isfinite().all()) for a in got)
             rel = max(e[1] for e in errs)
-            emit({"phase": "kernel_edges", "gpu": gpu, "name": name,
-                  "instantiation": mod.instantiation(names)[0], "case": case,
-                  "points": n, "max_abs_err": max(e[0] for e in errs),
-                  "max_rel_err": rel, "tol_rel": TOL[name], "finite": finite})
-            if not (rel <= TOL[name] and finite):
+            rec = {"phase": "kernel_edges", "gpu": gpu, "name": name,
+                   "instantiation": mod.instantiation(names)[0], "case": case,
+                   "points": n, "max_abs_err": max(e[0] for e in errs),
+                   "max_rel_err": rel, "tol_rel": TOL[name], "finite": finite}
+            ok = rel <= TOL[name] and finite
+            if name == "lda_xc.pz" and case == "n_up == n_dn":
+                e0, v0 = k7.lda_xc_unpolarized(f["rho"])
+                rec["bitwise_zeta0"] = (bits_equal(got[0], e0)
+                                        and bits_equal(got[1], v0)
+                                        and bits_equal(got[2], v0))
+                ok = ok and rec["bitwise_zeta0"]
+            emit(rec)
+            if not ok:
                 raise AssertionError(f"{name} ({case}): rel err {rel}, "
-                                     f"finite {finite}")
+                                     f"finite {finite}, bitwise zeta = 0 "
+                                     f"{rec.get('bitwise_zeta0')}")
 
 
 # K2's edge shapes: (batches, bands, row bytes over SMALL_ROW_BYTES); rows
@@ -1642,8 +1698,11 @@ def xc_operations(names, polarized: bool) -> float:
     torch operations of each functional's energy in the plain version (each
     elementary function, pow, exp, expm1, log, sqrt, atan, counted as one),
     times 1 + the number of partial derivatives the kernel carries for that
-    term, plus the sigma and flux products of GGA and mGGA. K7b and K7g's
-    runtime-mask instantiation carry 5 partials polarized GGA, 2 otherwise;
+    term, plus the sigma and flux products of GGA and mGGA. K7b's compiled
+    sets (X + PW92, X + VWN5) carry one partial a term (each exchange half
+    its n_s, correlation rs, zeta by hand), its runtime-mask instantiation
+    2; K7g's runtime-mask instantiation carries 5 partials polarized, 2
+    unpolarized;
     K7g's compiled sets (PBE, PBEsol), term by term: exchange is one
     pbe_x_half per spin channel on Dual<2> polarized (two halves), one
     unpolarized (0.5 (x + x) = x), correlation runs on Dual<3> polarized,
@@ -1656,6 +1715,7 @@ def xc_operations(names, polarized: bool) -> float:
     from torch.overrides import TorchFunctionMode
 
     from sirius_tpu_torch.kernels.gga_xc import COMPILED_SETS
+    from sirius_tpu_torch.kernels.lda_xc import instantiation
     from sirius_tpu_torch.kernels.xc_functionals import (GGA_FUNCS,
                                                         MGGA_FUNCS, PBE_MU,
                                                         _pbe_x_half, energy,
@@ -1689,6 +1749,8 @@ def xc_operations(names, polarized: bool) -> float:
                 + extra)
     if not mgga:
         partials = 5 if (gga and polarized) else 2
+        if not gga and instantiation(names)[0] != "mask":
+            partials = 1
         return ops(energy, list(names), *x) * (1.0 + partials) + extra
     total = 0.0
     for name in names:
@@ -1797,11 +1859,11 @@ def check_kernels_xc(deck: str, ctx, dev, gpu: str) -> dict:
                 plain = functools.partial(k7g.gga_xc_unpolarized_plain, rho,
                                           g1, names)
             nbytes = n * (136.0 if pol else 72.0)
-        kind = {"gga_xc": k7g, "mgga_xc": k7s}.get(name.split(".")[0])
-        extra = None if kind is None else {
-            "instantiation": kind.instantiation(names)[0]}
+        kind = {"lda_xc": k7, "gga_xc": k7g,
+                "mgga_xc": k7s}[name.split(".")[0]]
+        extra = {"instantiation": kind.instantiation(names)[0]}
         if name == PZ0:
-            extra = {"bitwise_polarized": pz0_bitwise(rho)}
+            extra["bitwise_polarized"] = pz0_bitwise(rho)
         # no single PyTorch call evaluates a functional: library_ms null
         record(name, list(kern()), list(plain()), kern, plain, None,
                nbytes=nbytes, flops=n * ops, slow_plain=True, extra=extra)
@@ -2117,18 +2179,17 @@ def wrappers() -> dict:
     from sirius_tpu_torch.kernels import xc_gradient as k10
 
     n = "launches"
-    # K7b's functional sums count on its wrapper: each summary row reads the
-    # count of the run that only launches its sum; unpolarized X + PZ counts
-    # its own kernel apart, K7g and K7s each instantiation (launches_pbe,
-    # launches_scan, ...)
-    xc = {name: (k7.lda_xc, n) for name in XC_CHECKS
-          if name.startswith("lda_xc")}
-    xc[PZ0] = (k7.lda_xc, "launches_pz_unpolarized")
-    for name, (names, _) in XC_CHECKS.items():
-        mod = {"gga_xc": k7g, "mgga_xc": k7s}.get(name.split(".")[0])
-        if mod is not None:
-            fn = getattr(mod, name.split(".")[0])
-            xc[name] = (fn, n + "_" + mod.instantiation(names)[0])
+    # K7, K7g and K7s count each instantiation (launches_pw92,
+    # launches_pbe, launches_scan, ...), X + PZ its unpolarized and its
+    # polarized kernel apart
+    xc = {}
+    for name, (names, pol) in XC_CHECKS.items():
+        mod = {"lda_xc": k7, "gga_xc": k7g,
+               "mgga_xc": k7s}[name.split(".")[0]]
+        kind = mod.instantiation(names)[0]
+        if mod is k7 and kind == "pz":
+            kind += "_polarized" if pol else "_unpolarized"
+        xc[name] = (getattr(mod, name.split(".")[0]), n + "_" + kind)
     out = {"local_hpsi.pw_to_box": (k1.pw_to_box, n),
            "local_hpsi.box_to_pw_hpsi": (k1.box_to_pw_hpsi, n),
            "davidson_residual": (k2.davidson_residual, n),
@@ -2192,23 +2253,27 @@ MGGA_KERNELS = ("mgga_xc.scan", "xc_gradient.gradient_boxes",
 
 
 def xc_kernels(base, gga: bool, axial: bool, mgga: bool = False,
-               gga_set: str = "gga_xc.pbe") -> tuple:
+               gga_set: str = "gga_xc.pbe", lda_set: str = "") -> tuple:
     """A path's kernels for a deck of other functionals or spin: none runs
-    unpolarized X + PZ's kernel; GGA runs K7g (its instantiation gga_set),
-    K10a and K10b in place of K7, SCAN K7s, K10a, K10b, K11a and K11b; a
-    polarized deck with symmetry runs K6 on its axial fields too."""
+    unpolarized X + PZ's kernel; an LDA deck runs K7 in its instantiation
+    lda_set; GGA runs K7g (its instantiation gga_set), K10a and K10b in
+    place of K7, SCAN K7s, K10a, K10b, K11a and K11b; a polarized deck with
+    symmetry runs K6 on its axial fields too."""
     out = tuple(k for k in base if k != PZ0
-                and not ((gga or mgga) and k == "lda_xc"))
-    return out + (MGGA_KERNELS if mgga else (gga_set,) + GGA_KERNELS[1:]
-                  if gga else ()) + (("symmetrize_pw.axial",) if axial else ())
+                and not ((gga or mgga) and k.startswith("lda_xc")))
+    return out + ((lda_set,) if lda_set else ()) + (
+        MGGA_KERNELS if mgga else (gga_set,) + GGA_KERNELS[1:]
+        if gga else ()) + (("symmetrize_pw.axial",) if axial else ())
 
 
 # the band solve each deck of XC_DECKS takes, and the kernels it must launch
 XC_DECK_PATH = {
     "pbe_us_sym": ("kset", xc_kernels(US_KERNELS, True, False)),
-    "pw_us_sym_afm": ("kset", xc_kernels(US_KERNELS, False, True)),
+    "pw_us_sym_afm": ("kset", xc_kernels(US_KERNELS, False, True,
+                                         lda_set="lda_xc.pw92")),
     "gamma_pbe_us_sym_fm": ("gamma", xc_kernels(GAMMA_US_KERNELS, True, True)),
-    "gamma_nc_vwn": ("gamma", xc_kernels(GAMMA_KERNELS, False, False)),
+    "gamma_nc_vwn": ("gamma", xc_kernels(GAMMA_KERNELS, False, False,
+                                         lda_set="lda_xc.vwn.unpolarized")),
     "gamma_nc_pbesol": ("gamma", xc_kernels(GAMMA_KERNELS, True, False,
                                             gga_set="gga_xc.pbesol")),
     "scan_us_sym": ("kset", xc_kernels(US_KERNELS, False, False, mgga=True)),
@@ -2218,10 +2283,11 @@ XC_DECK_PATH = {
 # the spinor k-set path: K1 over (band, spin) rows, K12a in place of K1c,
 # K2 on the flattened spinors, K12b in place of K3, K4 and K5 on four
 # channels, K6 on rho and V_eff and K6v on m and B with symmetry; LDA runs
-# K7, PBE K7g, K10a and K10b
+# K7's polarized X + PZ kernel on the |m|-projected channels, PBE K7g,
+# K10a and K10b
 SPINOR_KERNELS = ("local_hpsi.pw_to_box", "local_hpsi.box_to_pw_hpsi",
                   "davidson_residual", "spinor_veff", "density_accumulate_nc",
-                  "lda_xc", "augmentation.rho_aug.4",
+                  "lda_xc", "lda_xc.pz", "augmentation.rho_aug.4",
                   "augmentation.d_operator.4")
 SPINOR_SYM_KERNELS = SPINOR_KERNELS + ("symmetrize_pw", "symmetrize_vector_pw")
 SPINOR_DECK_PATH = {
@@ -2262,8 +2328,8 @@ FP32_SCAN_KERNELS = tuple(k for k in FP32_US_KERNELS
 FP32_SPINOR_SYM_KERNELS = ("local_hpsi.pw_to_box.c64",
                            "local_hpsi.box_to_pw_hpsi.c64",
                            "davidson_residual.c64", "spinor_veff.c64",
-                           "density_accumulate_nc.c64",
-                           "augmentation.rho_aug.4",
+                           "density_accumulate_nc.c64", "lda_xc",
+                           "lda_xc.pz", "augmentation.rho_aug.4",
                            "augmentation.d_operator.4", "symmetrize_pw",
                            "symmetrize_vector_pw")
 # the fp32 parity decks of the reference tool (each beside its fp64 twin
@@ -2985,8 +3051,8 @@ def main() -> int:
                                           name, gpu)
     launches_spinor = {name: runs["full_width_spinor_us"][name]
                        for name in kern_spinor}
-    launches_mgga = {name: runs[deck][name]
-                     for name, deck in SUMMARY_MGGA.items()}
+    launches_mgga = {name: runs[deck][name] for name, deck in
+                     {**SUMMARY_MGGA, **SUMMARY_XC96}.items()}
     kern_mgga = {name: kern_mgga[name] for name in launches_mgga}
     launches_xc = {name: runs[deck][name] for name, deck in SUMMARY_XC.items()}
     launches_xc.update({name: runs["full_width_gamma_pbe_fm"][name] for name in

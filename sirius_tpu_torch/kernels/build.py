@@ -66,7 +66,7 @@ SIGNATURES = {
         "density_accumulate_nc": _K12B, "density_accumulate_nc_c64": _K12B,
     },
     "lda_xc": {
-        "lda_xc": (_P, _P, _P, _P, _P, _LL, _I, _I, _P),
+        "lda_xc": (_P, _P, _P, _P, _P, _LL, _I, _I, _I, _P),
     },
     "veff_multiply": {
         "veff_multiply": _K1C, "veff_multiply_real": _K1C,

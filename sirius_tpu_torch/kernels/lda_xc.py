@@ -5,12 +5,16 @@ lda_xc(nu, nd, names) -> (e, v_up, v_dn) per point (energy per volume and
 its derivatives), and lda_xc_unpolarized(rho, names) -> (e, v) with
 n_up = n_dn = rho/2 and v = (v_up + v_dn)/2 (sirius_tpu/dft/xc.py:399-415).
 names defaults to X + PZ. The plain PyTorch version is torch.autograd over
-the JAX package's energy expressions (kernels/xc_functionals.py); the
-kernel evaluates X + PZ in closed form and every other sum on dual numbers.
-Unpolarized X + PZ launches its own kernel, the closed form at zeta = 0,
-which gives the bits of the polarized launch at (rho/2, rho/2): e and v_up.
-Every launch counts on lda_xc.launches, that one also on
-lda_xc.launches_pz_unpolarized.
+the JAX package's energy expressions (kernels/xc_functionals.py).
+
+The kernel has one instantiation for each functional set the port's decks
+run (COMPILED_SETS: X + PZ in closed form, X + PW92 and X + VWN5 as
+compiled sets) and a runtime-mask one, on dual numbers, for every other
+LDA list; instantiation(names) picks it. X + PZ launches its closed form
+at zeta = 0 unpolarized and its own polarized kernel, which at n_up = n_dn
+gives the zeta = 0 kernel's bits. Each launch counts on lda_xc.launches
+and on its instantiation's counter: launches_pz_unpolarized,
+launches_pz_polarized, launches_pw92, launches_vwn, launches_mask.
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel.
 """
 
@@ -23,6 +27,8 @@ from sirius_tpu_torch.kernels.xc_functionals import (LDA_FUNCS, eval_plain,
                                                     func_mask)
 
 X_PZ = ("XC_LDA_X", "XC_LDA_C_PZ")
+PW92 = ("XC_LDA_X", "XC_LDA_C_PW")
+VWN = ("XC_LDA_X", "XC_LDA_C_VWN")
 
 
 def _lda_mask(names) -> int:
@@ -31,6 +37,22 @@ def _lda_mask(names) -> int:
         raise ValueError(f"lda_xc evaluates LDA functionals only, got "
                          f"{list(names)}")
     return func_mask(names)
+
+
+# the functional sets compiled as their own instantiations, by mask: (name,
+# the set number csrc/lda_xc.cu takes)
+COMPILED_SETS = {
+    func_mask(X_PZ): ("pz", 1),
+    func_mask(PW92): ("pw92", 2),
+    func_mask(VWN): ("vwn", 3),
+}
+MASK_SET = ("mask", 0)
+
+
+def instantiation(names) -> tuple[str, int]:
+    """(name, set number) of the kernel instantiation a functional list
+    runs: its compiled set, else the runtime mask."""
+    return COMPILED_SETS.get(_lda_mask(names), MASK_SET)
 
 
 def lda_xc_plain(nu, nd, names=X_PZ):
@@ -46,7 +68,8 @@ def _check(*ts):
                              "on one device")
 
 
-def _launch(nu, nd, unpolarized: bool, mask: int):
+def _launch(nu, nd, unpolarized: bool, names):
+    kind, number = instantiation(names)
     n = nu.shape[0]
     nu = nu.contiguous()
     nd = nu if nd is None else nd.contiguous()
@@ -56,26 +79,30 @@ def _launch(nu, nd, unpolarized: bool, mask: int):
     lib = build.library("lda_xc")
     rc = lib.lda_xc(nu.data_ptr(), nd.data_ptr(), e.data_ptr(), vu.data_ptr(),
                     None if vd is None else vd.data_ptr(), n,
-                    int(unpolarized), mask, build.stream_of(nu))
+                    int(unpolarized), func_mask(names), number,
+                    build.stream_of(nu))
     lda_xc.launches += 1
-    if unpolarized and mask == func_mask(X_PZ):
-        lda_xc.launches_pz_unpolarized += 1
+    if kind == "pz":
+        kind += "_unpolarized" if unpolarized else "_polarized"
+    build.count_launch(lda_xc, "_" + kind)
     build.check(rc, "lda_xc")
     return e, vu, vd
 
 
 def lda_xc(nu, nd, names=X_PZ):
     """Polarized LDA sum: (e, v_up, v_dn) at each point."""
-    mask = _lda_mask(names)
+    _lda_mask(names)
     _check(nu, nd)
     if nu.device.type == "cpu":
         return lda_xc_plain(nu, nd, names)
     if nu.device.type != "cuda":
         raise RuntimeError(f"lda_xc: unsupported device {nu.device}")
-    return _launch(nu, nd, False, mask)
+    return _launch(nu, nd, False, names)
 
 
 lda_xc.launches = lda_xc.launches_pz_unpolarized = 0
+lda_xc.launches_pz_polarized = lda_xc.launches_pw92 = 0
+lda_xc.launches_vwn = lda_xc.launches_mask = 0
 
 
 def lda_xc_unpolarized_plain(rho, names=X_PZ):
@@ -86,13 +113,13 @@ def lda_xc_unpolarized_plain(rho, names=X_PZ):
 
 def lda_xc_unpolarized(rho, names=X_PZ):
     """Unpolarized LDA sum: (e, v) with n_up = n_dn = rho/2. Launches the
-    kernel of lda_xc, or for X + PZ its zeta = 0 form (counted on
-    lda_xc.launches, the latter also on lda_xc.launches_pz_unpolarized)."""
-    mask = _lda_mask(names)
+    unpolarized form of the list's instantiation (counted on lda_xc's
+    counters; X + PZ on lda_xc.launches_pz_unpolarized)."""
+    _lda_mask(names)
     _check(rho)
     if rho.device.type == "cpu":
         return lda_xc_unpolarized_plain(rho, names)
     if rho.device.type != "cuda":
         raise RuntimeError(f"lda_xc: unsupported device {rho.device}")
-    e, v, _ = _launch(rho, None, True, mask)
+    e, v, _ = _launch(rho, None, True, names)
     return e, v

@@ -175,11 +175,16 @@ def test_xc_phases_run_on_cpu(monkeypatch, capsys):
         assert rec["max_rel_err"] <= rec["tol_rel"]
         assert rec["library_ms"] is None
         assert rec["bound_ms"] > 0 and rec["bound_by"] in ("bytes", "operations")
-    # K7g and K7s: each record names the instantiation it ran, the decks'
-    # sets their own, the mixed lists the runtime mask, all held to 1e-12
+    # K7, K7b, K7g and K7s: each record names the instantiation it ran, the
+    # decks' sets their own, the other lists the runtime mask, all held to
+    # 1e-12
     kinds = {name: rec["instantiation"] for name, rec in recs.items()
-             if name.startswith(("gga_xc", "mgga_xc"))}
+             if name.startswith(("lda_xc", "gga_xc", "mgga_xc"))}
     assert kinds == {
+        "lda_xc.pz": "pz", chip_smoke.PZ0: "pz", "lda_xc.pw92": "pw92",
+        "lda_xc.pw92.unpolarized": "pw92", "lda_xc.vwn": "vwn",
+        "lda_xc.vwn.unpolarized": "vwn", "lda_xc.mask": "mask",
+        "lda_xc.mask.unpolarized": "mask",
         "gga_xc.pbe": "pbe", "gga_xc.pbe.unpolarized": "pbe",
         "gga_xc.pbesol": "pbesol", "gga_xc.pbesol.unpolarized": "pbesol",
         "mgga_xc.scan": "scan", "mgga_xc.scan.unpolarized": "scan",
@@ -502,24 +507,33 @@ def test_aug54_records_run_on_cpu(monkeypatch):
 
 
 def test_xc_edges_run_on_cpu(capsys):
-    # every K7g and K7s instantiation at every XC edge case, to 1e-12 and
-    # finite; the cases plant what they name
+    # every K7, K7b, K7g and K7s instantiation at every XC edge case, to
+    # 1e-12 and finite; the cases plant what they name
     from sirius_tpu_torch.kernels.xc_functionals import DENS_TH
 
     rng = np.random.default_rng(41)
     chip_smoke.check_xc_edges(torch.device("cpu"), "cpu", rng)
     lines = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
-    names = [n for n in chip_smoke.XC_CHECKS
-             if n.startswith(("gga_xc", "mgga_xc"))]
-    pz0 = [r for r in lines if r["name"] == chip_smoke.PZ0]
-    lines = [r for r in lines if r["name"] != chip_smoke.PZ0]
-    assert len(lines) == len(names) * len(chip_smoke.XC_EDGES)
-    assert {(r["name"], r["case"]) for r in lines} == {
-        (n, c) for n in names for c, _ in chip_smoke.XC_EDGES}
+    names = list(chip_smoke.XC_CHECKS)
+    assert {n.split(".")[0] for n in names} == {"lda_xc", "gga_xc",
+                                                "mgga_xc"}
+    pz0_cases = [c for c, _ in chip_smoke.PZ0_EDGES]
+    pz0 = [r for r in lines if r["name"] == chip_smoke.PZ0
+           and "bitwise_polarized" in r]
+    lines = [r for r in lines if "bitwise_polarized" not in r]
+    want = {(n, c) for n in names for c, _ in chip_smoke.XC_EDGES
+            if n.startswith("lda_xc") or c not in chip_smoke.LDA_ONLY_EDGES}
+    assert len(lines) == len(want)
+    assert {(r["name"], r["case"]) for r in lines} == want
     assert all(r["max_rel_err"] <= 1e-12 and r["finite"] for r in lines)
+    # polarized X + PZ at n_up = n_dn bit for bit the zeta = 0 kernel
+    tie = [r for r in lines if "bitwise_zeta0" in r]
+    assert [(r["name"], r["case"]) for r in tie] == [("lda_xc.pz",
+                                                      "n_up == n_dn")]
+    assert tie[0]["bitwise_zeta0"] is True
     # unpolarized X + PZ at its own cases, bit for bit its polarized launch
-    assert [r["case"] for r in pz0] == [c for c, _ in chip_smoke.PZ0_EDGES]
-    assert all(r["max_rel_err"] <= 1e-11 and r["finite"]
+    assert [r["case"] for r in pz0] == pz0_cases
+    assert all(r["max_rel_err"] <= 1e-12 and r["finite"]
                and r["bitwise_polarized"] for r in pz0)
     cpu = torch.device("cpu")
     f = chip_smoke.xc_edge_fields("one point", 1, rng, cpu)
@@ -536,6 +550,23 @@ def test_xc_edges_run_on_cpu(capsys):
     assert float(f["gu"].abs().max()) == float(f["gd"].abs().max()) == 0.0
     assert bool(((f["nu"] == 0) | (f["nd"] == 0)).all())
     assert bool((f["nu"] == 0).any() and (f["nd"] == 0).any())
+    f = chip_smoke.xc_edge_fields("fully polarized", 933, rng, cpu)
+    assert bool(((f["nu"] == 0) | (f["nd"] == 0)).all())
+    assert float(f["gu"].abs().max()) > 0.0
+    # both channels live, zeta at +-1 itself or a few ulp from it
+    f = chip_smoke.xc_edge_fields("zeta within ulp of +-1", 933, rng, cpu)
+    assert bool((f["nu"] >= DENS_TH).all() and (f["nd"] >= DENS_TH).all())
+    zeta = ((f["nu"] - f["nd"]) / (f["nu"] + f["nd"])).abs()
+    assert bool((zeta == 1.0).any() and (zeta < 1.0).any())
+    assert float((1.0 - zeta).max()) <= 1.6e-15
+    assert bool((f["rho"] == f["nu"] + f["nd"]).all())
+    # equal channels summing to rho exactly, dead and threshold points first
+    f = chip_smoke.xc_edge_fields("n_up == n_dn", 933, rng, cpu)
+    assert bool((f["nu"] == f["nd"]).all() and (f["nu"] + f["nd"] == f["rho"]
+                                                 ).all())
+    half = 0.5 * f["rho"][:4]
+    assert bool((half[:2] < DENS_TH).all() and half[2] == DENS_TH
+                and half[3] < DENS_TH)
     # SCAN's alpha of each channel, (tau - tau_W) / tau_unif, at 1
     f = chip_smoke.xc_edge_fields("alpha at 1", 933, rng, cpu)
     tau_w = (f["gu"] ** 2).sum(0) / (8.0 * f["nu"])
@@ -582,6 +613,23 @@ def test_launch_checks_follow_the_band_solve_path():
     for _, required in chip_smoke.XC_DECK_PATH.values():
         assert chip_smoke.PZ0 not in required
     launches[chip_smoke.PZ0] = 1
+    # an LDA deck of other functionals launches its own K7b instantiation,
+    # a non-collinear LDA deck the polarized X + PZ kernel; GGA decks none
+    # of K7's
+    for deck, name in (("pw_us_sym_afm", "lda_xc.pw92"),
+                       ("gamma_nc_vwn", "lda_xc.vwn.unpolarized")):
+        path, required = chip_smoke.XC_DECK_PATH[deck]
+        launches[name] = 0
+        with pytest.raises(AssertionError, match=name):
+            chip_smoke.check_launched(deck, cuda, launches, required, path)
+        launches[name] = 1
+    for required in (chip_smoke.SPINOR_DECK_PATH["spinor_us"],
+                     chip_smoke.SPINOR_SYM_KERNELS,
+                     chip_smoke.FP32_SPINOR_SYM_KERNELS):
+        assert "lda_xc.pz" in required
+    for required in (chip_smoke.SPINOR_DECK_PATH["spinor_pbe_us_sym"],
+                     chip_smoke.XC_DECK_PATH["pbe_us_sym"][1]):
+        assert not [k for k in required if k.startswith("lda_xc")]
     # polarized Gamma: two r -> G transforms a potential (V_xc, B_z)
     launches["beta_chunk"] = 1
     launches["local_hpsi.box_to_pw_hpsi"] = 2 * 4 + 3

@@ -1,26 +1,35 @@
-"""K7 (X + PZ, unpolarized and polarized), K7b (X + PW92 polarized, X +
-VWN5 unpolarized, as their decks run them) and K10a (the GGA gradient
-boxes) on the card, in this checkout and another, in turns: this, other,
-other, this. For each kernel and shape: the event time (CUDA events,
-median of 21 samples of 5 launches), the device time of the work one call
-launches (torch.profiler) and a hash of the output's bytes, so two
-checkouts that compute the same bits show the same hash.
+"""K7 (X + PZ, unpolarized and polarized), K7b (X + PW92 and X + VWN5,
+polarized and unpolarized) and K10a (the GGA gradient boxes) on the card,
+in this checkout and another, in turns (default: this, other, other,
+this). For each kernel and shape: the event time (CUDA events, median of
+21 samples of 5 launches), the device time of the work one call launches
+(torch.profiler) and a hash of the output's bytes, so two checkouts that
+compute the same bits show the same hash.
 
-    python3 tools/torch_port_k7_k10a.py [--other DIR] [--out FILE]
+    python3 tools/torch_port_k7_k10a.py [--other DIR] [--order this,other,...]
+                                        [--moving NAME ...] [--out FILE]
 
 Shapes: the fine boxes of chip_smoke.py's 2-atom parity decks (50^3, where
 K7b's decks launch it), 16-atom (96^3) and 54-atom (144^3) cells. K7 and
 K7b on the free-atom density in real space with 64 exact zeros and 64
-points at 1e-14 (below the threshold), unpolarized, and polarized at
-(rho/2, rho/2) (K7b PW92 at (0.6 rho, 0.4 rho)); K10a on one field and on
-two (the spin densities of a +-20 % polarization). The inputs are made
-once, on the CPU, by this checkout, and handed to each run in a file.
+points at 1e-14 (below the threshold): unpolarized; polarized X + PZ at
+(rho/2, rho/2) ("K7 polarized zeta 0") and every polarized form at
+(0.6 rho, 0.4 rho); K10a on one field and on two (the spin densities of a
++-20 % polarization). The inputs are made once, on the CPU, by this
+checkout, and handed to each run in a file.
+
+--moving names the kernels (as the lines name them, e.g. "K7 polarized")
+whose bits a change means to move: for those, the summary line gives the
+largest difference between the checkouts' outputs relative to each
+output's largest magnitude (the first run of each checkout), in place of
+a bit check.
 
 One JSON line a run and kernel, then one a kernel and shape with the
-median times of each checkout and whether their bits agree, then the
-card's name and power limit. Exits 1 if this checkout's unpolarized X + PZ
-differs from its polarized launch at (rho/2, rho/2), or from the other
-checkout's bits anywhere.
+median times of each checkout, whether their bits agree and, for a moving
+kernel, its max_rel_diff; then the card's name and power limit. Exits 1 if
+this checkout's unpolarized X + PZ differs from its polarized launch at
+(rho/2, rho/2) (e against e, v_up and v_dn against v), or if the two
+checkouts' bits differ in a kernel not named by --moving.
 
 Needs a CUDA card and nvcc; --other DIR is another checkout's root (e.g.
 the parent unpacked by `git archive` into a git-ignored directory).
@@ -89,8 +98,10 @@ def digest(*ts) -> str:
     return h.hexdigest()[:16]
 
 
-def worker(npz: str, tree: str, run: int) -> None:
-    """Time and hash K7, K7b and K10a of the checkout at tree."""
+def worker(npz: str, tree: str, run: int, outputs: str,
+           moving: list) -> None:
+    """Time and hash K7, K7b and K10a of the checkout at tree; write the
+    outputs of the moving kernels to the file outputs."""
     import numpy as np
     import torch
 
@@ -109,6 +120,7 @@ def worker(npz: str, tree: str, run: int) -> None:
     data = np.load(npz)
     takes_table = "box_to_g" in inspect.signature(
         k10.gradient_boxes).parameters
+    kept = {}
     for box in BOXES:
         dims = tuple(int(d) for d in data[f"{box}/dims"])
         n = int(np.prod(dims))
@@ -126,8 +138,11 @@ def worker(npz: str, tree: str, run: int) -> None:
             extra = (table,)
         calls = {
             "K7 unpolarized": lambda: k7.lda_xc_unpolarized(rho),
-            "K7 polarized": lambda: k7.lda_xc(half, half),
+            "K7 polarized zeta 0": lambda: k7.lda_xc(half, half),
+            "K7 polarized": lambda: k7.lda_xc(nu, nd),
             "K7b PW92 polarized": lambda: k7.lda_xc(nu, nd, PW92),
+            "K7b PW92 unpolarized": lambda: k7.lda_xc_unpolarized(rho, PW92),
+            "K7b VWN polarized": lambda: k7.lda_xc(nu, nd, VWN),
             "K7b VWN unpolarized": lambda: k7.lda_xc_unpolarized(rho, VWN),
             "K10a 1 field": lambda: k10.gradient_boxes(
                 fields[:1], gcart, fidx, n, *extra),
@@ -139,47 +154,76 @@ def worker(npz: str, tree: str, run: int) -> None:
             out = fn()
             out = out if isinstance(out, tuple) else (out,)
             outs[name] = out
+            if name in moving:
+                for k, t in enumerate(x for x in out if x is not None):
+                    kept[f"{name}/{box}/{k}"] = t.cpu().numpy()
             rec = {"tree": tree, "run": run, "kernel": name, "box": box,
                    "ms": cs.time_ms(fn),
                    "device_ms": cs.device_ms(fn, dev, ("",)),
                    "sha": digest(*(t for t in out if t is not None))}
             print(json.dumps(rec), flush=True)
         e, v = outs["K7 unpolarized"]
-        e_p, vu_p, _ = outs["K7 polarized"]
+        e_p, vu_p, vd_p = outs["K7 polarized zeta 0"]
         print(json.dumps({"tree": tree, "run": run, "box": box,
                           "pz0_bitwise_polarized": cs.bits_equal(e, e_p)
-                          and cs.bits_equal(v, vu_p)}), flush=True)
+                          and cs.bits_equal(v, vu_p)
+                          and cs.bits_equal(v, vd_p)}), flush=True)
+    np.savez(outputs, **kept)
+
+
+def max_rel_diff(a: dict, b: dict, kernel: str, box: str):
+    """The largest |a - b| / max |b| over a moving kernel's outputs at one
+    box, between two runs' kept outputs (None if either lacks them)."""
+    import numpy as np
+
+    keys = [k for k in a if k.startswith(f"{kernel}/{box}/")]
+    if not keys or any(k not in b for k in keys):
+        return None
+    return max(float(np.max(np.abs(a[k] - b[k])) / np.max(np.abs(b[k])))
+               for k in keys)
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--other", default="", help="another checkout's root")
+    ap.add_argument("--order", default="",
+                    help="the runs, comma-separated 'this' / 'other' "
+                    "(default: this, or this,other,other,this)")
+    ap.add_argument("--moving", nargs="*", default=[],
+                    help="kernels whose bits are meant to move")
     ap.add_argument("--out", default="", help="also write the lines here")
     ap.add_argument("--worker", default="", help=argparse.SUPPRESS)
     ap.add_argument("--tree", default=ROOT, help=argparse.SUPPRESS)
     ap.add_argument("--run", type=int, default=0, help=argparse.SUPPRESS)
+    ap.add_argument("--outputs", default="", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.worker:
-        worker(args.worker, os.path.abspath(args.tree), args.run)
+        worker(args.worker, os.path.abspath(args.tree), args.run,
+               args.outputs, args.moving)
         return 0
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
         print("torch_port_k7_k10a: CUDA is not available", file=sys.stderr)
         return 2
-    trees = [ROOT]
-    if args.other:
-        other = os.path.abspath(args.other)
-        trees = [ROOT, other, other, ROOT]
-    lines = []
+    other = os.path.abspath(args.other) if args.other else ""
+    names = (args.order.split(",") if args.order
+             else ["this", "other", "other", "this"] if other else ["this"])
+    if "other" in names and not other:
+        ap.error("--order names 'other' without --other")
+    trees = [ROOT if n == "this" else other for n in names]
+    lines, kept = [], {}
     ok = True
     with tempfile.TemporaryDirectory() as tmp:
         npz = os.path.join(tmp, "inputs.npz")
         make_inputs(npz)
         for run, tree in enumerate(trees):
+            outs = os.path.join(tmp, f"out{run}.npz")
             proc = subprocess.run(
                 [sys.executable, os.path.abspath(__file__), "--worker", npz,
-                 "--tree", tree, "--run", str(run)],
+                 "--tree", tree, "--run", str(run), "--outputs", outs,
+                 "--moving", *args.moving],
                 capture_output=True, text=True)
             sys.stderr.write(proc.stderr)
             if proc.returncode != 0:
@@ -188,6 +232,7 @@ def main(argv=None) -> int:
             for line in proc.stdout.splitlines():
                 lines.append(json.loads(line))
                 print(line, flush=True)
+            kept.setdefault(tree, dict(np.load(outs)))
     for rec in lines:
         if rec.get("tree") == ROOT and "pz0_bitwise_polarized" in rec:
             ok = ok and rec["pz0_bitwise_polarized"]
@@ -204,7 +249,12 @@ def main(argv=None) -> int:
             tag = "this" if tree == ROOT else "other"
             rec[f"{tag}_ms"] = [r["ms"] for r in rs]
             rec[f"{tag}_device_ms"] = [r["device_ms"] for r in rs]
-        ok = ok and rec["same_bits"]
+        if key[0] in args.moving:
+            rec["max_rel_diff"] = (max_rel_diff(kept[ROOT], kept[other], *key)
+                                   if ROOT in kept and other in kept
+                                   else None)
+        else:
+            ok = ok and rec["same_bits"]
         summary.append(rec)
         print(json.dumps(rec), flush=True)
     smi = subprocess.run(

@@ -24,14 +24,11 @@ csrc/gga_xc.cu and csrc/mgga_xc.cu with the port's nvcc flags plus
   (SMs x 64 fp64 lanes x the maximum SM clock, from nvidia-smi), beside
   the kernel's records in chip_smoke.py;
 - a hash of the SASS without addresses, so two checkouts that compile a
-  kernel to the same code show the same hash (lda_xc_points, K7 / K7b, is
-  to stay as it was);
-- the same for the generic kernel's X + PZ path alone: a probe kernel
-  (source "lda_xc.x_pz_probe", function x_pz_generic_points) compiled with
-  each checkout's lda_xc.cu that evaluates unpolarized X + PZ as
-  lda_xc_points does (x_pz at (rho/2, rho/2), v the mean of v_up and
-  v_dn), so its count a point stands beside that of the zeta = 0 kernel,
-  x_pz_zeta0_points.
+  kernel to the same code show the same hash.
+
+Each instantiation of a templated kernel (K7b's lda_set_polarized<Set>,
+K7g's gga_xc_polarized<kSet>, ...) is a function of its own, counted
+apart.
 
 One JSON line a checkout and kernel function, then the card's name and
 power limit.
@@ -67,34 +64,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = ("lda_xc", "gga_xc", "mgga_xc")
 FP64_OPS = ("DFMA", "DMUL", "DADD", "DSETP", "DMNMX", "DSET")
 FP64_MUFU = ("MUFU.RCP64H", "MUFU.RSQ64H")
-POINTS = {"96^3": 96**3, "144^3": 144**3}
+POINTS = {"50^3": 50**3, "96^3": 96**3, "144^3": 144**3}
 THREADS = 128
-# the generic kernel's unpolarized X + PZ path (lda_xc_points with
-# unpolarized set and the X + PZ mask) as a kernel of its own
-X_PZ_PROBE = r'''
-#include "{source}"
-namespace {{
-__global__ void x_pz_generic_points(const double* __restrict__ rho,
-                                    double* __restrict__ e_out,
-                                    double* __restrict__ v_out, long long n) {{
-    for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
-         i += (long long)gridDim.x * blockDim.x) {{
-        const double nh = 0.5 * rho[i];
-        const bool dead = nh < kDensTh;
-        double e, vu, vd;
-        x_pz(dead ? kDensTh : nh, dead ? kDensTh : nh, &e, &vu, &vd);
-        if (dead) vu = vd = 0.0;
-        e_out[i] = e;
-        v_out[i] = 0.5 * (vu + vd);
-    }}
-}}
-}}  // namespace
-extern "C" int x_pz_generic(const double* rho, double* e, double* v,
-                            long long n) {{
-    x_pz_generic_points<<<(int)((n + 255) / 256), 256>>>(rho, e, v, n);
-    return (int)cudaGetLastError();
-}}
-'''
 
 
 def is_fp64(op: str) -> bool:
@@ -271,12 +242,6 @@ def main(argv=None) -> int:
             csrc = os.path.join(tree, "sirius_tpu_torch", "csrc")
             paths = {src: os.path.join(csrc, f"{src}.cu")
                      for src in args.source or SOURCES}
-            if not args.source:
-                probe = os.path.join(tmp, f"{abs(hash(tree))}-x_pz_probe.cu")
-                with open(probe, "w") as f:
-                    f.write(X_PZ_PROBE.format(
-                        source=os.path.join(csrc, "lda_xc.cu")))
-                paths["lda_xc.x_pz_probe"] = probe
             for src, path in paths.items():
                 lib = os.path.join(tmp, f"{abs(hash(tree))}-{src}.so")
                 proc = subprocess.run(
