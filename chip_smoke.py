@@ -31,7 +31,9 @@ imports nothing of JAX or of sirius_tpu. Phases, each printing JSON lines:
    one k-point's); K4 also at the 54-atom Gamma cell on one and two
    channels (check_kernels_aug54), each K4 record with its plan and the
    card's check that the phase of -G is the conjugate of G's bit for bit
-   (raising otherwise); K5 also at the 54-atom Gamma cell on one and two
+   (raising otherwise), and at the 16-atom US shape on one strained table
+   set of the stress (eps_xy = 1e-5) against the host rho_aug_g copy
+   (check_rho_aug_strained); K5 also at the 54-atom Gamma cell on one and two
    channels (records only) and on the spinor deck's four channels, each
    launched twice on the same inputs for a bitwise-equal D; every record
    carries the device time of the work one call launches, from
@@ -87,6 +89,17 @@ imports nothing of JAX or of sirius_tpu. Phases, each printing JSON lines:
    against the JAX package's fp64 twin of each (parity_scf_fp32: the
    polished ones to 1e-8, the others within 4x the JAX package's own fp32
    scatter), every fp32 band solve launching only fp32 instantiations;
+   and the recorded force decks with control.print_forces and print_stress
+   (parity_forces_nc and parity_forces_us: the shape of tests/test_forces.py
+   on the Gamma solve; parity_forces_us_sym_2atom: the full-width 2-atom
+   k-point deck, US with atom 1 moved along (111); parity_forces_gamma_pbe_fm:
+   Gamma, PBE, +0.5 / +0.5), each held to its record at the energy gates
+   and at 1e-6 Ha/bohr per force and 1e-7 Ha/bohr^3 per stress component,
+   printed beside the JAX package's own spread, its stress launching K1,
+   its XC kernel, K10a (GGA) and K4 (US) on the card; and the stress's
+   other XC forms (unpolarized PBE, polarized PW92, unpolarized VWN) on
+   small decks, the card against the CPU on one state to 1e-10
+   (stress_form_*);
 4. full-width runs with tolerances that cannot be met, so every iteration
    runs: the 16-atom Si supercell, norm-conserving (full_width, 3 SCF
    iterations) and ultrasoft with its 384 space-group ops (full_width_us,
@@ -104,6 +117,11 @@ imports nothing of JAX or of sirius_tpu. Phases, each printing JSON lines:
    iteration 3 or 4 (full_width_us_fp32, the switch's residual taken from
    full_width_us), the 54-atom packed-real and the 16-atom spinor runs in
    fp32 throughout (full_width_gamma_us_fp32, full_width_spinor_us_fp32);
+   the forces and stress at full width (full_width_forces_us): the 16-atom
+   US cell with atom 0 moved by 0.01 along fractional x, run to a tolerance
+   with forces and stress on, then at +-2e-3 bohr along x of atom 0: F[0, 0]
+   against the central difference of the free energy to 5e-5 Ha/bohr, the
+   net force to 1e-5, the forces and stress seconds, the stress's launches;
    kernel launches per iteration and per band solve, the precision and
    seconds of each iteration, peak device memory, electron count, total
    moment, finite energies.
@@ -120,7 +138,8 @@ and K2 float64, full_width_chunked_us for K9, full_width_gamma_pbe_fm for
 K7g (PBE), K10a, K10b and K6 on axial fields, full_width_scan_us for K7s
 unpolarized, K11a and K11b, full_width_spinor_us for K12a, K12b, K6v and
 K4 on four channels, full_width_gamma_us and full_width_gamma_pbe_fm for
-K4's 54-atom rows on one and two channels; K7b's X + PW92 and X + VWN5
+K4's 54-atom rows on one and two channels, full_width_forces_us's stress
+for K4 on strained tables; K7b's X + PW92 and X + VWN5
 rows, K7g's unpolarized PBE and PBEsol rows and K7s's polarized row take
 theirs from the parity decks that run them (parity_scf_pw_us_afm,
 parity_scf_gamma_nc_vwn, parity_scf_pbe_us, parity_scf_gamma_nc_pbesol,
@@ -221,6 +240,25 @@ FULL_ITERS["full_width_spinor_us"] = 4
 X_PZ = ["XC_LDA_X", "XC_LDA_C_PZ"]
 # unpolarized X + PZ launches its own kernel, the closed form at zeta = 0
 PZ0 = "lda_xc.pz.unpolarized"
+# forces and stress (control.print_forces and print_stress): the recorded
+# force decks of tools/torch_port_reference.py (FORCES_DECKS there, built by
+# deck_context), each force component within FORCE_TOL Ha/bohr and each
+# stress component within STRESS_TOL Ha/bohr^3 of the record, well inside
+# the 1e-5 of the JAX package's test_against (sirius_tpu/dft/scf.py:2571);
+# and full_width_forces_us: the 16-atom ultrasoft cell with atom 0 moved
+# by FORCE_SHIFT (fractional), run to FORCE_SCF's tolerances, F[0, 0] held
+# to the central difference of the free energy at +-FORCE_FD_H bohr along
+# Cartesian x within FORCE_FD_TOL (tests/test_forces.py's bound), the net
+# force to NET_FORCE_TOL
+FORCE_TOL = 1e-6
+STRESS_TOL = 1e-7
+FORCE_FD_H = 2e-3
+FORCE_FD_TOL = 5e-5
+NET_FORCE_TOL = 1e-5
+FORCE_SHIFT = (0.01, 0.0, 0.0)
+FORCE_SCF = {"num_dft_iter": 60, "energy_tol": 1e-10, "density_tol": 1e-9}
+# the strain of the K4 record on strained Q(G) tables (eps_xy = eps_yx)
+STRAIN_XY = 1e-5
 # the XC kernel checks: functionals, polarized
 XC_CHECKS = {
     "lda_xc.pz": (X_PZ, True),
@@ -281,7 +319,10 @@ TOL = {**{name: 1e-12 for name in XC_CHECKS},
        "symmetrize_vector_pw": 1e-13, "augmentation.rho_aug.4": 1e-12,
        "augmentation.d_operator.4": 1e-12,
        # K4 at the 54-atom cell, on one channel and on two
-       "augmentation.rho_aug.54": 1e-12, "augmentation.rho_aug.2.54": 1e-12}
+       "augmentation.rho_aug.54": 1e-12, "augmentation.rho_aug.2.54": 1e-12,
+       # K4 on one strained table set of the stress against the host
+       # rho_aug_g copy (dense exp() phases, einsum)
+       "augmentation.rho_aug.strained": 1e-12}
 SOURCE = {
     "local_hpsi.pw_to_box": "sirius_tpu_torch/csrc/local_hpsi.cu",
     "local_hpsi.box_to_pw_hpsi": "sirius_tpu_torch/csrc/local_hpsi.cu",
@@ -311,6 +352,7 @@ SOURCE = {
     "augmentation.d_operator.4": "sirius_tpu_torch/csrc/augmentation.cu",
     "augmentation.rho_aug.54": "sirius_tpu_torch/csrc/augmentation.cu",
     "augmentation.rho_aug.2.54": "sirius_tpu_torch/csrc/augmentation.cu",
+    "augmentation.rho_aug.strained": "sirius_tpu_torch/csrc/augmentation.cu",
 }
 REPLACES = {
     "local_hpsi.pw_to_box": "sirius_tpu/ops/hamiltonian.py:76",
@@ -340,6 +382,9 @@ REPLACES = {
     "augmentation.d_operator.4": "sirius_tpu/ops/augmentation.py:266",
     "augmentation.rho_aug.54": "sirius_tpu/ops/augmentation.py:250",
     "augmentation.rho_aug.2.54": "sirius_tpu/ops/augmentation.py:250",
+    # the strained augmentation charge of the stress, which the JAX package
+    # assembles through the host rho_aug_g
+    "augmentation.rho_aug.strained": "sirius_tpu/dft/stress.py:133",
 }
 # the fp32 instantiations (precision_wf "fp32"): each kernel's name with the
 # suffix of the block type it takes (.c64 complex64, .f32 float32 packed
@@ -1475,6 +1520,72 @@ def check_kernels_aug54(deck: str, ctx, dev, gpu: str, fm: dict) -> dict:
     return out
 
 
+def check_rho_aug_strained(deck: str, ctx, dev, gpu: str) -> dict:
+    """K4 on one strained table set of the stress (eps_xy = STRAIN_XY):
+    the strained Q(G) of dft/stress.py::StressCalculator through
+    ops/augmentation.py::with_q_tables, on seeded Hermitian density-matrix
+    blocks of every atom, one channel (the charge), against the host
+    rho_aug_g copy, its plain version, which the CPU runs (plain_ms is the
+    host time). Yardstick, bound and plan as check_rho_aug's. K4 launches
+    13 times a stress on one channel (12 strains and the unstrained
+    charge), on two where the stress has a magnetization."""
+    import numpy as np
+    import torch
+
+    from sirius_tpu_torch.dft.stress import StressCalculator, dm_block_matrix
+    from sirius_tpu_torch.dft.xc import XCFunctional
+    from sirius_tpu_torch.kernels import augmentation as k45
+    from sirius_tpu_torch.ops.augmentation import (build_aug_device_tables,
+                                                   rho_aug_g,
+                                                   rho_aug_g_device,
+                                                   with_q_tables)
+
+    uc, gvec = ctx.unit_cell, ctx.gvec
+    calc = StressCalculator(ctx, XCFunctional(X_PZ), device=dev)
+    eps = np.zeros((3, 3))
+    eps[0, 1] = eps[1, 0] = STRAIN_XY
+    q = calc.strained_q(eps)
+    rng = np.random.default_rng(16)
+    blocks = []
+    for ia in range(uc.num_atoms):
+        nbf = uc.atom_types[uc.type_of_atom[ia]].num_beta_lm
+        a = rng.standard_normal((nbf, nbf)) + 1j * rng.standard_normal((nbf, nbf))
+        blocks.append((a + a.conj().T) * 0.05)
+    dm = torch.as_tensor(dm_block_matrix(ctx, blocks)[None], device=dev)
+    q_dev = [torch.as_tensor(x, device=dev) for x in q if x is not None]
+    tables = with_q_tables(build_aug_device_tables(uc, gvec, ctx.aug,
+                                                   ctx.beta, dev), q_dev)
+    ng = gvec.num_gvec
+
+    def fn_k():
+        return rho_aug_g_device(dm, tables, ng)
+
+    def fn_p():
+        return rho_aug_g(uc, gvec, ctx.aug, blocks, q)
+
+    out = {}
+    aug = tables[0]
+    na, nqlm = aug["pos"].shape[0], aug["q"].shape[0]
+    nbeta = ctx.beta.num_beta_total
+    nrow = aug["pairs"].shape[0]
+    ph = k45.structure_phases(aug["millers"], aug["pos"])
+    dmp = (aug["w"][None, None, :]
+           * dm.reshape(1, -1)[:, aug["gidx"].long()].real
+           ).to(torch.complex128)
+    record_kernel(out, deck, gpu, "augmentation.rho_aug.strained",
+                  [fn_k()[0]], [torch.as_tensor(fn_p(), device=dev)], fn_k,
+                  fn_p,
+                  lambda: torch.einsum("ga,saq,qg->sg", ph, dmp, aug["q"]),
+                  nbytes=nqlm * ng * 16 + ng * 16 + ng * 12
+                  + nbeta * nbeta * 16,
+                  flops=nrow * na * 7.0 + ng * nqlm * 8.0,
+                  tensor_flops=nrow * na * nqlm * 4.0, slow_plain=True,
+                  extra={"strain_xy": STRAIN_XY, "channels": 1, "atoms": na,
+                         "num_gvec": ng, "rows": nrow,
+                         "plan": k45.rho_aug_plan(na, nqlm, 1, nrow)})
+    return out
+
+
 def check_kernel_symmetrize(deck: str, ctx, dev, gpu: str) -> dict:
     """K6 on the rho_new symmetrization of a cell whose yardstick cannot be
     built: the initial density and a random field against the unfactorised
@@ -2216,7 +2327,8 @@ def wrappers() -> dict:
            "augmentation.rho_aug.4": (k45.rho_aug, n),
            "augmentation.d_operator.4": (k45.d_operator, n),
            "augmentation.rho_aug.54": (k45.rho_aug, n),
-           "augmentation.rho_aug.2.54": (k45.rho_aug, n)}
+           "augmentation.rho_aug.2.54": (k45.rho_aug, n),
+           "augmentation.rho_aug.strained": (k45.rho_aug, n)}
     for name in FP32_SUMMARY:
         out[name] = (out[base_name(name)][0],
                      "launches_" + name.rsplit(".", 1)[1])
@@ -2297,6 +2409,22 @@ SPINOR_DECK_PATH = {
     "spinor_pbe_us_sym": xc_kernels(SPINOR_SYM_KERNELS, True, False),
 }
 FULL_GAMMA_PBE_FM_KERNELS = xc_kernels(GAMMA_US_KERNELS, True, True)
+# the recorded force decks: the band solve each takes, the kernels its SCF
+# must launch, and those its stress must launch (K1's scatter of the
+# strained densities, the XC kernel of the deck's functional, K10a for
+# GGA's strained gradients, K4 on strained tables for ultrasoft species)
+STRESS_LDA_KERNELS = ("local_hpsi.pw_to_box", PZ0)
+STRESS_US_KERNELS = STRESS_LDA_KERNELS + ("augmentation.rho_aug",)
+FORCES_DECK_PATH = {
+    "forces_nc": ("gamma", GAMMA_KERNELS, STRESS_LDA_KERNELS),
+    "forces_us": ("gamma", tuple(k for k in GAMMA_US_KERNELS
+                                 if k != "symmetrize_pw"), STRESS_US_KERNELS),
+    "forces_us_sym_2atom": ("kset", US_KERNELS, STRESS_US_KERNELS),
+    "forces_gamma_pbe_fm": ("gamma", xc_kernels(GAMMA_US_KERNELS, True, True),
+                            ("local_hpsi.pw_to_box", "gga_xc.pbe",
+                             "xc_gradient.gradient_boxes",
+                             "augmentation.rho_aug")),
+}
 FULL_SCAN_KERNELS = xc_kernels(US_KERNELS, False, False, mgga=True)
 # the fp32 paths: the band solve (and on the k-set path the density's
 # transforms) through the fp32 instantiations, the rest of the iteration in
@@ -2477,6 +2605,79 @@ def watch_band_solves():
             setattr(mod, name, fn)
 
 
+@contextlib.contextmanager
+def watch_forces_stress():
+    """Yield a dict that collects, for the forces (dft/forces.py::
+    total_forces) and the stress (dft/stress.py::StressCalculator.compute)
+    run_scf computes, the launches each kernel made during them (nonzero
+    counts only): the counters read just before and just after each."""
+    import sirius_tpu_torch.dft.forces as forces_mod
+    import sirius_tpu_torch.dft.stress as stress_mod
+
+    seen: dict = {}
+    total_forces = forces_mod.total_forces
+    compute = stress_mod.StressCalculator.compute
+
+    def counted(key, fn):
+        def run(*args, **kwargs):
+            before = read_launches()
+            out = fn(*args, **kwargs)
+            after = read_launches()
+            seen[key] = {k: after[k] - before[k] for k in after
+                         if after[k] != before[k]}
+            return out
+        return run
+
+    forces_mod.total_forces = counted("forces", total_forces)
+    stress_mod.StressCalculator.compute = counted("stress", compute)
+    try:
+        yield seen
+    finally:
+        forces_mod.total_forces = total_forces
+        stress_mod.StressCalculator.compute = compute
+
+
+def check_forces(phase: str, dev, gpu: str, deck: str, res: dict, ref: dict,
+                 seen: dict, required) -> None:
+    """A force deck's forces and stress against the JAX package's record
+    (FORCE_TOL, STRESS_TOL), printed beside the JAX package's own spread
+    from perturbed starts; on the card the stress must have launched every
+    kernel of required."""
+    import numpy as np
+
+    df = float(np.max(np.abs(np.subtract(res["forces"], ref["forces"]))))
+    ds = float(np.max(np.abs(np.subtract(res["stress"], ref["stress"]))))
+    emit({"phase": phase, "gpu": gpu, "deck": deck,
+          "forces": res["forces"], "stress": res["stress"],
+          "max_force_err": df, "force_tol": FORCE_TOL,
+          "jax_force_spread": ref["forces_spread"],
+          "max_stress_err": ds, "stress_tol": STRESS_TOL,
+          "jax_stress_spread": ref["stress_spread"],
+          "forces_seconds": res["forces_seconds"],
+          "stress_seconds": res["stress_seconds"],
+          "stress_term_seconds": res["stress_term_seconds"],
+          "forces_launches": seen.get("forces", {}),
+          "stress_launches": seen.get("stress", {})})
+    if not df <= FORCE_TOL:
+        raise AssertionError(f"{phase}: forces off by {df} > {FORCE_TOL} "
+                             "Ha/bohr")
+    if not ds <= STRESS_TOL:
+        raise AssertionError(f"{phase}: stress off by {ds} > {STRESS_TOL} "
+                             "Ha/bohr^3")
+    check_stress_launched(phase, dev, seen, required)
+
+
+def check_stress_launched(phase: str, dev, seen: dict, required) -> None:
+    """On the card the stress's strained densities, gradients, XC and
+    augmentation charge ran through their kernels."""
+    if dev.type != "cuda":
+        return
+    got = seen.get("stress", {})
+    zero = [k for k in required if got.get(k, 0) <= 0]
+    if zero:
+        raise AssertionError(f"{phase}: the stress never launched {zero}")
+
+
 def check_band_solves(phase: str, dev, solves) -> None:
     """On the card, every fp32 band solve launched K2's fp32 instantiation
     and no fp64 band-solve kernel."""
@@ -2613,7 +2814,8 @@ def parity_scf(ctx, dev, ref: dict, gpu: str, phase: str = "parity_scf",
     from sirius_tpu_torch.dft.scf import run_scf
 
     reset_launches()
-    res = run_scf(ctx.cfg, ctx=ctx, device=dev)
+    with watch_forces_stress() as seen:
+        res = run_scf(ctx.cfg, ctx=ctx, device=dev)
     launches = read_launches()
     nel = float(res["_state"]["rho_g"][0].real) * ctx.unit_cell.omega
     d_total = res["energy"]["total"] - ref["energy"]["total"]
@@ -2664,6 +2866,9 @@ def parity_scf(ctx, dev, ref: dict, gpu: str, phase: str = "parity_scf",
             raise AssertionError(f"{phase}: moments off by {d_mag} > 1e-6")
     check_launched(phase, dev, launches, required, path,
                    res["num_scf_iterations"], polarized)
+    if "forces" in ref:
+        check_forces(phase, dev, gpu, deck, res, ref, seen,
+                     FORCES_DECK_PATH[deck][2])
     return launches
 
 
@@ -2777,6 +2982,198 @@ def full_width(ctx, dev, gpu: str, phase: str = "full_width",
     return (launches, res["rms_history"]) if with_rms else launches
 
 
+def stress_card_vs_cpu(ctx, dev) -> dict:
+    """Run ctx's SCF on dev with forces and stress on, take the state its
+    run_scf hands dft/forces.py::total_forces and
+    dft/stress.py::StressCalculator.compute, and feed it to both again on
+    dev and on the CPU (the plain versions: the sigma form of the XC, the
+    host rho_aug_g): the largest difference of each term, the result, and
+    the kernels the stress launched on dev."""
+    import numpy as np
+
+    from sirius_tpu_torch.dft import forces as forces_mod
+    from sirius_tpu_torch.dft import stress as stress_mod
+    from sirius_tpu_torch.dft.scf import run_scf
+    from sirius_tpu_torch.dft.xc import XCFunctional
+
+    ctx.cfg.control.print_forces = True
+    ctx.cfg.control.print_stress = True
+    seen = {}
+    compute = stress_mod.StressCalculator.compute
+    total_forces = forces_mod.total_forces
+
+    def stress_spy(self, *args, **kwargs):
+        seen["stress"] = (args, kwargs)
+        return compute(self, *args, **kwargs)
+
+    def forces_spy(*args, **kwargs):
+        seen["forces"] = (args, kwargs)
+        return total_forces(*args, **kwargs)
+
+    stress_mod.StressCalculator.compute = stress_spy
+    forces_mod.total_forces = forces_spy
+    try:
+        with watch_forces_stress() as launches:
+            res = run_scf(ctx.cfg, ctx=ctx, device=dev)
+    finally:
+        stress_mod.StressCalculator.compute = compute
+        forces_mod.total_forces = total_forces
+    xc = XCFunctional(ctx.cfg.parameters.xc_functionals)
+    args, kwargs = seen["stress"]
+    on_cpu = list(args)
+    on_cpu[2] = on_cpu[2].cpu()  # the bands
+    want = stress_mod.StressCalculator(ctx, xc, device="cpu").compute(
+        *on_cpu, **kwargs)
+    got = stress_mod.StressCalculator(ctx, xc, device=dev).compute(
+        *args, **kwargs)
+    fargs, fkw = seen["forces"]
+    f_cpu = list(fargs)
+    f_cpu[5] = f_cpu[5].cpu()  # the bands
+    f_want = total_forces(*f_cpu, **{k: v for k, v in fkw.items()
+                                     if k != "beta"})
+    f_got = total_forces(*fargs, **fkw)
+    return {"stress_card_vs_cpu": {k: float(np.max(np.abs(got[k] - want[k])))
+                                   for k in want},
+            "forces_card_vs_cpu": {k: float(np.max(np.abs(f_got[k]
+                                                          - f_want[k])))
+                                   for k in f_want},
+            "stress_launches": launches.get("stress", {}), "result": res}
+
+
+# the stress's XC forms the force decks leave out, each on a small deck
+# (gk 3 / pw 7, 2x2x2, 3 iterations, atom 1 moved along (111)): the card
+# against the CPU on one state, every term to STRESS_FORM_TOL Ha/bohr^3,
+# and the kernels each must launch
+STRESS_FORM_TOL = 1e-10
+STRESS_FORMS = {
+    "pbe_us": (US_SYM, {"xc_functionals": PBE}, None,
+               ("local_hpsi.pw_to_box", "gga_xc.pbe.unpolarized",
+                "xc_gradient.gradient_boxes", "augmentation.rho_aug")),
+    "pw92_us_afm": (US_SYM, {"xc_functionals": ["XC_LDA_X", "XC_LDA_C_PW"],
+                             **SPIN}, AFM,
+                    ("local_hpsi.pw_to_box", "lda_xc.pw92",
+                     "augmentation.rho_aug")),
+    "vwn_nc": (NC, {"xc_functionals": ["XC_LDA_X", "XC_LDA_C_VWN"]}, None,
+               ("local_hpsi.pw_to_box", "lda_xc.vwn.unpolarized")),
+}
+
+
+def check_stress_forms(dev, gpu: str) -> None:
+    """stress_card_vs_cpu on each deck of STRESS_FORMS."""
+    import numpy as np
+
+    from sirius_tpu_torch.testing import synthetic_silicon_context
+
+    for name, (kind, params, moments, required) in STRESS_FORMS.items():
+        ctx = synthetic_silicon_context(
+            gk_cutoff=3.0, pw_cutoff=7.0, ngridk=(2, 2, 2), num_bands=8,
+            positions=np.array([[0.0, 0, 0], [0.26, 0.26, 0.26]]),
+            moments=None if moments is None else np.asarray(moments),
+            extra_params={"num_dft_iter": 3, **RUN_TO_END, **params},
+            **kind)
+        out = stress_card_vs_cpu(ctx, dev)
+        res = out.pop("result")
+        phase = "stress_form_" + name
+        worst = max(out["stress_card_vs_cpu"].values())
+        emit({"phase": phase, "gpu": gpu, **out, "tol": STRESS_FORM_TOL,
+              "stress": res["stress"],
+              "stress_seconds": res["stress_seconds"]})
+        if not worst <= STRESS_FORM_TOL:
+            raise AssertionError(f"{phase}: the card's stress is {worst} "
+                                 f"from the CPU's > {STRESS_FORM_TOL}")
+        worst_f = max(out["forces_card_vs_cpu"].values())
+        if not worst_f <= STRESS_FORM_TOL:
+            raise AssertionError(f"{phase}: the card's forces are {worst_f} "
+                                 "from the CPU's")
+        check_stress_launched(phase, dev, {"stress": out["stress_launches"]},
+                              required)
+
+
+def full_width_forces(dev, gpu: str, phase: str = "full_width_forces_us",
+                      n: int = 2, spec: dict = FULL) -> dict:
+    """The forces and stress at full width: the n x n x n ultrasoft cell
+    with the space group that fixes atom 0 moved by FORCE_SHIFT, on the
+    k-set solve, run to FORCE_SCF's tolerances with forces and stress on;
+    then two SCFs with atom 0 at +-FORCE_FD_H bohr along Cartesian x, whose
+    free energies give -dF/dx for F[0, 0] (FORCE_FD_TOL), and the net force
+    (NET_FORCE_TOL). The stress must launch K1, K7 and K4 (the counters
+    read just before and just after it). Returns the stress's launches."""
+    import numpy as np
+    import torch
+
+    from sirius_tpu_torch.dft.scf import band_solve_path, fuses, run_scf
+
+    t_phase = time.perf_counter()
+
+    def context(shift):
+        return magnetic_supercell_context(
+            n, spec, dict(FORCE_SCF), US_SYM, 0.0,
+            displace=(0, np.asarray(FORCE_SHIFT) + shift))
+
+    ctx = context(np.zeros(3))
+    ctx.cfg.control.print_forces = True
+    ctx.cfg.control.print_stress = True
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    with watch_forces_stress() as seen:
+        res = run_scf(ctx.cfg, ctx=ctx, device=dev)
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else None
+    dx = np.linalg.solve(ctx.unit_cell.lattice.T,
+                         np.array([FORCE_FD_H, 0.0, 0.0]))
+    free, iters = {}, {}
+    for sign in (1, -1):
+        c = context(sign * dx)
+        r = run_scf(c.cfg, ctx=c, device=dev)
+        free[sign], iters[sign] = r["energy"]["free"], r["num_scf_iterations"]
+        if not r["converged"]:
+            raise AssertionError(f"{phase}: the SCF at {sign:+d}h did not "
+                                 "converge")
+    f = np.asarray(res["forces"])
+    sigma = np.asarray(res["stress"])
+    f_fd = -(free[1] - free[-1]) / (2 * FORCE_FD_H)
+    fd_err = abs(float(f[0, 0]) - f_fd)
+    net = float(np.linalg.norm(f.sum(axis=0)))
+    emit({"phase": phase, "gpu": gpu, "deck": f"si{2 * n ** 3}_us_sym_moved",
+          "num_atoms": ctx.unit_cell.num_atoms,
+          "num_symmetry_ops": (0 if ctx.symmetry is None
+                               else ctx.symmetry.num_ops),
+          "num_kpoints": ctx.gkvec.num_kpoints, "ngk_max": int(ctx.gkvec.ngk_max),
+          "fine_box": list(ctx.gvec.fft.dims), "num_gvec": ctx.gvec.num_gvec,
+          "band_solve": band_solve_path(ctx.cfg, ctx),
+          "fused_d": fuses(ctx.cfg, ctx),
+          "num_scf_iterations": res["num_scf_iterations"],
+          "fd_iterations": [iters[1], iters[-1]],
+          "iteration_seconds": res["iteration_seconds"],
+          "forces_seconds": res["forces_seconds"],
+          "stress_seconds": res["stress_seconds"],
+          "stress_term_seconds": res["stress_term_seconds"],
+          "max_memory_allocated": peak,
+          "forces": res["forces"], "stress": res["stress"],
+          "f00": float(f[0, 0]), "f00_finite_difference": f_fd,
+          "fd_err": fd_err, "fd_tol": FORCE_FD_TOL, "net_force": net,
+          "net_force_tol": NET_FORCE_TOL,
+          "forces_launches": seen.get("forces", {}),
+          "stress_launches": seen.get("stress", {}), "launches": launches,
+          "phase_seconds": time.perf_counter() - t_phase})
+    if not res["converged"]:
+        raise AssertionError(f"{phase}: the SCF did not converge")
+    if not (f.shape == (ctx.unit_cell.num_atoms, 3) and sigma.shape == (3, 3)
+            and np.all(np.isfinite(f)) and np.all(np.isfinite(sigma))):
+        raise AssertionError(f"{phase}: forces {f.shape}, stress "
+                             f"{sigma.shape}, or not finite")
+    if not fd_err <= FORCE_FD_TOL:
+        raise AssertionError(f"{phase}: F[0, 0] {f[0, 0]} against "
+                             f"-dF/dx {f_fd}: {fd_err} > {FORCE_FD_TOL}")
+    if not net <= NET_FORCE_TOL:
+        raise AssertionError(f"{phase}: net force {net} > {NET_FORCE_TOL}")
+    check_launched(phase, dev, launches, US_KERNELS, "kset",
+                   res["num_scf_iterations"])
+    check_stress_launched(phase, dev, seen, STRESS_US_KERNELS)
+    return seen.get("stress", {})
+
+
 def xc_context(name: str):
     """The context of a 2-atom deck of XC_DECKS."""
     import numpy as np
@@ -2790,13 +3187,14 @@ def xc_context(name: str):
 
 
 def magnetic_supercell_context(n: int, spec: dict, extra: dict, kind: dict,
-                               moment):
+                               moment, displace=None):
     """The n x n x n supercell of the synthetic 2-atom cell with one
     starting moment on every atom: (0, 0, moment) for a number, else the
     vector (m_x, m_y, m_z). synthetic_silicon_context
     refuses moments with supercell > 1, so this tiles the positions and the
     moments itself, as that helper tiles positions, and builds the context
-    the way the helper does."""
+    the way the helper does. displace: (atom, fractional shift) moves one
+    atom of the supercell off its site."""
     import numpy as np
 
     import sirius_tpu_torch.context as cm
@@ -2815,6 +3213,8 @@ def magnetic_supercell_context(n: int, spec: dict, extra: dict, kind: dict,
                        for k in range(n)], dtype=np.float64)
     base = np.array([[0.0, 0, 0], [0.25, 0.25, 0.25]])
     positions = ((base[None] + shifts[:, None]) / n).reshape(-1, 3)
+    if displace is not None:
+        positions[displace[0]] += np.asarray(displace[1], dtype=np.float64)
     vec = [0.0, 0.0, moment] if np.ndim(moment) == 0 else list(moment)
     moments = np.tile(np.asarray(vec, dtype=np.float64), (len(positions), 1))
     uc = ucm.UnitCell(
@@ -2939,6 +3339,9 @@ def main() -> int:
                                       kern54fm))
     kern54.update(check_kernel_symmetrize("si54_supercell3_gamma", ctx54, dev,
                                           gpu))
+    # K4 on the stress's strained Q(G) tables at the 16-atom US shape
+    kern_strained = check_rho_aug_strained("si16_supercell2_us_sym", ctx16us,
+                                           dev, gpu)
     check_kernel_chunk("chunked_us_sym", single["chunked_us_sym"], 1, dev, gpu)
     kern54.update(check_kernel_chunk("si54_supercell3_chunk16", ctx54, CHUNK54,
                                      dev, gpu))
@@ -3016,6 +3419,15 @@ def main() -> int:
             ctx, dev, refs[name], gpu,
             phase="parity_scf_" + name.replace("_sym", ""), deck=name,
             required=required, path=path)
+    # the stress's other XC forms, card against CPU on one state
+    check_stress_forms(dev, gpu)
+    # the recorded force decks: energies, moments, forces and stress
+    for name in tool.FORCES_DECKS:
+        path, required, _ = FORCES_DECK_PATH[name]
+        runs[name] = parity_scf(
+            deck_context(name, tool), dev, refs[name], gpu,
+            phase="parity_forces_" + name.removeprefix("forces_"), deck=name,
+            required=required, path=path)
     torch.cuda.empty_cache()
     runs["full_width_gamma_pbe_fm"] = full_width(
         ctx54fm, dev, gpu, phase="full_width_gamma_pbe_fm",
@@ -3026,6 +3438,11 @@ def main() -> int:
     runs["full_width_scan_us"] = full_width(
         ctx16scan, dev, gpu, phase="full_width_scan_us",
         required=FULL_SCAN_KERNELS, deck="si16_supercell2_us_sym_scan")
+    del ctx16scan
+    torch.cuda.empty_cache()
+    # K4's launches on strained tables: those of one full-width stress
+    stress16 = full_width_forces(dev, gpu)
+    launches_strained = {name: stress16.get(name, 0) for name in kern_strained}
     for name, ctx in spinor.items():
         runs[name] = parity_scf(
             ctx, dev, refs[name], gpu, phase="parity_scf_" + name, deck=name,
@@ -3068,6 +3485,7 @@ def main() -> int:
                             (kern54xc, launches_xc),
                             (kern_mgga, launches_mgga),
                             (kern_spinor, launches_spinor),
+                            (kern_strained, launches_strained),
                             (kern_fp32, launches_fp32)):
         for name, rec in records.items():
             summary.append({

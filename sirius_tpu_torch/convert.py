@@ -193,3 +193,41 @@ def psi_from_numpy(psi: np.ndarray, device,
 
 
 density_from_numpy = psi_from_numpy
+
+
+FORCES_STATE_KEYS = ("rho_g", "mag_g", "vxc_g", "veff_g", "bz_g", "psi",
+                     "occ", "evals", "d_by_spin", "dm_blocks_by_spin",
+                     "rho_resid_g")
+
+
+def forces_state_from_numpy(state: dict, device) -> dict:
+    """The inputs of dft/forces.py::total_forces and
+    dft/stress.py::StressCalculator.compute from a JAX end state (numpy
+    arrays under FORCES_STATE_KEYS, as the JAX package hands them to its
+    own total_forces and compute, sirius_tpu/dft/scf.py:2358-2408): the
+    fields on the fine G set as complex128 arrays (mag_g and bz_g None
+    unpolarized, rho_resid_g None where the JAX package passes none), the
+    bands [nk, ns, nb, ngk] as a complex128 tensor on ``device``, occ and
+    evals [nk, ns, nb] float64, D per spin float64 and the density-matrix
+    blocks per spin and atom complex128 (an empty list without
+    augmentation)."""
+    missing = [k for k in FORCES_STATE_KEYS if k not in state]
+    if missing:
+        raise KeyError(f"missing forces state: {missing}")
+
+    def field(key):
+        v = state[key]
+        return None if v is None else np.asarray(v, dtype=np.complex128)
+
+    out = {k: field(k) for k in ("rho_g", "mag_g", "vxc_g", "veff_g", "bz_g",
+                                 "rho_resid_g")}
+    out["psi"] = torch.as_tensor(np.asarray(state["psi"], dtype=np.complex128),
+                                 device=resolve_device(device))
+    out["occ"] = np.asarray(state["occ"], dtype=np.float64)
+    out["evals"] = np.asarray(state["evals"], dtype=np.float64)
+    out["d_by_spin"] = [np.asarray(d, dtype=np.float64)
+                        for d in state["d_by_spin"]]
+    out["dm_blocks_by_spin"] = [
+        [np.asarray(b, dtype=np.complex128) for b in blocks]
+        for blocks in (state["dm_blocks_by_spin"] or [])]
+    return out

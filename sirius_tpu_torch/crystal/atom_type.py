@@ -112,7 +112,7 @@ class AtomType:
         if path.lower().endswith(".upf"):
             raise NotImplementedError(
                 "raw UPF species files come with the io/upf.py port "
-                "(ROADMAP queue 1, slice 1 remainder); convert to JSON first")
+                "(ROADMAP queue 1, item 3); convert to JSON first")
         with open(path) as f:
             data = json.load(f)
         return AtomType.from_dict(label, data)

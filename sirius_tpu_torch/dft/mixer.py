@@ -36,8 +36,8 @@ class Mixer:
         so a magnetization channel has weight Omega and rms weight 1."""
         if cfg.type in self.LATER:
             raise NotImplementedError(
-                f"mixer type '{cfg.type}' comes with a later port slice "
-                "(ROADMAP queue 1, slice 5); this slice mixes linear/anderson")
+                f"mixer type '{cfg.type}' comes with ROADMAP queue 1, item "
+                "4; the port mixes linear, anderson and broyden1")
         if cfg.type not in self.KNOWN:
             raise ValueError(
                 f"unknown mixer type '{cfg.type}' (supported: {self.KNOWN})")

@@ -108,7 +108,7 @@ def check_supported(cfg: Config) -> None:
     if p.electronic_structure_method != "pseudopotential":
         raise NotImplementedError(
             f"{p.electronic_structure_method}: FP-LAPW comes with ROADMAP "
-            "queue 1, slice 13")
+            "queue 1, item 11")
     if p.precision_wf not in ("fp32", "fp64"):
         raise ValueError(f"precision_wf must be fp32 or fp64, got '{p.precision_wf}'")
     if p.num_mag_dims not in (0, 1, 3):
@@ -122,7 +122,16 @@ def check_supported(cfg: Config) -> None:
     XCFunctional(p.xc_functionals)  # raises for an unknown name
     if cfg.mixer.type not in ("linear", "anderson", "broyden1"):
         raise NotImplementedError(
-            f"mixer '{cfg.mixer.type}': ROADMAP queue 1, slice 5")
+            f"mixer '{cfg.mixer.type}': ROADMAP queue 1, item 4")
+    if cfg.control.autosave_every and cfg.control.autosave_every > 0:
+        raise NotImplementedError(
+            "control.autosave_every: the checkpoint it writes comes with "
+            "ROADMAP queue 1, item 6")
+    if (cfg.control.print_stress and p.num_mag_dims != 3
+            and XCFunctional(p.xc_functionals).is_mgga):
+        # raised before the SCF, where the JAX package raises after it
+        # (scf.py:2392-2399): the tau term of the stress is not there
+        raise NotImplementedError("stress with mGGA is not implemented")
 
 
 def check_context(cfg: Config, ctx: SimulationContext) -> None:
@@ -130,7 +139,7 @@ def check_context(cfg: Config, ctx: SimulationContext) -> None:
     if any(t.pseudo_type == "PAW" or t.paw for t in ctx.unit_cell.atom_types):
         raise NotImplementedError(
             "PAW species need the on-site PAW terms (ROADMAP queue 1, "
-            "slice 10); ultrasoft and norm-conserving species run")
+            "item 8); ultrasoft and norm-conserving species run")
 
 
 def band_solve_path(cfg: Config, ctx: SimulationContext) -> str:
@@ -165,6 +174,20 @@ def band_solve_path(cfg: Config, ctx: SimulationContext) -> str:
             and float(np.abs(np.asarray(ctx.gkvec.kpoints[0])).max()) < 1e-12):
         return "gamma"
     return "kset"
+
+
+def fuses(cfg: Config, ctx: SimulationContext) -> bool:
+    """Whether the JAX package runs this deck's loop as its fused device
+    step on one device (sirius_tpu/dft/scf.py:848-855): the k-set band
+    solve, no mGGA, a linear or Anderson mixer (broyden1 mixes as Anderson
+    there, mixer.py:66) and control.device_scf not off. It decides which D
+    the forces and stress take: the fused step hands over the D of the
+    final mixed potential (fused.py:387-390), the host loop the D its last
+    band solve used (scf.py:1236-1246)."""
+    return (cfg.control.device_scf not in (False, "false", "off")
+            and band_solve_path(cfg, ctx) == "kset"
+            and not XCFunctional(cfg.parameters.xc_functionals).is_mgga
+            and cfg.mixer.type in ("linear", "anderson", "broyden1"))
 
 
 def _initial_subspace(ctx: SimulationContext) -> np.ndarray:
@@ -221,7 +244,11 @@ def run_scf(cfg: Config, ctx: SimulationContext | None = None,
     (energies under the reference's names; mag_history and, polarized,
     magnetisation), plus the wall time of each iteration and of each band
     solve and the precision each band solve ran at (wf_precision, "fp32"
-    or "fp64")."""
+    or "fp64"). Under control.print_forces / print_stress it adds
+    "forces" [natom, 3] and "stress" [3, 3] (dft/forces.py, dft/stress.py)
+    with forces_seconds, stress_seconds and stress_term_seconds; a
+    non-collinear run returns neither, as the JAX package's run_scf_nc
+    does."""
     device = resolve_device(device)
     t0 = time.time()
     check_supported(cfg)
@@ -357,6 +384,9 @@ def run_scf(cfg: Config, ctx: SimulationContext | None = None,
     e_prev, converged, rms, scf_correction = None, False, 0.0, 0.0
     mu = entropy_sum = None
     evals = occ = None
+    # what forces and stress read of the last iteration: the D of its band
+    # solve, its symmetrized density matrix, and rho_out - rho_in
+    d_solve = dm = rho_resid = None
     num_iter_done = 0
     res_tol = itsol.residual_tolerance
     for it in range(p.num_dft_iter):
@@ -364,6 +394,7 @@ def run_scf(cfg: Config, ctx: SimulationContext | None = None,
         it_t0 = time.perf_counter()
         rdt = real_dtype_of(wf_dtype)
         precision_history.append("fp32" if rdt == torch.float32 else "fp64")
+        d_solve = d_spin
         band = None if path == "gamma" else astype(ps, wf_dtype)
         if psi_big is not None:
             # first iteration: rotate the full atomic-orbital block down to
@@ -482,6 +513,7 @@ def run_scf(cfg: Config, ctx: SimulationContext | None = None,
                 f"non-finite band energies or density at SCF iteration {it + 1}")
 
         # --- mixing ---
+        rho_resid = rho_new - x_mix[:ng]
         rms = mixer.rms(x_mix, x_new)
         x_mix = mixer.mix(x_mix, x_new)
         eha_res = mixer.residual_hartree_energy(x_mix, x_new)
@@ -586,4 +618,62 @@ def run_scf(cfg: Config, ctx: SimulationContext | None = None,
             "atoms": [[0.0, 0.0, float(mz)]
                       for mz in atomic_moments(ctx, mag_np)],
         }
+    c = cfg.control
+    if (c.print_forces or c.print_stress) and num_iter_done > 0:
+        d_last = d_spin if fuses(cfg, ctx) else d_solve
+        result.update(_forces_and_stress(
+            ctx, xc, device, tables, aug_tables, beta_dense, rho_g, mag_g,
+            pot, psi, occ_np, evals_np, d_last, dm, rho_resid))
     return result
+
+
+def _forces_and_stress(ctx, xc, device, tables, aug_tables, beta_dense,
+                       rho_g, mag_g, pot, psi, occ, evals, d_spin, dm,
+                       rho_resid) -> dict:
+    """result["forces"] [natom, 3] under control.print_forces and
+    result["stress"] [3, 3] under control.print_stress, as lists, with the
+    seconds of each (ending in a synchronize) and of each stress term
+    (sirius_tpu/dft/scf.py:2358-2408). The fields go to the host once; the
+    bands stay on the device for the non-local force, widened to
+    complex128 as the JAX package's join_cplx widens the fp32 bands."""
+    from sirius_tpu_torch.dft.forces import total_forces
+    from sirius_tpu_torch.dft.stress import StressCalculator
+
+    c = ctx.cfg.control
+
+    def host(t):
+        return None if t is None else t.cpu().numpy()
+
+    psi = psi.to(torch.complex128)
+    d_by_spin = list(host(d_spin))
+    dm_blocks = []
+    if dm is not None:
+        dm_np = host(dm)
+        dm_blocks = [[dm_np[s, off:off + nbf, off:off + nbf]
+                      for _, off, nbf in ctx.beta.atom_blocks(ctx.unit_cell)]
+                     for s in range(dm_np.shape[0])]
+    rho_np, mag_np = host(rho_g), host(mag_g)
+    out = {}
+    if c.print_forces:
+        synchronize(device)
+        t0 = time.perf_counter()
+        fterms = total_forces(
+            ctx, rho_np, host(pot.vxc_g), host(pot.veff_g), host(pot.bz_g),
+            psi, occ, evals, d_by_spin, dm_blocks,
+            rho_resid_g=host(rho_resid), beta=beta_dense)
+        synchronize(device)
+        out["forces"] = fterms["total"].tolist()
+        out["forces_seconds"] = time.perf_counter() - t0
+    if c.print_stress:
+        synchronize(device)
+        t0 = time.perf_counter()
+        calc = StressCalculator(ctx, xc, device=device, tables=tables,
+                                aug_tables=aug_tables)
+        sterms = calc.compute(
+            rho_np, mag_np, psi, occ, evals, d_by_spin,
+            dm_blocks_by_spin=dm_blocks if ctx.aug is not None else None)
+        synchronize(device)
+        out["stress"] = sterms["total"].tolist()
+        out["stress_seconds"] = time.perf_counter() - t0
+        out["stress_term_seconds"] = dict(calc.seconds)
+    return out

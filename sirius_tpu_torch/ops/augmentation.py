@@ -17,10 +17,11 @@ Conventions (validated against the reference):
 Only the packed upper triangle of (xi1 <= xi2) is stored, mirroring the
 reference's nqlm = nbf(nbf+1)/2 layout.
 
-Mirrors sirius_tpu/ops/augmentation.py: the host tables (:35-124) by copy,
-and the device contractions rho_aug_g_device / d_operator_device
-(:212-282) through kernels K4 and K5 (kernels/augmentation.py), which
-generate the atomic phases on the fly instead of storing them.
+Mirrors sirius_tpu/ops/augmentation.py: the host tables (:35-124) and the
+host rho_aug_g (:140-165) by copy, and the device contractions
+rho_aug_g_device / d_operator_device (:212-282) through kernels K4 and K5
+(kernels/augmentation.py), which generate the atomic phases on the fly
+instead of storing them.
 """
 
 from __future__ import annotations
@@ -147,6 +148,34 @@ def q_pw_at(t, tabs, gcart: np.ndarray, omega: float) -> np.ndarray:
     return q_pw
 
 
+def rho_aug_g(
+    uc: UnitCell,
+    gvec: Gvec,
+    aug: Augmentation,
+    dm: list,  # per-atom (nbf_a, nbf_a) complex density-matrix blocks
+    q_by_type: list,  # per-type Q(G) tables (the strained ones of stress.py)
+) -> np.ndarray:
+    """Augmentation charge rho_aug(G) on the fine set, on the host: the
+    plain version of K4 (rho_aug_g_device), which dft/stress.py runs on the
+    CPU (sirius_tpu/ops/augmentation.py:140-165, by copy)."""
+    out = np.zeros(gvec.num_gvec, dtype=np.complex128)
+    for it, at in enumerate(aug.per_type):
+        if at is None:
+            continue
+        atoms = uc.atoms_of_type(it)
+        q_pw = q_by_type[it]
+        # packed real dm with factor 2 off-diagonal:
+        # sum_{xi1 xi2} n Q = sum_packed w * Re(n) * Q  (n hermitian, Q sym)
+        w = np.where(at.xi1 == at.xi2, 1.0, 2.0)
+        dmp = np.stack(
+            [w * np.real(dm[ia][at.xi1, at.xi2]) for ia in atoms]
+        )  # (na_t, nqlm)
+        phases = np.exp(-2j * np.pi * (gvec.millers @ uc.positions[atoms].T))  # (ng, na_t)
+        # (ng, na_t) @ (na_t, nqlm) -> then contract with q_pw
+        out += np.einsum("ga,aq,qg->g", phases, dmp, q_pw, optimize=True)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Device-resident augmentation: the per-type tables on the device, the
 # contractions through K4 (rho_aug) and K5 (d_operator).
@@ -206,6 +235,23 @@ def build_aug_device_tables(uc: UnitCell, gvec: Gvec, aug: Augmentation,
             "lo_idx": t(lo_idx, torch.int32),
             "lo_mask": t((at.xi1 != at.xi2).astype(np.float64), torch.float64),
         })
+    return out
+
+
+def with_q_tables(tables: list[dict], q_by_type: list) -> list[dict]:
+    """The device tables of build_aug_device_tables with each type's Q(G)
+    replaced: q_by_type holds, per augmented type in the tables' order, a
+    [nqlm, ng] complex128 table (the strained Q(G) of dft/stress.py). The
+    Millers, the (G, -G) rows and the atoms stay: straining the lattice
+    moves no Miller index, so K4's plan holds for the new tables."""
+    if len(q_by_type) != len(tables):
+        raise ValueError(f"{len(q_by_type)} Q tables for {len(tables)} types")
+    out = []
+    for t, q in zip(tables, q_by_type):
+        if tuple(q.shape) != tuple(t["q"].shape) or q.dtype != t["q"].dtype:
+            raise ValueError(f"Q table {tuple(q.shape)} {q.dtype} does not "
+                             f"match {tuple(t['q'].shape)} {t['q'].dtype}")
+        out.append({**t, "q": q.to(t["q"].device).contiguous()})
     return out
 
 

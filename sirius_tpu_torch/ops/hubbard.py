@@ -1,6 +1,6 @@
 """Real-harmonic rotation matrices (the part of sirius_tpu/ops/hubbard.py
 that the symmetrization of the beta density matrix needs; the Hubbard
-correction itself comes with ROADMAP queue 1, slice 10)."""
+correction itself comes with ROADMAP queue 1, item 8)."""
 
 from __future__ import annotations
 

@@ -48,6 +48,8 @@ SPINOR_CHECKED = ("spinor_veff", "density_accumulate_nc",
 AUG54_CHECKED = ("augmentation.rho_aug.54", "augmentation.rho_aug.2.54")
 # the fp32 instantiations the fp32 modes of the checks hold
 FP32_CHECKED = tuple(chip_smoke.FP32_SUMMARY)
+# K4 on the stress's strained tables (check_rho_aug_strained)
+STRAINED_CHECKED = ("augmentation.rho_aug.strained",)
 
 
 def reference_tool():
@@ -83,7 +85,7 @@ def test_phases_run_on_cpu(monkeypatch, capsys):
     assert sorted(NC_CHECKED + US_CHECKED + GAMMA_CHECKED + ("beta_chunk",)
                   + XC_CHECKED + ("symmetrize_pw.axial",) + TAU_CHECKED
                   + SPINOR_CHECKED + AUG54_CHECKED + FP32_CHECKED
-                  ) == sorted(chip_smoke.SOURCE)
+                  + STRAINED_CHECKED) == sorted(chip_smoke.SOURCE)
     for rec in recs.values():
         assert rec["max_rel_err"] <= rec["tol_rel"]
         assert rec["bound_ms"] > 0 and rec["bound_by"] in ("bytes", "operations")
@@ -827,3 +829,127 @@ def test_fp32_decks_are_the_reference_tools():
         assert all(k in chip_smoke.SOURCE for k in required)
     assert chip_smoke.deck_context("fp32_us_sym_polish", tool).cfg.settings\
         .fp32_to_fp64_rms == 1e-4
+
+
+def test_force_gates_are_the_stated_ones():
+    # the forces and stress phases' gates: 1e-6 Ha/bohr per force and
+    # 1e-7 Ha/bohr^3 per stress component against the record; at full
+    # width F[0, 0] against the central difference at +-2e-3 bohr to 5e-5
+    # (tests/test_forces.py's bound), the net force to 1e-5, an SCF to
+    # energy_tol 1e-10 and density_tol 1e-9 with atom 0 moved by 0.01 along
+    # fractional x; K4 on one table set strained by eps_xy = 1e-5 to K4's
+    # 1e-12
+    assert chip_smoke.FORCE_TOL == 1e-6
+    assert chip_smoke.STRESS_TOL == 1e-7
+    assert chip_smoke.FORCE_FD_H == 2e-3
+    assert chip_smoke.FORCE_FD_TOL == 5e-5
+    assert chip_smoke.NET_FORCE_TOL == 1e-5
+    assert chip_smoke.FORCE_SHIFT == (0.01, 0.0, 0.0)
+    assert chip_smoke.FORCE_SCF["energy_tol"] == 1e-10
+    assert chip_smoke.FORCE_SCF["density_tol"] == 1e-9
+    assert chip_smoke.STRAIN_XY == 1e-5
+    assert chip_smoke.TOL["augmentation.rho_aug.strained"] == \
+        chip_smoke.TOL["augmentation.rho_aug"] == 1e-12
+
+
+def test_force_decks_are_the_reference_tools():
+    from sirius_tpu_torch.dft.scf import band_solve_path
+
+    tool = reference_tool()
+    assert tuple(chip_smoke.FORCES_DECK_PATH) == tool.FORCES_DECKS
+    for name, (path, required, stress) in chip_smoke.FORCES_DECK_PATH.items():
+        ctx = chip_smoke.deck_context(name, tool)
+        assert ctx.cfg.control.print_forces and ctx.cfg.control.print_stress
+        assert band_solve_path(ctx.cfg, ctx) == path
+        assert all(k in chip_smoke.SOURCE for k in required + stress)
+        # the stress launches K4 where the species are ultrasoft, K10a
+        # where the functional is GGA
+        assert ("augmentation.rho_aug" in stress) == (ctx.aug is not None)
+        gga = any("GGA" in n for n in ctx.cfg.parameters.xc_functionals)
+        assert ("xc_gradient.gradient_boxes" in stress) == gga
+
+
+def test_force_checks_gate(capsys):
+    ref = {"forces": [[0.0, 0.0, 0.0], [0.0, 0.0, 0.0]],
+           "stress": np.zeros((3, 3)).tolist(), "forces_spread": 1e-9,
+           "stress_spread": 1e-11}
+    res = {"forces": [[5e-7, 0.0, 0.0], [0.0, 0.0, 0.0]],
+           "stress": (np.eye(3) * 5e-8).tolist(), "forces_seconds": 0.1,
+           "stress_seconds": 0.2, "stress_term_seconds": {}}
+    cpu, cuda = torch.device("cpu"), torch.device("cuda")
+    chip_smoke.check_forces("p", cpu, "cpu", "d", res, ref, {}, ("x",))
+    rec = json.loads(capsys.readouterr().out.splitlines()[-1])
+    assert rec["max_force_err"] == 5e-7 and rec["jax_force_spread"] == 1e-9
+    with pytest.raises(AssertionError, match="forces off"):
+        chip_smoke.check_forces("p", cpu, "cpu", "d",
+                                dict(res, forces=[[2e-6, 0, 0], [0, 0, 0]]),
+                                ref, {}, ())
+    with pytest.raises(AssertionError, match="stress off"):
+        chip_smoke.check_forces("p", cpu, "cpu", "d",
+                                dict(res, stress=(np.eye(3) * 2e-7).tolist()),
+                                ref, {}, ())
+    # on the card the stress must have launched each kernel named
+    with pytest.raises(AssertionError, match="never launched"):
+        chip_smoke.check_stress_launched("p", cuda, {"stress": {"a": 3}},
+                                         ("a", "b"))
+    chip_smoke.check_stress_launched("p", cuda, {"stress": {"a": 3, "b": 1}},
+                                     ("a", "b"))
+
+
+@pytest.mark.parametrize("name", ["forces_nc", "forces_us"])
+def test_force_parity_phases_run_on_cpu(name, capsys):
+    tool = reference_tool()
+    path, required, _ = chip_smoke.FORCES_DECK_PATH[name]
+    chip_smoke.parity_scf(chip_smoke.deck_context(name, tool),
+                          torch.device("cpu"), reference(name), "cpu",
+                          phase="parity_forces_" + name[7:], deck=name,
+                          required=required, path=path)
+    recs = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
+    forces = [r for r in recs if "max_force_err" in r]
+    assert len(forces) == 1
+    assert forces[0]["phase"] == "parity_forces_" + name[7:]
+    assert forces[0]["max_force_err"] <= chip_smoke.FORCE_TOL
+    assert forces[0]["max_stress_err"] <= chip_smoke.STRESS_TOL
+
+
+def test_full_width_forces_runs_on_cpu(capsys):
+    # the full-width phase on the 2-atom cell of the small shape (n = 1)
+    chip_smoke.full_width_forces(torch.device("cpu"), "cpu", n=1,
+                                 spec=SMALL)
+    rec = json.loads(capsys.readouterr().out.splitlines()[-1])
+    assert rec["phase"] == "full_width_forces_us"
+    assert rec["band_solve"] == "kset" and rec["fused_d"]
+    assert rec["fd_err"] <= chip_smoke.FORCE_FD_TOL
+    assert rec["net_force"] <= chip_smoke.NET_FORCE_TOL
+    assert rec["forces_seconds"] > 0 and rec["stress_seconds"] > 0
+    assert len(rec["fd_iterations"]) == 2
+    # atom 0 moved: the cell keeps fewer ops than the 48 of its sites
+    assert 1 < rec["num_symmetry_ops"] < 48
+
+
+def test_strained_rho_aug_record_runs_on_cpu(monkeypatch):
+    monkeypatch.setattr(chip_smoke, "time_ms", lambda fn, **kw: (fn(), 0.0)[1])
+    ctx = chip_smoke.make_context(SMALL, chip_smoke.TIGHT, chip_smoke.US_SYM)
+    recs = chip_smoke.check_rho_aug_strained("small_us_sym", ctx,
+                                             torch.device("cpu"), "cpu")
+    rec = recs["augmentation.rho_aug.strained"]
+    assert rec["max_rel_err"] <= 1e-12 and rec["strain_xy"] == 1e-5
+    assert rec["bound_by"] == "bytes" and rec["library_ms"] is not None
+    assert "augmentation.rho_aug.strained" in chip_smoke.wrappers()
+
+
+def test_stress_forms_run_on_cpu(capsys):
+    # the stress's other XC forms (unpolarized PBE, polarized PW92,
+    # unpolarized VWN): off the card both sides are the CPU's, so every
+    # term agrees exactly; on the card the gate is 1e-10 Ha/bohr^3
+    assert chip_smoke.STRESS_FORM_TOL == 1e-10
+    chip_smoke.check_stress_forms(torch.device("cpu"), "cpu")
+    recs = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
+    forms = [r for r in recs if r.get("phase", "").startswith("stress_form_")]
+    assert [r["phase"][12:] for r in forms] == list(chip_smoke.STRESS_FORMS)
+    for rec in forms:
+        assert max(rec["stress_card_vs_cpu"].values()) == 0.0
+        assert np.shape(rec["stress"]) == (3, 3)
+    # each form's kernel list names its own XC instantiation
+    for name, (_, params, _, required) in chip_smoke.STRESS_FORMS.items():
+        assert all(k in chip_smoke.SOURCE for k in required)

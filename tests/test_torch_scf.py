@@ -233,10 +233,23 @@ def test_reference_file_names_its_command(reference):
     # the fp32 decks, each beside its fp64 twin with the JAX package's own
     # fp32-vs-fp64 gap (tests/test_torch_precision.py, chip_smoke.py)
     twins = _load_reference_tool().FP32_TWINS
+    forces = _load_reference_tool().FORCES_DECKS
     assert set(reference) == {"small", "full_width_2atom", "small_us_sym",
                               "full_width_2atom_us_sym", *SINGLE_K,
                               *SPIN_DECKS, *XC_DECKS, *SCAN_DECKS,
-                              *SPINOR_DECKS, *twins, *twins.values()}
+                              *SPINOR_DECKS, *twins, *twins.values(),
+                              *forces}
+    # the force decks (tests/test_torch_forces.py, chip_smoke.py) carry the
+    # forces, the stress and the JAX package's own spread of both
+    for name in forces:
+        rec = reference[name]
+        assert rec["deck"]["control"]["print_forces"]
+        assert rec["deck"]["control"]["print_stress"]
+        assert np.shape(rec["forces"]) == (2, 3)
+        assert np.shape(rec["stress"]) == (3, 3)
+        assert rec["forces_spread"] >= 0 and rec["stress_spread"] >= 0
+        assert len(rec["spread_seeds"]) == 3
+        assert rec["deck"]["density_tol"] == rec["deck"]["energy_tol"] == 0
     for name, twin in twins.items():
         assert reference[name]["deck"]["precision_wf"] == "fp32"
         assert reference[name]["twin"] == twin
@@ -475,3 +488,7 @@ def test_recorded_reference_is_current(reference):
         for key, want in ref.get("magnetisation", {}).items():
             assert np.max(np.abs(np.subtract(got["magnetisation"][key],
                                              want))) <= 1e-10, (deck, key)
+        for key in ("forces", "stress"):
+            if key in ref:
+                assert np.max(np.abs(np.subtract(got[key], ref[key]))) \
+                    <= 1e-10, (deck, key)
