@@ -122,9 +122,26 @@ imports nothing of JAX or of sirius_tpu. Phases, each printing JSON lines:
    with forces and stress on, then at +-2e-3 bohr along x of atom 0: F[0, 0]
    against the central difference of the free energy to 5e-5 Ha/bohr, the
    net force to 1e-5, the forces and stress seconds, the stress's launches;
+   the 16-atom ultrasoft non-collinear cell with the spin-orbit species
+   (full_width_spinor_so_us, 4 iterations), and the host half of its
+   iteration, the D blocks and the density matrix's rotation, timed alone
+   at its shapes (spin_orbit_host_step);
    kernel launches per iteration and per band solve, the precision and
    seconds of each iteration, peak device memory, electron count, total
-   moment, finite energies.
+   moment, finite energies;
+5. the file entry points, each in a temporary working directory: the
+   sirius-scf-torch CLI on the 2-atom ultrasoft + symmetry parity deck
+   written with its species as UPF, --test_against an output.json made
+   from that deck's record (entry_point_cli: exit 0, TEST PASSED, every
+   term within 1e-8 Ha of the record); the 16-atom ultrasoft cell of
+   full_width_us written as a deck with UPF species and run through
+   run_scf_from_file (full_width_us_from_file: energies and iteration
+   count bit for bit those of the in-memory full_width_us run); the
+   spin-orbit decks read from their files (parity_scf_so_nc,
+   parity_scf_so_us_sym: every term within 1e-8 Ha, every moment
+   component within 1e-6 of the records), and the 2-atom ultrasoft deck
+   mixed by anderson_stable and broyden2 (parity_scf_anderson_stable,
+   parity_scf_broyden2); the whole run's seconds (total).
 
 Every SCF phase sets the launch counts to 0 just before its run and reads
 them just after, and fails if a kernel of its path was not launched (an
@@ -2408,6 +2425,20 @@ SPINOR_DECK_PATH = {
     "spinor_us": SPINOR_KERNELS,
     "spinor_pbe_us_sym": xc_kernels(SPINOR_SYM_KERNELS, True, False),
 }
+# spin-orbit (parameters.so_correction): the reference tool's FILE_DECKS,
+# built from the deck and UPF species file it writes (deck_context). The
+# norm-conserving deck launches no augmentation kernel. The spin-orbit term
+# pins the moments to the lattice: every component is held to
+# SO_MOMENT_TOL. full_width_spinor_so_us is full_width_spinor_us's cell
+# with the spin-orbit species
+SPINOR_NC_KERNELS = tuple(k for k in SPINOR_KERNELS
+                          if not k.startswith("augmentation"))
+SO_DECK_PATH = {"so_nc": SPINOR_NC_KERNELS, "so_us_sym": SPINOR_SYM_KERNELS}
+SO_MOMENT_TOL = 1e-6
+FULL_ITERS["full_width_spinor_so_us"] = 4
+# the quasi-Newton mixers of the reference tool on the 2-atom ultrasoft
+# deck with the space group
+MIXER_DECKS = ("anderson_stable_us_sym", "broyden2_us_sym")
 FULL_GAMMA_PBE_FM_KERNELS = xc_kernels(GAMMA_US_KERNELS, True, True)
 # the recorded force decks: the band solve each takes, the kernels its SCF
 # must launch, and those its stress must launch (K1's scatter of the
@@ -2842,7 +2873,20 @@ def parity_scf(ctx, dev, ref: dict, gpu: str, phase: str = "parity_scf",
         raise AssertionError(f"{phase}: energy terms off by > 1e-8 Ha: {bad}")
     check_iterations(phase, res["num_scf_iterations"], ref)
     polarized = "magnetisation" in ref
-    if polarized and path == "kset_nc":
+    if polarized and ref["deck"].get("so_correction"):
+        err = float(np.max(np.abs(moment_vector(res["magnetisation"])
+                                  - moment_vector(ref["magnetisation"]))))
+        emit({"phase": phase, "gpu": gpu, "deck": deck,
+              "total_moment": res["magnetisation"]["total"],
+              "atom_moments": res["magnetisation"]["atoms"],
+              "compared": "components (spin-orbit)",
+              "max_moment_err": err, "moment_tol": SO_MOMENT_TOL,
+              "jax_moment_spread": ref["moment_spread"],
+              "jax_term_spread": ref["term_spread"]})
+        if not err <= SO_MOMENT_TOL:
+            raise AssertionError(f"{phase}: moments off by {err} > "
+                                 f"{SO_MOMENT_TOL}")
+    elif polarized and path == "kset_nc":
         got, want = res["magnetisation"], ref["magnetisation"]
         errs = spinor_moment_errors(got, want,
                                     bool(ctx.cfg.parameters.use_symmetry))
@@ -2912,11 +2956,11 @@ def spinor_moment_errors(got: dict, want: dict, symmetric: bool) -> dict:
 
 def full_width(ctx, dev, gpu: str, phase: str = "full_width",
                required=NC_KERNELS, deck: str = "si16_supercell2",
-               path: str = "kset", with_rms: bool = False,
+               path: str = "kset", with_result: bool = False,
                electron_tol: float = 1e-8):
     """One full-width run with tolerances that cannot be met, its electron
-    count held to electron_tol. Returns the launches, and with with_rms
-    the density residual of each iteration too."""
+    count held to electron_tol. Returns the launches, and with with_result
+    run_scf's result too."""
     import torch
 
     from sirius_tpu_torch.dft.scf import run_scf
@@ -2979,7 +3023,7 @@ def full_width(ctx, dev, gpu: str, phase: str = "full_width",
         raise AssertionError(f"{phase}: the polish switch fired after "
                              f"{prec.count('fp32')} fp32 iterations, want 3 "
                              "or 4")
-    return (launches, res["rms_history"]) if with_rms else launches
+    return (launches, res) if with_result else launches
 
 
 def stress_card_vs_cpu(ctx, dev) -> dict:
@@ -3187,14 +3231,15 @@ def xc_context(name: str):
 
 
 def magnetic_supercell_context(n: int, spec: dict, extra: dict, kind: dict,
-                               moment, displace=None):
+                               moment, displace=None, atom_type=None):
     """The n x n x n supercell of the synthetic 2-atom cell with one
     starting moment on every atom: (0, 0, moment) for a number, else the
     vector (m_x, m_y, m_z). synthetic_silicon_context
     refuses moments with supercell > 1, so this tiles the positions and the
     moments itself, as that helper tiles positions, and builds the context
     the way the helper does. displace: (atom, fractional shift) moves one
-    atom of the supercell off its site."""
+    atom of the supercell off its site; atom_type replaces the synthetic
+    species of kind["ultrasoft"]."""
     import numpy as np
 
     import sirius_tpu_torch.context as cm
@@ -3219,7 +3264,8 @@ def magnetic_supercell_context(n: int, spec: dict, extra: dict, kind: dict,
     moments = np.tile(np.asarray(vec, dtype=np.float64), (len(positions), 1))
     uc = ucm.UnitCell(
         lattice=lattice,
-        atom_types=[synthetic_silicon_type(ultrasoft=kind["ultrasoft"])],
+        atom_types=[atom_type or synthetic_silicon_type(
+            ultrasoft=kind["ultrasoft"])],
         type_of_atom=np.zeros(len(positions), dtype=np.int32),
         positions=positions, moments=moments)
     orig = ucm.UnitCell.from_config
@@ -3253,11 +3299,206 @@ def deck_context(name: str, tool=None):
 
     tool = tool or reference_tool()
     spec, kind, control, params, moments = tool.deck_spec(name)
-    ctx = synthetic_silicon_context(
-        extra_params=dict(params), **kind, **spec,
-        moments=None if moments is None else np.asarray(moments))
+    if name in tool.FILE_DECKS:
+        # the spin-orbit decks: read from the deck and UPF species file the
+        # tool writes, as the JAX package read them for the records
+        import tempfile
+
+        from sirius_tpu_torch.config.schema import load_config
+        from sirius_tpu_torch.context import SimulationContext
+
+        with tempfile.TemporaryDirectory() as tmp:
+            path = tool.write_deck_files(name, tmp)
+            ctx = SimulationContext.create(load_config(path), tmp)
+    else:
+        ctx = synthetic_silicon_context(
+            extra_params=dict(params), **kind, **spec,
+            moments=None if moments is None else np.asarray(moments))
     tool.apply_control(ctx.cfg, control)
     return ctx
+
+
+def spin_orbit_supercell_context():
+    """full_width_spinor_us's 16-atom cell (48 magnetic ops, 4 k-points, 84
+    spinor bands) with the spin-orbit species (the l = 1 beta split into
+    j = 1/2 and 3/2) and so_correction, for FULL_ITERS iterations."""
+    from sirius_tpu_torch.crystal.atom_type import AtomType
+    from sirius_tpu_torch.testing import synthetic_silicon_species
+
+    species = AtomType.from_dict("Si", synthetic_silicon_species(
+        ultrasoft=True, spin_orbit=True))
+    return magnetic_supercell_context(
+        2, FULL, {"num_dft_iter": FULL_ITERS["full_width_spinor_so_us"],
+                  **RUN_TO_END, **NONCOLLINEAR, "so_correction": True},
+        US_SYM, CANTED[0], atom_type=species)
+
+
+def spin_orbit_host_step(ctx, dev, gpu: str) -> dict:
+    """Time the host half of one spin-orbit iteration of dft/scf_nc.py at
+    ctx's shapes: the screened D and the three B integrals to the host,
+    SpinOrbitData.d_blocks there and the blocks back to the card, then the
+    density matrix's rotate_dm there and back. Median of 7 after one warm
+    call, on the perf_counter clock with the card idle."""
+    import numpy as np
+    import torch
+
+    from sirius_tpu_torch.device import synchronize
+    from sirius_tpu_torch.ops.so import SpinOrbitData
+
+    so_data = SpinOrbitData.build(ctx)
+    nbeta = ctx.beta.num_beta_total
+    gen = torch.Generator(device=dev).manual_seed(17)
+
+    def sym(scale):
+        a = scale * torch.randn(nbeta, nbeta, generator=gen, device=dev,
+                                dtype=torch.float64)
+        return a + a.T
+
+    dion = torch.as_tensor(np.asarray(ctx.beta.dion), device=dev)
+    d0, db = dion + sym(0.1), [sym(0.05) for _ in range(3)]
+    dm = torch.randn(3, nbeta, nbeta, generator=gen, device=dev,
+                     dtype=torch.complex128)
+
+    def d_step():
+        out = so_data.d_blocks(d0.cpu().numpy(),
+                               [d.cpu().numpy() for d in db])
+        return torch.as_tensor(out, device=dev)
+
+    def dm_step():
+        return torch.as_tensor(so_data.rotate_dm(dm.cpu().numpy()),
+                               device=dev)
+
+    ms = {}
+    for name, fn in (("d_blocks", d_step), ("rotate_dm", dm_step)):
+        times = []
+        for i in range(8):
+            synchronize(dev)
+            t0 = time.perf_counter()
+            fn()
+            synchronize(dev)
+            if i:
+                times.append(1e3 * (time.perf_counter() - t0))
+        times.sort()
+        ms[name + "_ms"] = times[len(times) // 2]
+    rec = {"phase": "spin_orbit_host_step", "gpu": gpu, "num_beta": nbeta,
+           **ms}
+    emit(rec)
+    return rec
+
+
+@contextlib.contextmanager
+def working_directory(path: str):
+    """Run the block in path (the entry points write output.json into the
+    working directory), and its standard output into a buffer it yields."""
+    import io
+
+    cwd = os.getcwd()
+    out = io.StringIO()
+    os.chdir(path)
+    try:
+        with contextlib.redirect_stdout(out):
+            yield out
+    finally:
+        os.chdir(cwd)
+
+
+def entry_point_cli(dev, gpu: str, ref: dict) -> dict:
+    """The sirius-scf-torch CLI on the card (cli.py::main, no --device: a
+    deck without processing_unit runs on the GPU): the 2-atom ultrasoft +
+    symmetry parity deck written with its species as UPF, --test_against
+    an output.json made from that deck's JAX record. It must exit 0 and
+    print TEST PASSED, every energy term of its output.json within 1e-8 Ha
+    of the record, its iteration count within check_iterations' span, and
+    every kernel of the k-set US path launched."""
+    import tempfile
+
+    from sirius_tpu_torch import cli
+    from sirius_tpu_torch.testing import (synthetic_silicon_deck,
+                                          synthetic_silicon_species,
+                                          write_deck)
+
+    phase = "entry_point_cli"
+    with tempfile.TemporaryDirectory() as tmp:
+        deck = synthetic_silicon_deck(**PARITY, use_symmetry=True,
+                                      extra_params=TIGHT)
+        path = write_deck(os.path.join(tmp, "deck"), deck,
+                          synthetic_silicon_species(ultrasoft=True), "upf")
+        ref_path = os.path.join(tmp, "output_ref.json")
+        with open(ref_path, "w") as f:
+            json.dump({"ground_state": {"energy": ref["energy"]}}, f)
+        reset_launches()
+        t0 = time.perf_counter()
+        with working_directory(tmp) as out:
+            rc = cli.main([path, "--test_against", ref_path])
+        seconds = time.perf_counter() - t0
+        launches = read_launches()
+        with open(os.path.join(tmp, "output.json")) as f:
+            gs = json.load(f)["ground_state"]
+    terms = {k: gs["energy"][k] - v for k, v in ref["energy"].items()}
+    passed = "TEST PASSED" in out.getvalue()
+    emit({"phase": phase, "gpu": gpu, "deck": "full_width_2atom_us_sym",
+          "species": "upf", "rc": rc, "test_passed": passed,
+          "num_scf_iterations": gs["num_scf_iterations"],
+          "ref_iterations": ref["num_scf_iterations"],
+          "max_term_err": max(abs(v) for v in terms.values()),
+          "device": gs["device"], "seconds": seconds,
+          "scf_time": gs["scf_time"], "launches": launches})
+    if rc != 0 or not passed:
+        raise AssertionError(f"{phase}: exit {rc}, TEST PASSED printed: "
+                             f"{passed}")
+    bad = {k: v for k, v in terms.items() if abs(v) > 1e-8}
+    if bad:
+        raise AssertionError(f"{phase}: energy terms off by > 1e-8 Ha: {bad}")
+    check_iterations(phase, gs["num_scf_iterations"], ref)
+    check_launched(phase, dev, launches, US_KERNELS, "kset",
+                   gs["num_scf_iterations"])
+    return launches
+
+
+def full_width_us_from_file(dev, gpu: str, want: dict) -> dict:
+    """full_width_us's 16-atom cell written as a deck with UPF species and
+    run through dft/scf.py::run_scf_from_file on the card: its energies and
+    iteration count must be bit for bit those of the in-memory run (want,
+    run_scf's result), so the UPF route rebuilds the species exactly."""
+    import tempfile
+
+    from sirius_tpu_torch.dft.scf import run_scf_from_file
+    from sirius_tpu_torch.testing import (synthetic_silicon_deck,
+                                          synthetic_silicon_species,
+                                          write_deck)
+
+    phase = "full_width_us_from_file"
+    with tempfile.TemporaryDirectory() as tmp:
+        deck = synthetic_silicon_deck(
+            **FULL, use_symmetry=True,
+            extra_params={"num_dft_iter": FULL_ITERS["full_width_us"],
+                          **RUN_TO_END})
+        path = write_deck(os.path.join(tmp, "deck"), deck,
+                          synthetic_silicon_species(ultrasoft=True), "upf")
+        reset_launches()
+        t0 = time.perf_counter()
+        with working_directory(tmp):
+            rc = run_scf_from_file(path, device=dev)
+        seconds = time.perf_counter() - t0
+        launches = read_launches()
+        with open(os.path.join(tmp, "output.json")) as f:
+            gs = json.load(f)["ground_state"]
+    same = (gs["energy"] == want["energy"]
+            and gs["num_scf_iterations"] == want["num_scf_iterations"])
+    iters = gs["num_scf_iterations"]
+    emit({"phase": phase, "gpu": gpu, "deck": "si16_supercell2_us_sym",
+          "species": "upf", "rc": rc, "num_scf_iterations": iters,
+          "bitwise_in_memory": same, "e_total": gs["energy"]["total"],
+          "d_total": gs["energy"]["total"] - want["energy"]["total"],
+          "seconds": seconds, "scf_time": gs["scf_time"],
+          "iteration_seconds": gs["iteration_seconds"],
+          "in_memory_iteration_seconds": want["iteration_seconds"],
+          "launches": launches})
+    if rc != 0 or not same:
+        raise AssertionError(f"{phase}: exit {rc}; not bit for bit the "
+                             "in-memory full_width_us run")
+    check_launched(phase, dev, launches, US_KERNELS, "kset", iters)
+    return launches
 
 
 def single_k_context(name: str, spec: dict = GAMMA2):
@@ -3289,6 +3530,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
+    t_main = time.perf_counter()
     smi = nvidia_smi()
     gpu = f"{torch.cuda.get_device_name(0)} ({smi})"
     emit({"phase": "device", "name": torch.cuda.get_device_name(0),
@@ -3375,8 +3617,16 @@ def main() -> int:
     parity_scf(ctx2us, dev, refs["full_width_2atom_us_sym"], gpu,
                phase="parity_scf_us", deck="full_width_2atom_us_sym",
                required=US_KERNELS)
-    launches, rms64 = full_width(ctx16us, dev, gpu, phase="full_width_us",
-                                 required=US_KERNELS, with_rms=True)
+    entry_point_cli(dev, gpu, refs["full_width_2atom_us_sym"])
+    for name in MIXER_DECKS:
+        parity_scf(deck_context(name, tool), dev, refs[name], gpu,
+                   phase="parity_scf_" + name.removesuffix("_us_sym"),
+                   deck=name, required=US_KERNELS)
+    launches, res64 = full_width(ctx16us, dev, gpu, phase="full_width_us",
+                                 required=US_KERNELS, with_result=True)
+    rms64 = res64["rms_history"]
+    # the same cell from a deck file with UPF species, bit for bit
+    full_width_us_from_file(dev, gpu, res64)
     # the same run on the fp32 path, polished to fp64 after iteration 3 or 4
     ctx16us.cfg.parameters.precision_wf = "fp32"
     ctx16us.cfg.settings.fp32_to_fp64_rms = polish_threshold(rms64)
@@ -3454,6 +3704,20 @@ def main() -> int:
         required=SPINOR_SYM_KERNELS, deck="si16_supercell2_us_sym_spinor",
         path="kset_nc")
     torch.cuda.empty_cache()
+    # spin-orbit: the 2-atom decks from their files, then the 16-atom cell
+    for name in tool.FILE_DECKS:
+        runs[name] = parity_scf(
+            deck_context(name, tool), dev, refs[name], gpu,
+            phase="parity_scf_" + name, deck=name,
+            required=SO_DECK_PATH[name], path="kset_nc")
+    ctx_so = spin_orbit_supercell_context()
+    runs["full_width_spinor_so_us"] = full_width(
+        ctx_so, dev, gpu,
+        phase="full_width_spinor_so_us", required=SPINOR_SYM_KERNELS,
+        deck="si16_supercell2_us_sym_spinor_so", path="kset_nc")
+    spin_orbit_host_step(ctx_so, dev, gpu)
+    del ctx_so
+    torch.cuda.empty_cache()
     ctx16nc.cfg.parameters.precision_wf = "fp32"
     runs_fp32["full_width_spinor_us_fp32"] = full_width(
         ctx16nc, dev, gpu, phase="full_width_spinor_us_fp32",
@@ -3477,6 +3741,7 @@ def main() -> int:
                          "xc_gradient.divergence_pw", "symmetrize_pw.axial")})
     kern54xc = {name: kern54xc[name] for name in launches_xc}
 
+    emit({"phase": "total", "seconds": time.perf_counter() - t_main})
     summary = []
     launches_fp32 = {name: runs_fp32[run][name]
                      for name, run in FP32_SUMMARY.items()}

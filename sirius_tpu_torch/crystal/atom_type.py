@@ -2,7 +2,8 @@
 
 The reference parses UPF-converted JSON species files in
 src/unit_cell/atom_type.cpp:376-490 (read_pseudo_uspp / read_pseudo_paw);
-the same files (verification/test*/ *.UPF.json) load here unchanged.
+the same files (verification/test*/ *.UPF.json) load here unchanged, and a
+raw UPF v2 file is converted in process (io/upf.py).
 
 Structure of a species file:
   pseudo_potential:
@@ -110,9 +111,11 @@ class AtomType:
     @staticmethod
     def from_file(label: str, path: str) -> "AtomType":
         if path.lower().endswith(".upf"):
-            raise NotImplementedError(
-                "raw UPF species files come with the io/upf.py port "
-                "(ROADMAP queue 1, item 3); convert to JSON first")
+            # raw UPF v2: converted in process (deck directories may be
+            # read-only, so the dict stays in memory)
+            from sirius_tpu_torch.io.upf import upf2_to_json
+
+            return AtomType.from_dict(label, upf2_to_json(path))
         with open(path) as f:
             data = json.load(f)
         return AtomType.from_dict(label, data)

@@ -7,15 +7,14 @@ import torch
 
 def resolve_device(device=None) -> torch.device:
     """The GPU unless the caller names another device. There is no
-    fallback: without CUDA the default raises."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "sirius_tpu_torch runs on the GPU by default and CUDA is not "
-                "available; pass device='cpu' to run the plain PyTorch "
-                "versions of the kernels")
-        return torch.device("cuda")
-    return torch.device(device)
+    fallback: without CUDA the default (or a CUDA device named) raises."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "sirius_tpu_torch runs on the GPU by default and CUDA is not "
+            "available; pass device='cpu' to run the plain PyTorch "
+            "versions of the kernels")
+    return device
 
 
 def synchronize(device: torch.device) -> None:

@@ -9,7 +9,9 @@ norm-conserving or ultrasoft plane-wave pseudopotentials
 on a k-mesh, with or without the space group (irreducible k-mesh,
 symmetrized density, magnetization and potential; the magnetic subgroup
 and its spin-flip ops), any sum of the LDA, PBE-family GGA and SCAN
-meta-GGA functionals, linear or Anderson mixing of [rho; m].
+meta-GGA functionals, any mixer of dft/mixer.py on [rho; m]. Species are
+read from SIRIUS species JSON or UPF files (run_scf_from_file, the
+sirius.scf mini-app on a deck file; cli.py).
 Orchestration is host Python; the band solve, density, mixing and
 potential run on tensors on ``device``, which is the GPU unless the
 caller asks for the CPU.
@@ -35,13 +37,16 @@ least one fp64 iteration before convergence may be declared
 
 from __future__ import annotations
 
+import json
+import os
+import sys
 import time
 import warnings
 
 import numpy as np
 import torch
 
-from sirius_tpu_torch.config.schema import Config
+from sirius_tpu_torch.config.schema import Config, load_config
 from sirius_tpu_torch.context import SimulationContext
 from sirius_tpu_torch.device import resolve_device, synchronize
 from sirius_tpu_torch.dft.density import (
@@ -115,14 +120,7 @@ def check_supported(cfg: Config) -> None:
         raise ValueError(f"num_mag_dims must be 0, 1 or 3, got {p.num_mag_dims}")
     if p.hubbard_correction or cfg.hubbard.local or cfg.hubbard.nonlocal_:
         raise NotImplementedError("Hubbard corrections: ROADMAP queue 1, item 8")
-    if p.so_correction:
-        raise NotImplementedError(
-            "spin-orbit needs species with j-resolved beta projectors, which "
-            "only UPF files carry: ROADMAP queue 1, item 3 (UPF), then item 7")
     XCFunctional(p.xc_functionals)  # raises for an unknown name
-    if cfg.mixer.type not in ("linear", "anderson", "broyden1"):
-        raise NotImplementedError(
-            f"mixer '{cfg.mixer.type}': ROADMAP queue 1, item 4")
     if cfg.control.autosave_every and cfg.control.autosave_every > 0:
         raise NotImplementedError(
             "control.autosave_every: the checkpoint it writes comes with "
@@ -180,7 +178,8 @@ def fuses(cfg: Config, ctx: SimulationContext) -> bool:
     """Whether the JAX package runs this deck's loop as its fused device
     step on one device (sirius_tpu/dft/scf.py:848-855): the k-set band
     solve, no mGGA, a linear or Anderson mixer (broyden1 mixes as Anderson
-    there, mixer.py:66) and control.device_scf not off. It decides which D
+    there, mixer.py:66; anderson_stable and broyden2 take the host loop)
+    and control.device_scf not off. It decides which D
     the forces and stress take: the fused step hands over the D of the
     final mixed potential (fused.py:387-390), the host loop the D its last
     band solve used (scf.py:1236-1246)."""
@@ -235,10 +234,12 @@ def _band_gap(evals: np.ndarray, occ: np.ndarray, ctx: SimulationContext) -> flo
 
 
 def run_scf(cfg: Config, ctx: SimulationContext | None = None,
-            device=None) -> dict:
+            device=None, base_dir: str = ".") -> dict:
     """Ground-state SCF. device=None runs on the GPU (and raises without
     CUDA); device="cpu" runs the plain PyTorch versions of the kernels. A
     non-collinear context (num_mag_dims 3) runs dft/scf_nc.py::run_scf_nc.
+    Without ctx the context is built from cfg, its species files resolved
+    against base_dir (the deck's directory in run_scf_from_file).
 
     Returns the JAX package's result dict for the keys of this slice
     (energies under the reference's names; mag_history and, polarized,
@@ -254,7 +255,7 @@ def run_scf(cfg: Config, ctx: SimulationContext | None = None,
     check_supported(cfg)
     p = cfg.parameters
     if ctx is None:
-        ctx = SimulationContext.create(cfg)
+        ctx = SimulationContext.create(cfg, base_dir)
     check_context(cfg, ctx)
     xc = XCFunctional(p.xc_functionals)
     mgga = xc.is_mgga
@@ -677,3 +678,94 @@ def _forces_and_stress(ctx, xc, device, tables, aug_tables, beta_dense,
         out["stress_seconds"] = time.perf_counter() - t0
         out["stress_term_seconds"] = dict(calc.seconds)
     return out
+
+
+# the tasks of sirius_tpu/cli.py that the port does not run yet, and the
+# ROADMAP queue 1 item that brings each
+UNPORTED_TASKS = {
+    "ground_state_restart": 6,
+    "ground_state_relax": 9,
+    "ground_state_direct": 9,
+    "k_point_path": 9,
+    "molecular_dynamics": 9,
+    "eos": 12,
+}
+# |dE_total|, |dF|_max and |dsigma|_max of test_against (scf.py:2560-2582)
+TEST_AGAINST_TOL = 1e-5
+
+
+def run_scf_from_file(path: str, test_against: str | None = None,
+                      task: str = "ground_state_new", device=None) -> int:
+    """The sirius.scf mini-app on a deck file, as
+    sirius_tpu/dft/scf.py::run_scf_from_file runs ground_state_new: species
+    files resolved against the deck's directory, the result written to
+    output.json in the working directory (ground_state, task, config,
+    git_hash, comm_world_size; ground_state is run_scf's result without
+    its tensors), a summary printed. With test_against, a reference
+    output.json: its forces or stress switch print_forces / print_stress
+    on, and |dE_total|, |dF|_max and |dsigma|_max must stay below 1e-5;
+    prints TEST PASSED or TEST FAILED (with a one-line summary on stderr)
+    and returns 0 or 1. The other tasks raise NotImplementedError naming
+    their ROADMAP queue 1 item; no sirius.h5 state file is written (item
+    6). device as run_scf's: the GPU unless the caller asks for the CPU."""
+    if task in UNPORTED_TASKS:
+        raise NotImplementedError(
+            f"task '{task}' comes with ROADMAP queue 1, item "
+            f"{UNPORTED_TASKS[task]}; the port runs ground_state_new")
+    if task != "ground_state_new":
+        raise ValueError(f"unknown task '{task}'")
+    cfg = load_config(path)
+    base_dir = os.path.dirname(os.path.abspath(path))
+    ref = None
+    if test_against:
+        with open(test_against) as f:
+            ref = json.load(f)["ground_state"]
+        # a reference quantity left uncomputed would fail the comparison:
+        # switch the calculations on
+        if "forces" in ref:
+            cfg.control.print_forces = True
+        if "stress" in ref:
+            cfg.control.print_stress = True
+    result = run_scf(cfg, device=device, base_dir=base_dir)
+    result.pop("_state", None)
+    out = {
+        "ground_state": result,
+        "task": task,
+        "config": cfg.to_dict(),
+        "git_hash": "",
+        "comm_world_size": 1,
+    }
+    summary = {"energy": result["energy"], "efermi": result["efermi"],
+               "converged": result["converged"],
+               "num_scf_iterations": result["num_scf_iterations"]}
+    if "magnetisation" in result:
+        summary["magnetisation"] = result["magnetisation"]
+    print(json.dumps(summary, indent=2))
+    with open("output.json", "w") as f:
+        json.dump(out, f, indent=2)
+    if ref is None:
+        return 0
+    fails = []
+    de = abs(ref["energy"]["total"] - result["energy"]["total"])
+    print(f"|dE_total| vs reference: {de:.3e}")
+    if de >= TEST_AGAINST_TOL:
+        fails.append(f"|dE_total|={de:.3e} (tol {TEST_AGAINST_TOL:g})")
+    for key, label in (("forces", "|dF|_max"), ("stress", "|dsigma|_max")):
+        if key not in ref:
+            continue
+        if key not in result:
+            print(f"{key}: present in reference but not computed -> FAIL")
+            fails.append(f"{key} missing from result")
+            continue
+        d = float(np.abs(np.asarray(ref[key])
+                         - np.asarray(result[key])).max())
+        print(f"{label} vs reference: {d:.3e}")
+        if d >= TEST_AGAINST_TOL:
+            fails.append(f"{label}={d:.3e} (tol {TEST_AGAINST_TOL:g})")
+    print("TEST FAILED" if fails else "TEST PASSED")
+    if fails:
+        # one machine-greppable line on stderr, as the JAX package prints
+        print("sirius-scf-torch: test_against FAILED: " + "; ".join(fails),
+              file=sys.stderr)
+        return 1
+    return 0

@@ -11,8 +11,13 @@ launch an iteration on four channels (D(V) with D_ion, D(B_x), D(B_y),
 D(B_z) without), rho_aug K4
 once over the four Hermitian component blocks, the symmetrization K6 (rho,
 V_eff) and K6v (m, B). As in the JAX package the loop runs no band-solve
-retry, and spin-orbit is refused (it needs j-resolved projectors, which
-only UPF species carry). precision_wf = "fp32" runs the spinor band solve
+retry. With parameters.so_correction (species with j-resolved beta
+projectors) spin-orbit enters where the JAX package wires it
+(scf_nc.py:116-126, :181-185, :237-238): the D blocks are assembled from
+the four K5 channels by ops/so.py::SpinOrbitData.d_blocks on the host, once
+an iteration, the Q blocks are SpinOrbitData.q_blocks, and the spin density
+matrix is rotated (rotate_dm) before its symmetrization; the kernels are
+those of the path without it. precision_wf = "fp32" runs the spinor band solve
 and the density's transforms in complex64 with float32 tables for the
 whole run (scf_nc.py:113, :193-196): the JAX package's non-collinear
 driver has no fp32_to_fp64_rms polish, so neither has this one.
@@ -54,6 +59,7 @@ from sirius_tpu_torch.ops.augmentation import (
     rho_aug_g_device,
 )
 from sirius_tpu_torch.ops.hamiltonian import astype
+from sirius_tpu_torch.ops.so import SpinOrbitData
 from sirius_tpu_torch.ops.spinor import spin_blocks_from_components
 from sirius_tpu_torch.parallel.batched_nc import (
     davidson_kset_nc,
@@ -109,6 +115,13 @@ def run_scf_nc(cfg: Config, ctx: SimulationContext, device) -> dict:
     nel = ctx.unit_cell.num_valence_electrons - p.extra_charge
     if nb * ctx.max_occupancy < nel - 1e-12:
         raise ValueError(f"num_bands={nb} cannot hold {nel} electrons (spinor)")
+    so_data = None
+    if p.so_correction:
+        so_data = SpinOrbitData.build(ctx)
+        if so_data is None:
+            raise ValueError(
+                "so_correction requested but no species has j-resolved "
+                "(relativistic) beta projectors")
     itsol = cfg.iterative_solver
     omega = ctx.unit_cell.omega
     tables = grid_tables(ctx, device)
@@ -160,8 +173,18 @@ def run_scf_nc(cfg: Config, ctx: SimulationContext, device) -> dict:
                 torch.stack([dion, zero_d, zero_d, zero_d]), aug_tables, omega)
         else:
             d0, dx, dy, dz = dion, zero_d, zero_d, zero_d
-        dmat = spin_blocks_from_components(d0, dz, dx, dy)
-        ps = make_nc_set_params(ctx, pot.veff_boxes, dmat,
+        qmat = None
+        if so_data is not None:
+            # Eq. 19 of PhysRevB 71, 115106 on the host, from the screened D
+            # (with D_ion) and the B integrals (None without augmentation)
+            db = ([d.cpu().numpy() for d in (dx, dy, dz)]
+                  if aug_tables is not None else [None, None, None])
+            dmat = so_data.d_blocks(d0.cpu().numpy(), db)
+            if ps is None:
+                qmat = so_data.q_blocks()
+        else:
+            dmat = spin_blocks_from_components(d0, dz, dx, dy)
+        ps = make_nc_set_params(ctx, pot.veff_boxes, dmat, qmat,
                                 v0=pot.veff_g[0].real, prev=ps, device=device)
         band = astype(ps, wf_dtype)
         evals, psi, _ = davidson_kset_nc(band, psi.to(wf_dtype),
@@ -185,6 +208,9 @@ def run_scf_nc(cfg: Config, ctx: SimulationContext, device) -> dict:
         mvec_new = torch.stack([fields[2], fields[3], fields[1]])
         if aug_tables is not None:
             dm3 = density_matrix_kset_nc(ps.beta, psi, occ_w)
+            if so_data is not None:
+                dm3 = torch.as_tensor(so_data.rotate_dm(dm3.cpu().numpy()),
+                                      device=device)
             if dm_sym is not None:
                 dm3 = symmetrize_density_matrix_nc_device(dm3, dm_sym)
             aug = rho_aug_g_device(dm_component_blocks(dm3).contiguous(),

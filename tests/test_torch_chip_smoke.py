@@ -953,3 +953,78 @@ def test_stress_forms_run_on_cpu(capsys):
     # each form's kernel list names its own XC instantiation
     for name, (_, params, _, required) in chip_smoke.STRESS_FORMS.items():
         assert all(k in chip_smoke.SOURCE for k in required)
+
+
+@pytest.mark.parametrize("name", ["so_nc", "so_us_sym"])
+def test_spin_orbit_phases_run_on_cpu(name, capsys):
+    # the spin-orbit decks from the tool's files through the parity phase:
+    # the spinor path's kernels, moments held per component
+    tool = reference_tool()
+    assert set(chip_smoke.SO_DECK_PATH) == set(tool.FILE_DECKS)
+    ctx = chip_smoke.deck_context(name, tool)
+    assert ctx.cfg.parameters.so_correction
+    assert ctx.unit_cell.atom_types[0].spin_orbit
+    chip_smoke.parity_scf(ctx, torch.device("cpu"), reference(name), "cpu",
+                          phase="parity_scf_" + name, deck=name,
+                          required=chip_smoke.SO_DECK_PATH[name],
+                          path="kset_nc")
+    recs = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
+    moments = [r for r in recs if "max_moment_err" in r]
+    assert len(moments) == 1
+    assert moments[0]["compared"] == "components (spin-orbit)"
+    assert moments[0]["max_moment_err"] <= chip_smoke.SO_MOMENT_TOL
+
+
+def test_spin_orbit_supercell_takes_the_species():
+    from sirius_tpu_torch.crystal.atom_type import AtomType
+    from sirius_tpu_torch.testing import synthetic_silicon_species
+
+    t = AtomType.from_dict("Si", synthetic_silicon_species(spin_orbit=True))
+    ctx = chip_smoke.magnetic_supercell_context(
+        1, SMALL, {"num_mag_dims": 3, "so_correction": True},
+        chip_smoke.US_SYM, chip_smoke.CANTED[0], atom_type=t)
+    assert ctx.unit_cell.atom_types[0] is t and ctx.num_mag_dims == 3
+    assert ctx.beta.num_beta_total == 14
+    rec = chip_smoke.spin_orbit_host_step(ctx, torch.device("cpu"), "cpu")
+    assert rec["num_beta"] == 14
+    assert rec["d_blocks_ms"] > 0 and rec["rotate_dm_ms"] > 0
+
+
+@pytest.mark.parametrize("mixer", ["anderson_stable", "broyden2"])
+def test_mixer_phases_run_on_cpu(mixer, capsys):
+    tool = reference_tool()
+    assert mixer + "_us_sym" in chip_smoke.MIXER_DECKS
+    name = "small_us_sym_" + mixer
+    ctx = chip_smoke.deck_context(name, tool)
+    assert ctx.cfg.mixer.type == mixer
+    chip_smoke.parity_scf(ctx, torch.device("cpu"), reference(name), "cpu",
+                          phase="parity_scf_" + mixer, deck=name,
+                          required=chip_smoke.US_KERNELS)
+    rec = json.loads(capsys.readouterr().out.splitlines()[0])
+    assert rec["max_term_err"] <= 1e-8
+
+
+def test_entry_point_phases_run_on_cpu(monkeypatch, capsys):
+    # the CLI phase and the file route of full_width_us at the small shape,
+    # the CLI's device taken from the deck as on the card but sent to the CPU
+    from sirius_tpu_torch import cli
+    from sirius_tpu_torch.dft.scf import run_scf
+
+    monkeypatch.setattr(chip_smoke, "PARITY", SMALL)
+    monkeypatch.setattr(cli, "deck_device", lambda path: "cpu")
+    dev = torch.device("cpu")
+    chip_smoke.entry_point_cli(dev, "cpu", reference("small_us_sym"))
+    rec = json.loads(capsys.readouterr().out.splitlines()[-1])
+    assert rec["phase"] == "entry_point_cli" and rec["test_passed"]
+    assert rec["rc"] == 0 and rec["max_term_err"] <= 1e-8
+    full = dict(SMALL, supercell=1)
+    monkeypatch.setattr(chip_smoke, "FULL", full)
+    monkeypatch.setitem(chip_smoke.FULL_ITERS, "full_width_us", 2)
+    ctx = chip_smoke.make_context(full, {"num_dft_iter": 2,
+                                         **chip_smoke.RUN_TO_END},
+                                  chip_smoke.US_SYM)
+    want = run_scf(ctx.cfg, ctx=ctx, device=dev)
+    chip_smoke.full_width_us_from_file(dev, "cpu", want)
+    rec = json.loads(capsys.readouterr().out.splitlines()[-1])
+    assert rec["phase"] == "full_width_us_from_file"
+    assert rec["bitwise_in_memory"] and rec["num_scf_iterations"] == 2

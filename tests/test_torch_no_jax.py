@@ -44,6 +44,7 @@ def test_port_imports_no_jax():
                  "kernels.mgga_xc", "kernels.mgga_tau", "ops.mgga",
                  "ops.spinor", "parallel.batched_nc", "dft.potential_nc",
                  "dft.scf_nc", "kernels.spinor_veff",
-                 "kernels.density_accumulate_nc"):
+                 "kernels.density_accumulate_nc", "io.upf", "ops.so",
+                 "cli"):
         assert "sirius_tpu_torch." + name in res["modules"]
     assert len(res["modules"]) >= 30

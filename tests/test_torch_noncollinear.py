@@ -518,9 +518,10 @@ def test_noncollinear_loop_never_retries():
     ("precision_wf", "fp32", "fp32"),
 ])
 def test_noncollinear_refusals(key, value, match):
-    # the JAX package's refusals (mGGA, scf_nc.py:103-106) and the port's
-    # own (spin-orbit waits for UPF species); fp32 runs now, the whole run
-    # at fp32 (the JAX non-collinear driver has no fp32_to_fp64_rms polish)
+    # the JAX package's refusals (mGGA, scf_nc.py:103-106; so_correction
+    # without j-resolved projectors, scf_nc.py:120-126); fp32 runs now, the
+    # whole run at fp32 (the JAX non-collinear driver has no
+    # fp32_to_fp64_rms polish)
     _, pctx = contexts(use_symmetry=False, ngridk=(1, 1, 1), num_dft_iter=1)
     setattr(pctx.cfg.parameters, key, value)
     if match == "fp32":
@@ -529,6 +530,10 @@ def test_noncollinear_refusals(key, value, match):
         assert res["wf_precision"] == ["fp32"]
         assert res["_state"]["psi"].dtype == torch.complex64
         assert np.isfinite(res["energy"]["total"])
+        return
+    if key == "so_correction":
+        with pytest.raises(ValueError, match="j-resolved"):
+            run_scf(pctx.cfg, ctx=pctx, device="cpu")
         return
     with pytest.raises(NotImplementedError, match=match):
         run_scf(pctx.cfg, ctx=pctx, device="cpu")

@@ -234,11 +234,22 @@ def test_reference_file_names_its_command(reference):
     # fp32-vs-fp64 gap (tests/test_torch_precision.py, chip_smoke.py)
     twins = _load_reference_tool().FP32_TWINS
     forces = _load_reference_tool().FORCES_DECKS
+    # the quasi-Newton mixer decks (tests/test_torch_mixer.py) and the
+    # spin-orbit decks read from files (tests/test_torch_spin_orbit.py)
+    mixers = {f"{prefix}{kind}{suffix}"
+              for kind in ("anderson_stable", "broyden2")
+              for prefix, suffix in (("small_us_sym_", ""), ("", "_us_sym"))}
+    files = _load_reference_tool().FILE_DECKS
     assert set(reference) == {"small", "full_width_2atom", "small_us_sym",
                               "full_width_2atom_us_sym", *SINGLE_K,
                               *SPIN_DECKS, *XC_DECKS, *SCAN_DECKS,
                               *SPINOR_DECKS, *twins, *twins.values(),
-                              *forces}
+                              *forces, *mixers, *files}
+    for name in files:
+        rec = reference[name]
+        assert rec["deck"]["so_correction"] and rec["deck"]["spin_orbit"]
+        assert rec["term_spread"] >= 0 and rec["moment_spread"] >= 0
+        assert len(rec["spread_seeds"]) == 3
     # the force decks (tests/test_torch_forces.py, chip_smoke.py) carry the
     # forces, the stress and the JAX package's own spread of both
     for name in forces:
@@ -320,8 +331,11 @@ def test_entry_points_default_to_cuda(monkeypatch, entry):
 
 
 # cases that raised in earlier slices and run now: collinear spin, GGA,
-# SCAN, non-collinear spin and the fp32 wave functions
-NOW_IN_SLICE = ("magnetism", "GGA", "SCAN", "non-collinear", "fp32")
+# SCAN, non-collinear spin, the fp32 wave functions, the anderson_stable
+# and broyden2 mixers, and so_correction, which a collinear deck ignores as
+# the JAX package's does (ROADMAP queue 3 item 15)
+NOW_IN_SLICE = ("magnetism", "GGA", "SCAN", "non-collinear", "fp32",
+                "spin-orbit", "broyden2", "anderson_stable")
 
 
 @pytest.mark.parametrize("section,key,value,match", [
@@ -341,7 +355,11 @@ def test_outside_the_slice_raises(section, key, value, match):
         # inside the slice now: two iterations run, and a spin-polarized
         # run reports its moments (the context is built with the setting:
         # the spin count is the context's)
-        ctx = context({"num_dft_iter": 2, key: value})
+        if section == "parameters":
+            ctx = context({"num_dft_iter": 2, key: value})
+        else:
+            ctx = context({"num_dft_iter": 2})
+            setattr(getattr(ctx.cfg, section), key, value)
         res = run_scf(ctx.cfg, ctx=ctx, device="cpu")
         assert res["num_scf_iterations"] == 2
         assert np.isfinite(res["energy"]["total"])

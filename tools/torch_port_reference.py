@@ -115,6 +115,15 @@ stress, the band solve, and the JAX package's own spread of both over
 three runs from starts perturbed by 1e-13 ("forces_spread",
 "stress_spread").
 
+Four decks carry the anderson_stable and broyden2 mixers (a control
+entry "mixer.type"): the small and the 2-atom ultrasoft decks with the
+space group, to TIGHT ("small_us_sym_anderson_stable", ...,
+"broyden2_us_sym"). Two decks carry spin-orbit coupling ("so_nc",
+"so_us_sym"; FILE_DECKS): the JAX package builds their contexts from the
+deck and UPF species file of write_deck_files (its synthetic context takes
+no j-resolved species), and their records carry the JAX package's own
+spread over three runs from starts perturbed by 1e-13.
+
 Run from the repository root (CPU):
 
     python tools/torch_port_reference.py            # rewrite the JSON
@@ -327,6 +336,38 @@ DECKS.update({
 FORCES_DECKS = ("forces_nc", "forces_us", "forces_us_sym_2atom",
                 "forces_gamma_pbe_fm")
 FORCES_SPREAD_SEEDS = (1, 2, 3)
+# the anderson_stable and broyden2 mixers (a "mixer.type" control entry):
+# the small and the 2-atom ultrasoft decks with the space group, to TIGHT
+for mixer in ("anderson_stable", "broyden2"):
+    DECKS.update({
+        f"small_us_sym_{mixer}": (SMALL, US_SYM, {"mixer.type": mixer},
+                                  TIGHT),
+        f"{mixer}_us_sym": (FULL_2ATOM, US_SYM, {"mixer.type": mixer},
+                            TIGHT),
+    })
+# spin-orbit (parameters.so_correction, num_mag_dims 3): decks read from
+# files (FILE_DECKS). The JAX package's synthetic context takes no
+# j-resolved species, so both packages build these contexts from the deck
+# and the UPF species file that sirius_tpu_torch/testing.py::write_deck
+# writes: synthetic_silicon_species(spin_orbit=True), the l = 1 beta split
+# into j = 1/2 and 3/2 with distinct radial functions. At gk 3 / pw 7,
+# Gamma only, 16 spinor bands, smearing 0.01 Ha: "so_nc" (norm-conserving,
+# no symmetry, orthogonal starting moments, which relax to a common axis
+# that the spin-orbit term pins) and "so_us_sym" (ultrasoft with four
+# augmentation channels, the magnetic group of the canted moments), each a
+# fixed 20 iterations past convergence. Their records carry the JAX
+# package's own spread over three runs from starts perturbed by 1e-13
+# (SO_SPREAD_SEEDS): the largest energy-term and moment-component
+# differences from the record ("term_spread", "moment_spread").
+SO_SHAPE = dict(gk_cutoff=3.0, pw_cutoff=7.0, ngridk=(1, 1, 1), num_bands=16)
+SO = dict(FIXED_14_SMEAR, num_dft_iter=20, so_correction=True,
+          **NONCOLLINEAR)
+DECKS.update({
+    "so_nc": (SO_SHAPE, dict(NC, spin_orbit=True), {}, SO, ORTHO),
+    "so_us_sym": (SO_SHAPE, dict(US_SYM, spin_orbit=True), {}, SO, CANTED),
+})
+FILE_DECKS = ("so_nc", "so_us_sym")
+SO_SPREAD_SEEDS = (1, 2, 3)
 # each fp32 deck's fp64 twin: the same deck in fp64
 FP32_TWINS = {
     "fp32_us_sym_polish": "full_width_2atom_us_sym",
@@ -346,7 +387,7 @@ PERTURBED = {"fp32_us_sym_polish": 1e-7, "gamma_pbe_us_sym_fm": 1e-13}
 PERTURBED_SEEDS = range(1, 7)
 SPINOR_DECKS = tuple(n for n, spec in DECKS.items()
                      if spec[3].get("num_mag_dims") == 3
-                     and n not in FP32_TWINS)
+                     and n not in FP32_TWINS and n not in FILE_DECKS)
 
 
 def deck_spec(name: str):
@@ -357,13 +398,39 @@ def deck_spec(name: str):
 
 
 def apply_control(cfg, control: dict) -> None:
-    """Set a deck's control entries on a config: the settings field of that
-    name where there is one (fp32_to_fp64_rms), else the control field.
-    Works on either package's config."""
+    """Set a deck's control entries on a config: "section.key" on that
+    section (mixer.type), else the settings field of that name where there
+    is one (fp32_to_fp64_rms), else the control field. Works on either
+    package's config."""
     for key, value in control.items():
-        target = (cfg.settings if hasattr(cfg.settings, key)
-                  else cfg.control)
-        setattr(target, key, value)
+        section, _, name = key.rpartition(".")
+        if section:
+            target = getattr(cfg, section)
+        elif hasattr(cfg.settings, key):
+            target = cfg.settings
+        else:
+            target = cfg.control
+        setattr(target, name, value)
+
+
+def write_deck_files(name: str, directory: str, fmt: str = "upf") -> str:
+    """Write a deck of FILE_DECKS into directory (sirius.json and its
+    species file, sirius_tpu_torch/testing.py::write_deck) and return the
+    deck's path; either package builds its context from it with
+    SimulationContext.create(load_config(path), directory)."""
+    from sirius_tpu_torch.testing import (synthetic_silicon_deck,
+                                          synthetic_silicon_species,
+                                          write_deck)
+
+    shape, kind, control, params, moments = deck_spec(name)
+    kind = dict(kind)
+    species = synthetic_silicon_species(
+        ultrasoft=kind.pop("ultrasoft"),
+        spin_orbit=kind.pop("spin_orbit", False))
+    deck = synthetic_silicon_deck(
+        **shape, **kind, extra_params=dict(params),
+        moments=None if moments is None else np.asarray(moments))
+    return write_deck(directory, deck, species, fmt=fmt)
 
 
 def twin_gap(runs: list, twin: dict) -> dict:
@@ -409,9 +476,19 @@ def run_deck(name: str, perturb_seed: int | None = None,
     from sirius_tpu.testing import synthetic_silicon_context
 
     shape, kind, control, params, moments = deck_spec(name)
-    ctx = synthetic_silicon_context(
-        extra_params=dict(params), **kind, **shape,
-        moments=None if moments is None else np.asarray(moments))
+    if name in FILE_DECKS:
+        import tempfile
+
+        from sirius_tpu.config.schema import load_config
+        from sirius_tpu.context import SimulationContext
+
+        with tempfile.TemporaryDirectory() as tmp:
+            path = write_deck_files(name, tmp)
+            ctx = SimulationContext.create(load_config(path), tmp)
+    else:
+        ctx = synthetic_silicon_context(
+            extra_params=dict(params), **kind, **shape,
+            moments=None if moments is None else np.asarray(moments))
     ctx.cfg.control.device_scf = "off"
     apply_control(ctx.cfg, control)
     spinor = ctx.num_mag_dims == 3
@@ -510,6 +587,25 @@ def forces_spreads(rec: dict, name: str) -> dict:
         "stress_spread": max(float(np.max(np.abs(np.subtract(
             r["stress"], rec["stress"])))) for r in runs),
         "spread_seeds": list(FORCES_SPREAD_SEEDS)}
+
+
+def so_spreads(rec: dict, name: str) -> dict:
+    """The JAX package's own spread on a spin-orbit deck: the largest
+    energy-term and moment-component differences between the record and
+    its runs from starts perturbed by a relative 1e-13 (SO_SPREAD_SEEDS)."""
+    runs = [run_deck(name, perturb_seed=seed) for seed in SO_SPREAD_SEEDS]
+
+    def moments(r):
+        return np.concatenate([np.ravel(r["magnetisation"]["total"]),
+                               np.ravel(r["magnetisation"]["atoms"])])
+
+    return {
+        "term_spread": max(abs(r["energy"][k] - v) for r in runs
+                           for k, v in rec["energy"].items()),
+        "moment_spread": max(float(np.max(np.abs(moments(r) - moments(rec))))
+                             for r in runs),
+        "spread_iterations": [r["num_scf_iterations"] for r in runs],
+        "spread_seeds": list(SO_SPREAD_SEEDS)}
 
 
 def spread(names) -> dict:
@@ -640,6 +736,10 @@ def main(argv=None) -> int:
         if name not in names and "forces_spread" in out["decks"][name]:
             continue
         out["decks"][name].update(forces_spreads(out["decks"][name], name))
+    for name in FILE_DECKS:
+        if name not in names and "term_spread" in out["decks"][name]:
+            continue
+        out["decks"][name].update(so_spreads(out["decks"][name], name))
     for name, size in PERTURBED.items():
         if name not in names and "perturbed_iterations" in out["decks"][name]:
             continue
