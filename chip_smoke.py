@@ -7,7 +7,10 @@ imports nothing of JAX or of sirius_tpu. Phases, each printing JSON lines:
 
 1. device and build: the card's name and power limit; the kernel sources
    of sirius_tpu_torch/csrc/ compiled by nvcc, one process each, all at
-   once;
+   once; the S-subspace matrix with empty rows that cuSOLVER's heevd could
+   not solve (eigh_empty_rows): cuSOLVER's Jacobi, the band solve's retry,
+   against LAPACK's eigenvalues, and the Rayleigh-Ritz on it against the
+   CPU's;
 2. kernels against their plain PyTorch versions on the card, at the shapes
    of the parity decks and of the full-width decks (norm-conserving: K1,
    K2, K3, K7; ultrasoft + symmetry: K1c, K4, K5, K6; Gamma packed-real:
@@ -142,6 +145,29 @@ imports nothing of JAX or of sirius_tpu. Phases, each printing JSON lines:
    component within 1e-6 of the records), and the 2-atom ultrasoft deck
    mixed by anderson_stable and broyden2 (parity_scf_anderson_stable,
    parity_scf_broyden2); the whole run's seconds (total).
+
+The fused SCF step (dft/fused.py; every deck that fuses: the k-set
+solve, no mGGA, linear or Anderson mixing): K13 (the Fermi level), K14a /
+K14b (the device mixer's Gram pass, and its solve, update and ring push)
+and K15 (the scalar record) against their plain versions at the 16-atom US
+shapes (records, check_fused_kernels; K14a's yardstick the host Gram
+product of dft/mixer.py::Mixer), then at their edges: K13 for each
+smearing kind at the deck's evals, with every band full (occupations and
+entropy held; mu sits on a plateau of the count there for the monotone
+kinds, and its distance is printed) and with a level degenerate at mu; K14 at history counts 0 and 3,
+the wrapped ring, a 64-row ring (the most the solve takes), a NaN in a
+residual row and in x_new (the same NaN
+entries and fallback as the plain version); K15 with a NaN in veff
+(S_FINITE 0). parity_fused_record_us_sym and _pw_us_sym_afm run the
+reference tool's FUSED_DECKS with the step from K13 to the record read
+under torch.cuda.set_sync_debug_mode("error") (any host sync fails the
+phase), each iteration's record held to the JAX package's (energy slots
+and rms within 1e-6 at every iteration both ran, S_FINITE 1, electrons
+within 1e-8, the ledger below 1e-10), the terms within 1e-8 Ha. fused_ab_us runs full_width_us's cell
+with control.device_scf off and auto in turns (off, auto, auto, off):
+seconds an iteration, and host syncs an iteration counted under
+set_sync_debug_mode("warn"). Every fused deck must launch K13, K14a, K14b
+and K15; every other deck K13.
 
 Every SCF phase sets the launch counts to 0 just before its run and reads
 them just after, and fails if a kernel of its path was not launched (an
@@ -339,7 +365,14 @@ TOL = {**{name: 1e-12 for name in XC_CHECKS},
        "augmentation.rho_aug.54": 1e-12, "augmentation.rho_aug.2.54": 1e-12,
        # K4 on one strained table set of the stress against the host
        # rho_aug_g copy (dense exp() phases, einsum)
-       "augmentation.rho_aug.strained": 1e-12}
+       "augmentation.rho_aug.strained": 1e-12,
+       # K13 sums the count in a fixed block order against torch.sum
+       # (occupations and entropy: rounding; mu held to 1e-12 Ha apart);
+       # K14a sums per block in tile order against einsum; K14b solves by
+       # Jacobi against cuSOLVER's eigh (the random systems are well
+       # conditioned); K15 sums each segment in a fixed tree against torch
+       "fermi": 1e-12, "mixer.gram": 1e-12, "mixer.update": 1e-12,
+       "scf_record": 1e-12}
 SOURCE = {
     "local_hpsi.pw_to_box": "sirius_tpu_torch/csrc/local_hpsi.cu",
     "local_hpsi.box_to_pw_hpsi": "sirius_tpu_torch/csrc/local_hpsi.cu",
@@ -370,6 +403,10 @@ SOURCE = {
     "augmentation.rho_aug.54": "sirius_tpu_torch/csrc/augmentation.cu",
     "augmentation.rho_aug.2.54": "sirius_tpu_torch/csrc/augmentation.cu",
     "augmentation.rho_aug.strained": "sirius_tpu_torch/csrc/augmentation.cu",
+    "fermi": "sirius_tpu_torch/csrc/fermi.cu",
+    "mixer.gram": "sirius_tpu_torch/csrc/mixer.cu",
+    "mixer.update": "sirius_tpu_torch/csrc/mixer.cu",
+    "scf_record": "sirius_tpu_torch/csrc/scf_record.cu",
 }
 REPLACES = {
     "local_hpsi.pw_to_box": "sirius_tpu/ops/hamiltonian.py:76",
@@ -402,6 +439,10 @@ REPLACES = {
     # the strained augmentation charge of the stress, which the JAX package
     # assembles through the host rho_aug_g
     "augmentation.rho_aug.strained": "sirius_tpu/dft/stress.py:133",
+    "fermi": "sirius_tpu/dft/occupation.py:69",
+    "mixer.gram": "sirius_tpu/dft/mixer.py:348",
+    "mixer.update": "sirius_tpu/dft/mixer.py:381",
+    "scf_record": "sirius_tpu/dft/fused.py:400",
 }
 # the fp32 instantiations (precision_wf "fp32"): each kernel's name with the
 # suffix of the block type it takes (.c64 complex64, .f32 float32 packed
@@ -2303,6 +2344,9 @@ def wrappers() -> dict:
     from sirius_tpu_torch.kernels import mgga_xc as k7s
     from sirius_tpu_torch.kernels import spinor_veff as k12a
     from sirius_tpu_torch.kernels import symmetrize_pw as k6
+    from sirius_tpu_torch.kernels import fermi as k13
+    from sirius_tpu_torch.kernels import mixer as k14
+    from sirius_tpu_torch.kernels import scf_record as k15
     from sirius_tpu_torch.kernels import veff_multiply as k1c
     from sirius_tpu_torch.kernels import xc_gradient as k10
 
@@ -2345,7 +2389,11 @@ def wrappers() -> dict:
            "augmentation.d_operator.4": (k45.d_operator, n),
            "augmentation.rho_aug.54": (k45.rho_aug, n),
            "augmentation.rho_aug.2.54": (k45.rho_aug, n),
-           "augmentation.rho_aug.strained": (k45.rho_aug, n)}
+           "augmentation.rho_aug.strained": (k45.rho_aug, n),
+           "fermi": (k13.find_fermi, n),
+           "mixer.gram": (k14.mixer_gram, n),
+           "mixer.update": (k14.mixer_update, n),
+           "scf_record": (k15.scf_record, n)}
     for name in FP32_SUMMARY:
         out[name] = (out[base_name(name)][0],
                      "launches_" + name.rsplit(".", 1)[1])
@@ -2360,12 +2408,18 @@ def wrappers() -> dict:
 # path's kernels
 NC_KERNELS = ("local_hpsi.pw_to_box", "local_hpsi.box_to_pw_hpsi",
               "davidson_residual", "density_accumulate", "lda_xc", PZ0,
-              "veff_multiply")
+              "veff_multiply", "fermi")
 US_KERNELS = NC_KERNELS + ("augmentation.rho_aug", "augmentation.d_operator",
                            "symmetrize_pw")
+# every path runs K13; a deck that fuses (dft/scf.py::fuses: the k-set
+# solve, no mGGA, linear or Anderson mixing) runs the fused step's K14a,
+# K14b and K15 too
+FUSED_STEP = ("mixer.gram", "mixer.update", "scf_record")
+NC_FUSED = NC_KERNELS + FUSED_STEP
+US_FUSED = US_KERNELS + FUSED_STEP
 GAMMA_KERNELS = ("local_hpsi.pw_to_box", "density_accumulate", "lda_xc", PZ0,
                  "gamma_pack.unpack_to_box", "gamma_pack.box_to_packed_hx",
-                 "veff_multiply.real", "davidson_residual.f64")
+                 "veff_multiply.real", "davidson_residual.f64", "fermi")
 GAMMA_US_KERNELS = GAMMA_KERNELS + ("augmentation.rho_aug",
                                     "augmentation.d_operator", "symmetrize_pw")
 CHUNKED_US_KERNELS = US_KERNELS + ("beta_chunk",)
@@ -2397,8 +2451,8 @@ def xc_kernels(base, gga: bool, axial: bool, mgga: bool = False,
 
 # the band solve each deck of XC_DECKS takes, and the kernels it must launch
 XC_DECK_PATH = {
-    "pbe_us_sym": ("kset", xc_kernels(US_KERNELS, True, False)),
-    "pw_us_sym_afm": ("kset", xc_kernels(US_KERNELS, False, True,
+    "pbe_us_sym": ("kset", xc_kernels(US_FUSED, True, False)),
+    "pw_us_sym_afm": ("kset", xc_kernels(US_FUSED, False, True,
                                          lda_set="lda_xc.pw92")),
     "gamma_pbe_us_sym_fm": ("gamma", xc_kernels(GAMMA_US_KERNELS, True, True)),
     "gamma_nc_vwn": ("gamma", xc_kernels(GAMMA_KERNELS, False, False,
@@ -2417,7 +2471,7 @@ XC_DECK_PATH = {
 SPINOR_KERNELS = ("local_hpsi.pw_to_box", "local_hpsi.box_to_pw_hpsi",
                   "davidson_residual", "spinor_veff", "density_accumulate_nc",
                   "lda_xc", "lda_xc.pz", "augmentation.rho_aug.4",
-                  "augmentation.d_operator.4")
+                  "augmentation.d_operator.4", "fermi")
 SPINOR_SYM_KERNELS = SPINOR_KERNELS + ("symmetrize_pw", "symmetrize_vector_pw")
 SPINOR_DECK_PATH = {
     "small_spinor_us": SPINOR_KERNELS,
@@ -2450,7 +2504,7 @@ FORCES_DECK_PATH = {
     "forces_nc": ("gamma", GAMMA_KERNELS, STRESS_LDA_KERNELS),
     "forces_us": ("gamma", tuple(k for k in GAMMA_US_KERNELS
                                  if k != "symmetrize_pw"), STRESS_US_KERNELS),
-    "forces_us_sym_2atom": ("kset", US_KERNELS, STRESS_US_KERNELS),
+    "forces_us_sym_2atom": ("kset", US_FUSED, STRESS_US_KERNELS),
     "forces_gamma_pbe_fm": ("gamma", xc_kernels(GAMMA_US_KERNELS, True, True),
                             ("local_hpsi.pw_to_box", "gga_xc.pbe",
                              "xc_gradient.gradient_boxes",
@@ -2465,21 +2519,22 @@ FP32_US_KERNELS = ("local_hpsi.pw_to_box.c64", "local_hpsi.box_to_pw_hpsi.c64",
                    "veff_multiply.c64", "davidson_residual.c64",
                    "density_accumulate.c64", "lda_xc", PZ0,
                    "augmentation.rho_aug", "augmentation.d_operator",
-                   "symmetrize_pw")
+                   "symmetrize_pw", "fermi")
+FP32_US_FUSED = FP32_US_KERNELS + FUSED_STEP
 FP32_GAMMA_US_KERNELS = ("gamma_pack.unpack_to_box.f32",
                          "veff_multiply.real.c64",
                          "gamma_pack.box_to_packed_hx.f32",
                          "davidson_residual.f32", "local_hpsi.pw_to_box",
                          "density_accumulate", "lda_xc", PZ0,
                          "augmentation.rho_aug", "augmentation.d_operator",
-                         "symmetrize_pw")
+                         "symmetrize_pw", "fermi")
 FP32_CHUNKED_US_KERNELS = ("local_hpsi.pw_to_box.c64",
                            "local_hpsi.box_to_pw_hpsi.c64",
                            "veff_multiply.c64", "davidson_residual.c64",
                            "beta_chunk.c64", "local_hpsi.pw_to_box",
                            "density_accumulate", "lda_xc", PZ0,
                            "augmentation.rho_aug", "augmentation.d_operator",
-                           "symmetrize_pw")
+                           "symmetrize_pw", "fermi")
 FP32_SCAN_KERNELS = tuple(k for k in FP32_US_KERNELS
                           if k not in ("lda_xc", PZ0)) + (
     "mgga_xc.scan", "xc_gradient.gradient_boxes", "xc_gradient.divergence_pw",
@@ -2490,12 +2545,12 @@ FP32_SPINOR_SYM_KERNELS = ("local_hpsi.pw_to_box.c64",
                            "density_accumulate_nc.c64", "lda_xc",
                            "lda_xc.pz", "augmentation.rho_aug.4",
                            "augmentation.d_operator.4", "symmetrize_pw",
-                           "symmetrize_vector_pw")
+                           "symmetrize_vector_pw", "fermi")
 # the fp32 parity decks of the reference tool (each beside its fp64 twin
 # there): the band solve each takes and the kernels it must launch
 FP32_DECK_PATH = {
-    "fp32_us_sym_polish": ("kset", FP32_US_KERNELS),
-    "fp32_us_sym_fixed8": ("kset", FP32_US_KERNELS),
+    "fp32_us_sym_polish": ("kset", FP32_US_FUSED),
+    "fp32_us_sym_fixed8": ("kset", FP32_US_FUSED),
     "gamma_us_sym_fp32": ("gamma", FP32_GAMMA_US_KERNELS),
     "chunked_us_sym_fp32": ("chunked", FP32_CHUNKED_US_KERNELS),
     "scan_us_sym_fp32": ("kset", FP32_SCAN_KERNELS),
@@ -2593,6 +2648,69 @@ def watch_eigh():
         yield calls
     finally:
         torch.linalg.eigh = eigh
+
+
+def empty_rows_pair(seed: int = 16):
+    """(hsub, ssub) [1, 42, 42] complex128 on the CPU: the S-subspace matrix
+    on which cuSOLVER's heevd failed to converge in a fused run of the 2-atom
+    NC parity deck (tests/data/eigh_empty_rows_ssub.npy: 12 exactly zero
+    rows beside 14 eigenvalues within 1.1e-9 of 1; ROADMAP queue 3, item 16)
+    and a seeded Hermitian H with the same zero rows."""
+    import numpy as np
+    import torch
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    s = np.load(os.path.join(here, "tests", "data", "eigh_empty_rows_ssub.npy"))
+    rng = np.random.default_rng(seed)
+    n = s.shape[0]
+    a = rng.standard_normal((n, n)) + 1j * rng.standard_normal((n, n))
+    h = s @ (a + a.conj().T) @ s + s
+    return torch.as_tensor(h)[None], torch.as_tensor(s)[None]
+
+
+def check_eigh_empty_rows(dev, gpu: str) -> None:
+    """The band solve's Rayleigh-Ritz on the card on the matrix cuSOLVER's
+    heevd could not solve: solvers/davidson.py::_eigh retries it with
+    cuSOLVER's Jacobi (kernels/eigh_jacobi.py), which must give the CPU's
+    eigenvalues to 1e-12 of their scale, eigenvectors with |A V - V E| and
+    |V^H V - I| below 1e-12, and the CPU's Ritz values to 1e-10. Whether
+    heevd still fails on it is printed, not gated."""
+    import torch
+
+    from sirius_tpu_torch.kernels.eigh_jacobi import eigh_jacobi
+    from sirius_tpu_torch.solvers.davidson import _rayleigh_ritz
+
+    h, s = empty_rows_pair()
+    try:
+        torch.linalg.eigh(s.to(dev))
+        raw = "converged"
+    except torch.linalg.LinAlgError as e:
+        raw = str(e).splitlines()[0]
+    launches = eigh_jacobi.launches
+    e_j, v_j = eigh_jacobi(s.to(dev))
+    e_lapack = torch.linalg.eigh(s)[0]
+    scale = float(e_lapack.abs().max())
+    eig_err = float((e_j.cpu() - e_lapack).abs().max())
+    a_dev = s.to(dev)
+    resid = float((a_dev @ v_j - v_j * e_j[..., None, :]).abs().max())
+    ortho = float((v_j.mH @ v_j - torch.eye(
+        v_j.shape[-1], dtype=v_j.dtype, device=dev)).abs().max())
+    nev = 14
+    e_dev, c_dev = _rayleigh_ritz(h.to(dev), a_dev, nev)
+    e_cpu, _ = _rayleigh_ritz(h, s, nev)
+    rr_err = float((e_dev.cpu() - e_cpu).abs().max())
+    rr_scale = float(e_cpu.abs().max())
+    emit({"phase": "eigh_empty_rows", "gpu": gpu,
+          "empty_rows": int((s[0].abs().amax(-1) == 0).sum()),
+          "raw_eigh": raw, "eig_err": eig_err, "scale": scale,
+          "residual": resid, "orthonormality": ortho,
+          "max_abs_err": rr_err, "rr_scale": rr_scale,
+          "jacobi_launches": eigh_jacobi.launches - launches})
+    if not (eig_err <= 1e-12 * scale and resid <= 1e-12 * scale
+            and ortho <= 1e-12 and rr_err <= 1e-10 * rr_scale):
+        raise AssertionError(
+            f"eigh_empty_rows: eigenvalues {eig_err}, residual {resid}, "
+            f"orthonormality {ortho}, Ritz values {rr_err} (scale {scale})")
 
 
 @contextlib.contextmanager
@@ -2843,11 +2961,14 @@ def parity_scf(ctx, dev, ref: dict, gpu: str, phase: str = "parity_scf",
     import numpy as np
 
     from sirius_tpu_torch.dft.scf import run_scf
+    from sirius_tpu_torch.kernels.eigh_jacobi import eigh_jacobi
 
     reset_launches()
+    retries = eigh_jacobi.launches
     with watch_forces_stress() as seen:
         res = run_scf(ctx.cfg, ctx=ctx, device=dev)
     launches = read_launches()
+    retries = eigh_jacobi.launches - retries
     nel = float(res["_state"]["rho_g"][0].real) * ctx.unit_cell.omega
     d_total = res["energy"]["total"] - ref["energy"]["total"]
     terms = {k: res["energy"][k] - v for k, v in ref["energy"].items()}
@@ -2861,7 +2982,7 @@ def parity_scf(ctx, dev, ref: dict, gpu: str, phase: str = "parity_scf",
           "electrons": nel,
           "iteration_seconds": res["iteration_seconds"],
           "band_solve_seconds": res["band_solve_seconds"],
-          "launches": launches})
+          "eigh_jacobi_retries": retries, "launches": launches})
     # the spinor records carry no electron count: the cell's valence count
     want_nel = ref.get("electrons", float(ctx.unit_cell.num_valence_electrons))
     if abs(nel - want_nel) > 1e-8:
@@ -2964,12 +3085,15 @@ def full_width(ctx, dev, gpu: str, phase: str = "full_width",
     import torch
 
     from sirius_tpu_torch.dft.scf import run_scf
+    from sirius_tpu_torch.kernels.eigh_jacobi import eigh_jacobi
 
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
+    retries = eigh_jacobi.launches
     with watch_band_solves() as solves, watch_eigh() as eigh_calls:
         res = run_scf(ctx.cfg, ctx=ctx, device=dev)
     launches = read_launches()
+    retries = eigh_jacobi.launches - retries
     iters = res["num_scf_iterations"]
     prec = res["wf_precision"]
     secs = res["iteration_seconds"]
@@ -3003,6 +3127,7 @@ def full_width(ctx, dev, gpu: str, phase: str = "full_width",
           "fp64_iteration_seconds": [t for i, (t, w) in enumerate(
               zip(secs, prec)) if i and w == "fp64"],
           "band_solves": solves, "eigh_calls": eigh_calls,
+          "eigh_jacobi_retries": retries,
           "max_memory_allocated": torch.cuda.max_memory_allocated(),
           "electrons": nel, "electron_tol": electron_tol,
           "e_total": res["energy"]["total"],
@@ -3510,6 +3635,487 @@ def single_k_context(name: str, spec: dict = GAMMA2):
     return ctx
 
 
+# ---------------------------------------------------------------------------
+# The fused step (dft/fused.py): K13 (fermi), K14a / K14b (mixer.gram,
+# mixer.update) and K15 (scf_record), the per-iteration records of the two
+# fused decks against the JAX package's, the step from K13 to the record
+# read without a host sync, and the same-call A/B of device_scf auto
+# against off.
+# ---------------------------------------------------------------------------
+
+SMEARINGS = ("gaussian", "fermi_dirac", "cold", "methfessel_paxton")
+# the mixer's history depth at full width (the decks' max_history 8), and
+# the oldest slot of the wrapped ring the records use
+MIXER_M = 8
+MIXER_HEAD = 3
+# the record slots that hold energies (vha .. eval_sum), and the ledger's
+FUSED_ENERGY_SLOTS = tuple(range(2, 11))
+FUSED_LEDGER_SLOTS = (16, 17, 18, 19)
+# a fused deck's records against the JAX package's: at every iteration
+# both ran, each energy slot and rms within FUSED_RECORD_TOL. The records
+# of two correct runs differ by where each Davidson stops at its loose
+# early tolerance (the port and the JAX package on the CPU by up to 3.6e-8
+# Ha at iteration 2 of the small US deck; cuSOLVER's subspaces on the card
+# move that further); the converged state is held by the energy terms'
+# 1e-8 Ha, as in every parity gate
+FUSED_RECORD_TOL = 1e-6
+
+
+def fermi_inputs(rng, shape, dev, case: str = "deck"):
+    """(evals, kweights, nel, width) of K13 at a deck's [nk, ns, nb]:
+    seeded evals over 1.3 Ha, the 16-atom cells' 64 electrons at max
+    occupancy 2 for 'deck'; every band full ('full'); a threefold level
+    half filled at mu ('degenerate')."""
+    import numpy as np
+    import torch
+
+    nk, ns, nb = shape
+    kw = rng.uniform(0.5, 1.5, nk)
+    kw /= kw.sum()
+    ev = np.sort(rng.uniform(-0.5, 0.8, shape), axis=-1)
+    nel = min(64.0, 2.0 * ns * nb - 4.0)
+    if case == "full":
+        nel = 2.0 * ns * nb
+    elif case == "degenerate":
+        # k full bands below 0.1, the level at 0.25, the rest above 0.5
+        k = nb // 2 - 2
+        ev[..., :k] = np.sort(rng.uniform(-0.5, 0.1, (nk, ns, k)), axis=-1)
+        ev[..., k:k + 3] = 0.25
+        ev[..., k + 3:] = np.sort(rng.uniform(0.5, 0.8, (nk, ns, nb - k - 3)),
+                                  axis=-1)
+        nel = 2.0 * ns * (k + 1.5)
+    return (torch.as_tensor(ev, device=dev), torch.as_tensor(kw, device=dev),
+            nel, 0.025)
+
+
+def fermi_record(out, deck, gpu, name, ev, kw, nel, width, kind, time=True):
+    """K13 against its plain version on the card: mu to 1e-12 Ha, occ and
+    the entropy to 1e-12 relative (record_kernel), or, where every band is
+    full, occ and the entropy alone: for the Gaussian and Fermi-Dirac kinds
+    mu then lies on a plateau of the count, where the two sums' rounding
+    decides how far up the bisection goes (mu_abs_err is printed)."""
+    from sirius_tpu_torch.kernels import fermi as k13
+
+    args = (ev, kw, nel, width, kind, 2.0)
+    got = k13.find_fermi(*args)
+    want = k13.find_fermi_plain(*args)
+    mu_err = abs(float(got[0]) - float(want[0]))
+    full = nel >= 2.0 * ev.shape[1] * ev.shape[2]
+    n = ev.numel()
+    extra = {"kind": kind, "shape": list(ev.shape), "nel": nel,
+             "mu": float(got[0]), "mu_plain": float(want[0]),
+             "mu_abs_err": mu_err, "mu_tol": 1e-12,
+             # 80 dependent steps: one block, latency-bound
+             "latency_bound_ms": 80 * 5e-6}
+    if time:
+        record_kernel(out, deck, gpu, name, [got[1], got[2]],
+                      [want[1], want[2]], lambda: k13.find_fermi(*args),
+                      lambda: k13.find_fermi_plain(*args), None,
+                      # evals and weights read, occ written, mu and ent
+                      16.0 * n + 16.0, 80.0 * 25.0 * n + 50.0 * n,
+                      slow_plain=True, extra=extra)
+    else:
+        errs = [rel_err(a, b) for a, b in ((got[1], want[1]),
+                                           (got[2], want[2]))]
+        rel = max(e[1] for e in errs)
+        emit({"phase": "kernel_edges", "gpu": gpu, "name": name,
+              "max_rel_err": rel, "tol_rel": TOL["fermi"], **extra})
+        if not rel <= TOL["fermi"]:
+            raise AssertionError(f"{name}: rel err {rel}")
+    if not (full or mu_err <= 1e-12):
+        raise AssertionError(f"{name}: mu off by {mu_err} Ha")
+
+
+def mixer_inputs(rng, nx: int, ng: int, dev, count: int, head: int,
+                 poison: str = "", m: int = MIXER_M):
+    """A ring of m rows holding `count` seeded pairs (the oldest at
+    `head`), x_in, x_new and the metric; poison puts a NaN in a residual
+    row ('gram') or in x_new ('x_new')."""
+    import numpy as np
+    import torch
+
+    def c(*shape):
+        return torch.as_tensor(rng.standard_normal(shape)
+                               + 1j * rng.standard_normal(shape), device=dev)
+
+    x_in = c(nx)
+    x_new = x_in + 0.05 * c(nx)
+    hx = torch.zeros((m, nx), dtype=torch.complex128, device=dev)
+    hf = torch.zeros_like(hx)
+    for i in range(count):
+        slot = (head + i) % m
+        hx[slot] = x_in + 0.1 * c(nx)
+        hf[slot] = 0.05 * c(nx)
+    if poison == "gram":
+        hf[(head + 1) % m, 7] = complex(float("nan"), 0.0)
+    elif poison == "x_new":
+        x_new[11] = complex(float("nan"), 0.0)
+    g2 = torch.as_tensor(np.sort(rng.uniform(0.0, 30.0, ng)), device=dev)
+    g2[0] = 0.0
+    w = torch.where(g2 > 0, 4 * math.pi / g2, torch.zeros_like(g2))
+    w = torch.cat([w, torch.full((nx - ng,), 270.0, device=dev,
+                                 dtype=torch.float64)])
+    rms_w = torch.ones(nx, dtype=torch.float64, device=dev)
+    eha_w = torch.where(g2 > 0, 2 * math.pi * 270.0 / g2,
+                        torch.zeros_like(g2))
+    return hx, hf, x_in, x_new, w, rms_w, eha_w
+
+
+def mixer_records(out, deck, gpu, nx, ng, dev, rng, count, head, poison="",
+                  time=True, m=MIXER_M):
+    """K14a and K14b against their plain versions on one ring state; K14b
+    from the same system for both (the plain K14a's), each on its own copy
+    of the ring, which it pushes into. Holds x_mixed, rms and eha to 1e-12
+    relative with NaN where the plain version has them, and the same
+    choice of the damped fallback."""
+    import torch
+
+    from sirius_tpu_torch.kernels import mixer as k14
+
+    hx, hf, x_in, x_new, w, rms_w, eha_w = mixer_inputs(
+        rng, nx, ng, dev, count, head, poison, m)
+    push = k14.push_slot(count, head, m)
+    sys_k = k14.mixer_gram(hf, count, head, x_in, x_new, w, rms_w)
+    sys_p = k14.mixer_gram_plain(hf, count, head, x_in, x_new, w, rms_w)
+    rings = [(hx.clone(), hf.clone()) for _ in range(2)]
+    xk, ehak = k14.mixer_update(*rings[0], sys_p, count, head, push, x_in,
+                                x_new, eha_w, 0.6)
+    xp, ehap = k14.mixer_update_plain(*rings[1], sys_p, count, head, push,
+                                      x_in, x_new, eha_w, 0.6)
+    nan_k = torch.isnan(torch.view_as_real(xk))
+    nan_p = torch.isnan(torch.view_as_real(xp))
+    same_nan = bool(torch.equal(nan_k, nan_p))
+    damped = x_in + 0.6 * (x_new - x_in)
+    fb_k = bool(torch.equal(torch.view_as_real(xk).nan_to_num(),
+                            torch.view_as_real(damped).nan_to_num()))
+    fb_p = bool(torch.equal(torch.view_as_real(xp).nan_to_num(),
+                            torch.view_as_real(damped).nan_to_num()))
+    pushed = all(bits_equal(a, b) for a, b in zip(rings[0], rings[1]))
+    fin = ~nan_p
+    ek = torch.view_as_real(xk)[fin]
+    ep = torch.view_as_real(xp)[fin]
+    finite_sys = bool(torch.all(torch.isfinite(sys_p)))
+    tag = f"m {m}, count {count}, head {head}" + (
+        f", NaN in {poison}" if poison else "")
+    extra = {"m": m, "count": count, "head": head, "poison": poison, "nx": nx,
+             "same_nan": same_nan, "fallback": fb_k, "fallback_plain": fb_p,
+             "ring_push_equal": pushed}
+    if not (same_nan and fb_k == fb_p and pushed):
+        raise AssertionError(f"mixer at {tag}: NaN {same_nan}, fallback "
+                             f"{fb_k} / {fb_p}, push {pushed}")
+    if not time:
+        # the system and the update at the edge, then the rms and eha
+        errs = ([rel_err(sys_k, sys_p)] if finite_sys else []) + [
+            rel_err(ek, ep)]
+        ehas = (float(ehak), float(ehap))
+        eha_ok = (all(math.isnan(v) for v in ehas)
+                  or abs(ehas[0] - ehas[1]) <= 1e-12 * abs(ehas[1]))
+        rel = max(e[1] for e in errs)
+        emit({"phase": "kernel_edges", "gpu": gpu, "name": "mixer",
+              "case": tag, "max_rel_err": rel, "eha": ehas, **extra})
+        if not (rel <= TOL["mixer.update"] and eha_ok):
+            raise AssertionError(f"mixer at {tag}: rel err {rel}, eha "
+                                 f"{ehas}")
+        return
+    rows = count
+    record_kernel(
+        out, deck, gpu, "mixer.gram", [sys_k], [sys_p],
+        lambda: k14.mixer_gram(hf, count, head, x_in, x_new, w, rms_w),
+        lambda: k14.mixer_gram_plain(hf, count, head, x_in, x_new, w, rms_w),
+        # the host Gram product of the port's Mixer._mix_anderson
+        lambda: ((hf[:rows].conj() * w) @ hf[:rows].mT),
+        # x_in, x_new, rows of hf (16 B) and w, rms_w (8 B); the sums
+        nx * (32.0 + 16.0 * rows + 16.0) + 8.0 * (m * m + m + 1),
+        nx * 4.0 * (rows * (rows + 1) / 2 + rows + 1), extra=extra)
+    ring = (hx.clone(), hf.clone())
+    record_kernel(
+        out, deck, gpu, "mixer.update", [ek, ehak], [ep, ehap],
+        lambda: k14.mixer_update(*ring, sys_p, count, head, push, x_in, x_new,
+                                 eha_w, 0.6),
+        lambda: k14.mixer_update_plain(*ring, sys_p, count, head, push, x_in,
+                                       x_new, eha_w, 0.6), None,
+        # x_in, x_new and 2 rows a pair read, x_mixed and the pushed pair
+        # written, eha_w read; two passes' sums
+        nx * (32.0 + 32.0 * rows + 16.0 + 32.0) + 8.0 * ng,
+        nx * (8.0 * rows + 8.0) + 8.0 * ng,
+        extra={**extra, "latency_bound_ms": 5 * 5e-6})
+
+
+def record_inputs(rng, dev, box, ng: int, nk: int, ns: int, nb: int,
+                  poison: bool = False):
+    """Segments of K15 shaped as the fused step's at a deck: six energy
+    dot products over the fine box, four Harris terms over the G set,
+    eval_sum, the copies, the finiteness of x, veff and the evals, the
+    ledger's matrices and the symmetry difference; poison puts a NaN into
+    veff (S_FINITE must read 0)."""
+    import numpy as np
+    import torch
+
+    from sirius_tpu_torch.kernels.scf_record import Segment
+
+    def r(*shape):
+        return torch.as_tensor(rng.standard_normal(shape), device=dev)
+
+    def c(*shape):
+        return torch.complex(r(*shape), r(*shape))
+
+    n = int(np.prod(box))
+    scale = 270.0 / n
+    rho = c(ng)
+    veff = c(ng)
+    if poison:
+        veff[5] = complex(float("nan"), 0.0)
+    gram = torch.eye(nb, dtype=torch.complex128, device=dev) + 1e-15 * c(
+        nk, ns, nb, nb)
+    ev = r(nk, ns, nb)
+    segs = [Segment("sum", 0, r(1)), Segment("sum", 1, r(1))]
+    segs += [Segment("dot", slot, r(n), r(n), scale=scale)
+             for slot in range(2, 8)]
+    segs += [Segment("dot_c", 8, rho, c(ng), scale=270.0),
+             Segment("dot_c", 9, rho, veff, scale=270.0),
+             Segment("dot_c", 8, rho, c(ng), scale=270.0),
+             Segment("dot_c", 9, rho, c(ng), scale=270.0),
+             Segment("dot", 10, r(nk * ns * nb), ev.view(-1)),
+             Segment("sum", 11, r(1), scale=270.0),
+             Segment("sum", 12, r(1), scale=270.0),
+             Segment("sum", 13, r(1)), Segment("sum", 14, r(1)),
+             Segment("finite", 15, r(2 * ng)),
+             Segment("finite", 15, torch.view_as_real(veff).reshape(-1)),
+             Segment("finite", 15, ev.view(-1)),
+             Segment("eye", 16, gram, param=nb),
+             Segment("maxabs", 17, r(1), r(1), scale=270.0),
+             Segment("maxabs_c", 18, rho + 1e-14 * c(ng), rho),
+             Segment("herm", 19, gram, param=nb)]
+    nbytes = sum(8.0 * s.a.numel() * (2 if s.a.is_complex() else 1)
+                 * (1 if s.b is None else 2) for s in segs) + 8.0 * 20
+    return segs, nbytes
+
+
+def record_check(out, deck, gpu, dev, rng, box, ng, nk, ns, nb,
+                 poison=False):
+    """K15 against its plain version: every slot within 1e-12 relative of
+    its own magnitude, S_FINITE 0 where veff holds a NaN."""
+    import torch
+
+    from sirius_tpu_torch.kernels import scf_record as k15
+
+    segs, nbytes = record_inputs(rng, dev, box, ng, nk, ns, nb, poison)
+    got = k15.scf_record(segs, 20)
+    want = k15.scf_record_plain(segs, 20)
+    # NaN where the plain version has one (the poisoned E2), each other
+    # slot against its own magnitude
+    nan = torch.isnan(want)
+    if not torch.equal(torch.isnan(got), nan):
+        raise AssertionError("scf_record: NaN slots differ from the plain "
+                             "version's")
+    slot_rel = float(torch.max(((got - want).abs()
+                                / want.abs().clamp(min=1e-300))[~nan]))
+    extra = {"slot_max_rel_err": slot_rel, "segments": len(segs),
+             "finite": float(got[15]), "finite_plain": float(want[15]),
+             "poison": poison}
+    if poison:
+        emit({"phase": "kernel_edges", "gpu": gpu, "name": "scf_record",
+              **extra})
+    else:
+        record_kernel(out, deck, gpu, "scf_record", [got], [want],
+                      lambda: k15.scf_record(segs, 20),
+                      lambda: k15.scf_record_plain(segs, 20), None,
+                      nbytes, nbytes / 8.0 * 2.0, extra=extra)
+    if not (slot_rel <= TOL["scf_record"]
+            and float(got[15]) == (0.0 if poison else 1.0)
+            and float(want[15]) == float(got[15])):
+        raise AssertionError(f"scf_record: slot rel err {slot_rel}, "
+                             f"S_FINITE {float(got[15])}")
+
+
+def check_fused_kernels(deck: str, ctx, dev, gpu: str) -> dict:
+    """K13, K14a, K14b and K15 at a full-width deck's shapes (records),
+    then their edge cases: K13 for each smearing kind, every band full and
+    a level degenerate at mu; K14 at counts 0 and 3, the wrapped ring, a
+    64-row ring, a NaN in a residual row (a not finite) and in x_new (the
+    damped fallback); K15 with a NaN in veff."""
+    import numpy as np
+
+    from sirius_tpu_torch.kernels import mixer as k14
+
+    rng = np.random.default_rng(47)
+    nk, ns, nb = ctx.gkvec.num_kpoints, ctx.num_spins, ctx.num_bands
+    ng = ctx.gvec.num_gvec
+    box = tuple(ctx.gvec.fft.dims)
+    out = {}
+    ev, kw, nel, width = fermi_inputs(rng, (nk, ns, nb), dev)
+    fermi_record(out, deck, gpu, "fermi", ev, kw, nel, width, "gaussian")
+    mixer_records(out, deck, gpu, ng, ng, dev, rng, MIXER_M, MIXER_HEAD)
+    record_check(out, deck, gpu, dev, rng, box, ng, nk, ns, nb)
+    for kind in SMEARINGS:
+        for case in ("deck", "full", "degenerate"):
+            ev, kw, nel, width = fermi_inputs(rng, (nk, ns, nb), dev, case)
+            fermi_record(out, deck, gpu, f"fermi.{kind}.{case}", ev, kw, nel,
+                         width, kind, time=False)
+    for count, head, poison, m in ((0, 0, "", MIXER_M), (3, 0, "", MIXER_M),
+                                   (MIXER_M, 5, "", MIXER_M),
+                                   (MIXER_M, MIXER_HEAD, "gram", MIXER_M),
+                                   (3, 0, "x_new", MIXER_M),
+                                   # the deepest history the solve takes,
+                                   # its matrices past 48 KB of shared memory
+                                   (k14.MAX_HISTORY, 17, "",
+                                    k14.MAX_HISTORY)):
+        mixer_records(out, deck, gpu, 2 * 1009, 1009, dev, rng, count, head,
+                      poison, time=False, m=m)
+    record_check(out, deck, gpu, dev, rng, (7, 11, 13), 1009, 2, 2, 5,
+                 poison=True)
+    return out
+
+
+@contextlib.contextmanager
+def sync_free_step():
+    """Run the fused step from K13 to the record read under
+    torch.cuda.set_sync_debug_mode("error"): any host sync in between
+    raises. Yields the count of guarded steps."""
+    import torch
+
+    from sirius_tpu_torch.dft import scf as scf_mod
+
+    fermi, read = scf_mod.find_fermi, scf_mod.read_record
+    steps = {"guarded": 0}
+
+    def guarded_fermi(*args, **kwargs):
+        torch.cuda.set_sync_debug_mode("error")
+        return fermi(*args, **kwargs)
+
+    def guarded_read(record):
+        torch.cuda.set_sync_debug_mode(0)
+        steps["guarded"] += 1
+        return read(record)
+
+    scf_mod.find_fermi, scf_mod.read_record = guarded_fermi, guarded_read
+    try:
+        yield steps
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        scf_mod.find_fermi, scf_mod.read_record = fermi, read
+
+
+def parity_fused_record(dev, gpu: str, refs: dict, tool) -> dict:
+    """The reference tool's FUSED_DECKS on the card, the step from K13 to
+    the record read sync-free (sync_free_step): the per-iteration records
+    against the JAX package's (every energy slot and rms within
+    FUSED_RECORD_TOL at each iteration both ran, the finite flag 1, the
+    electron count within 1e-8, the ledger below 1e-10), the iteration
+    count within +-1, the energy terms within 1e-8 Ha, moments within
+    1e-6, the fused kernels launched."""
+    import numpy as np
+
+    from sirius_tpu_torch.dft.scf import run_scf
+
+    runs = {}
+    for name in tool.FUSED_DECKS:
+        ref = refs[name]
+        ctx = deck_context(name, tool)
+        phase = "parity_fused_record_" + name.removeprefix("fused_")
+        reset_launches()
+        try:
+            with sync_free_step() as steps:
+                res = run_scf(ctx.cfg, ctx=ctx, device=dev)
+        except RuntimeError as exc:
+            emit({"phase": phase, "gpu": gpu, "sync_free": False,
+                  "error": str(exc)[:400]})
+            raise
+        launches = read_launches()
+        got = np.array(res["scf_scalars"])
+        want = np.array(ref["scf_scalars"])
+        n = min(len(got), len(want))
+        gap = np.abs(got[:n] - want[:n])
+        slots = list(FUSED_ENERGY_SLOTS) + [0]
+        per_it = [float(gap[i, slots].max()) for i in range(n)]
+        terms = {k: res["energy"][k] - v for k, v in ref["energy"].items()}
+        nel = float(ctx.unit_cell.num_valence_electrons)
+        emit({"phase": phase, "gpu": gpu, "deck": name, "sync_free": True,
+              "guarded_steps": steps["guarded"],
+              "num_scf_iterations": res["num_scf_iterations"],
+              "ref_iterations": ref["num_scf_iterations"],
+              "max_slot_gap_per_iteration": per_it,
+              "max_term_err": max(abs(v) for v in terms.values()),
+              "max_nel_err": float(np.max(np.abs(got[:, 11] - nel))),
+              "ledger_max": got[:, list(FUSED_LEDGER_SLOTS)].max(
+                  axis=0).tolist(),
+              "iteration_seconds": res["iteration_seconds"],
+              "launches": launches})
+        if steps["guarded"] != res["num_scf_iterations"]:
+            raise AssertionError(f"{phase}: {steps['guarded']} guarded steps "
+                                 f"in {res['num_scf_iterations']} iterations")
+        if not max(per_it) <= FUSED_RECORD_TOL:
+            raise AssertionError(f"{phase}: record slots off by "
+                                 f"{max(per_it)}")
+        if not (np.all(got[:, 15] == 1.0)
+                and np.max(np.abs(got[:, 11] - nel)) <= 1e-8
+                and got[:, list(FUSED_LEDGER_SLOTS)].max() < 1e-10):
+            raise AssertionError(f"{phase}: finite / electrons / ledger off")
+        bad = {k: v for k, v in terms.items() if abs(v) > 1e-8}
+        if bad:
+            raise AssertionError(f"{phase}: energy terms off: {bad}")
+        check_iterations(phase, res["num_scf_iterations"], ref)
+        if "magnetisation" in ref:
+            d_mag = abs(res["magnetisation"]["total"][2]
+                        - ref["magnetisation"]["total"])
+            if not d_mag <= 1e-6:
+                raise AssertionError(f"{phase}: moment off by {d_mag}")
+        required = (US_FUSED if ctx.num_mag_dims == 0 else
+                    xc_kernels(US_FUSED, False, True, lda_set="lda_xc.pw92"))
+        check_launched(phase, dev, launches, required)
+        runs[name] = launches
+    return runs
+
+
+def count_syncs(run):
+    """(result, host syncs) of run() under set_sync_debug_mode("warn")."""
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            res = run()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return res, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def fused_ab(ctx, dev, gpu: str, phase: str = "fused_ab_us") -> dict:
+    """device_scf auto against off on one deck in one call, in turns (off,
+    auto, auto, off): seconds an iteration after the first, bit-level
+    agreement of the energies; then one run of each under the sync
+    counter: host syncs an iteration."""
+    from sirius_tpu_torch.dft.scf import run_scf
+
+    secs = {"auto": [], "off": []}
+    energies = {}
+    for mode in ("off", "auto", "auto", "off"):
+        ctx.cfg.control.device_scf = mode
+        res = run_scf(ctx.cfg, ctx=ctx, device=dev)
+        secs[mode].append(res["iteration_seconds"][1:])
+        energies[mode] = res["energy"]["total"]
+    syncs = {}
+    for mode in ("off", "auto"):
+        ctx.cfg.control.device_scf = mode
+        res, n = count_syncs(lambda: run_scf(ctx.cfg, ctx=ctx, device=dev))
+        syncs[mode] = n / res["num_scf_iterations"]
+    ctx.cfg.control.device_scf = "auto"
+    rec = {"phase": phase, "gpu": gpu, "order": ["off", "auto", "auto", "off"],
+           "iteration_seconds": secs,
+           "mean_s_per_iteration": {m: sum(map(sum, v)) / sum(map(len, v))
+                                    for m, v in secs.items()},
+           "syncs_per_iteration": syncs,
+           "e_total_gap": energies["auto"] - energies["off"]}
+    emit(rec)
+    if not abs(rec["e_total_gap"]) <= 1e-8:
+        raise AssertionError(f"{phase}: auto and off differ by "
+                             f"{rec['e_total_gap']} Ha")
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -3541,6 +4147,7 @@ def main() -> int:
     emit({"phase": "build", "gpu": gpu, "nvcc": build.nvcc_path(),
           "seconds": time.perf_counter() - t0, "compiled": compiled})
     check_kernel_edges(dev, gpu)
+    check_eigh_empty_rows(dev, gpu)
 
     with open(os.path.join(here, "sirius_tpu_torch", "data",
                            "jax_reference.json")) as f:
@@ -3611,22 +4218,29 @@ def main() -> int:
                                        gpu, fp32=True))
     kern_fp32.update(check_kernels_spinor("si16_supercell2_us_sym_spinor",
                                           ctx16nc, dev, gpu, fp32=True))
+    # the fused step's K13, K14a, K14b and K15 at the 16-atom US shapes
+    kern_fused = check_fused_kernels("si16_supercell2_us_sym", ctx16us, dev,
+                                     gpu)
     torch.cuda.empty_cache()
-    parity_scf(ctx2, dev, refs["full_width_2atom"], gpu)
-    full_width(ctx16, dev, gpu)
+    parity_scf(ctx2, dev, refs["full_width_2atom"], gpu, required=NC_FUSED)
+    full_width(ctx16, dev, gpu, required=NC_FUSED)
     parity_scf(ctx2us, dev, refs["full_width_2atom_us_sym"], gpu,
                phase="parity_scf_us", deck="full_width_2atom_us_sym",
-               required=US_KERNELS)
+               required=US_FUSED)
     entry_point_cli(dev, gpu, refs["full_width_2atom_us_sym"])
+    # the fused step's records against the JAX package's, sync-free
+    parity_fused_record(dev, gpu, refs, tool)
     for name in MIXER_DECKS:
         parity_scf(deck_context(name, tool), dev, refs[name], gpu,
                    phase="parity_scf_" + name.removesuffix("_us_sym"),
                    deck=name, required=US_KERNELS)
     launches, res64 = full_width(ctx16us, dev, gpu, phase="full_width_us",
-                                 required=US_KERNELS, with_result=True)
+                                 required=US_FUSED, with_result=True)
     rms64 = res64["rms_history"]
     # the same cell from a deck file with UPF species, bit for bit
     full_width_us_from_file(dev, gpu, res64)
+    # the fused step against the host loop on the same cell, in turns
+    fused_ab(ctx16us, dev, gpu)
     # the same run on the fp32 path, polished to fp64 after iteration 3 or 4
     ctx16us.cfg.parameters.precision_wf = "fp32"
     ctx16us.cfg.settings.fp32_to_fp64_rms = polish_threshold(rms64)
@@ -3634,7 +4248,7 @@ def main() -> int:
     # so its electron count is held as an fp32 run's)
     runs_fp32 = {"full_width_us_fp32": full_width(
         ctx16us, dev, gpu, phase="full_width_us_fp32",
-        required=FP32_US_KERNELS, deck="si16_supercell2_us_sym",
+        required=FP32_US_FUSED, deck="si16_supercell2_us_sym",
         electron_tol=fp32_electron_tol(
             refs, ctx16us.unit_cell.num_valence_electrons))}
     for name, ctx in single.items():
@@ -3745,7 +4359,8 @@ def main() -> int:
     summary = []
     launches_fp32 = {name: runs_fp32[run][name]
                      for name, run in FP32_SUMMARY.items()}
-    for records, counts in ((kern16, launches), (kern54, launches54),
+    for records, counts in ((kern16, launches), (kern_fused, launches),
+                            (kern54, launches54),
                             (kern54fm, runs["full_width_gamma_pbe_fm"]),
                             (kern54xc, launches_xc),
                             (kern_mgga, launches_mgga),

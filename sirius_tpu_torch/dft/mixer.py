@@ -27,6 +27,11 @@ import numpy as np
 import torch
 
 from sirius_tpu_torch.device import resolve_device
+from sirius_tpu_torch.kernels.mixer import (
+    MAX_HISTORY,
+    device_mix,
+    logical_rows,
+)
 
 
 class Mixer:
@@ -194,6 +199,68 @@ class Mixer:
             self._x.pop(0)
             self._f.pop(0)
         return nxt
+
+
+class DeviceMixer:
+    """The fused step's mixer (sirius_tpu/dft/mixer.py::DeviceMixerState,
+    device_mixer_init, device_mixer_weights and device_mix :313-414):
+    linear or Anderson (broyden1) in the metric of a host Mixer, with the
+    history in two [max_history, nx] complex128 buffers written in place
+    (kernels/mixer.py: K14a and K14b on the card). The count of valid rows
+    and the ring's oldest slot are host integers that follow the number of
+    steps, so a step reads nothing back."""
+
+    def __init__(self, mixer: Mixer, nx: int):
+        if mixer.kind not in ("linear", "anderson"):
+            raise ValueError("the device mixer runs linear and anderson "
+                             f"(broyden1), not '{mixer.kind}'")
+        if not 1 <= mixer.max_history <= MAX_HISTORY:
+            raise ValueError(f"max_history must be 1..{MAX_HISTORY} on the "
+                             f"fused step, got {mixer.max_history}")
+        self.kind = mixer.kind
+        self.beta = float(mixer.beta)
+        self.w = mixer.weight
+        self.rms_w = mixer.rms_weight
+        self.eha_w = torch.where(torch.isfinite(mixer._eha_w), mixer._eha_w,
+                                 torch.zeros_like(mixer._eha_w))
+        m = mixer.max_history
+        self.hx = torch.zeros((m, nx), dtype=torch.complex128,
+                              device=self.w.device)
+        self.hf = torch.zeros_like(self.hx)
+        self.count = 0
+        self.head = 0
+
+    def load_history(self, mix_x, mix_f) -> None:
+        """Restore a history ([k, nx] each, oldest first; the last
+        max_history rows kept), as init_carry's `history` does."""
+        m = self.hx.shape[0]
+        mix_x = torch.as_tensor(mix_x, device=self.hx.device)[-m:]
+        mix_f = torch.as_tensor(mix_f, device=self.hx.device)[-m:]
+        k = mix_x.shape[0]
+        self.hx.zero_()
+        self.hf.zero_()
+        self.hx[:k] = mix_x
+        self.hf[:k] = mix_f
+        self.count, self.head = k, 0
+
+    def history(self):
+        """(mix_x, mix_f): the valid rows oldest first."""
+        return (logical_rows(self.hx, self.count, self.head),
+                logical_rows(self.hf, self.count, self.head))
+
+    def mix(self, x_in, x_new):
+        """(x_mixed, rms, eha): rms of x_new - x_in before mixing and the
+        residual Hartree energy of x_mixed - x_new after it, 0-d device
+        tensors; the pair (x_in, x_new - x_in) joins the history."""
+        out = device_mix(self.hx, self.hf, self.count, self.head, x_in,
+                         x_new, self.w, self.rms_w, self.eha_w, self.beta,
+                         self.kind)
+        m = self.hx.shape[0]
+        if self.count < m:
+            self.count += 1
+        else:
+            self.head = (self.head + 1) % m
+        return out
 
 
 def schedule_res_tol(itsol, res_tol: float, dens_metric: float, nel: float,

@@ -18,6 +18,7 @@ in the JAX package.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
@@ -36,15 +37,38 @@ class PotentialResult:
     veff_r_coarse: torch.Tensor  # [ns, coarse box] per-spin V (V + B, V - B)
     vha_g: torch.Tensor
     vxc_g: torch.Tensor  # fine G: XC potential alone
-    energies: dict  # python floats, reference names
+    # the energy integrals under the reference's names, each a list of the
+    # box pairs (f_r, g_r) of (Omega/N) sum_r f g (empty: zero); the fused
+    # step reduces them in K15, the host loop through `energies`
+    integrands: dict
+    omega: float
     # mGGA only: per-spin v_tau = de/dtau on the coarse box for the
     # -1/2 div(v_tau grad) operator (ops/mgga.py); None otherwise
     vtau_r_coarse: torch.Tensor | None = None
 
+    @functools.cached_property
+    def energies(self) -> dict:
+        """The energy integrals (energy.hpp:280) as 0-d float64 tensors on
+        the device, reduced on first use."""
+        zero = torch.zeros((), dtype=torch.float64,
+                           device=self.veff_g.device)
+        return {name: sum((_inner_rr(self.omega, f, g) for f, g in pairs),
+                          zero)
+                for name, pairs in self.integrands.items()}
 
-def _inner_rr(omega: float, f_r: torch.Tensor, g_r: torch.Tensor) -> float:
-    """Real-space integral over the cell: (Omega/N) sum_r f g."""
-    return float(torch.sum(f_r * g_r)) * omega / f_r.numel()
+
+def energies_host(pot) -> dict:
+    """pot.energies as python floats, in one readback."""
+    names = list(pot.energies)
+    values = torch.stack([pot.energies[k] for k in names]).tolist()
+    return dict(zip(names, values))
+
+
+def _inner_rr(omega: float, f_r: torch.Tensor,
+              g_r: torch.Tensor) -> torch.Tensor:
+    """Real-space integral over the cell: (Omega/N) sum_r f g, a 0-d
+    tensor."""
+    return torch.sum(f_r * g_r) * omega / f_r.numel()
 
 
 def gradient_r(tables: GridTables, f_g: torch.Tensor) -> torch.Tensor:
@@ -185,25 +209,22 @@ def generate_potential(
     # -1/2 div(v_tau grad) operator, and the int v_tau tau integral that the
     # eval_sum double-counting correction needs (potential.py:189-205)
     vtau_r_coarse = None
-    e_vtau_tau = 0.0
+    vtau_pairs = []
     if vtau is not None:
         vtau_r_coarse = torch.stack([
             to_coarse(r_to_g(v.view(dims), tables.fft_index, dims))
             for v in vtau])
-        e_vtau_tau = sum(_inner_rr(tables.omega, tau_r[s], vtau[s].view(dims))
-                         for s in range(vtau.shape[0]))
+        vtau_pairs = [(tau_r[s], vtau[s].view(dims))
+                      for s in range(vtau.shape[0])]
 
-    vha_r = to_r(vha_g)
-    veff_r_fine = to_r(veff_g)
-    om = tables.omega
-    energies = {
-        "vha": _inner_rr(om, rho_r, vha_r),
-        "vxc": _inner_rr(om, rho_r, vxc_r),
-        "vloc": _inner_rr(om, rho_r, tables.vloc_r),
-        "veff": _inner_rr(om, rho_r, veff_r_fine),
-        "exc": _inner_rr(om, rho_r + rho_core_r, exc_r),
-        "bxc": _inner_rr(om, mag_r, to_r(bz_g)) if polarized else 0.0,
-        "vtau_tau": e_vtau_tau,
+    integrands = {
+        "vha": [(rho_r, to_r(vha_g))],
+        "vxc": [(rho_r, vxc_r)],
+        "vloc": [(rho_r, tables.vloc_r)],
+        "veff": [(rho_r, to_r(veff_g))],
+        "exc": [(rho_r + rho_core_r, exc_r)],
+        "bxc": [(mag_r, to_r(bz_g))] if polarized else [],
+        "vtau_tau": vtau_pairs,
     }
     return PotentialResult(
         veff_g=veff_g,
@@ -211,6 +232,7 @@ def generate_potential(
         veff_r_coarse=veff_r_coarse,
         vha_g=vha_g,
         vxc_g=vxc_g,
-        energies=energies,
+        integrands=integrands,
+        omega=tables.omega,
         vtau_r_coarse=vtau_r_coarse,
     )

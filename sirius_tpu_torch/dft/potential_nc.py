@@ -127,6 +127,9 @@ def generate_potential_nc(
         # takes it (potential_nc.py:156)
         "bxc": sum(_inner_rr(om, m_r[i], b_r_sym[i]) for i in range(3)),
     }
+    # python floats, in one readback
+    energies = dict(zip(energies, torch.stack(list(energies.values()))
+                        .tolist()))
     return NcPotentialResult(veff_g=veff_g, bvec_g=bvec_g,
                              veff_boxes=veff_boxes.contiguous(), vha_g=vha_g,
                              vxc_g=vxc_g, energies=energies)

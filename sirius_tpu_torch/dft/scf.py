@@ -61,9 +61,25 @@ from sirius_tpu_torch.dft.density import (
     symmetrize_pw,
     symmetrize_tau,
 )
+from sirius_tpu_torch.dft.fused import (
+    S_BXC,
+    S_E1,
+    S_E2,
+    S_EHA,
+    S_ENT,
+    S_EVAL,
+    S_EXC,
+    S_FINITE,
+    S_MAG,
+    S_RMS,
+    S_VHA,
+    S_VXC,
+    FusedScf,
+    read_record,
+)
 from sirius_tpu_torch.dft.mixer import Mixer, schedule_res_tol
 from sirius_tpu_torch.dft.occupation import find_fermi
-from sirius_tpu_torch.dft.potential import generate_potential
+from sirius_tpu_torch.dft.potential import energies_host, generate_potential
 from sirius_tpu_torch.dft.scf_nc import run_scf_nc
 from sirius_tpu_torch.dft.xc import XCFunctional
 from sirius_tpu_torch.ops.atomic import atomic_orbitals
@@ -179,10 +195,10 @@ def fuses(cfg: Config, ctx: SimulationContext) -> bool:
     step on one device (sirius_tpu/dft/scf.py:848-855): the k-set band
     solve, no mGGA, a linear or Anderson mixer (broyden1 mixes as Anderson
     there, mixer.py:66; anderson_stable and broyden2 take the host loop)
-    and control.device_scf not off. It decides which D
-    the forces and stress take: the fused step hands over the D of the
-    final mixed potential (fused.py:387-390), the host loop the D its last
-    band solve used (scf.py:1236-1246)."""
+    and control.device_scf not off. run_scf then runs dft/fused.py's step,
+    and the forces and stress take the D of the final mixed potential
+    (fused.py:387-390); the host loop hands them the D its last band solve
+    used (scf.py:1236-1246)."""
     return (cfg.control.device_scf not in (False, "false", "off")
             and band_solve_path(cfg, ctx) == "kset"
             and not XCFunctional(cfg.parameters.xc_functionals).is_mgga
@@ -241,11 +257,19 @@ def run_scf(cfg: Config, ctx: SimulationContext | None = None,
     Without ctx the context is built from cfg, its species files resolved
     against base_dir (the deck's directory in run_scf_from_file).
 
+    Where fuses(cfg, ctx) holds, the part of each iteration after the band
+    solve is dft/fused.py's step (K13, the density, K4, K6, the device
+    mixer K14a/K14b, the potential, K5, the ledger, K15) and the loop
+    reads one scalar record an iteration; control.device_scf = "off" keeps
+    the host loop.
+
     Returns the JAX package's result dict for the keys of this slice
     (energies under the reference's names; mag_history and, polarized,
     magnetisation), plus the wall time of each iteration and of each band
     solve and the precision each band solve ran at (wf_precision, "fp32"
-    or "fp64"). Under control.print_forces / print_stress it adds
+    or "fp64"), device_scf (whether the fused step ran) and scf_scalars
+    (its per-iteration records, dft/fused.py's slots; empty on the host
+    loop). Under control.print_forces / print_stress it adds
     "forces" [natom, 3] and "stress" [3, 3] (dft/forces.py, dft/stress.py)
     with forces_seconds, stress_seconds and stress_term_seconds; a
     non-collinear run returns neither, as the JAX package's run_scf_nc
@@ -378,6 +402,15 @@ def run_scf(cfg: Config, ctx: SimulationContext | None = None,
         # the k-set and Gamma tables of a norm-conserving deck were built
         # from this potential already
         refresh(pot)
+    # the JAX package's fused step (fuses: the k-set solve only); it also
+    # decides the D that forces and stress read
+    fused_path = fuses(cfg, ctx)
+    fused = None
+    if fused_path:
+        fused = FusedScf(ctx, xc, mixer, polarized, tables, aug_tables, dm_sym,
+                         ps.beta, ps.ekin, ps.mask)
+        fused.init_carry(x_mix, pot)
+    scf_scalars = []
 
     counters = {"num_loc_op_applied": 0}
     etot_history, rms_history, iter_seconds, band_seconds = [], [], [], []
@@ -475,80 +508,118 @@ def run_scf(cfg: Config, ctx: SimulationContext | None = None,
         synchronize(device)
         band_seconds.append(time.perf_counter() - it_t0)
 
-        # --- occupations and the new density ---
-        mu, occ, entropy_sum = find_fermi(
-            evals, kweights, nel, p.smearing_width, kind=p.smearing,
-            max_occupancy=ctx.max_occupancy)
-        occ_w = occ * kweights[:, None, None]
-        # the k-set bands are at the working precision, with `band`'s
-        # tables; the Gamma and chunked paths hand the density complex128
-        # bands, with the fp64 tables
-        dens = band if path == "kset" else ps
-        rho_spin = density_from_coarse_acc(ctx, density_kset(dens, psi, occ_w),
-                                           tables)
-        if mgga:
-            # tau of the current bands, symmetrized as a scalar field per
-            # spin; not mixed: the potential takes the mixed rho with this
-            # fresh tau (scf.py:1949-1969)
-            tau_g = density_from_coarse_acc(
-                ctx, tau_kset(dens, gkc.to(rdt), psi, occ_w), tables)
+        if fused is not None:
+            # --- the fused step: K13, the density and the density matrix,
+            # then dft/fused.py; one record comes back (scf.py:1726-1860) ---
+            mu, occ, entropy_sum = find_fermi(
+                evals, kweights, nel, p.smearing_width, kind=p.smearing,
+                max_occupancy=ctx.max_occupancy)
+            occ_w = occ * kweights[:, None, None]
+            acc = density_kset(band, psi, occ_w)
+            dm = (density_matrix_kset(beta_dense, psi, occ_w)
+                  if aug_tables is not None else None)
+            out = fused.step(acc, dm, evals, occ_w, entropy_sum, psi)
+            rec = read_record(out.record)
+            if not (np.all(np.isfinite(rec)) and rec[S_FINITE] == 1.0):
+                # the JAX package rolls back here (dft/recovery.py), which
+                # comes with ROADMAP queue 1, item 6
+                raise FloatingPointError(
+                    "non-finite fields from the fused step at SCF iteration "
+                    f"{it + 1} (the rollback comes with ROADMAP queue 1, "
+                    "item 6)")
+            pot, d_spin, dm, rho_resid = out.pot, out.d_spin, out.dm, out.resid
+            ps.veff_r = pot.veff_r_coarse
+            ps.dion = d_spin.to(torch.complex128).contiguous()
+            ps.h_diag = out.h_diag
+            scf_scalars.append(rec)
+            rms = rec[S_RMS]
+            dens_metric = rec[S_EHA] if mixer.use_hartree else rms
+            res_tol = schedule_res_tol(itsol, res_tol, dens_metric, nel,
+                                       mixer.use_hartree)
+            scf_correction = (rec[S_E2] - rec[S_E1] if p.use_scf_correction
+                              else 0.0)
+            e_total = ((rec[S_EVAL] - rec[S_VXC] - rec[S_BXC]
+                        - 0.5 * rec[S_VHA] + rec[S_EXC])
+                       + ctx.e_ewald + scf_correction)
+            etot_history.append(e_total + rec[S_ENT])
+            rms_history.append(rms)
+            if polarized:
+                mag_history.append(rec[S_MAG])
+        else:
+            # --- occupations and the new density ---
+            mu, occ, entropy_sum = find_fermi(
+                evals, kweights, nel, p.smearing_width, kind=p.smearing,
+                max_occupancy=ctx.max_occupancy)
+            occ_w = occ * kweights[:, None, None]
+            # the k-set bands are at the working precision, with `band`'s
+            # tables; the Gamma and chunked paths hand the density complex128
+            # bands, with the fp64 tables
+            dens = band if path == "kset" else ps
+            rho_spin = density_from_coarse_acc(ctx, density_kset(dens, psi, occ_w),
+                                               tables)
+            if mgga:
+                # tau of the current bands, symmetrized as a scalar field per
+                # spin; not mixed: the potential takes the mixed rho with this
+                # fresh tau (scf.py:1949-1969)
+                tau_g = density_from_coarse_acc(
+                    ctx, tau_kset(dens, gkc.to(rdt), psi, occ_w), tables)
+                if tables.sym is not None:
+                    tau_g = symmetrize_tau(tables.sym, tau_g)
+            if aug_tables is not None:
+                # beta density matrix -> its space-group average -> rho_aug (K4)
+                dm = density_matrix_kset(beta_dense, psi, occ_w)
+                if dm_sym is not None:
+                    dm = symmetrize_density_matrix_device(dm, dm_sym)
+                rho_spin += rho_aug_g_device(dm.contiguous(), aug_tables,
+                                             ctx.gvec.num_gvec)
+            rho_new = rho_spin.sum(dim=0)
+            mag_new = rho_spin[0] - rho_spin[1] if polarized else None
             if tables.sym is not None:
-                tau_g = symmetrize_tau(tables.sym, tau_g)
-        if aug_tables is not None:
-            # beta density matrix -> its space-group average -> rho_aug (K4)
-            dm = density_matrix_kset(beta_dense, psi, occ_w)
-            if dm_sym is not None:
-                dm = symmetrize_density_matrix_device(dm, dm_sym)
-            rho_spin += rho_aug_g_device(dm.contiguous(), aug_tables,
-                                         ctx.gvec.num_gvec)
-        rho_new = rho_spin.sum(dim=0)
-        mag_new = rho_spin[0] - rho_spin[1] if polarized else None
-        if tables.sym is not None:
-            rho_new = symmetrize_pw(tables.sym, rho_new)
+                rho_new = symmetrize_pw(tables.sym, rho_new)
+                if polarized:
+                    mag_new = symmetrize_pw(tables.sym, mag_new, axial_z=True)
+            x_new = torch.cat([rho_new, mag_new]) if polarized else rho_new
+            if not (bool(torch.all(torch.isfinite(evals))) and bool(
+                    torch.all(torch.isfinite(torch.view_as_real(x_new))))):
+                raise FloatingPointError(
+                    f"non-finite band energies or density at SCF iteration {it + 1}")
+
+            # --- mixing ---
+            rho_resid = rho_new - x_mix[:ng]
+            rms = mixer.rms(x_mix, x_new)
+            x_mix = mixer.mix(x_mix, x_new)
+            eha_res = mixer.residual_hartree_energy(x_mix, x_new)
+            dens_metric = eha_res if mixer.use_hartree else rms
+            res_tol = schedule_res_tol(itsol, res_tol, dens_metric, nel,
+                                       mixer.use_hartree)
+            rho_g = x_mix[:ng]
+            mag_g = x_mix[ng:] if polarized else None
+
+            # first-order (Harris-like) correction: E_pot[rho_out, m_out] under
+            # the new vs old potential (reference dft_ground_state.cpp:245,
+            # 320-322; scf.py:2082-2088)
+            def _epot(p_):
+                e = float(torch.vdot(rho_new, p_.veff_g).real) * omega
+                if polarized:
+                    e += float(torch.vdot(mag_new, p_.bz_g).real) * omega
+                return e
+
+            e1 = _epot(pot)
+            pot = generate_potential(ctx, rho_g, xc, tables, mag_g, tau_g)
+            if not bool(torch.all(torch.isfinite(pot.veff_r_coarse))):
+                raise FloatingPointError(
+                    f"non-finite effective potential at SCF iteration {it + 1}")
+            refresh(pot)
+            scf_correction = _epot(pot) - e1 if p.use_scf_correction else 0.0
+            eval_sum = float(torch.sum(kweights[:, None, None] * occ * evals))
+            e = energies_host(pot)
+            e_total = (eval_sum - e["vxc"] - e["bxc"] - e["vtau_tau"]
+                       - 0.5 * e["vha"] + e["exc"] + ctx.e_ewald + scf_correction)
+            etot_history.append(e_total + float(entropy_sum))
+            rms_history.append(rms)
             if polarized:
-                mag_new = symmetrize_pw(tables.sym, mag_new, axial_z=True)
-        x_new = torch.cat([rho_new, mag_new]) if polarized else rho_new
-        if not (bool(torch.all(torch.isfinite(evals))) and bool(
-                torch.all(torch.isfinite(torch.view_as_real(x_new))))):
-            raise FloatingPointError(
-                f"non-finite band energies or density at SCF iteration {it + 1}")
-
-        # --- mixing ---
-        rho_resid = rho_new - x_mix[:ng]
-        rms = mixer.rms(x_mix, x_new)
-        x_mix = mixer.mix(x_mix, x_new)
-        eha_res = mixer.residual_hartree_energy(x_mix, x_new)
-        dens_metric = eha_res if mixer.use_hartree else rms
-        res_tol = schedule_res_tol(itsol, res_tol, dens_metric, nel,
-                                   mixer.use_hartree)
-        rho_g = x_mix[:ng]
-        mag_g = x_mix[ng:] if polarized else None
-
-        # first-order (Harris-like) correction: E_pot[rho_out, m_out] under
-        # the new vs old potential (reference dft_ground_state.cpp:245,
-        # 320-322; scf.py:2082-2088)
-        def _epot(p_):
-            e = float(torch.vdot(rho_new, p_.veff_g).real) * omega
-            if polarized:
-                e += float(torch.vdot(mag_new, p_.bz_g).real) * omega
-            return e
-
-        e1 = _epot(pot)
-        pot = generate_potential(ctx, rho_g, xc, tables, mag_g, tau_g)
-        if not bool(torch.all(torch.isfinite(pot.veff_r_coarse))):
-            raise FloatingPointError(
-                f"non-finite effective potential at SCF iteration {it + 1}")
-        refresh(pot)
-        scf_correction = _epot(pot) - e1 if p.use_scf_correction else 0.0
-        eval_sum = float(torch.sum(kweights[:, None, None] * occ * evals))
-        e = pot.energies
-        e_total = (eval_sum - e["vxc"] - e["bxc"] - e["vtau_tau"]
-                   - 0.5 * e["vha"] + e["exc"] + ctx.e_ewald + scf_correction)
-        etot_history.append(e_total + float(entropy_sum))
-        rms_history.append(rms)
-        if polarized:
-            # the total moment of the output density, before mixing
-            mag_history.append(float(mag_new[0].real) * omega)
+                # the total moment of the output density, before mixing
+                mag_history.append(float(mag_new[0].real) * omega)
         num_iter_done = it + 1
         iter_seconds.append(time.perf_counter() - it_t0)
         de = abs(e_total - e_prev) if e_prev is not None else np.inf
@@ -565,10 +636,14 @@ def run_scf(cfg: Config, ctx: SimulationContext | None = None,
             break
 
     # --- final report ---
+    if fused is not None and num_iter_done > 0:
+        # the mixed density of the carry: pot is its potential already
+        fin = fused.finalize(out)
+        rho_g, mag_g = fin["rho_g"], fin["mag_g"]
     evals_np = (np.zeros((nk, ns, nb)) if evals is None
                 else evals.cpu().numpy())
     occ_np = np.zeros((nk, ns, nb)) if occ is None else occ.cpu().numpy()
-    e = pot.energies
+    e = energies_host(pot)
     eval_sum = float(np.sum(ctx.kweights[:, None, None] * occ_np * evals_np))
     ent = 0.0 if entropy_sum is None else float(entropy_sum)
     e_total = (eval_sum - e["vxc"] - e["bxc"] - e["vtau_tau"]
@@ -588,6 +663,8 @@ def run_scf(cfg: Config, ctx: SimulationContext | None = None,
         "band_solve_seconds": band_seconds,
         "wf_precision": precision_history,
         "device": str(device),
+        "device_scf": fused is not None,
+        "scf_scalars": scf_scalars,
         "energy": {
             "total": e_total,
             "free": e_total + ent,
@@ -621,7 +698,7 @@ def run_scf(cfg: Config, ctx: SimulationContext | None = None,
         }
     c = cfg.control
     if (c.print_forces or c.print_stress) and num_iter_done > 0:
-        d_last = d_spin if fuses(cfg, ctx) else d_solve
+        d_last = d_spin if fused_path else d_solve
         result.update(_forces_and_stress(
             ctx, xc, device, tables, aug_tables, beta_dense, rho_g, mag_g,
             pot, psi, occ_np, evals_np, d_last, dm, rho_resid))

@@ -27,9 +27,11 @@ BUILD_DIR = PKG / "_build"
 SOURCES = ("local_hpsi", "davidson_residual", "density_accumulate", "lda_xc",
            "veff_multiply", "augmentation", "symmetrize_pw", "gamma_pack",
            "beta_chunk", "gga_xc", "xc_gradient", "mgga_xc", "mgga_tau",
-           "spinor_veff")
+           "spinor_veff", "fermi", "mixer", "scf_record", "eigh_jacobi")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
+# the libraries a source links, found at run time in the toolkit beside nvcc
+LINK = {"eigh_jacobi": ("-lcusolver",)}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -104,6 +106,20 @@ SIGNATURES = {
         "box_to_pw_tau": _K11, "box_to_pw_tau_c64": _K11,
     },
     "spinor_veff": {"spinor_veff": _K12A, "spinor_veff_c64": _K12A},
+    "fermi": {"fermi_level": (_P, _P, _I, _I, _D, _D, _D, _I, _I, _P, _P,
+                              _P)},
+    "mixer": {
+        "mixer_gram": (_P, _P, _P, _P, _P, _I, _I, _I, _LL, _P, _P, _P),
+        "mixer_update": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _LL, _LL, _D,
+                         _P, _P, _P, _P, _P, _P, _P),
+    },
+    "scf_record": {"scf_record": (_P, _P, _P, _I, _I, _P, _P, _P)},
+    "eigh_jacobi": {
+        "eigh_jacobi_f32": (_P, _P, _I, _I, _P, _P),
+        "eigh_jacobi_f64": (_P, _P, _I, _I, _P, _P),
+        "eigh_jacobi_c64": (_P, _P, _I, _I, _P, _P),
+        "eigh_jacobi_c128": (_P, _P, _I, _I, _P, _P),
+    },
 }
 
 _LOADED: dict[str, ctypes.CDLL] = {}
@@ -125,7 +141,8 @@ def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
     for header in sorted(CSRC.glob("*.cuh")):
         src += header.read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    flags = NVCC_FLAGS + LINK.get(name, ())
+    key = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{key}.so"
 
 
@@ -143,6 +160,10 @@ def build_all(names=SOURCES) -> dict[str, float]:
         nvcc = nvcc or nvcc_path()
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        if name in LINK:
+            lib64 = os.path.join(os.path.dirname(os.path.dirname(nvcc)),
+                                 "lib64")
+            cmd += [*LINK[name], "-Xlinker", f"-rpath,{lib64}"]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT), tmp, out)
     times = {}

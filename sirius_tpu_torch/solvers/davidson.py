@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from sirius_tpu_torch.kernels.davidson_residual import davidson_residual
+from sirius_tpu_torch.kernels.eigh_jacobi import eigh_jacobi
 
 # refresh cadence of the carried H X / H P blocks; scf.py's H-application
 # counter derives from this, keep them in sync via this constant
@@ -79,10 +80,20 @@ def eigh_padded(a, m: int):
 def _eigh(a):
     """torch.linalg.eigh in its working type; a matrix of order PAD_FROM
     or more that the card would solve by Jacobi is padded past SYEVJ_MAX
-    to reach syevd, as the CPU's LAPACK solves it."""
-    if takes_syevj(a) and a.shape[-1] >= PAD_FROM:
-        return eigh_padded(a, SYEVJ_MAX + 1)
-    return torch.linalg.eigh(a)
+    to reach syevd, as the CPU's LAPACK solves it. Where cuSOLVER's heevd
+    reports that it failed to converge, the batch is solved again on the
+    card by cuSOLVER's Jacobi (kernels/eigh_jacobi.py): heevd fails on some
+    finite, exactly Hermitian S-subspace matrices, zero rows (converged
+    bands' empty residual rows) beside a tight cluster of eigenvalues at 1,
+    which LAPACK solves (ROADMAP queue 3, item 16)."""
+    try:
+        if takes_syevj(a) and a.shape[-1] >= PAD_FROM:
+            return eigh_padded(a, SYEVJ_MAX + 1)
+        return torch.linalg.eigh(a)
+    except torch.linalg.LinAlgError:
+        if a.device.type != "cuda":
+            raise
+        return eigh_jacobi(a)
 
 
 def _rayleigh_ritz(hsub, ssub, nev: int):

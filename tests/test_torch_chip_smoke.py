@@ -50,6 +50,8 @@ AUG54_CHECKED = ("augmentation.rho_aug.54", "augmentation.rho_aug.2.54")
 FP32_CHECKED = tuple(chip_smoke.FP32_SUMMARY)
 # K4 on the stress's strained tables (check_rho_aug_strained)
 STRAINED_CHECKED = ("augmentation.rho_aug.strained",)
+# the fused step's K13, K14a, K14b and K15 (check_fused_kernels)
+FUSED_CHECKED = ("fermi", "mixer.gram", "mixer.update", "scf_record")
 
 
 def reference_tool():
@@ -82,10 +84,11 @@ def test_phases_run_on_cpu(monkeypatch, capsys):
     ctx = chip_smoke.make_context(SMALL, chip_smoke.TIGHT)
     recs = chip_smoke.check_kernels("small", ctx, dev, "cpu")
     assert sorted(recs) == sorted(NC_CHECKED)
-    assert sorted(NC_CHECKED + US_CHECKED + GAMMA_CHECKED + ("beta_chunk",)
+    assert (sorted(NC_CHECKED + US_CHECKED + GAMMA_CHECKED + ("beta_chunk",)
                   + XC_CHECKED + ("symmetrize_pw.axial",) + TAU_CHECKED
                   + SPINOR_CHECKED + AUG54_CHECKED + FP32_CHECKED
-                  + STRAINED_CHECKED) == sorted(chip_smoke.SOURCE)
+                  + STRAINED_CHECKED + FUSED_CHECKED)
+            == sorted(chip_smoke.SOURCE))
     for rec in recs.values():
         assert rec["max_rel_err"] <= rec["tol_rel"]
         assert rec["bound_ms"] > 0 and rec["bound_by"] in ("bytes", "operations")
@@ -590,6 +593,16 @@ def test_eigh_calls_are_counted_by_type_and_order():
     assert calls == {"torch.float32 12": 2}
 
 
+def test_eigh_empty_rows_phase_runs_on_cpu(capsys):
+    # the card's phase on the CPU: LAPACK solves the matrix, the Jacobi
+    # wrapper is LAPACK, and the Ritz values are the CPU's own
+    chip_smoke.check_eigh_empty_rows(torch.device("cpu"), "cpu")
+    rec = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
+    assert [r["phase"] for r in rec] == ["eigh_empty_rows"]
+    assert rec[0]["empty_rows"] == 12 and rec[0]["raw_eigh"] == "converged"
+    assert rec[0]["max_abs_err"] == 0.0 and rec[0]["jacobi_launches"] == 0
+
+
 def test_launch_checks_follow_the_band_solve_path():
     # on the card: a path's kernels must each launch, and on the Gamma path
     # K1's gather serves only the r -> G transforms (2 iters + 1)
@@ -1028,3 +1041,60 @@ def test_entry_point_phases_run_on_cpu(monkeypatch, capsys):
     rec = json.loads(capsys.readouterr().out.splitlines()[-1])
     assert rec["phase"] == "full_width_us_from_file"
     assert rec["bitwise_in_memory"] and rec["num_scf_iterations"] == 2
+
+
+def test_fused_phases_run_on_cpu(monkeypatch, capsys):
+    # K13, K14a, K14b and K15 against their plain versions and at their
+    # edges; K14's wrappers launch on a card only, so off it they are
+    # swapped for their plain versions (the checks then hold the plain
+    # versions to themselves, as every other phase here does)
+    from sirius_tpu_torch.kernels import mixer as k14
+
+    monkeypatch.setattr(chip_smoke, "time_ms", lambda fn, **kw: (fn(), 0.0)[1])
+    monkeypatch.setattr(k14, "mixer_gram", k14.mixer_gram_plain)
+    monkeypatch.setattr(k14, "mixer_update", k14.mixer_update_plain)
+    ctx = chip_smoke.make_context(SMALL, chip_smoke.TIGHT)
+    recs = chip_smoke.check_fused_kernels("small", ctx, torch.device("cpu"),
+                                          "cpu")
+    assert sorted(recs) == sorted(FUSED_CHECKED)
+    for rec in recs.values():
+        assert rec["max_rel_err"] <= rec["tol_rel"]
+        assert rec["bound_ms"] > 0 and rec["bound_by"] in ("bytes",
+                                                           "operations")
+    assert recs["mixer.gram"]["library_ms"] is not None
+    lines = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
+    edges = [r for r in lines if r.get("phase") == "kernel_edges"]
+    fermi = {r["name"] for r in edges if r["name"].startswith("fermi.")}
+    assert fermi == {f"fermi.{k}.{c}" for k in chip_smoke.SMEARINGS
+                     for c in ("deck", "full", "degenerate")}
+    mixer = [r for r in edges if r["name"] == "mixer"]
+    assert {r["poison"] for r in mixer} == {"", "gram", "x_new"}
+    assert {r["count"] for r in mixer} >= {0, 3, chip_smoke.MIXER_M, 64}
+    assert all(r["fallback"] == r["fallback_plain"] for r in mixer)
+    assert [r["fallback"] for r in mixer if r["poison"]] == [True, True]
+    record = [r for r in edges if r["name"] == "scf_record"]
+    assert record and record[0]["finite"] == 0.0
+
+
+def test_fused_decks_are_the_reference_tools():
+    # the records parity_fused_record reads: the JAX package's fused step,
+    # one record an iteration; every deck that fuses launches K13, K14a,
+    # K14b and K15, every path K13
+    tool = reference_tool()
+    for name in tool.FUSED_DECKS:
+        ref = reference(name)
+        assert ref["deck"]["control"]["device_scf"] == "auto"
+        assert len(ref["scf_scalars"]) == ref["num_scf_iterations"]
+        assert all(len(r) == 20 and r[15] == 1.0 for r in ref["scf_scalars"])
+        assert chip_smoke.deck_context(
+            name, tool).cfg.control.device_scf == "auto"
+    for required in (chip_smoke.NC_FUSED, chip_smoke.US_FUSED,
+                     chip_smoke.FP32_US_FUSED,
+                     chip_smoke.XC_DECK_PATH["pbe_us_sym"][1],
+                     chip_smoke.XC_DECK_PATH["pw_us_sym_afm"][1],
+                     chip_smoke.FORCES_DECK_PATH["forces_us_sym_2atom"][1]):
+        assert {"fermi", *chip_smoke.FUSED_STEP} <= set(required)
+    for required in (chip_smoke.GAMMA_KERNELS, chip_smoke.SPINOR_KERNELS,
+                     chip_smoke.CHUNKED_US_KERNELS,
+                     chip_smoke.FP32_GAMMA_US_KERNELS):
+        assert "fermi" in required and "scf_record" not in required

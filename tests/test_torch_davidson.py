@@ -7,6 +7,7 @@ matrix of the two channels). num_steps is 40, where residuals are ~1e-10 and the
 projector is therefore defined to 1e-10. Compared: eigenvalues and the projector onto the occupied subspace
 (the vectors' phases differ between LAPACK builds). Bound: 1e-10 Ha."""
 
+import os
 import sys
 
 import jax.numpy as jnp
@@ -233,6 +234,44 @@ def test_rayleigh_ritz_matches_jax_when_rank_deficient(ndrop):
     # the same Ritz vectors up to a phase each: |<x_port|S|x_jax>| = 1
     overlap = np.abs(np.einsum("mi,mn,ni->i", c.conj(), ssub, jc))
     assert np.max(np.abs(overlap - 1.0)) <= 1e-10
+
+
+def empty_rows_matrix():
+    """The S-subspace matrix [42, 42] complex128 on which cuSOLVER's heevd
+    failed to converge in a fused run on the card: 12 zero rows (converged
+    bands' empty residual rows) beside 14 eigenvalues within 1.1e-9 of 1."""
+    return np.load(os.path.join(os.path.dirname(__file__), "data",
+                                "eigh_empty_rows_ssub.npy"))
+
+
+@pytest.mark.parametrize("dtype", [torch.complex128, torch.complex64,
+                                   torch.float64, torch.float32])
+def test_eigh_jacobi_takes_lapack_on_the_cpu(dtype):
+    # the card's retry of a failed eigh is torch.linalg.eigh on the CPU
+    from sirius_tpu_torch.kernels.eigh_jacobi import eigh_jacobi
+
+    s = empty_rows_matrix()
+    a = torch.as_tensor(s if dtype.is_complex else s.real).to(dtype)
+    a = torch.stack([a, 2.0 * a])
+    e, v = eigh_jacobi(a)
+    we, wv = torch.linalg.eigh(a)
+    assert torch.equal(e, we) and torch.equal(v, wv)
+    assert e.shape == (2, 42) and v.shape == (2, 42, 42)
+
+
+def test_cpu_eigh_failure_is_not_retried(monkeypatch):
+    # no host or Jacobi path on the CPU: LAPACK's failure is the caller's
+    from sirius_tpu_torch.kernels import eigh_jacobi as mod
+    from sirius_tpu_torch.solvers import davidson
+
+    def fail(a):
+        raise torch.linalg.LinAlgError("not converged")
+
+    monkeypatch.setattr(davidson.torch.linalg, "eigh", fail)
+    launches = mod.eigh_jacobi.launches
+    with pytest.raises(torch.linalg.LinAlgError):
+        davidson._eigh(torch.as_tensor(empty_rows_matrix())[None])
+    assert mod.eigh_jacobi.launches == launches
 
 
 @pytest.mark.parametrize("dtype", [np.complex64, np.float32, np.complex128,

@@ -240,11 +240,18 @@ def test_reference_file_names_its_command(reference):
               for kind in ("anderson_stable", "broyden2")
               for prefix, suffix in (("small_us_sym_", ""), ("", "_us_sym"))}
     files = _load_reference_tool().FILE_DECKS
+    # the JAX package's fused step, one record an iteration
+    # (tests/test_torch_fused.py, chip_smoke.py::parity_fused_record)
+    fused = _load_reference_tool().FUSED_DECKS
     assert set(reference) == {"small", "full_width_2atom", "small_us_sym",
                               "full_width_2atom_us_sym", *SINGLE_K,
                               *SPIN_DECKS, *XC_DECKS, *SCAN_DECKS,
                               *SPINOR_DECKS, *twins, *twins.values(),
-                              *forces, *mixers, *files}
+                              *forces, *mixers, *files, *fused}
+    for name in fused:
+        rec = reference[name]
+        assert rec["deck"]["control"]["device_scf"] == "auto"
+        assert len(rec["scf_scalars"]) == rec["num_scf_iterations"]
     for name in files:
         rec = reference[name]
         assert rec["deck"]["so_correction"] and rec["deck"]["spin_orbit"]

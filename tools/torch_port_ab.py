@@ -67,7 +67,9 @@ RUNS = sys.argv[1].split(",")
 if "us" in RUNS:
     ctx = cs.make_context(cs.FULL, {"num_dft_iter": cs.FULL_ITERS["full_width_us"],
                                     **cs.RUN_TO_END}, cs.US_SYM)
-    _, rms = run("full_width_us", ctx, required=cs.US_KERNELS, with_rms=True)
+    _, res = run("full_width_us", ctx, required=cs.US_KERNELS,
+                 with_result=True)
+    rms = res["rms_history"]
     ctx.cfg.parameters.precision_wf = "fp32"
     ctx.cfg.settings.fp32_to_fp64_rms = cs.polish_threshold(rms)
     run("full_width_us_fp32", ctx, required=cs.FP32_US_KERNELS,

@@ -25,7 +25,14 @@ iterations and the device's busy share of it. The decks:
   (chip_smoke.py's full_width_spinor_us);
 - --fp32 with any of them: the same deck with precision_wf "fp32" (the band
   solve in complex64 / float32, chip_smoke.py's *_fp32 runs, without the
-  polish).
+  polish);
+- --device-scf off with a k-set deck: the host loop in place of the fused
+  step (control.device_scf; the default "auto" fuses where dft/scf.py::
+  fuses says).
+
+It also counts the host syncs of the profiled iterations (PyTorch's
+set_sync_debug_mode("warn"), explicit synchronizes included) and prints
+them an iteration (syncs_per_iteration).
 
 The device's idle time (the profiled window less the union of its kernel,
 copy and memset intervals in the exported trace) is split by what the host
@@ -35,7 +42,8 @@ the device's tail), launching work, in the allocator, or none of these
 
     python3 tools/torch_port_profile.py
         [--ultrasoft | --scan | --gamma | --chunked | --gamma-pbe-fm
-         | --spinor] [--fp32] [--iters 3] [--profiled 2] [--out FILE]
+         | --spinor] [--fp32] [--device-scf auto|off] [--iters 3]
+        [--profiled 2] [--out FILE]
 
 Needs a CUDA card; exits non-zero without one.
 """
@@ -48,6 +56,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import warnings
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -108,6 +117,26 @@ def _overlap(gaps, intervals) -> float:
     return total
 
 
+def _subtract(gaps, intervals):
+    """The parts of sorted disjoint gaps outside sorted disjoint intervals,
+    in one pass over both lists."""
+    rest = []
+    j = 0
+    for a, b in gaps:
+        while j < len(intervals) and intervals[j][1] <= a:
+            j += 1
+        cur, k = a, j
+        while k < len(intervals) and intervals[k][0] < b:
+            c, d = intervals[k]
+            if c > cur:
+                rest.append([cur, c])
+            cur = max(cur, d)
+            k += 1
+        if cur < b:
+            rest.append([cur, b])
+    return rest
+
+
 def idle_breakdown(events) -> dict:
     """Split the device's idle time over a trace window (Chrome trace
     events: dicts with cat, name, ts and dur in microseconds) by the host's
@@ -137,18 +166,7 @@ def idle_breakdown(events) -> dict:
                         and runtime_kind(e.get("name", "")) == kind])
         out[kind + "_ms"] = _overlap(left, calls) / 1e3
         # what stays idle outside these calls
-        rest = []
-        for a, b in left:
-            cur = a
-            for c, d in calls:
-                if d <= cur or c >= b:
-                    continue
-                if c > cur:
-                    rest.append([cur, c])
-                cur = max(cur, d)
-            if cur < b:
-                rest.append([cur, b])
-        left = rest
+        left = _subtract(left, calls)
     out["host_ms"] = sum(b - a for a, b in left) / 1e3
     return out
 
@@ -200,6 +218,9 @@ def main(argv=None) -> int:
                       "(0.3, 0.3, 0.3) on every atom (spinor k-set solve)")
     ap.add_argument("--fp32", action="store_true",
                     help="the deck with precision_wf fp32")
+    ap.add_argument("--device-scf", choices=("auto", "off"), default="auto",
+                    help="control.device_scf: the fused step where the "
+                    "deck fuses (auto), or the host loop (off)")
     ap.add_argument("--out", default="", help="also write the JSON here")
     args = ap.parse_args(argv)
 
@@ -247,6 +268,7 @@ def main(argv=None) -> int:
         ctx.cfg.control.beta_chunk_size = 16
     if args.fp32:
         ctx.cfg.parameters.precision_wf = "fp32"
+    ctx.cfg.control.device_scf = args.device_scf
     deck_name = ("si16_supercell2_us_sym_spinor" if args.spinor
                  else "si54_supercell3_chunk16" if args.chunked
                  else "si54_supercell3_gamma_pbe_fm" if args.gamma_pbe_fm
@@ -266,7 +288,8 @@ def main(argv=None) -> int:
                    schedule=schedule(wait=0, warmup=1, active=args.profiled,
                                      repeat=1),
                    acc_events=True)
-    state = {"fermi": 0, "it": None, "solves": 0}
+    state = {"fermi": 0, "it": None, "solves": 0, "starts": {}}
+    caught: list = []
     # find_fermi runs once per SCF iteration, after the band solve(s) and
     # the retry if any, so the first band solve after n find_fermi calls
     # starts iteration n
@@ -278,6 +301,9 @@ def main(argv=None) -> int:
     def hooked(name):
         def solve(*a, **kw):
             it = state["fermi"]
+            # the position of the iteration's first band solve among the
+            # warnings (the syncs of one iteration are counted from it)
+            state["starts"].setdefault(it, len(caught))
             if state["it"] is None and it == first - 1:
                 torch.cuda.synchronize()
                 prof.__enter__()
@@ -299,10 +325,19 @@ def main(argv=None) -> int:
         setattr(mod, name, hooked(name))
     mod.find_fermi = hooked_fermi
     try:
-        res = scf_mod.run_scf(ctx.cfg, ctx=ctx, device=dev)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            res = scf_mod.run_scf(ctx.cfg, ctx=ctx, device=dev)
+            torch.cuda.set_sync_debug_mode(0)
+            # the syncs of the first profiled iteration, from its band solve
+            # to the next iteration's
+            a, b = state["starts"][first], state["starts"][first + 1]
+            syncs = [w for w in caught[a:b] if "synchroniz" in str(w.message)]
         torch.cuda.synchronize()
         prof.__exit__(None, None, None)
     finally:
+        torch.cuda.set_sync_debug_mode(0)
         for name, fn in orig.items():
             setattr(mod, name, fn)
     profiled = list(range(first, res["num_scf_iterations"]))
@@ -340,12 +375,14 @@ def main(argv=None) -> int:
     out = {
         "tool": "tools/torch_port_profile.py",
         "gpu": torch.cuda.get_device_name(0), "nvidia_smi": smi,
-        "deck": deck_name,
+        "deck": deck_name, "device_scf": res.get("device_scf", False),
         # 0-based SCF iterations inside the profiler, and the band solves
         # they made (one each unless a residual-health retry ran)
         "profiled_iterations": profiled, "profiled_band_solves": state["solves"],
         "wall_s": wall, "wall_s_per_iteration": wall / len(profiled),
         "device_busy_ms": busy,
+        # host syncs of one iteration (the first profiled one)
+        "syncs_per_iteration": len(syncs),
         "device_busy_share": busy / (wall * 1e3),
         "by_category_ms": dict(sorted(by_cat.items(), key=lambda kv: -kv[1])),
         # the device's idle time in the traced window by the host's

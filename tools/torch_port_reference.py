@@ -124,6 +124,18 @@ deck and UPF species file of write_deck_files (its synthetic context takes
 no j-resolved species), and their records carry the JAX package's own
 spread over three runs from starts perturbed by 1e-13.
 
+Two decks record the JAX package's fused step (control.device_scf
+"auto": sirius_tpu/dft/fused.py on one device; FUSED_DECKS): the 2-atom
+ultrasoft k-point deck with its 48 ops ("fused_us_sym") and
+pw_us_sym_afm's deck ("fused_pw_us_sym_afm"), to TIGHT. Their records
+carry the per-iteration scalar record of the JAX package's scf_iteration
+events ("scf_scalars", dft/fused.py's [20] slots), read through
+sirius_tpu.obs.events; chip_smoke.py's parity_fused_record holds the
+port's fused step to them. (A band solve run to a residual of 1e-12 in 60
+steps brings the first iterations of two CPU runs together to ~1e-11, but
+on the card the Davidson cannot reach that residual, and the card's runs
+then wander by 1e-7 from iteration 3 on, host loop and fused step alike.)
+
 Run from the repository root (CPU):
 
     python tools/torch_port_reference.py            # rewrite the JSON
@@ -335,6 +347,15 @@ DECKS.update({
 })
 FORCES_DECKS = ("forces_nc", "forces_us", "forces_us_sym_2atom",
                 "forces_gamma_pbe_fm")
+# the JAX package's fused step, its per-iteration records kept
+FUSED_CONTROL = {"device_scf": "auto"}
+DECKS.update({
+    "fused_us_sym": (FULL_2ATOM, US_SYM, FUSED_CONTROL, TIGHT),
+    "fused_pw_us_sym_afm": (
+        FULL_2ATOM, US_SYM, FUSED_CONTROL,
+        dict(TIGHT, xc_functionals=["XC_LDA_X", "XC_LDA_C_PW"], **SPIN), AFM),
+})
+FUSED_DECKS = ("fused_us_sym", "fused_pw_us_sym_afm")
 FORCES_SPREAD_SEEDS = (1, 2, 3)
 # the anderson_stable and broyden2 mixers (a "mixer.type" control entry):
 # the small and the 2-atom ultrasoft decks with the space group, to TIGHT
@@ -519,10 +540,22 @@ def run_deck(name: str, perturb_seed: int | None = None,
             return mixed[-1]
 
         mixer_mod.Mixer.mix = keep
+    import tempfile
+
+    from sirius_tpu.obs import events
+
+    tmp = tempfile.TemporaryDirectory()
+    if name in FUSED_DECKS:
+        events.configure(os.path.join(tmp.name, "events.jsonl"))
     try:
         res = run_scf(ctx.cfg, ctx=ctx, devices=jax.devices()[:1],
                       keep_state=not spinor)
+        scalars = ([e["scalars"] for e in events.read_events(
+            events.path(), "scf_iteration")] if name in FUSED_DECKS else None)
     finally:
+        if name in FUSED_DECKS:
+            events.close()
+        tmp.cleanup()
         if perturb_seed is not None:
             setattr(module, attr, start)
         mixer_mod.Mixer.mix = mix
@@ -556,6 +589,8 @@ def run_deck(name: str, perturb_seed: int | None = None,
         return out
     out["electrons"] = (float(np.real(np.asarray(res["_state"]["rho_g"])[0]))
                         * float(ctx.unit_cell.omega))
+    if scalars is not None:
+        out["scf_scalars"] = [[float(x) for x in rec] for rec in scalars]
     if "forces" in res:
         from sirius_tpu.utils.profiler import timer_report
 
