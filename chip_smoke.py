@@ -169,6 +169,29 @@ seconds an iteration, and host syncs an iteration counted under
 set_sync_debug_mode("warn"). Every fused deck must launch K13, K14a, K14b
 and K15; every other deck K13.
 
+Checkpoints and supervision (dft/scf.py with io/checkpoint.py and
+dft/recovery.py): K16a / K16b (the density's coarse box and its scatter
+onto the fine G set, kernels/density_scatter.py) and K18 (the H
+preconditioner's elementwise pass, kernels/h_diag.py) are held bit for bit
+to their plain versions at the 16-atom US shapes (records) and at their
+edges (density_hdiag_edges: 1, 2 and 4 channels, a fine set larger than
+the coarse sphere, no projectors, a fully masked row, v0 as a float);
+every SCF path must launch all three. recovery_fused runs the 2-atom US
+deck (fused) unperturbed (the supervisor's snapshot reads and host syncs
+an iteration), with a NaN density at iteration 3 (one rollback,
+device_nonfinite, 1e-8 Ha of the unperturbed run), at 4, 7 and 10 (the
+ladder flush_history, halve_beta_linear, disable_device_scf, converged)
+and with a device.oom fault (the OOM ladder's disable_device_scf,
+converged), and on the host loop with a NaN density at iteration 3 (the
+rollback from its device snapshot). checkpoint_resume_us runs full_width_us's cell with
+autosave_every 5, killed after the iteration-5 autosave, resumed through
+run_scf(resume=find_resumable(...)) to full_width_us's count within 1e-10
+Ha of that run (bit for bit or not is printed), with the file's bytes and
+the save, load and fetch_state seconds; then resumes the same file through
+run_scf_from_file's ground_state_restart from a JSON deck, which must
+write a loadable sirius.h5. fused_ab_us also counts host syncs with the
+supervisor off.
+
 Every SCF phase sets the launch counts to 0 just before its run and reads
 them just after, and fails if a kernel of its path was not launched (an
 unpolarized X + PZ deck must launch K7's zeta = 0 kernel, a non-collinear
@@ -372,7 +395,12 @@ TOL = {**{name: 1e-12 for name in XC_CHECKS},
        # Jacobi against cuSOLVER's eigh (the random systems are well
        # conditioned); K15 sums each segment in a fixed tree against torch
        "fermi": 1e-12, "mixer.gram": 1e-12, "mixer.update": 1e-12,
-       "scf_record": 1e-12}
+       "scf_record": 1e-12,
+       # K16a multiplies by 1 / Omega as PyTorch does, K16b and K18 copy
+       # and add in the plain version's order: bit for bit (bits_equal is
+       # checked as well)
+       "density_scatter.coarse_box": 0.0,
+       "density_scatter.scatter_fine": 0.0, "h_diag": 0.0}
 SOURCE = {
     "local_hpsi.pw_to_box": "sirius_tpu_torch/csrc/local_hpsi.cu",
     "local_hpsi.box_to_pw_hpsi": "sirius_tpu_torch/csrc/local_hpsi.cu",
@@ -407,6 +435,10 @@ SOURCE = {
     "mixer.gram": "sirius_tpu_torch/csrc/mixer.cu",
     "mixer.update": "sirius_tpu_torch/csrc/mixer.cu",
     "scf_record": "sirius_tpu_torch/csrc/scf_record.cu",
+    "density_scatter.coarse_box": "sirius_tpu_torch/csrc/density_scatter.cu",
+    "density_scatter.scatter_fine":
+        "sirius_tpu_torch/csrc/density_scatter.cu",
+    "h_diag": "sirius_tpu_torch/csrc/h_diag.cu",
 }
 REPLACES = {
     "local_hpsi.pw_to_box": "sirius_tpu/ops/hamiltonian.py:76",
@@ -443,6 +475,9 @@ REPLACES = {
     "mixer.gram": "sirius_tpu/dft/mixer.py:348",
     "mixer.update": "sirius_tpu/dft/mixer.py:381",
     "scf_record": "sirius_tpu/dft/fused.py:400",
+    "density_scatter.coarse_box": "sirius_tpu/dft/fused.py:311",
+    "density_scatter.scatter_fine": "sirius_tpu/dft/fused.py:316",
+    "h_diag": "sirius_tpu/parallel/batched.py:102",
 }
 # the fp32 instantiations (precision_wf "fp32"): each kernel's name with the
 # suffix of the block type it takes (.c64 complex64, .f32 float32 packed
@@ -1830,6 +1865,8 @@ def check_kernel_chunk(deck: str, ctx, chunk: int, dev, gpu: str,
     import torch
 
     from sirius_tpu_torch.kernels import beta_chunk as k9
+    from sirius_tpu_torch.kernels import density_scatter as k16
+    from sirius_tpu_torch.kernels import h_diag as k18
     from sirius_tpu_torch.ops.beta_chunked import make_chunked_hk
 
     cb, rb, sfx = element_bytes(fp32)
@@ -2333,6 +2370,8 @@ def wrappers() -> dict:
     launches_f32)."""
     from sirius_tpu_torch.kernels import augmentation as k45
     from sirius_tpu_torch.kernels import beta_chunk as k9
+    from sirius_tpu_torch.kernels import density_scatter as k16
+    from sirius_tpu_torch.kernels import h_diag as k18
     from sirius_tpu_torch.kernels import davidson_residual as k2
     from sirius_tpu_torch.kernels import density_accumulate as k3
     from sirius_tpu_torch.kernels import density_accumulate_nc as k12b
@@ -2393,7 +2432,10 @@ def wrappers() -> dict:
            "fermi": (k13.find_fermi, n),
            "mixer.gram": (k14.mixer_gram, n),
            "mixer.update": (k14.mixer_update, n),
-           "scf_record": (k15.scf_record, n)}
+           "scf_record": (k15.scf_record, n),
+           "density_scatter.coarse_box": (k16.coarse_box, n),
+           "density_scatter.scatter_fine": (k16.scatter_fine, n),
+           "h_diag": (k18.h_diag_pass, n)}
     for name in FP32_SUMMARY:
         out[name] = (out[base_name(name)][0],
                      "launches_" + name.rsplit(".", 1)[1])
@@ -2411,9 +2453,12 @@ NC_KERNELS = ("local_hpsi.pw_to_box", "local_hpsi.box_to_pw_hpsi",
               "veff_multiply", "fermi")
 US_KERNELS = NC_KERNELS + ("augmentation.rho_aug", "augmentation.d_operator",
                            "symmetrize_pw")
-# every path runs K13; a deck that fuses (dft/scf.py::fuses: the k-set
+# every path runs K13, K16a, K16b and K18 (EVERY_PATH, which
+# check_launched adds); a deck that fuses (dft/scf.py::fuses: the k-set
 # solve, no mGGA, linear or Anderson mixing) runs the fused step's K14a,
 # K14b and K15 too
+EVERY_PATH = ("density_scatter.coarse_box", "density_scatter.scatter_fine",
+              "h_diag")
 FUSED_STEP = ("mixer.gram", "mixer.update", "scf_record")
 NC_FUSED = NC_KERNELS + FUSED_STEP
 US_FUSED = US_KERNELS + FUSED_STEP
@@ -2604,18 +2649,20 @@ def read_launches() -> dict:
 def check_launched(phase: str, dev, launches: dict, required,
                    path: str = "kset", iters: int = 0,
                    polarized: bool = False) -> None:
-    """Fail unless every kernel of the path launched in this run. On the
-    Gamma path H is applied without K1's gather: the run's gathers are the
-    r -> G transforms only, one per potential (two polarized: V_xc and
-    B_z) for iters + 1 potentials, and one per density (iters). On the CPU
-    the wrappers take their plain versions and count nothing."""
+    """Fail unless every kernel of the path launched in this run (and
+    K16a, K16b and K18, which every path runs). On the Gamma path H is
+    applied without K1's gather: the run's gathers are the r -> G
+    transforms of the potential only, one per potential (two polarized:
+    V_xc and B_z) for iters + 1 potentials (the density's transform is
+    K16's). On the CPU the wrappers take their plain versions and count
+    nothing."""
     if dev.type != "cuda":
         return
-    zero = [k for k in required if launches[k] <= 0]
+    zero = [k for k in tuple(required) + EVERY_PATH if launches[k] <= 0]
     if zero:
         raise AssertionError(f"{phase}: kernels never launched: {zero}")
     gathers = launches["local_hpsi.box_to_pw_hpsi"]
-    want = (2 if polarized else 1) * (iters + 1) + iters
+    want = (2 if polarized else 1) * (iters + 1)
     if path == "gamma" and gathers != want:
         raise AssertionError(
             f"{phase}: {gathers} K1 gathers, want {want} (r -> G only): "
@@ -4087,7 +4134,8 @@ def fused_ab(ctx, dev, gpu: str, phase: str = "fused_ab_us") -> dict:
     """device_scf auto against off on one deck in one call, in turns (off,
     auto, auto, off): seconds an iteration after the first, bit-level
     agreement of the energies; then one run of each under the sync
-    counter: host syncs an iteration."""
+    counter, and one of auto with control.scf_supervision off: host syncs
+    an iteration (the supervisor's snapshot reads are the difference)."""
     from sirius_tpu_torch.dft.scf import run_scf
 
     secs = {"auto": [], "off": []}
@@ -4098,11 +4146,13 @@ def fused_ab(ctx, dev, gpu: str, phase: str = "fused_ab_us") -> dict:
         secs[mode].append(res["iteration_seconds"][1:])
         energies[mode] = res["energy"]["total"]
     syncs = {}
-    for mode in ("off", "auto"):
-        ctx.cfg.control.device_scf = mode
+    for mode in ("off", "auto", "auto_unsupervised"):
+        ctx.cfg.control.device_scf = mode.split("_")[0]
+        ctx.cfg.control.scf_supervision = mode != "auto_unsupervised"
         res, n = count_syncs(lambda: run_scf(ctx.cfg, ctx=ctx, device=dev))
         syncs[mode] = n / res["num_scf_iterations"]
     ctx.cfg.control.device_scf = "auto"
+    ctx.cfg.control.scf_supervision = True
     rec = {"phase": phase, "gpu": gpu, "order": ["off", "auto", "auto", "off"],
            "iteration_seconds": secs,
            "mean_s_per_iteration": {m: sum(map(sum, v)) / sum(map(len, v))
@@ -4113,6 +4163,354 @@ def fused_ab(ctx, dev, gpu: str, phase: str = "fused_ab_us") -> dict:
     if not abs(rec["e_total_gap"]) <= 1e-8:
         raise AssertionError(f"{phase}: auto and off differ by "
                              f"{rec['e_total_gap']} Ha")
+    return rec
+
+
+def check_density_hdiag_kernels(deck: str, ctx, dev, gpu: str) -> dict:
+    """K16a, K16b and K18 against their plain versions at a full-width
+    deck's shapes (records; each must be bit for bit its plain version),
+    and the whole density_scatter (K16a, cuFFT, K16b) against
+    density_scatter_plain on the card, bit for bit."""
+    import numpy as np
+    import torch
+
+    from sirius_tpu_torch.kernels import density_scatter as k16
+    from sirius_tpu_torch.kernels import h_diag as k18
+
+    rng = np.random.default_rng(53)
+    out = {}
+    ns, ng = ctx.num_spins, ctx.gvec.num_gvec
+    dims = tuple(ctx.fft_coarse.dims)
+    omega = float(ctx.unit_cell.omega)
+    table = torch.as_tensor(k16.fine_to_coarse_box(
+        ctx.gvec_coarse.fft_index, ctx.coarse_to_fine, ng), device=dev)
+    acc = torch.as_tensor(rng.random((ns,) + dims), device=dev)
+    n = acc.numel()
+    box_k = k16.coarse_box(acc, omega)
+    box_p = k16.coarse_box_plain(acc, omega)
+    record_kernel(out, deck, gpu, "density_scatter.coarse_box", [box_k],
+                  [box_p], lambda: k16.coarse_box(acc, omega),
+                  lambda: k16.coarse_box_plain(acc, omega), None,
+                  n * (8 + 16), n,
+                  extra={"bitwise": bits_equal(box_k, box_p)})
+    boxg = torch.fft.fftn(box_k, dim=(-3, -2, -1),
+                          norm="forward").reshape(ns, -1)
+    sc_k = k16.scatter_fine(boxg, table, ng)
+    sc_p = k16.scatter_fine_plain(boxg, table, ng)
+    n_in = int((table >= 0).sum())
+    record_kernel(out, deck, gpu, "density_scatter.scatter_fine", [sc_k],
+                  [sc_p], lambda: k16.scatter_fine(boxg, table, ng),
+                  lambda: k16.scatter_fine_plain(boxg, table, ng), None,
+                  4 * ng + 16 * ns * n_in + 16 * ns * ng, 0.0,
+                  extra={"bitwise": bits_equal(sc_k, sc_p),
+                         "coarse_in_fine": n_in})
+    whole = bits_equal(k16.density_scatter(acc, omega, table, ng),
+                       k16.density_scatter_plain(acc, omega, table, ng))
+    # K18 at the deck's k-set: its projectors, a symmetric D per spin
+    nk, ngk = ctx.gkvec.num_kpoints, ctx.gkvec.ngk_max
+    nbeta = ctx.beta.num_beta_total
+    mask = torch.as_tensor(np.asarray(ctx.gkvec.mask, dtype=np.float64),
+                           device=dev)
+    ekin = torch.as_tensor(np.asarray(ctx.gkvec.kinetic()), device=dev)
+    beta = torch.as_tensor(ctx.beta.beta_gk, device=dev) * mask[:, None, :]
+    d = rng.standard_normal((ns, nbeta, nbeta))
+    d = torch.as_tensor(d + d.transpose(0, 2, 1), device=dev)
+    q = torch.einsum("kxg,sxy,kyg->ksg", beta.conj(), d.to(beta.dtype), beta)
+    v0 = torch.as_tensor(rng.standard_normal(1), device=dev)[0]
+    h_k = k18.h_diag_pass(ekin, mask, q, v0, ns)
+    h_p = k18.h_diag_pass_plain(ekin, mask, q, v0, ns)
+    m = nk * ns * ngk
+    record_kernel(out, deck, gpu, "h_diag", [h_k], [h_p],
+                  lambda: k18.h_diag_pass(ekin, mask, q, v0, ns),
+                  lambda: k18.h_diag_pass_plain(ekin, mask, q, v0, ns), None,
+                  2 * 8 * nk * ngk + 16 * m + 8 * m, 2 * m,
+                  extra={"bitwise": bits_equal(h_k, h_p)})
+    emit({"phase": "density_scatter_whole", "deck": deck, "gpu": gpu,
+          "bitwise": whole})
+    bad = [k for k, r in out.items() if not r["bitwise"]] + (
+        [] if whole else ["density_scatter"])
+    if bad:
+        raise AssertionError(f"{deck}: not bit for bit the plain version: "
+                             f"{bad}")
+    return out
+
+
+def check_density_hdiag_edges(dev, gpu: str) -> None:
+    """K16 and K18 at their edges, each bit for bit its plain version: ns
+    1, 2 and 4; a fine set larger than the coarse sphere (table slots of
+    -1) on a box off every block; K18 with no projectors (q None), a fully
+    masked k row, and v0 as a host float."""
+    import numpy as np
+    import torch
+
+    from sirius_tpu_torch.kernels import density_scatter as k16
+    from sirius_tpu_torch.kernels import h_diag as k18
+
+    rng = np.random.default_rng(59)
+    dims = (5, 6, 7)
+    nbox, ngc, ng = 210, 101, 157
+    idx = rng.choice(nbox, ngc, replace=False)
+    c2f = rng.choice(ng, ngc, replace=False)
+    table = torch.as_tensor(k16.fine_to_coarse_box(idx, c2f, ng), device=dev)
+    cases = {}
+    for ns in (1, 2, 4):
+        acc = torch.as_tensor(rng.random((ns,) + dims), device=dev)
+        cases[f"k16.ns{ns}"] = bits_equal(
+            k16.density_scatter(acc, 3.7, table, ng),
+            k16.density_scatter_plain(acc, 3.7, table, ng))
+    nk, ngk = 3, 37
+    ekin = torch.as_tensor(rng.random((nk, ngk)), device=dev)
+    maskn = (rng.random((nk, ngk)) > 0.3).astype(np.float64)
+    maskn[1] = 0.0
+    mask = torch.as_tensor(maskn, device=dev)
+    for ns in (1, 2, 4):
+        q = torch.as_tensor(rng.standard_normal((nk, ns, ngk))
+                            + 1j * rng.standard_normal((nk, ns, ngk)),
+                            device=dev)
+        f64 = dict(dtype=torch.float64, device=dev)
+        for name, qq, v0 in (("q", q, torch.as_tensor(0.25, **f64)),
+                             ("nbeta0", None, torch.as_tensor(-0.5, **f64)),
+                             ("v0_float", q, 0.125)):
+            cases[f"k18.ns{ns}.{name}"] = bits_equal(
+                k18.h_diag_pass(ekin, mask, qq, v0, ns),
+                k18.h_diag_pass_plain(ekin, mask, qq, v0, ns))
+    emit({"phase": "density_hdiag_edges", "gpu": gpu, "bitwise": cases})
+    bad = [k for k, v in cases.items() if not v]
+    if bad:
+        raise AssertionError(f"K16 / K18 edges not bit for bit: {bad}")
+
+
+@contextlib.contextmanager
+def timed_checkpoint_io():
+    """Time every save_state of run_scf and every FusedScf.fetch_state
+    (with or without the mixer history) while the block runs."""
+    from sirius_tpu_torch.dft import scf as scf_mod
+    from sirius_tpu_torch.dft.fused import FusedScf
+
+    save, fetch = scf_mod.save_state, FusedScf.fetch_state
+    times = {"save": [], "fetch": [], "fetch_history": []}
+
+    def timed_save(*args, **kwargs):
+        t0 = time.perf_counter()
+        save(*args, **kwargs)
+        times["save"].append(time.perf_counter() - t0)
+
+    def timed_fetch(self, with_history=False):
+        t0 = time.perf_counter()
+        out = fetch(self, with_history)
+        times["fetch_history" if with_history else "fetch"].append(
+            time.perf_counter() - t0)
+        return out
+
+    scf_mod.save_state, FusedScf.fetch_state = timed_save, timed_fetch
+    try:
+        yield times
+    finally:
+        scf_mod.save_state, FusedScf.fetch_state = save, fetch
+
+
+def checkpoint_resume(ctx, dev, gpu: str, want: dict,
+                      phase: str = "checkpoint_resume_us", spec=FULL,
+                      deck_name: str = "si16_supercell2_us_sym") -> dict:
+    """full_width_us's cell with control.autosave_every = 5, killed by the
+    scf.autosave_kill fault right after the iteration-5 autosave, resumed
+    by run_scf(resume=find_resumable(...)): it must end at full_width_us's
+    fixed count with the total energy within 1e-10 Ha of that run (want);
+    bit for bit or not is printed. The file's bytes, the save, load
+    (digest included) and fetch_state seconds. Then the same file resumed
+    through run_scf_from_file's ground_state_restart from a JSON deck of
+    the cell in a temporary directory: the same gate, and sirius.h5
+    written and loadable. ctx is the ultrasoft + symmetry context of spec
+    (make_context(spec, ..., US_SYM)) at full_width_us's iteration count,
+    run to the end."""
+    import tempfile
+
+    from sirius_tpu_torch.dft.scf import run_scf, run_scf_from_file
+    from sirius_tpu_torch.io.checkpoint import find_resumable, load_state
+    from sirius_tpu_torch.testing import (synthetic_silicon_deck,
+                                          synthetic_silicon_species,
+                                          write_deck)
+    from sirius_tpu_torch.utils import faults
+
+    every, n_full = 5, FULL_ITERS["full_width_us"]
+    c = ctx.cfg.control
+    with tempfile.TemporaryDirectory() as tmp:
+        auto = os.path.join(tmp, "auto.h5")
+        c.autosave_every, c.autosave_path = every, auto
+        faults.install([("scf.autosave_kill", every - 1, "raise")])
+        killed = False
+        t0 = time.perf_counter()
+        try:
+            with timed_checkpoint_io() as io_times:
+                run_scf(ctx.cfg, ctx=ctx, device=dev)
+        except faults.SimulatedKill:
+            killed = True
+        finally:
+            faults.clear()
+            c.autosave_every, c.autosave_path = 0, ""
+        killed_s = time.perf_counter() - t0
+        path = find_resumable(auto)
+        nbytes = os.path.getsize(path) if path else 0
+        t0 = time.perf_counter()
+        load_state(path, ctx)
+        load_s = time.perf_counter() - t0
+        reset_launches()
+        res = run_scf(ctx.cfg, ctx=ctx, device=dev, resume=path)
+        launches = read_launches()
+        d_total = res["energy"]["total"] - want["energy"]["total"]
+        bitwise = (res["energy"] == want["energy"]
+                   and res["etot_history"] == want["etot_history"])
+        # the CLI route: the cell as a deck, the autosave at its default
+        # path beside it, task ground_state_restart
+        deck = synthetic_silicon_deck(
+            **spec, use_symmetry=True,
+            extra_params={"num_dft_iter": n_full, **RUN_TO_END})
+        deck_path = write_deck(os.path.join(tmp, "deck"), deck,
+                               synthetic_silicon_species(ultrasoft=True),
+                               "upf")
+        deck_dir = os.path.dirname(deck_path)
+        with open(path, "rb") as src, open(
+                os.path.join(deck_dir, "sirius_autosave.h5"), "wb") as dst:
+            dst.write(src.read())
+        t0 = time.perf_counter()
+        with working_directory(tmp):
+            rc = run_scf_from_file(deck_path, task="ground_state_restart",
+                                   device=dev)
+        cli_s = time.perf_counter() - t0
+        with open(os.path.join(tmp, "output.json")) as f:
+            gs = json.load(f)["ground_state"]
+        state_file = os.path.join(deck_dir, "sirius.h5")
+        h5_bytes = (os.path.getsize(state_file)
+                    if os.path.exists(state_file) else 0)
+        h5_ok = bool(h5_bytes) and "psi" in load_state(state_file, ctx)
+    d_cli = gs["energy"]["total"] - want["energy"]["total"]
+    rec = {"phase": phase, "gpu": gpu, "deck": deck_name,
+           "autosave_every": every, "killed": killed,
+           "killed_run_seconds": killed_s, "resumed_from": path is not None,
+           "file_bytes": nbytes, "save_seconds": io_times["save"],
+           "fetch_state_seconds": io_times["fetch"],
+           "fetch_state_history_seconds": io_times["fetch_history"],
+           "load_seconds": load_s,
+           "num_scf_iterations": res["num_scf_iterations"],
+           "d_total": d_total, "bitwise": bitwise,
+           "iteration_seconds": res["iteration_seconds"],
+           "device_scf": res["device_scf"], "launches": launches,
+           "cli_rc": rc, "cli_iterations": gs["num_scf_iterations"],
+           "cli_d_total": d_cli, "cli_seconds": cli_s,
+           "sirius_h5_bytes": h5_bytes, "sirius_h5_loads": h5_ok}
+    emit(rec)
+    if not killed or path is None:
+        raise AssertionError(f"{phase}: the run was not killed after its "
+                             "autosave, or left no resumable file")
+    for label, n, d in (("resume", res["num_scf_iterations"], d_total),
+                        ("ground_state_restart", gs["num_scf_iterations"],
+                         d_cli)):
+        if n != n_full or not abs(d) <= 1e-10:
+            raise AssertionError(f"{phase}: {label} ended at {n} iterations"
+                                 f" (want {n_full}), |dE| {abs(d)} Ha")
+    if rc != 0 or not h5_ok:
+        raise AssertionError(f"{phase}: ground_state_restart exit {rc}, "
+                             f"sirius.h5 written and loadable: {h5_ok}")
+    check_launched(phase, dev, launches, US_FUSED, "kset",
+                   n_full - every)
+    return rec
+
+
+def recovery_fused(ctx, dev, gpu: str, phase: str = "recovery_fused") -> dict:
+    """The supervisor on the card, on the 2-atom US k-set deck (the fused
+    step): the unperturbed run (snapshots taken, host syncs an iteration
+    with the supervisor on); a NaN density at iteration 3 (one recovery,
+    device_nonfinite, the energy within 1e-8 Ha of the unperturbed run);
+    NaN densities at iterations 4, 7 and 10 with num_dft_iter 120 (the
+    actions flush_history, halve_beta_linear, disable_device_scf, and
+    convergence); a device.oom fault at iteration 2 (the OOM ladder's first
+    rung that applies on a multi-k deck, disable_device_scf, and
+    convergence); and on the host loop (device_scf off) a NaN density at
+    iteration 3 (one rollback from the device snapshot, nonfinite_fields,
+    1e-8 Ha of the unperturbed run)."""
+    from sirius_tpu_torch.dft import scf as scf_mod
+    from sirius_tpu_torch.dft.fused import FusedScf
+    from sirius_tpu_torch.utils import faults
+
+    fetch = FusedScf.fetch_state
+    snaps = {"n": 0}
+
+    def counted(self, with_history=False):
+        snaps["n"] += 1
+        return fetch(self, with_history)
+
+    FusedScf.fetch_state = counted
+    try:
+        reset_launches()
+
+        def base_run():
+            return scf_mod.run_scf(ctx.cfg, ctx=ctx, device=dev)
+
+        # host syncs are counted on the card (the CPU has none to count)
+        base, syncs = (count_syncs(base_run) if dev.type == "cuda"
+                       else (base_run(), None))
+        launches = read_launches()
+    finally:
+        FusedScf.fetch_state = fetch
+    e0 = base["energy"]["total"]
+    runs = {}
+    plans = {"nan3": ([("scf.density", 3, "nan")], None, "auto"),
+             "nan4_7_10": ([("scf.density", i, "nan") for i in (4, 7, 10)],
+                           120, "auto"),
+             "oom2": ([("device.oom", 2, "raise")], None, "auto"),
+             # the host loop's rollback from its device snapshot
+             "host_nan3": ([("scf.density", 3, "nan")], None, "off")}
+    p, c = ctx.cfg.parameters, ctx.cfg.control
+    n0 = p.num_dft_iter
+    for name, (plan, iters, mode) in plans.items():
+        faults.install(plan)
+        if iters:
+            p.num_dft_iter = iters
+        c.device_scf = mode
+        try:
+            r = scf_mod.run_scf(ctx.cfg, ctx=ctx, device=dev)
+        finally:
+            faults.clear()
+            p.num_dft_iter, c.device_scf = n0, "auto"
+        runs[name] = {
+            "ladder": [(h["sentinel"], h["action"], h["rung"],
+                        h["rolled_back_to"]) for h in
+                       r["recovery"]["ladder_history"]],
+            "converged": r["converged"],
+            "num_scf_iterations": r["num_scf_iterations"],
+            "device_scf_at_end": r["device_scf"],
+            "d_total": r["energy"]["total"] - e0}
+    rec = {"phase": phase, "gpu": gpu, "deck": "full_width_2atom_us_sym",
+           "base_iterations": base["num_scf_iterations"],
+           "base_converged": base["converged"], "e_total": e0,
+           "snapshots": snaps["n"],
+           "syncs_per_iteration": (None if syncs is None
+                                   else syncs / base["num_scf_iterations"]),
+           "runs": runs}
+    emit(rec)
+    check_launched(phase, dev, launches, US_FUSED, "kset",
+                   base["num_scf_iterations"])
+    one = runs["nan3"]
+    if ([x[:2] for x in one["ladder"]] != [("device_nonfinite",
+                                            "flush_history")]
+            or not abs(one["d_total"]) <= 1e-8 or not one["converged"]):
+        raise AssertionError(f"{phase}: nan3 {one}")
+    three = runs["nan4_7_10"]
+    if ([x[1] for x in three["ladder"]] != ["flush_history",
+                                            "halve_beta_linear",
+                                            "disable_device_scf"]
+            or not three["converged"] or three["device_scf_at_end"]):
+        raise AssertionError(f"{phase}: nan4_7_10 {three}")
+    oom = runs["oom2"]
+    if ([x[:2] for x in oom["ladder"]] != [("device_oom",
+                                            "disable_device_scf")]
+            or not oom["converged"]):
+        raise AssertionError(f"{phase}: oom2 {oom}")
+    host = runs["host_nan3"]
+    if ([x[:2] for x in host["ladder"]] != [("nonfinite_fields",
+                                             "flush_history")]
+            or not abs(host["d_total"]) <= 1e-8 or not host["converged"]):
+        raise AssertionError(f"{phase}: host_nan3 {host}")
     return rec
 
 
@@ -4147,6 +4545,7 @@ def main() -> int:
     emit({"phase": "build", "gpu": gpu, "nvcc": build.nvcc_path(),
           "seconds": time.perf_counter() - t0, "compiled": compiled})
     check_kernel_edges(dev, gpu)
+    check_density_hdiag_edges(dev, gpu)
     check_eigh_empty_rows(dev, gpu)
 
     with open(os.path.join(here, "sirius_tpu_torch", "data",
@@ -4221,6 +4620,9 @@ def main() -> int:
     # the fused step's K13, K14a, K14b and K15 at the 16-atom US shapes
     kern_fused = check_fused_kernels("si16_supercell2_us_sym", ctx16us, dev,
                                      gpu)
+    # K16a, K16b and K18 at the same shapes, bit for bit
+    kern_fused.update(check_density_hdiag_kernels("si16_supercell2_us_sym",
+                                                  ctx16us, dev, gpu))
     torch.cuda.empty_cache()
     parity_scf(ctx2, dev, refs["full_width_2atom"], gpu, required=NC_FUSED)
     full_width(ctx16, dev, gpu, required=NC_FUSED)
@@ -4228,6 +4630,8 @@ def main() -> int:
                phase="parity_scf_us", deck="full_width_2atom_us_sym",
                required=US_FUSED)
     entry_point_cli(dev, gpu, refs["full_width_2atom_us_sym"])
+    # the supervisor's rollbacks on the fused step
+    recovery_fused(ctx2us, dev, gpu)
     # the fused step's records against the JAX package's, sync-free
     parity_fused_record(dev, gpu, refs, tool)
     for name in MIXER_DECKS:
@@ -4239,6 +4643,9 @@ def main() -> int:
     rms64 = res64["rms_history"]
     # the same cell from a deck file with UPF species, bit for bit
     full_width_us_from_file(dev, gpu, res64)
+    # killed after its iteration-5 autosave, resumed, and restarted from
+    # the file by the CLI's ground_state_restart
+    checkpoint_resume(ctx16us, dev, gpu, res64)
     # the fused step against the host loop on the same cell, in turns
     fused_ab(ctx16us, dev, gpu)
     # the same run on the fp32 path, polished to fp64 after iteration 3 or 4

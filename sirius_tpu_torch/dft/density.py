@@ -19,9 +19,13 @@ import numpy as np
 import torch
 
 from sirius_tpu_torch.context import SimulationContext
-from sirius_tpu_torch.core.fftgrid import g_to_r, r_to_g
+from sirius_tpu_torch.core.fftgrid import g_to_r
 from sirius_tpu_torch.core.radial import sbessel_integral
 from sirius_tpu_torch.device import resolve_device
+from sirius_tpu_torch.kernels.density_scatter import (
+    density_scatter,
+    fine_to_coarse_box,
+)
 from sirius_tpu_torch.kernels.symmetrize_pw import (
     Cosets,
     build_cosets,
@@ -45,6 +49,9 @@ class GridTables:
     gcart: torch.Tensor  # [ng, 3] float64 Cartesian G (GGA gradients)
     fft_index_coarse: torch.Tensor  # [ngc] int32, coarse G -> coarse box
     coarse_to_fine: torch.Tensor  # [ngc] int64
+    # [ng] int32, fine G -> coarse box slot of the same G, -1 outside the
+    # coarse sphere (K16's table)
+    fine_to_coarse_box: torch.Tensor
     vloc_g: torch.Tensor  # [ng] complex128
     rho_core_g: torch.Tensor | None  # [ng] complex128, None without NLCC
     vloc_r: torch.Tensor  # fine box, float64
@@ -87,6 +94,9 @@ def grid_tables(ctx: SimulationContext, device) -> GridTables:
         fft_index_coarse=torch.as_tensor(ctx.gvec_coarse.fft_index,
                                          device=device),
         coarse_to_fine=torch.as_tensor(ctx.coarse_to_fine, device=device),
+        fine_to_coarse_box=torch.as_tensor(fine_to_coarse_box(
+            ctx.gvec_coarse.fft_index, ctx.coarse_to_fine,
+            ctx.gvec.num_gvec), device=device),
         vloc_g=vloc_g,
         rho_core_g=core_g,
         vloc_r=g_to_r(vloc_g, fidx, dims).real,
@@ -200,15 +210,11 @@ def density_from_coarse_acc(ctx: SimulationContext, acc: torch.Tensor,
                             tables: GridTables) -> torch.Tensor:
     """Finalize the per-spin density from the occupation-weighted |psi(r)|^2
     accumulation on the coarse box: divide by Omega, transform to coarse G,
-    map to the fine G set. acc: [nspin, n1, n2, n3] real; returns
-    [nspin, ng] complex128 on acc's device."""
-    ns = acc.shape[0]
-    out = torch.zeros((ns, ctx.gvec.num_gvec), dtype=torch.complex128,
-                      device=acc.device)
-    rho_g_coarse = r_to_g(acc / tables.omega, tables.fft_index_coarse,
-                          tables.dims_coarse)
-    out[:, tables.coarse_to_fine] = rho_g_coarse
-    return out
+    map to the fine G set (K16: kernels/density_scatter.py). acc:
+    [nspin, n1, n2, n3] real; returns [nspin, ng] complex128 on acc's
+    device."""
+    return density_scatter(acc, tables.omega, tables.fine_to_coarse_box,
+                           ctx.gvec.num_gvec)
 
 
 def rho_real_space(tables: GridTables, rho_g: torch.Tensor) -> torch.Tensor:

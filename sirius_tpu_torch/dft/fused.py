@@ -133,26 +133,33 @@ class FusedScf:
     # -- host <-> device edges -------------------------------------------
 
     def init_carry(self, x_mix: torch.Tensor, pot, history: dict | None = None):
-        """Seed the carry from the initial mixed vector and potential.
-        `history` ({'mix_x': [m, nx], 'mix_f': [m, nx]}, oldest first)
-        restores a mixer history."""
+        """Seed the carry from a mixed vector and its potential, with an
+        empty mixer history, or the one `history` holds ({'mix_x': [m,
+        nx], 'mix_f': [m, nx]}, oldest first): the start of a run, a
+        resume from a checkpoint and a rollback of dft/recovery.py."""
         self.x = x_mix.clone()
         self.veff = pot.veff_g.clone()
         self.bz = (pot.bz_g.clone() if self.polarized
                    else torch.zeros_like(pot.veff_g))
         if history and "mix_x" in history:
             self.mixer.load_history(history["mix_x"], history["mix_f"])
+        else:
+            self.mixer.flush()
 
     def fetch_state(self, with_history: bool = False):
         """Host copy of the mixed vector (and the mixer history, oldest
-        first): an explicit transfer outside the step."""
-        x = self.x.cpu().numpy()
+        first): an explicit transfer outside the step, and a copy on the
+        CPU too (the carry is updated in place, a snapshot must not be)."""
+        def host(t):
+            return t.to("cpu", copy=True).numpy()
+
+        x = host(self.x)
         if not with_history:
             return x, None
         hist = {}
         if self.mixer.count:
             hx, hf = self.mixer.history()
-            hist = {"mix_x": hx.cpu().numpy(), "mix_f": hf.cpu().numpy()}
+            hist = {"mix_x": host(hx), "mix_f": host(hf)}
         return x, hist
 
     def finalize(self, out: StepOut) -> dict:

@@ -200,6 +200,39 @@ class Mixer:
             self._f.pop(0)
         return nxt
 
+    def flush_history(self) -> None:
+        """Drop the quasi-Newton history. Rung 0 of the recovery ladder
+        (dft/recovery.py): a history poisoned by a diverging trajectory is
+        the most common Anderson/Broyden divergence amplifier, and the next
+        mix() degrades gracefully to a plain damped step."""
+        self._x = []
+        self._f = []
+
+    def export_history(self) -> dict:
+        """(x, f) history as stacked host arrays (oldest first) for the
+        checkpoint; empty dict when there is no history yet. Restoring via
+        import_history makes a resumed host-loop SCF bit-reproducible."""
+        if not self._x:
+            return {}
+        return {"mix_x": torch.stack(self._x).cpu().numpy(),
+                "mix_f": torch.stack(self._f).cpu().numpy()}
+
+    def import_history(self, hist: dict) -> None:
+        """Restore export_history's dict (host arrays or tensors); a dict
+        without "mix_x" clears the history."""
+        if "mix_x" not in hist:
+            self._x = []
+            self._f = []
+            return
+        dev = self.weight.device
+
+        def rows(a):
+            return list(torch.as_tensor(np.asarray(a), dtype=torch.complex128,
+                                        device=dev).unbind(0))
+
+        self._x = rows(hist["mix_x"])
+        self._f = rows(hist["mix_f"])
+
 
 class DeviceMixer:
     """The fused step's mixer (sirius_tpu/dft/mixer.py::DeviceMixerState,
@@ -229,6 +262,11 @@ class DeviceMixer:
         self.hf = torch.zeros_like(self.hx)
         self.count = 0
         self.head = 0
+
+    def flush(self) -> None:
+        """Forget the history: the next mix is a plain damped step (the
+        buffers are left as they are; count 0 marks every row unused)."""
+        self.count, self.head = 0, 0
 
     def load_history(self, mix_x, mix_f) -> None:
         """Restore a history ([k, nx] each, oldest first; the last

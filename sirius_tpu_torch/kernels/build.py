@@ -27,7 +27,8 @@ BUILD_DIR = PKG / "_build"
 SOURCES = ("local_hpsi", "davidson_residual", "density_accumulate", "lda_xc",
            "veff_multiply", "augmentation", "symmetrize_pw", "gamma_pack",
            "beta_chunk", "gga_xc", "xc_gradient", "mgga_xc", "mgga_tau",
-           "spinor_veff", "fermi", "mixer", "scf_record", "eigh_jacobi")
+           "spinor_veff", "fermi", "mixer", "scf_record", "eigh_jacobi",
+           "density_scatter", "h_diag")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 # the libraries a source links, found at run time in the toolkit beside nvcc
@@ -114,6 +115,11 @@ SIGNATURES = {
                          _P, _P, _P, _P, _P, _P, _P),
     },
     "scf_record": {"scf_record": (_P, _P, _P, _I, _I, _P, _P, _P)},
+    "density_scatter": {
+        "coarse_box": (_P, _D, _LL, _P, _P),
+        "scatter_fine": (_P, _P, _I, _LL, _LL, _P, _P),
+    },
+    "h_diag": {"h_diag": (_P, _P, _P, _P, _I, _I, _LL, _P, _P)},
     "eigh_jacobi": {
         "eigh_jacobi_f32": (_P, _P, _I, _I, _P, _P),
         "eigh_jacobi_f64": (_P, _P, _I, _I, _P, _P),

@@ -17,6 +17,7 @@ import torch
 
 from sirius_tpu_torch.device import resolve_device
 from sirius_tpu_torch.kernels.density_accumulate import density_accumulate
+from sirius_tpu_torch.kernels.h_diag import h_diag_pass
 from sirius_tpu_torch.kernels.local_hpsi import pw_to_box
 from sirius_tpu_torch.ops.hamiltonian import HkParams, apply_h_s, astype
 from sirius_tpu_torch.solvers.davidson import davidson, subspace_rotate
@@ -73,14 +74,14 @@ def compute_h_diag(ekin, mask, beta, dion, v0):
     (reference get_h_o_diag_pw); changes every SCF iteration with v0 and
     the screened D. ekin/mask [nk, ngk], beta [nk, nbeta, ngk] complex,
     dion [ns, nbeta, nbeta], v0 the average effective potential veff(G=0)
-    (a float or a 0-d tensor)."""
-    h = ekin[:, None, :] + v0
+    (a float or a 0-d tensor). The projector sum is a matrix product
+    (cuBLAS on the card), the rest one elementwise pass (K18,
+    kernels/h_diag.py)."""
+    q = None
     if beta.shape[1]:
-        h = h + torch.einsum("kxg,sxy,kyg->ksg", beta.conj(),
-                             dion.to(beta.dtype), beta).real
-    else:
-        h = h.expand(h.shape[0], dion.shape[0], h.shape[2])
-    return torch.where(mask[:, None, :] > 0, h, 1e4)
+        q = torch.einsum("kxg,sxy,kyg->ksg", beta.conj(), dion.to(beta.dtype),
+                         beta)
+    return h_diag_pass(ekin, mask, q, v0, dion.shape[0])
 
 
 def compute_o_diag(ctx):

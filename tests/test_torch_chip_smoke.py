@@ -52,6 +52,9 @@ FP32_CHECKED = tuple(chip_smoke.FP32_SUMMARY)
 STRAINED_CHECKED = ("augmentation.rho_aug.strained",)
 # the fused step's K13, K14a, K14b and K15 (check_fused_kernels)
 FUSED_CHECKED = ("fermi", "mixer.gram", "mixer.update", "scf_record")
+# K16a, K16b and K18 (check_density_hdiag_kernels)
+SCATTER_CHECKED = ("density_scatter.coarse_box",
+                   "density_scatter.scatter_fine", "h_diag")
 
 
 def reference_tool():
@@ -87,7 +90,7 @@ def test_phases_run_on_cpu(monkeypatch, capsys):
     assert (sorted(NC_CHECKED + US_CHECKED + GAMMA_CHECKED + ("beta_chunk",)
                   + XC_CHECKED + ("symmetrize_pw.axial",) + TAU_CHECKED
                   + SPINOR_CHECKED + AUG54_CHECKED + FP32_CHECKED
-                  + STRAINED_CHECKED + FUSED_CHECKED)
+                  + STRAINED_CHECKED + FUSED_CHECKED + SCATTER_CHECKED)
             == sorted(chip_smoke.SOURCE))
     for rec in recs.values():
         assert rec["max_rel_err"] <= rec["tol_rel"]
@@ -605,10 +608,11 @@ def test_eigh_empty_rows_phase_runs_on_cpu(capsys):
 
 def test_launch_checks_follow_the_band_solve_path():
     # on the card: a path's kernels must each launch, and on the Gamma path
-    # K1's gather serves only the r -> G transforms (2 iters + 1)
+    # K1's gather serves only the potential's r -> G transforms (iters + 1;
+    # the density's is K16's)
     cuda = torch.device("cuda")
     launches = {name: 1 for name in chip_smoke.SOURCE}
-    launches["local_hpsi.box_to_pw_hpsi"] = 7
+    launches["local_hpsi.box_to_pw_hpsi"] = 4
     chip_smoke.check_launched("gamma", cuda, launches,
                               chip_smoke.GAMMA_US_KERNELS, "gamma", 3)
     with pytest.raises(AssertionError, match="H psi went through K1"):
@@ -647,7 +651,7 @@ def test_launch_checks_follow_the_band_solve_path():
         assert not [k for k in required if k.startswith("lda_xc")]
     # polarized Gamma: two r -> G transforms a potential (V_xc, B_z)
     launches["beta_chunk"] = 1
-    launches["local_hpsi.box_to_pw_hpsi"] = 2 * 4 + 3
+    launches["local_hpsi.box_to_pw_hpsi"] = 2 * 4
     chip_smoke.check_launched("gamma_fm", cuda, launches,
                               chip_smoke.FULL_GAMMA_PBE_FM_KERNELS, "gamma", 3,
                               polarized=True)
@@ -667,6 +671,14 @@ def test_launch_checks_follow_the_band_solve_path():
     with pytest.raises(AssertionError, match="spinor_veff"):
         chip_smoke.check_launched("spinor", cuda, launches,
                                   chip_smoke.SPINOR_SYM_KERNELS, "kset_nc", 3)
+    # every path launches K16a, K16b and K18
+    launches["spinor_veff"] = 1
+    for name in chip_smoke.EVERY_PATH:
+        launches[name] = 0
+        with pytest.raises(AssertionError, match=name):
+            chip_smoke.check_launched("kset", cuda, launches,
+                                      chip_smoke.US_KERNELS)
+        launches[name] = 1
 
 
 def test_fp32_kernel_phases_run_on_cpu(monkeypatch):
@@ -1098,3 +1110,44 @@ def test_fused_decks_are_the_reference_tools():
                      chip_smoke.CHUNKED_US_KERNELS,
                      chip_smoke.FP32_GAMMA_US_KERNELS):
         assert "fermi" in required and "scf_record" not in required
+
+
+def test_density_hdiag_phases_run_on_cpu(monkeypatch, capsys):
+    # K16a, K16b and K18 against their plain versions at a deck's shapes
+    # and at their edges (off the card each wrapper is its plain version)
+    monkeypatch.setattr(chip_smoke, "time_ms", lambda fn, **kw: (fn(), 0.0)[1])
+    ctx = chip_smoke.make_context(SMALL, chip_smoke.TIGHT, chip_smoke.US_SYM)
+    recs = chip_smoke.check_density_hdiag_kernels("small_us_sym", ctx,
+                                                  torch.device("cpu"), "cpu")
+    assert sorted(recs) == sorted(SCATTER_CHECKED)
+    for rec in recs.values():
+        assert rec["bitwise"] and rec["max_rel_err"] == 0.0
+        assert rec["bound_ms"] > 0 and rec["bound_by"] == "bytes"
+    chip_smoke.check_density_hdiag_edges(torch.device("cpu"), "cpu")
+    lines = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
+    edges = [r for r in lines if r.get("phase") == "density_hdiag_edges"][0]
+    assert len(edges["bitwise"]) == 12 and all(edges["bitwise"].values())
+    # every SCF path launches K16a, K16b and K18
+    assert set(chip_smoke.EVERY_PATH) == set(SCATTER_CHECKED)
+
+
+def test_checkpoint_and_recovery_phases_run_on_cpu(capsys):
+    from sirius_tpu_torch.dft.scf import run_scf
+
+    dev = torch.device("cpu")
+    ctx = chip_smoke.make_context(SMALL, {
+        "num_dft_iter": chip_smoke.FULL_ITERS["full_width_us"],
+        **chip_smoke.RUN_TO_END}, chip_smoke.US_SYM)
+    want = run_scf(ctx.cfg, ctx=ctx, device=dev)
+    rec = chip_smoke.checkpoint_resume(ctx, dev, "cpu", want, spec=SMALL,
+                                       deck_name="small_us_sym")
+    assert rec["killed"] and rec["file_bytes"] > 0 and rec["sirius_h5_loads"]
+    assert rec["num_scf_iterations"] == want["num_scf_iterations"]
+    assert len(rec["fetch_state_history_seconds"]) == 1
+    ctx2 = chip_smoke.make_context(SMALL, chip_smoke.TIGHT, chip_smoke.US_SYM)
+    rec = chip_smoke.recovery_fused(ctx2, dev, "cpu")
+    assert rec["snapshots"] >= 2
+    assert [a for _, a, _, _ in rec["runs"]["nan4_7_10"]["ladder"]] == [
+        "flush_history", "halve_beta_linear", "disable_device_scf"]
+    assert rec["runs"]["oom2"]["ladder"][0][:2] == ("device_oom",
+                                                    "disable_device_scf")

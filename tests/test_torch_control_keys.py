@@ -1,8 +1,9 @@
 """The control keys of the port and its refusal strings: no key is accepted
 and then ignored where the JAX package acts on it. print_forces and
 print_stress return forces and stress (tests/test_torch_forces.py,
-tests/test_torch_stress.py hold their values); autosave_every > 0 raises,
-naming the ROADMAP item that brings the checkpoint; stress under mGGA
+tests/test_torch_stress.py hold their values); autosave_every > 0 writes
+the checkpoint the JAX package loads, and straggler_detect on raises,
+naming the ROADMAP item that brings the watchdog; stress under mGGA
 raises, as in the JAX package, while the forces run; a non-collinear run
 returns neither, as the JAX package's run_scf_nc does; every refusal names
 the queue 1 item that brings what it refuses, and the refusals of items
@@ -34,13 +35,34 @@ def context(**extra):
                       "energy_tol": 0.0, **extra}, **SMALL)
 
 
-def test_autosave_raises_naming_queue_1_item_6():
+def test_autosave_raises_naming_queue_1_item_6(tmp_path):
+    # item 6 has landed: control.autosave_every writes the mid-SCF
+    # checkpoint, in the JAX package's schema, which its load_state reads
+    # with its own checksum; control.straggler_detect on is the refusal
+    # left, naming item 12, which brings the watchdog
+    from sirius_tpu.io.checkpoint import load_state as jax_load_state
+    from sirius_tpu.testing import synthetic_silicon_context as jax_context
+
     ctx = context()
+    path = str(tmp_path / "auto.h5")
     ctx.cfg.control.autosave_every = 1
-    with pytest.raises(NotImplementedError, match="queue 1, item 6"):
-        run_scf(ctx.cfg, ctx=ctx, device="cpu")
+    ctx.cfg.control.autosave_path = path
+    ctx.cfg.control.autosave_keep = 2
+    res = run_scf(ctx.cfg, ctx=ctx, device="cpu")
+    assert res["num_scf_iterations"] == 2
+    jctx = jax_context(extra_params={"num_dft_iter": 2, "density_tol": 0.0,
+                                     "energy_tol": 0.0}, **SMALL)
+    state = jax_load_state(path, jctx)
+    scf = state["scf"]
+    assert int(scf["iteration"]) == 2 and scf["mix_kind"] == "anderson"
+    assert list(scf["etot_history"]) == res["etot_history"]
+    assert state["psi"].shape == (1, 1, 8, jctx.gkvec.ngk_max)
+    older = jax_load_state(path + ".1", jctx)["scf"]
+    assert int(older["iteration"]) == 1
     ctx.cfg.control.autosave_every = 0
-    assert run_scf(ctx.cfg, ctx=ctx, device="cpu")["num_scf_iterations"] == 2
+    ctx.cfg.control.straggler_detect = True
+    with pytest.raises(NotImplementedError, match="queue 1, item 12"):
+        run_scf(ctx.cfg, ctx=ctx, device="cpu")
 
 
 def test_stress_under_mgga_raises_and_forces_run():
@@ -72,6 +94,29 @@ def test_noncollinear_returns_neither_forces_nor_stress():
     res = run_scf(ctx.cfg, ctx=ctx, device="cpu")
     assert res["num_scf_iterations"] == 1
     assert "forces" not in res and "stress" not in res
+
+
+def test_noncollinear_checkpoints_as_the_jax_package(tmp_path):
+    # run_scf_nc writes and reads no checkpoint in either package
+    # (sirius_tpu/dft/scf.py:244-259): restart_from raises, save_to warns
+    # and is ignored, resume and the autosave are ignored (the JAX package
+    # says nothing there; the port warns, ROADMAP queue 3 item 18)
+    ctx = synthetic_silicon_context(
+        extra_params={"num_dft_iter": 1, "density_tol": 0.0,
+                      "energy_tol": 0.0, "num_mag_dims": 3},
+        **dict(SMALL, num_bands=16))
+    with pytest.raises(NotImplementedError, match="checkpoint"):
+        run_scf(ctx.cfg, ctx=ctx, device="cpu", restart_from="x.h5")
+    ctx.cfg.control.autosave_every = 1
+    ctx.cfg.control.autosave_path = str(tmp_path / "auto.h5")
+    with pytest.warns(UserWarning) as caught:
+        res = run_scf(ctx.cfg, ctx=ctx, device="cpu",
+                      save_to=str(tmp_path / "final.h5"),
+                      resume=str(tmp_path / "absent.h5"))
+    text = " ".join(str(w.message) for w in caught)
+    assert "save_to ignored" in text and "resume" in text
+    assert res["num_scf_iterations"] == 1
+    assert not list(tmp_path.iterdir())
 
 
 def test_no_forces_without_an_iteration():

@@ -37,7 +37,8 @@ device mixer (tests/test_torch_mixer.py) and K15 (kernels/scf_record.py).
   package builds its FusedScf for (sirius_tpu/dft/scf.py:850-855).
 - K15's plain version: the combine of each op (sums in table order, NaN
   through the max, the all-finite flag) on a small table; a NaN in the
-  density raises FloatingPointError; a carry seeded from fetch_state's
+  density raises FloatingPointError without supervision and spends the
+  rollback ladder with it (ScfAbortError); a carry seeded from fetch_state's
   mixed vector and history steps as the run it came from, bit for bit.
 """
 
@@ -397,9 +398,14 @@ def test_record_combines_each_op():
 
 
 def test_fused_run_refuses_a_non_finite_record(monkeypatch):
-    # a NaN in the density reaches the record's S_FINITE: the port raises
-    # where the JAX package rolls back (ROADMAP queue 1, item 6)
+    # a NaN in the density reaches the record's S_FINITE. Without
+    # supervision the port raises at once; with it (the default) the run
+    # rolls back and climbs the ladder, as the JAX package does, and a
+    # density poisoned at every iteration spends the ladder (flush, halve
+    # beta, leave the fused step; the host loop then meets the NaN too)
+    # and aborts with ScfAbortError, a FloatingPointError
     import sirius_tpu_torch.dft.scf as scf_mod
+    from sirius_tpu_torch.dft.recovery import ScfAbortError
 
     real = scf_mod.density_kset
 
@@ -411,9 +417,19 @@ def test_fused_run_refuses_a_non_finite_record(monkeypatch):
     monkeypatch.setattr(scf_mod, "density_kset", poisoned)
     ctx = synthetic_silicon_context(gk_cutoff=3.0, pw_cutoff=7.0,
                                     ngridk=(2, 2, 2), num_bands=8,
-                                    extra_params={"num_dft_iter": 2})
-    with pytest.raises(FloatingPointError, match="item 6"):
+                                    extra_params={"num_dft_iter": 4})
+    ctx.cfg.control.scf_supervision = False
+    with pytest.raises(FloatingPointError, match="non-finite"):
         run_scf(ctx.cfg, ctx=ctx, device="cpu")
+    ctx.cfg.control.scf_supervision = True
+    with pytest.raises(ScfAbortError) as err:
+        run_scf(ctx.cfg, ctx=ctx, device="cpu")
+    diag = err.value.diagnostic
+    assert [h["action"] for h in diag["ladder_history"]] == [
+        "flush_history", "halve_beta_linear", "disable_device_scf"]
+    assert [h["sentinel"] for h in diag["ladder_history"]] == [
+        "device_nonfinite"] * 3
+    assert diag["sentinel"] == "nonfinite_fields"
 
 
 def test_carry_restores_its_history():

@@ -1,6 +1,8 @@
-"""The port and chip_smoke.py import neither JAX nor the JAX package: in a
-fresh interpreter, import every module of sirius_tpu_torch and chip_smoke,
-then neither jax nor sirius_tpu may be in sys.modules."""
+"""The port and chip_smoke.py import neither JAX nor the JAX package, nor
+h5py (absent where the port runs; io/h5.py reads and writes the
+checkpoint's HDF5): in a fresh interpreter, import every module of
+sirius_tpu_torch and chip_smoke, then none of jax, sirius_tpu and h5py
+may be in sys.modules."""
 
 import json
 import os
@@ -21,7 +23,8 @@ import chip_smoke
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m.startswith("jaxlib.") or m == "sirius_tpu"
-             or m.startswith("sirius_tpu."))
+             or m.startswith("sirius_tpu.") or m == "h5py"
+             or m.startswith("h5py."))
 print(json.dumps({"modules": mods, "bad": bad}))
 """
 
@@ -45,6 +48,9 @@ def test_port_imports_no_jax():
                  "ops.spinor", "parallel.batched_nc", "dft.potential_nc",
                  "dft.scf_nc", "kernels.spinor_veff",
                  "kernels.density_accumulate_nc", "io.upf", "ops.so",
-                 "cli"):
+                 "cli", "io.h5", "io.checkpoint", "dft.recovery",
+                 "obs.forecast", "utils.faults", "utils.devfail",
+                 "utils.profiler", "utils.checksums",
+                 "kernels.density_scatter", "kernels.h_diag"):
         assert "sirius_tpu_torch." + name in res["modules"]
     assert len(res["modules"]) >= 30
