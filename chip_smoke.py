@@ -192,6 +192,25 @@ run_scf_from_file's ground_state_restart from a JSON deck, which must
 write a loadable sirius.h5. fused_ab_us also counts host syncs with the
 supervisor off.
 
+The potential's pointwise passes (dft/potential.py::generate_potential,
+csrc/potential_passes.cu): K17a (the XC inputs: rho + rho_core, the
+clamps, |m| clipped to rho_xc, the spin split), K17b (exc, V_xc and B_z,
+also as complex boxes for the FFT), K17c (i) (V_H and the V_eff sum) and
+(ii) (GGA's gradient rows), K17d (the coarse boxes through one table, and
+the per-spin coarse potential) are held bit for bit to their plain
+versions at their edges (potential_edges: NaN, +-inf and -0.0 in every
+input, rho under each clamp, |m| over rho_xc, glen2 at and around 1e-12,
+odd box and G counts, 1-4 coarse fields, float64 views off a 16-byte
+boundary, with and without a core charge) and at the 16-atom US shapes
+(records: unpolarized X + PZ inputs, "<pass>.unpolarized", and polarized
+PBE ones, "<pass>") and the 54-atom PBE FM ones ("<pass>.54"); every
+collinear deck must launch K17a, K17b, K17c (i) and K17d, a polarized GGA
+or SCAN deck K17c (ii) too, and a non-collinear deck K17c (i) and K17d's
+fill (V, B_x, B_y, B_z). Their rows
+in the kernels summary take the 16-atom unpolarized records with
+full_width_us's launches and the 54-atom records with
+full_width_gamma_pbe_fm's.
+
 Every SCF phase sets the launch counts to 0 just before its run and reads
 them just after, and fails if a kernel of its path was not launched (an
 unpolarized X + PZ deck must launch K7's zeta = 0 kernel, a non-collinear
@@ -401,6 +420,30 @@ TOL = {**{name: 1e-12 for name in XC_CHECKS},
        # checked as well)
        "density_scatter.coarse_box": 0.0,
        "density_scatter.scatter_fine": 0.0, "h_diag": 0.0}
+# K17, the potential's pointwise passes (csrc/potential_passes.cu), each
+# pass and the JAX line it replaces; records at the 16-atom US cell,
+# polarized PBE inputs (the pass's name) and unpolarized X + PZ ones
+# (".unpolarized"), and at the 54-atom PBE FM cell (".54"); bit for bit
+K17_REPLACES = {
+    "potential_passes.xc_inputs": "sirius_tpu/dft/potential.py:301",
+    "potential_passes.xc_outputs": "sirius_tpu/dft/potential.py:329",
+    "potential_passes.hartree_veff": "sirius_tpu/dft/poisson.py:21",
+    "potential_passes.gga_inputs": "sirius_tpu/dft/potential.py:306",
+    "potential_passes.coarse_fill": "sirius_tpu/dft/potential.py:358",
+    "potential_passes.coarse_stack": "sirius_tpu/dft/potential.py:363",
+}
+K17_UNPOLARIZED = tuple(k for k in K17_REPLACES if not k.endswith("gga_inputs"))
+K17_NAMES = (tuple(K17_REPLACES) + tuple(k + ".unpolarized"
+                                         for k in K17_UNPOLARIZED)
+             + tuple(k + ".54" for k in K17_REPLACES))
+
+
+def k17_base(name: str) -> str:
+    """The pass of a K17 record's name (its suffix dropped)."""
+    return ".".join(name.split(".")[:2])
+
+
+TOL.update({name: 0.0 for name in K17_NAMES})
 SOURCE = {
     "local_hpsi.pw_to_box": "sirius_tpu_torch/csrc/local_hpsi.cu",
     "local_hpsi.box_to_pw_hpsi": "sirius_tpu_torch/csrc/local_hpsi.cu",
@@ -439,6 +482,8 @@ SOURCE = {
     "density_scatter.scatter_fine":
         "sirius_tpu_torch/csrc/density_scatter.cu",
     "h_diag": "sirius_tpu_torch/csrc/h_diag.cu",
+    **{name: "sirius_tpu_torch/csrc/potential_passes.cu"
+       for name in K17_NAMES},
 }
 REPLACES = {
     "local_hpsi.pw_to_box": "sirius_tpu/ops/hamiltonian.py:76",
@@ -478,6 +523,7 @@ REPLACES = {
     "density_scatter.coarse_box": "sirius_tpu/dft/fused.py:311",
     "density_scatter.scatter_fine": "sirius_tpu/dft/fused.py:316",
     "h_diag": "sirius_tpu/parallel/batched.py:102",
+    **{name: K17_REPLACES[k17_base(name)] for name in K17_NAMES},
 }
 # the fp32 instantiations (precision_wf "fp32"): each kernel's name with the
 # suffix of the block type it takes (.c64 complex64, .f32 float32 packed
@@ -2388,6 +2434,10 @@ def wrappers() -> dict:
     from sirius_tpu_torch.kernels import scf_record as k15
     from sirius_tpu_torch.kernels import veff_multiply as k1c
     from sirius_tpu_torch.kernels import xc_gradient as k10
+    from sirius_tpu_torch.kernels import coarse_potential as k17d
+    from sirius_tpu_torch.kernels import hartree_veff as k17c
+    from sirius_tpu_torch.kernels import xc_inputs as k17a
+    from sirius_tpu_torch.kernels import xc_outputs as k17b
 
     n = "launches"
     # K7, K7g and K7s count each instantiation (launches_pw92,
@@ -2436,6 +2486,13 @@ def wrappers() -> dict:
            "density_scatter.coarse_box": (k16.coarse_box, n),
            "density_scatter.scatter_fine": (k16.scatter_fine, n),
            "h_diag": (k18.h_diag_pass, n)}
+    k17 = {"potential_passes.xc_inputs": k17a.xc_inputs,
+           "potential_passes.xc_outputs": k17b.xc_outputs,
+           "potential_passes.hartree_veff": k17c.hartree_veff,
+           "potential_passes.gga_inputs": k17c.gga_inputs,
+           "potential_passes.coarse_fill": k17d.coarse_fill,
+           "potential_passes.coarse_stack": k17d.coarse_stack}
+    out.update({name: (k17[k17_base(name)], n) for name in K17_NAMES})
     for name in FP32_SUMMARY:
         out[name] = (out[base_name(name)][0],
                      "launches_" + name.rsplit(".", 1)[1])
@@ -2448,9 +2505,17 @@ def wrappers() -> dict:
 # path applies H through K8a, K1c real, K8b and solves with K2 float64 (the
 # density keeps K1's scatter and K3); the chunked path adds K9 to the k-set
 # path's kernels
+# every collinear path's potential runs K17a, K17b, K17c (i) and both
+# passes of K17d (POTENTIAL); a polarized GGA or mGGA one K17c (ii) too
+# (GGA_INPUTS; unpolarized it forms rows only from a core charge, which no
+# deck has); the non-collinear potential takes K17c (i) and K17d's fill
+# (POTENTIAL_NC)
+POTENTIAL = K17_UNPOLARIZED
+GGA_INPUTS = "potential_passes.gga_inputs"
+POTENTIAL_NC = ("potential_passes.hartree_veff", "potential_passes.coarse_fill")
 NC_KERNELS = ("local_hpsi.pw_to_box", "local_hpsi.box_to_pw_hpsi",
               "davidson_residual", "density_accumulate", "lda_xc", PZ0,
-              "veff_multiply", "fermi")
+              "veff_multiply", "fermi") + POTENTIAL
 US_KERNELS = NC_KERNELS + ("augmentation.rho_aug", "augmentation.d_operator",
                            "symmetrize_pw")
 # every path runs K13, K16a, K16b and K18 (EVERY_PATH, which
@@ -2464,7 +2529,8 @@ NC_FUSED = NC_KERNELS + FUSED_STEP
 US_FUSED = US_KERNELS + FUSED_STEP
 GAMMA_KERNELS = ("local_hpsi.pw_to_box", "density_accumulate", "lda_xc", PZ0,
                  "gamma_pack.unpack_to_box", "gamma_pack.box_to_packed_hx",
-                 "veff_multiply.real", "davidson_residual.f64", "fermi")
+                 "veff_multiply.real", "davidson_residual.f64",
+                 "fermi") + POTENTIAL
 GAMMA_US_KERNELS = GAMMA_KERNELS + ("augmentation.rho_aug",
                                     "augmentation.d_operator", "symmetrize_pw")
 CHUNKED_US_KERNELS = US_KERNELS + ("beta_chunk",)
@@ -2481,32 +2547,37 @@ MGGA_KERNELS = ("mgga_xc.scan", "xc_gradient.gradient_boxes",
 
 
 def xc_kernels(base, gga: bool, axial: bool, mgga: bool = False,
-               gga_set: str = "gga_xc.pbe", lda_set: str = "") -> tuple:
+               gga_set: str = "gga_xc.pbe", lda_set: str = "",
+               polarized: bool = False) -> tuple:
     """A path's kernels for a deck of other functionals or spin: none runs
     unpolarized X + PZ's kernel; an LDA deck runs K7 in its instantiation
     lda_set; GGA runs K7g (its instantiation gga_set), K10a and K10b in
-    place of K7, SCAN K7s, K10a, K10b, K11a and K11b; a polarized deck with
-    symmetry runs K6 on its axial fields too."""
+    place of K7, SCAN K7s, K10a, K10b, K11a and K11b; a deck with
+    symmetry on axial fields (collinear polarized) runs K6 on them too,
+    and a collinear polarized GGA or SCAN deck K17c (ii)."""
     out = tuple(k for k in base if k != PZ0
                 and not ((gga or mgga) and k.startswith("lda_xc")))
     return out + ((lda_set,) if lda_set else ()) + (
         MGGA_KERNELS if mgga else (gga_set,) + GGA_KERNELS[1:]
-        if gga else ()) + (("symmetrize_pw.axial",) if axial else ())
+        if gga else ()) + (("symmetrize_pw.axial",) if axial else ()) + (
+        (GGA_INPUTS,) if polarized and (gga or mgga) else ())
 
 
 # the band solve each deck of XC_DECKS takes, and the kernels it must launch
 XC_DECK_PATH = {
     "pbe_us_sym": ("kset", xc_kernels(US_FUSED, True, False)),
     "pw_us_sym_afm": ("kset", xc_kernels(US_FUSED, False, True,
-                                         lda_set="lda_xc.pw92")),
-    "gamma_pbe_us_sym_fm": ("gamma", xc_kernels(GAMMA_US_KERNELS, True, True)),
+                                         lda_set="lda_xc.pw92",
+                                         polarized=True)),
+    "gamma_pbe_us_sym_fm": ("gamma", xc_kernels(GAMMA_US_KERNELS, True, True,
+                                                polarized=True)),
     "gamma_nc_vwn": ("gamma", xc_kernels(GAMMA_KERNELS, False, False,
                                          lda_set="lda_xc.vwn.unpolarized")),
     "gamma_nc_pbesol": ("gamma", xc_kernels(GAMMA_KERNELS, True, False,
                                             gga_set="gga_xc.pbesol")),
     "scan_us_sym": ("kset", xc_kernels(US_KERNELS, False, False, mgga=True)),
     "scan_us_sym_fm": ("kset", xc_kernels(US_KERNELS, False, True,
-                                          mgga=True)),
+                                          mgga=True, polarized=True)),
 }
 # the spinor k-set path: K1 over (band, spin) rows, K12a in place of K1c,
 # K2 on the flattened spinors, K12b in place of K3, K4 and K5 on four
@@ -2516,7 +2587,7 @@ XC_DECK_PATH = {
 SPINOR_KERNELS = ("local_hpsi.pw_to_box", "local_hpsi.box_to_pw_hpsi",
                   "davidson_residual", "spinor_veff", "density_accumulate_nc",
                   "lda_xc", "lda_xc.pz", "augmentation.rho_aug.4",
-                  "augmentation.d_operator.4", "fermi")
+                  "augmentation.d_operator.4", "fermi") + POTENTIAL_NC
 SPINOR_SYM_KERNELS = SPINOR_KERNELS + ("symmetrize_pw", "symmetrize_vector_pw")
 SPINOR_DECK_PATH = {
     "small_spinor_us": SPINOR_KERNELS,
@@ -2538,7 +2609,8 @@ FULL_ITERS["full_width_spinor_so_us"] = 4
 # the quasi-Newton mixers of the reference tool on the 2-atom ultrasoft
 # deck with the space group
 MIXER_DECKS = ("anderson_stable_us_sym", "broyden2_us_sym")
-FULL_GAMMA_PBE_FM_KERNELS = xc_kernels(GAMMA_US_KERNELS, True, True)
+FULL_GAMMA_PBE_FM_KERNELS = xc_kernels(GAMMA_US_KERNELS, True, True,
+                                       polarized=True)
 # the recorded force decks: the band solve each takes, the kernels its SCF
 # must launch, and those its stress must launch (K1's scatter of the
 # strained densities, the XC kernel of the deck's functional, K10a for
@@ -2550,7 +2622,8 @@ FORCES_DECK_PATH = {
     "forces_us": ("gamma", tuple(k for k in GAMMA_US_KERNELS
                                  if k != "symmetrize_pw"), STRESS_US_KERNELS),
     "forces_us_sym_2atom": ("kset", US_FUSED, STRESS_US_KERNELS),
-    "forces_gamma_pbe_fm": ("gamma", xc_kernels(GAMMA_US_KERNELS, True, True),
+    "forces_gamma_pbe_fm": ("gamma", xc_kernels(GAMMA_US_KERNELS, True, True,
+                                                polarized=True),
                             ("local_hpsi.pw_to_box", "gga_xc.pbe",
                              "xc_gradient.gradient_boxes",
                              "augmentation.rho_aug")),
@@ -2564,7 +2637,7 @@ FP32_US_KERNELS = ("local_hpsi.pw_to_box.c64", "local_hpsi.box_to_pw_hpsi.c64",
                    "veff_multiply.c64", "davidson_residual.c64",
                    "density_accumulate.c64", "lda_xc", PZ0,
                    "augmentation.rho_aug", "augmentation.d_operator",
-                   "symmetrize_pw", "fermi")
+                   "symmetrize_pw", "fermi") + POTENTIAL
 FP32_US_FUSED = FP32_US_KERNELS + FUSED_STEP
 FP32_GAMMA_US_KERNELS = ("gamma_pack.unpack_to_box.f32",
                          "veff_multiply.real.c64",
@@ -2572,14 +2645,14 @@ FP32_GAMMA_US_KERNELS = ("gamma_pack.unpack_to_box.f32",
                          "davidson_residual.f32", "local_hpsi.pw_to_box",
                          "density_accumulate", "lda_xc", PZ0,
                          "augmentation.rho_aug", "augmentation.d_operator",
-                         "symmetrize_pw", "fermi")
+                         "symmetrize_pw", "fermi") + POTENTIAL
 FP32_CHUNKED_US_KERNELS = ("local_hpsi.pw_to_box.c64",
                            "local_hpsi.box_to_pw_hpsi.c64",
                            "veff_multiply.c64", "davidson_residual.c64",
                            "beta_chunk.c64", "local_hpsi.pw_to_box",
                            "density_accumulate", "lda_xc", PZ0,
                            "augmentation.rho_aug", "augmentation.d_operator",
-                           "symmetrize_pw", "fermi")
+                           "symmetrize_pw", "fermi") + POTENTIAL
 FP32_SCAN_KERNELS = tuple(k for k in FP32_US_KERNELS
                           if k not in ("lda_xc", PZ0)) + (
     "mgga_xc.scan", "xc_gradient.gradient_boxes", "xc_gradient.divergence_pw",
@@ -2590,7 +2663,8 @@ FP32_SPINOR_SYM_KERNELS = ("local_hpsi.pw_to_box.c64",
                            "density_accumulate_nc.c64", "lda_xc",
                            "lda_xc.pz", "augmentation.rho_aug.4",
                            "augmentation.d_operator.4", "symmetrize_pw",
-                           "symmetrize_vector_pw", "fermi")
+                           "symmetrize_vector_pw",
+                           "fermi") + POTENTIAL_NC
 # the fp32 parity decks of the reference tool (each beside its fp64 twin
 # there): the band solve each takes and the kernels it must launch
 FP32_DECK_PATH = {
@@ -4108,7 +4182,8 @@ def parity_fused_record(dev, gpu: str, refs: dict, tool) -> dict:
             if not d_mag <= 1e-6:
                 raise AssertionError(f"{phase}: moment off by {d_mag}")
         required = (US_FUSED if ctx.num_mag_dims == 0 else
-                    xc_kernels(US_FUSED, False, True, lda_set="lda_xc.pw92"))
+                    xc_kernels(US_FUSED, False, True, lda_set="lda_xc.pw92",
+                               polarized=True))
         check_launched(phase, dev, launches, required)
         runs[name] = launches
     return runs
@@ -4278,6 +4353,237 @@ def check_density_hdiag_edges(dev, gpu: str) -> None:
     bad = [k for k, v in cases.items() if not v]
     if bad:
         raise AssertionError(f"K16 / K18 edges not bit for bit: {bad}")
+
+
+def k17_outputs(res) -> list:
+    """A K17 pass's result as a list of tensors (None dropped)."""
+    from sirius_tpu_torch.kernels.xc_inputs import XcInputs
+
+    if isinstance(res, XcInputs):
+        res = [res.rho_r, res.rho_exc, res.rho_xc, res.mag_r, res.n_up,
+               res.n_dn]
+    elif not isinstance(res, (list, tuple)):
+        res = [res]
+    return [t for t in res if t is not None]
+
+
+def k17_bitwise(a, b) -> bool:
+    """Two K17 results bit for bit, NaN payloads and zero signs included."""
+    a, b = k17_outputs(a), k17_outputs(b)
+    return len(a) == len(b) and all(bits_equal(x, y) for x, y in zip(a, b))
+
+
+def potential_calls(ctx, dev, rng, polarized: bool) -> dict:
+    """Each K17 pass of one potential at a context's shapes, on seeded
+    random fields: {pass: (kernel call, plain call, bytes, operations,
+    library call or None)}. A single PyTorch call computes the unpolarized
+    stack (Re f as a [1, n1, n2, n3] float64: box.real.unsqueeze(0)
+    .contiguous()), no other pass.
+    Unpolarized: X + PZ's inputs (K17b without a divergence, one coarse
+    field), no K17c (ii); polarized: PBE's (v_up, v_dn, the two divergence
+    boxes, K17c (ii)'s rows, V and B_z coarse). No core charge, as in the
+    decks."""
+    import numpy as np
+    import torch
+
+    from sirius_tpu_torch.kernels import coarse_potential as k17d
+    from sirius_tpu_torch.kernels import hartree_veff as k17c
+    from sirius_tpu_torch.kernels import xc_inputs as k17a
+    from sirius_tpu_torch.kernels import xc_outputs as k17b
+
+    dims = tuple(ctx.gvec.fft.dims)
+    dims_c = tuple(ctx.fft_coarse.dims)
+    n, nbox = int(np.prod(dims)), int(np.prod(dims_c))
+    ng, ngc = ctx.gvec.num_gvec, ctx.gvec_coarse.num_gvec
+    ns = 2 if polarized else 1
+
+    def real(shape, lo=-1.0, hi=1.0):
+        size = int(np.prod(shape))
+        return torch.as_tensor(rng.uniform(lo, hi, size),
+                               device=dev).view(shape)
+
+    def cplx(shape):
+        return torch.complex(real(shape), real(shape))
+
+    rho_box = torch.complex(real(dims, -0.05, 1.0), real(dims, -1e-3, 1e-3))
+    mag_box = (torch.complex(real(dims, -1.2, 1.2) * rho_box.real.abs(),
+                             real(dims, -1e-3, 1e-3)) if polarized else None)
+    floor = 1e-20 if polarized else 0.0
+    e = real((n,))
+    v_up = real((n,))
+    v_dn = real((n,)) if polarized else None
+    rho_xc = real(dims, 0.0, 1.0)
+    div = torch.complex(real((ns,) + dims), real((ns,) + dims)) if polarized \
+        else None
+    rho_g, mag_g, vxc_g = cplx((ng,)), cplx((ng,)), cplx((ng,))
+    glen2 = torch.as_tensor(np.asarray(ctx.gvec.glen2), device=dev)
+    vloc_g = torch.as_tensor(ctx.vloc_g, dtype=torch.complex128, device=dev)
+    table = torch.as_tensor(k17d.coarse_box_to_fine(
+        ctx.gvec_coarse.fft_index, ctx.coarse_to_fine, nbox, ng), device=dev)
+    fields = [cplx((ng,)) for _ in range(ns)]
+    boxes = [cplx(dims_c) for _ in range(ns)]
+    calls = {
+        "xc_inputs": (
+            lambda: k17a.xc_inputs(rho_box, None, mag_box, floor),
+            lambda: k17a.xc_inputs_plain(rho_box, None, mag_box, floor),
+            16 * ns * n + 8 * 3 * ns * n, (2 + 6 * (ns - 1)) * n, None),
+        "xc_outputs": (
+            lambda: k17b.xc_outputs(e, v_up, rho_xc, v_dn, div),
+            lambda: k17b.xc_outputs_plain(e, v_up, rho_xc, v_dn, div),
+            (8 * (2 + ns) + (16 * ns if div is not None else 0)) * n
+            + (8 + 16 * ns + (8 if polarized else 0)) * n,
+            (2 + 5 * (ns - 1)) * n, None),
+        "hartree_veff": (
+            lambda: k17c.hartree_veff(rho_g, glen2, vloc_g, vxc_g),
+            lambda: k17c.hartree_veff_plain(rho_g, glen2, vloc_g, vxc_g),
+            (16 + 8 + 16 + 16 + 32) * ng, 12 * ng, None),
+        "coarse_fill": (
+            lambda: k17d.coarse_fill(fields, table),
+            lambda: k17d.coarse_fill_plain(fields, table),
+            4 * nbox + 16 * ns * ngc + 16 * ns * nbox, 0.0, None),
+        "coarse_stack": (
+            lambda: k17d.coarse_stack(boxes, polarized),
+            lambda: k17d.coarse_stack_plain(boxes, polarized),
+            16 * ns * nbox + 8 * ns * nbox, nbox * (ns - 1) * 2,
+            None if polarized
+            else lambda: boxes[0].real.unsqueeze(0).contiguous()),
+    }
+    if polarized:
+        calls["gga_inputs"] = (
+            lambda: k17c.gga_inputs(rho_g, None, mag_g),
+            lambda: k17c.gga_inputs_plain(rho_g, None, mag_g),
+            (16 * 2 + 16 * 2) * ng, 8 * 2 * ng, None)
+    return calls
+
+
+def check_potential_kernels(deck: str, ctx, dev, gpu: str, polarized: bool,
+                            suffix: str = "") -> dict:
+    """K17a-K17d against their plain versions at a deck's shapes
+    (potential_calls: unpolarized X + PZ's inputs, or polarized PBE's),
+    each a record named potential_passes.<pass><suffix> whose outputs must
+    be bit for bit the plain version's; raises otherwise. No core charge,
+    as in the decks; library_ms of the one pass a single PyTorch call
+    computes (potential_calls), null for the others."""
+    import numpy as np
+
+    rng = np.random.default_rng(61 + 2 * polarized)
+    out = {}
+    for base, (fn_k, fn_p, nbytes, flops, fn_lib) in potential_calls(
+            ctx, dev, rng, polarized).items():
+        name = "potential_passes." + base + suffix
+        got, want = k17_outputs(fn_k()), k17_outputs(fn_p())
+        bitwise = k17_bitwise(got, want)
+        record_kernel(out, deck, gpu, name, got, want, fn_k, fn_p, fn_lib,
+                      float(nbytes), float(flops),
+                      extra={"bitwise": bitwise, "polarized": polarized})
+    bad = [k for k, r in out.items() if not r["bitwise"]]
+    if bad:
+        raise AssertionError(f"{deck}: not bit for bit the plain version: "
+                             f"{bad}")
+    return out
+
+
+# the K17 edge boxes: 7 x 11 x 13 = 1001 points and 997 G (no multiple of
+# the 256-thread block), coarse 5 x 7 x 9 = 315 slots of which 211 hold G
+K17_EDGE_DIMS = ((7, 11, 13), (5, 7, 9))
+K17_EDGE_NG = (997, 211)
+SPECIALS = (float("nan"), float("inf"), float("-inf"), -0.0, 0.0)
+
+
+def check_potential_edges(dev, gpu: str) -> None:
+    """K17a-K17d at their edges, each bit for bit its plain version on the
+    card: NaN, +-inf and -0.0 in every input (real and imaginary parts);
+    rho below each clamp (0, 1e-20, and 1e-25 for exc); |m| above rho_xc;
+    glen2 at 0, just under, at and just over 1e-12; odd box and G counts;
+    the coarse fill on 1, 2, 3 and 4 fields and the stack on 1, 2 (spin
+    and not) and 3; the float64 inputs as views 8 bytes off a 16-byte
+    boundary; with and without a core charge. Emits one
+    potential_edges line."""
+    import numpy as np
+    import torch
+
+    from sirius_tpu_torch.kernels import coarse_potential as k17d
+    from sirius_tpu_torch.kernels import hartree_veff as k17c
+    from sirius_tpu_torch.kernels import xc_inputs as k17a
+    from sirius_tpu_torch.kernels import xc_outputs as k17b
+
+    rng = np.random.default_rng(71)
+    (dims, dims_c), (ng, ngc) = K17_EDGE_DIMS, K17_EDGE_NG
+    n, nbox = int(np.prod(dims)), int(np.prod(dims_c))
+    nsp = len(SPECIALS)
+
+    def real(shape, lo=-1.0, hi=1.0, off=0, specials=True):
+        size = int(np.prod(shape))
+        x = rng.uniform(lo, hi, size + off)
+        if specials:
+            pos = rng.choice(size, 3 * nsp, replace=False) + off
+            x[pos] = np.tile(SPECIALS, 3)
+        return torch.as_tensor(x, device=dev)[off:].view(shape)
+
+    def cplx(shape, **kw):
+        return torch.complex(real(shape, **kw), real(shape, **kw))
+
+    cases = {}
+    for pol in (False, True):
+        floor = 1e-20 if pol else 0.0
+        for core in (False, True):
+            for off in (0, 1):
+                rho = real(dims, -0.1, 1.0)
+                flat = rho.view(-1)
+                flat[:4] = torch.as_tensor([-0.3, 1e-22, 1e-30, -1e-30])
+                rho_box = torch.complex(rho, real(dims))
+                mag = real(dims, -1.0, 1.0) * rho.abs()
+                mag.view(-1)[4:8] = torch.as_tensor([5.0, -5.0, 1e300,
+                                                     -1e300])
+                mag_box = torch.complex(mag, real(dims)) if pol else None
+                core_r = real(dims, 0.0, 0.1, off=off) if core else None
+                key = (f"xc_inputs.{'pol' if pol else 'unpol'}."
+                       f"{'core' if core else 'nocore'}.off{off}")
+                cases[key] = k17_bitwise(
+                    k17a.xc_inputs(rho_box, core_r, mag_box, floor),
+                    k17a.xc_inputs_plain(rho_box, core_r, mag_box, floor))
+        for gga in (False, True):
+            ns = 2 if pol else 1
+            for off in (0, 1):
+                e = real((n,), off=off)
+                v_up = real((n,), off=off)
+                v_dn = real((n,), off=off) if pol else None
+                rho_xc = real(dims, 0.0, 1.0, off=off)
+                rho_xc.view(-1)[:3] = torch.as_tensor([1e-30, 1e-25, 0.0])
+                div = cplx((ns,) + dims) if gga else None
+                key = (f"xc_outputs.{'pol' if pol else 'unpol'}."
+                       f"{'gga' if gga else 'lda'}.off{off}")
+                cases[key] = k17_bitwise(
+                    k17b.xc_outputs(e, v_up, rho_xc, v_dn, div),
+                    k17b.xc_outputs_plain(e, v_up, rho_xc, v_dn, div))
+    glen2 = real((ng,), 0.0, 5.0, specials=False)
+    glen2[:5] = torch.as_tensor([0.0, 1e-12, 0.9e-12, 1.1e-12, 1e-13])
+    rho_g, vloc_g, vxc_g, core_g, mag_g = (cplx((ng,)) for _ in range(5))
+    cases["hartree_veff"] = k17_bitwise(
+        k17c.hartree_veff(rho_g, glen2, vloc_g, vxc_g),
+        k17c.hartree_veff_plain(rho_g, glen2, vloc_g, vxc_g))
+    for key, core, mag in (("gga_inputs.core", core_g, None),
+                           ("gga_inputs.pol", None, mag_g),
+                           ("gga_inputs.pol.core", core_g, mag_g)):
+        cases[key] = k17_bitwise(k17c.gga_inputs(rho_g, core, mag),
+                          k17c.gga_inputs_plain(rho_g, core, mag))
+    slots = rng.choice(nbox, ngc, replace=False)
+    table = torch.as_tensor(k17d.coarse_box_to_fine(
+        slots, rng.choice(ng, ngc, replace=False), nbox, ng), device=dev)
+    for nf in (1, 2, 3, 4):
+        fields = [cplx((ng,)) for _ in range(nf)]
+        cases[f"coarse_fill.{nf}"] = k17_bitwise(
+            k17d.coarse_fill(fields, table),
+            k17d.coarse_fill_plain(fields, table))
+    for nf, spin in ((1, False), (2, False), (2, True), (3, False)):
+        boxes = [cplx(dims_c) for _ in range(nf)]
+        cases[f"coarse_stack.{nf}{'.spin' if spin else ''}"] = k17_bitwise(
+            k17d.coarse_stack(boxes, spin), k17d.coarse_stack_plain(boxes,
+                                                                    spin))
+    emit({"phase": "potential_edges", "gpu": gpu, "bitwise": cases})
+    bad = [k for k, v in cases.items() if not v]
+    if bad:
+        raise AssertionError(f"K17 edges not bit for bit: {bad}")
 
 
 @contextlib.contextmanager
@@ -4546,6 +4852,7 @@ def main() -> int:
           "seconds": time.perf_counter() - t0, "compiled": compiled})
     check_kernel_edges(dev, gpu)
     check_density_hdiag_edges(dev, gpu)
+    check_potential_edges(dev, gpu)
     check_eigh_empty_rows(dev, gpu)
 
     with open(os.path.join(here, "sirius_tpu_torch", "data",
@@ -4623,6 +4930,15 @@ def main() -> int:
     # K16a, K16b and K18 at the same shapes, bit for bit
     kern_fused.update(check_density_hdiag_kernels("si16_supercell2_us_sym",
                                                   ctx16us, dev, gpu))
+    # K17a-K17d at the 16-atom US shapes (unpolarized X + PZ inputs, then
+    # polarized PBE ones) and at the 54-atom PBE FM cell, bit for bit
+    kern_potential = check_potential_kernels("si16_supercell2_us_sym",
+                                             ctx16us, dev, gpu, False,
+                                             ".unpolarized")
+    check_potential_kernels("si16_supercell2_us_sym", ctx16us, dev, gpu,
+                            True)
+    kern_potential54 = check_potential_kernels(
+        "si54_supercell3_gamma_fm", ctx54fm, dev, gpu, True, ".54")
     torch.cuda.empty_cache()
     parity_scf(ctx2, dev, refs["full_width_2atom"], gpu, required=NC_FUSED)
     full_width(ctx16, dev, gpu, required=NC_FUSED)
@@ -4767,6 +5083,9 @@ def main() -> int:
     launches_fp32 = {name: runs_fp32[run][name]
                      for name, run in FP32_SUMMARY.items()}
     for records, counts in ((kern16, launches), (kern_fused, launches),
+                            (kern_potential, launches),
+                            (kern_potential54,
+                             runs["full_width_gamma_pbe_fm"]),
                             (kern54, launches54),
                             (kern54fm, runs["full_width_gamma_pbe_fm"]),
                             (kern54xc, launches_xc),

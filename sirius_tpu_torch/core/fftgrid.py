@@ -143,9 +143,16 @@ def r_to_g(values: torch.Tensor, fft_index: torch.Tensor,
     values: [..., n1, n2, n3]; returns [..., ng] complex128.
     Convention: f(G) = (1/N) sum_r f(r) e^{-iGr} == fftn(values)/N.
     """
+    return box_to_g(values.to(torch.complex128), fft_index, dims)
+
+
+def box_to_g(box: torch.Tensor, fft_index: torch.Tensor,
+             dims: tuple[int, int, int]) -> torch.Tensor:
+    """r_to_g of a complex128 box [..., n1, n2, n3] (a real field already
+    in complex form, e.g. K17b's V_xc): the forward FFT, then K1's sphere
+    gather; returns [..., ng]."""
     n = dims[0] * dims[1] * dims[2]
-    batch = values.shape[:-3]
-    box = torch.fft.fftn(values.to(torch.complex128), dim=(-3, -2, -1),
-                         norm="forward")
+    batch = box.shape[:-3]
+    box = torch.fft.fftn(box, dim=(-3, -2, -1), norm="forward")
     out, _ = box_to_pw_hpsi(box.reshape(1, -1, n), None, None, None, fft_index)
     return out.reshape(batch + (fft_index.shape[-1],))

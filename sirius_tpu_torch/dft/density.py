@@ -22,6 +22,7 @@ from sirius_tpu_torch.context import SimulationContext
 from sirius_tpu_torch.core.fftgrid import g_to_r
 from sirius_tpu_torch.core.radial import sbessel_integral
 from sirius_tpu_torch.device import resolve_device
+from sirius_tpu_torch.kernels.coarse_potential import coarse_box_to_fine
 from sirius_tpu_torch.kernels.density_scatter import (
     density_scatter,
     fine_to_coarse_box,
@@ -47,15 +48,17 @@ class GridTables:
     box_to_g: torch.Tensor  # [nbox] int32, its inverse, -1 off the G set
     glen2: torch.Tensor  # [ng] float64
     gcart: torch.Tensor  # [ng, 3] float64 Cartesian G (GGA gradients)
-    fft_index_coarse: torch.Tensor  # [ngc] int32, coarse G -> coarse box
-    coarse_to_fine: torch.Tensor  # [ngc] int64
     # [ng] int32, fine G -> coarse box slot of the same G, -1 outside the
     # coarse sphere (K16's table)
     fine_to_coarse_box: torch.Tensor
+    # [n_coarse_box] int32, coarse box slot -> fine G of the same G, -1
+    # outside the coarse sphere (K17d's table, the inverse of K16's)
+    coarse_box_to_fine: torch.Tensor
     vloc_g: torch.Tensor  # [ng] complex128
     rho_core_g: torch.Tensor | None  # [ng] complex128, None without NLCC
     vloc_r: torch.Tensor  # fine box, float64
-    rho_core_r: torch.Tensor  # fine box, float64 (zeros without NLCC)
+    # fine box, contiguous float64 (zeros without NLCC)
+    rho_core_r: torch.Tensor
     sym: SymPwTables | None = None  # K6 tables where the SCF symmetrizes
 
 
@@ -91,16 +94,16 @@ def grid_tables(ctx: SimulationContext, device) -> GridTables:
         glen2=torch.as_tensor(ctx.gvec.glen2, device=device),
         gcart=torch.as_tensor(np.asarray(ctx.gvec.gcart, dtype=np.float64),
                               device=device),
-        fft_index_coarse=torch.as_tensor(ctx.gvec_coarse.fft_index,
-                                         device=device),
-        coarse_to_fine=torch.as_tensor(ctx.coarse_to_fine, device=device),
         fine_to_coarse_box=torch.as_tensor(fine_to_coarse_box(
             ctx.gvec_coarse.fft_index, ctx.coarse_to_fine,
             ctx.gvec.num_gvec), device=device),
+        coarse_box_to_fine=torch.as_tensor(coarse_box_to_fine(
+            ctx.gvec_coarse.fft_index, ctx.coarse_to_fine,
+            ctx.fft_coarse.num_points, ctx.gvec.num_gvec), device=device),
         vloc_g=vloc_g,
         rho_core_g=core_g,
-        vloc_r=g_to_r(vloc_g, fidx, dims).real,
-        rho_core_r=(g_to_r(core_g, fidx, dims).real if has_core
+        vloc_r=g_to_r(vloc_g, fidx, dims).real.contiguous(),
+        rho_core_r=(g_to_r(core_g, fidx, dims).real.contiguous() if has_core
                     else torch.zeros(dims, dtype=torch.float64, device=device)),
         sym=build_sym_pw_tables(ctx, device) if symmetrizes else None,
     )

@@ -12,7 +12,11 @@ with opposite signs. The XC evaluation is K7 / K7b (LDA), K7g (GGA) or K7s
 returns v_tau); the gradient and divergence of GGA and mGGA are K10a /
 K10b around cuFFT, and the space-group symmetrization of V_eff(G) and
 B_z(G) (the latter as an axial field) is K6. v_tau is not symmetrized, as
-in the JAX package.
+in the JAX package. The pointwise passes between them are K17: K17a the
+XC inputs (kernels/xc_inputs.py), K17b the XC outputs
+(kernels/xc_outputs.py), K17c the Hartree potential with the V_eff sum and
+GGA's gradient rows (kernels/hartree_veff.py), K17d the coarse boxes and
+the per-spin coarse potential (kernels/coarse_potential.py).
 """
 
 from __future__ import annotations
@@ -23,11 +27,18 @@ import functools
 import torch
 
 from sirius_tpu_torch.context import SimulationContext
-from sirius_tpu_torch.core.fftgrid import g_to_r, r_to_g
+from sirius_tpu_torch.core.fftgrid import box_to_g, g_to_r, r_to_g
 from sirius_tpu_torch.dft.density import GridTables, symmetrize_pw
-from sirius_tpu_torch.dft.poisson import hartree_potential_g
 from sirius_tpu_torch.dft.xc import XCFunctional
+from sirius_tpu_torch.kernels.coarse_potential import coarse_fill, coarse_stack
+from sirius_tpu_torch.kernels.hartree_veff import gga_inputs, hartree_veff
 from sirius_tpu_torch.kernels.xc_gradient import divergence_pw, gradient_boxes
+from sirius_tpu_torch.kernels.xc_inputs import (
+    FLOOR_POLARIZED,
+    FLOOR_UNPOLARIZED,
+    xc_inputs,
+)
+from sirius_tpu_torch.kernels.xc_outputs import xc_outputs
 
 
 @dataclasses.dataclass
@@ -117,31 +128,31 @@ def generate_potential(
     polarized = mag_g is not None
     if xc.is_mgga and tau_g is None:
         raise ValueError("mGGA functional needs tau_g")
-    vha_g = hartree_potential_g(rho_g, tables.glen2)
-    rho_r = g_to_r(rho_g, tables.fft_index, dims).real
-    rho_core_r = tables.rho_core_r
-    # the densities whose gradients GGA takes, with the core charge
-    rho_tot_g = rho_g if tables.rho_core_g is None else rho_g + tables.rho_core_g
 
     def to_r(f_g):
         return g_to_r(f_g, tables.fft_index, dims).real
+
+    # K17a: rho_r, rho + rho_core, the clamped rho_xc and (collinear) |m|
+    # clipped to rho_xc and the channels split, the core charge evenly
+    inp = xc_inputs(g_to_r(rho_g, tables.fft_index, dims),
+                    None if tables.rho_core_g is None else tables.rho_core_r,
+                    g_to_r(mag_g, tables.fft_index, dims) if polarized
+                    else None,
+                    FLOOR_POLARIZED if polarized else FLOOR_UNPOLARIZED)
+    rho_r, rho_xc = inp.rho_r, inp.rho_xc
 
     tau_r = None  # mGGA: tau per spin on the fine box
     if xc.is_mgga:
         tau_r = torch.stack([to_r(t) for t in tau_g.reshape(-1, ng_fine)])
     vtau = None  # mGGA: v_tau per spin on the fine box, [ns, npt]
+    div = None  # GGA: the inverse-transformed divergence boxes
+    if xc.is_gga:
+        # gradients of the UNCLIPPED densities with the core charge
+        # (potential.py:110-115); K17c (ii) forms the rows
+        g = gradient_r(tables, gga_inputs(rho_g, tables.rho_core_g, mag_g))
     if polarized:
-        mag_r = to_r(mag_g)
-        # clip |m| <= rho_xc (reference density guard) and split the
-        # channels; the core charge is unpolarized and split evenly
-        rho_xc = torch.clamp(rho_r + rho_core_r, min=1e-20)
-        m = torch.minimum(torch.maximum(mag_r, -rho_xc), rho_xc)
-        n_up = (0.5 * (rho_xc + m)).reshape(-1)
-        n_dn = (0.5 * (rho_xc - m)).reshape(-1)
+        n_up, n_dn = inp.n_up.reshape(-1), inp.n_dn.reshape(-1)
         if xc.is_gga:
-            # gradients of the UNCLIPPED spin densities (potential.py:110-115)
-            g = gradient_r(tables, torch.stack([0.5 * (rho_tot_g + mag_g),
-                                                0.5 * (rho_tot_g - mag_g)]))
             gu, gd = g[0].view(3, npt), g[1].view(3, npt)
             if xc.is_mgga:
                 e, v_up, v_dn, fu, fd, vtu, vtd = xc.evaluate_mgga_polarized(
@@ -153,77 +164,68 @@ def generate_potential(
                     n_up, n_dn, gu, gd)
             del g, gu, gd
             # v_s -= div(2 vsigma_ss grad n_s + vsigma_ud grad n_s')
-            div = to_r(divergence_g(tables, torch.stack([fu, fd]).view(
-                (2, 3) + dims)))
+            div = g_to_r(divergence_g(tables, torch.stack([fu, fd]).view(
+                (2, 3) + dims)), tables.fft_index, dims)
             del fu, fd
-            v_up = v_up.view(dims) - div[0]
-            v_dn = v_dn.view(dims) - div[1]
         else:
             out = xc.evaluate_polarized(n_up, n_dn)
             e, v_up, v_dn = out["e"], out["v_up"], out["v_dn"]
-        e_r = e.view(dims)
-        v_up = v_up.view(dims)
-        v_dn = v_dn.view(dims)
-        vxc_r = 0.5 * (v_up + v_dn)
-        bz_r = 0.5 * (v_up - v_dn)
     else:
-        rho_xc = torch.clamp(rho_r + rho_core_r, min=0.0)
+        v_dn = None
         if xc.is_gga:
-            g = gradient_r(tables, rho_tot_g[None])[0].view(3, npt)
+            g = g[0].view(3, npt)
             if xc.is_mgga:
-                e, v, flux, vt = xc.evaluate_mgga(rho_xc.reshape(-1), g,
-                                                  tau_r[0].reshape(-1))
+                e, v_up, flux, vt = xc.evaluate_mgga(rho_xc.reshape(-1), g,
+                                                     tau_r[0].reshape(-1))
                 vtau = vt[None]
             else:
-                e, v, flux = xc.evaluate_gga(rho_xc.reshape(-1), g)
+                e, v_up, flux = xc.evaluate_gga(rho_xc.reshape(-1), g)
             del g
-            vxc_r = v.view(dims) - to_r(divergence_g(
-                tables, flux.view((1, 3) + dims))[0])
+            div = g_to_r(divergence_g(tables, flux.view((1, 3) + dims))[0],
+                         tables.fft_index, dims)[None]
         else:
             out = xc.evaluate(rho_xc.reshape(-1))
-            e, vxc_r = out["e"], out["v"].view(dims)
-        e_r = e.view(dims)
-        bz_r = None
-    exc_r = e_r / torch.clamp(rho_xc, min=1e-25)
+            e, v_up = out["e"], out["v"]
+    # K17b: exc, V_xc (and B_z) as float64 and as the complex boxes the
+    # forward FFT takes
+    exc_r, vxc_r, vxc_box, bz_box = xc_outputs(e, v_up, rho_xc, v_dn, div)
+    del div
 
-    vxc_g = r_to_g(vxc_r, tables.fft_index, dims)
-    veff_g = tables.vloc_g + vha_g + vxc_g
-    bz_g = r_to_g(bz_r, tables.fft_index, dims) if polarized else None
+    vxc_g = box_to_g(vxc_box, tables.fft_index, dims)
+    bz_g = box_to_g(bz_box, tables.fft_index, dims) if polarized else None
+    # K17c (i): V_H and V_loc + V_H + V_xc in one pass
+    vha_g, veff_g = hartree_veff(rho_g, tables.glen2, tables.vloc_g, vxc_g)
     if tables.sym is not None:
         veff_g = symmetrize_pw(tables.sym, veff_g)
         if polarized:
             bz_g = symmetrize_pw(tables.sym, bz_g, axial_z=True)
 
-    def to_coarse(f_g):
-        return g_to_r(f_g[tables.coarse_to_fine], tables.fft_index_coarse,
-                      tables.dims_coarse).real
-
-    v_r = to_coarse(veff_g)
-    if polarized:
-        b_r = to_coarse(bz_g)
-        veff_r_coarse = torch.stack([v_r + b_r, v_r - b_r])
-    else:
-        veff_r_coarse = v_r[None].contiguous()
-
     # mGGA: v_tau per spin, smoothed through the coarse G set for the
     # -1/2 div(v_tau grad) operator, and the int v_tau tau integral that the
     # eval_sum double-counting correction needs (potential.py:189-205)
-    vtau_r_coarse = None
+    fields = [veff_g] + ([bz_g] if polarized else [])
     vtau_pairs = []
     if vtau is not None:
-        vtau_r_coarse = torch.stack([
-            to_coarse(r_to_g(v.view(dims), tables.fft_index, dims))
-            for v in vtau])
+        fields += [r_to_g(v.view(dims), tables.fft_index, dims) for v in vtau]
         vtau_pairs = [(tau_r[s], vtau[s].view(dims))
                       for s in range(vtau.shape[0])]
+    # K17d: every field's coarse box in one pass, each transformed alone,
+    # then the per-spin potential (and v_tau) from the transformed boxes
+    boxes = [torch.fft.ifftn(b.view(tables.dims_coarse), dim=(-3, -2, -1),
+                             norm="forward")
+             for b in coarse_fill(fields, tables.coarse_box_to_fine)]
+    nsp = 2 if polarized else 1
+    veff_r_coarse = coarse_stack(boxes[:nsp], polarized)
+    vtau_r_coarse = (coarse_stack(boxes[nsp:], False) if vtau is not None
+                     else None)
 
     integrands = {
         "vha": [(rho_r, to_r(vha_g))],
         "vxc": [(rho_r, vxc_r)],
         "vloc": [(rho_r, tables.vloc_r)],
         "veff": [(rho_r, to_r(veff_g))],
-        "exc": [(rho_r + rho_core_r, exc_r)],
-        "bxc": [(mag_r, to_r(bz_g))] if polarized else [],
+        "exc": [(inp.rho_exc, exc_r)],
+        "bxc": [(inp.mag_r, to_r(bz_g))] if polarized else [],
         "vtau_tau": vtau_pairs,
     }
     return PotentialResult(

@@ -8,7 +8,12 @@ projected channel densities), and B_xc = (v_up - v_dn)/2 points along the
 local magnetization direction m-hat. Hartree, the local potential and the
 scalar symmetrization (K6) are those of dft/potential.py; the magnetic
 field is symmetrized as an axial vector, m'_i(g') = det(R) R_ij m_j(g)
-(K6v). Vector components are stored (x, y, z).
+(K6v). Vector components are stored (x, y, z). V_H and the V_eff sum are
+K17c (i), and the coarse boxes of V and B are K17d's fill; the other
+pointwise passes here (the |m| projection, B along m-hat, the four-box
+stack) are host numpy in the JAX package
+(sirius_tpu/dft/potential_nc.py:78-160), no XLA fusion, and stay PyTorch
+ops.
 """
 
 from __future__ import annotations
@@ -20,9 +25,10 @@ import torch
 from sirius_tpu_torch.context import SimulationContext
 from sirius_tpu_torch.core.fftgrid import g_to_r, r_to_g
 from sirius_tpu_torch.dft.density import GridTables, SymPwTables, symmetrize_pw
-from sirius_tpu_torch.dft.poisson import hartree_potential_g
 from sirius_tpu_torch.dft.potential import _inner_rr, divergence_g, gradient_r
 from sirius_tpu_torch.dft.xc import XCFunctional
+from sirius_tpu_torch.kernels.coarse_potential import coarse_fill
+from sirius_tpu_torch.kernels.hartree_veff import hartree_veff
 from sirius_tpu_torch.kernels.symmetrize_pw import (
     symmetrize_vector_pw as symmetrize_vector_kernel,
 )
@@ -62,7 +68,6 @@ def generate_potential_nc(
     def to_r(f_g):
         return g_to_r(f_g, tables.fft_index, dims).real
 
-    vha_g = hartree_potential_g(rho_g, tables.glen2)
     rho_r = to_r(rho_g)
     rho_core_r = tables.rho_core_r
     m_r = to_r(mvec_g)  # [3, box]
@@ -101,18 +106,19 @@ def generate_potential_nc(
 
     exc_r = e_r / torch.clamp(rho_xc, min=1e-25)
     vxc_g = r_to_g(vxc_r, tables.fft_index, dims)
-    veff_g = tables.vloc_g + vha_g + vxc_g
+    # K17c (i): V_H and V_loc + V_H + V_xc in one pass
+    vha_g, veff_g = hartree_veff(rho_g, tables.glen2, tables.vloc_g, vxc_g)
     bvec_g = r_to_g(b_r, tables.fft_index, dims)
     if tables.sym is not None:
         veff_g = symmetrize_pw(tables.sym, veff_g)
         bvec_g = symmetrize_vector_pw(tables.sym, bvec_g)
 
-    def to_coarse(f_g):
-        return g_to_r(f_g[..., tables.coarse_to_fine], tables.fft_index_coarse,
-                      tables.dims_coarse).real
-
-    v_c = to_coarse(veff_g)
-    b_c = to_coarse(bvec_g)
+    # K17d fill: V and B's three components into their coarse boxes in one
+    # pass; V transformed alone, B as one batch of three
+    boxes = coarse_fill([veff_g, *bvec_g], tables.coarse_box_to_fine).view(
+        (4,) + tables.dims_coarse)
+    v_c = torch.fft.ifftn(boxes[0], dim=(-3, -2, -1), norm="forward").real
+    b_c = torch.fft.ifftn(boxes[1:], dim=(-3, -2, -1), norm="forward").real
     veff_boxes = torch.stack([v_c + b_c[2], v_c - b_c[2], b_c[0], b_c[1]])
 
     om = tables.omega

@@ -28,7 +28,7 @@ SOURCES = ("local_hpsi", "davidson_residual", "density_accumulate", "lda_xc",
            "veff_multiply", "augmentation", "symmetrize_pw", "gamma_pack",
            "beta_chunk", "gga_xc", "xc_gradient", "mgga_xc", "mgga_tau",
            "spinor_veff", "fermi", "mixer", "scf_record", "eigh_jacobi",
-           "density_scatter", "h_diag")
+           "density_scatter", "h_diag", "potential_passes")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 # the libraries a source links, found at run time in the toolkit beside nvcc
@@ -120,6 +120,14 @@ SIGNATURES = {
         "scatter_fine": (_P, _P, _I, _LL, _LL, _P, _P),
     },
     "h_diag": {"h_diag": (_P, _P, _P, _P, _I, _I, _LL, _P, _P)},
+    "potential_passes": {
+        "hartree_veff": (_P, _P, _P, _P, _D, _D, _D, _LL, _P, _P, _P),
+        "gga_inputs": (_P, _P, _P, _D, _D, _D, _LL, _P, _P),
+        "xc_inputs": (_P, _P, _P, _D, _LL, _P, _P, _P, _P, _P, _P, _P),
+        "xc_outputs": (_P, _P, _P, _P, _P, _LL, _P, _P, _P, _P, _P),
+        "coarse_fill": (_P, _P, _P, _P, _I, _P, _LL, _P, _P, _P, _P, _P),
+        "coarse_stack": (_P, _P, _P, _P, _I, _I, _LL, _P, _P),
+    },
     "eigh_jacobi": {
         "eigh_jacobi_f32": (_P, _P, _I, _I, _P, _P),
         "eigh_jacobi_f64": (_P, _P, _I, _I, _P, _P),
@@ -224,6 +232,45 @@ def count_launch(fn, suffix: str) -> None:
     """Add one to the launch counter of an instantiation of a wrapper."""
     name = "launches" + suffix
     setattr(fn, name, getattr(fn, name) + 1)
+
+
+def on_cuda(t, what: str) -> bool:
+    """True for a CUDA tensor (its kernel launches), False for a CPU one
+    (its plain version runs); raises for any other device."""
+    if t.device.type not in ("cpu", "cuda"):
+        raise RuntimeError(f"{what}: unsupported device {t.device}")
+    return t.device.type == "cuda"
+
+
+def check_fields(what: str, dtype, ref, *fields, shape=None,
+                 flat: bool = False) -> None:
+    """Every (name, tensor) of fields (None skipped) of dtype, of ref's
+    shape (or shape; flat: of its number of elements) and on ref's device,
+    and a complex128 one on the card at a 16-byte boundary (the kernels
+    load whole complex values); raises ValueError otherwise."""
+    import math
+
+    import torch
+
+    want = tuple(ref.shape) if shape is None else tuple(shape)
+    for name, t in fields:
+        if t is None:
+            continue
+        fits = (t.numel() == math.prod(want) if flat
+                else tuple(t.shape) == want)
+        if t.dtype != dtype or not fits or t.device != ref.device:
+            raise ValueError(f"{what}: {name} must be {dtype} "
+                             f"{'of ' if flat else ''}{want} on "
+                             f"{ref.device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+        if (t.dtype == torch.complex128 and t.device.type == "cuda"
+                and t.data_ptr() % 16):
+            raise ValueError(f"{what}: {name} is off a 16-byte boundary")
+
+
+def ptr(t):
+    """A tensor's device pointer for a C entry, None (NULL) for None."""
+    return None if t is None else t.data_ptr()
 
 
 def check(rc: int, what: str) -> None:

@@ -77,18 +77,11 @@ def _check(acc, table, ng: int):
         raise ValueError(f"table must be int32 [{ng}] on the device of acc")
 
 
-def _device(t, what: str) -> bool:
-    """True for a CUDA tensor, False for a CPU one; raises otherwise."""
-    if t.device.type not in ("cpu", "cuda"):
-        raise RuntimeError(f"{what}: unsupported device {t.device}")
-    return t.device.type == "cuda"
-
-
 def coarse_box(acc, omega: float) -> torch.Tensor:
     """K16a: the complex128 coarse box acc / Omega (the plain version's
     bits: acc * (1 / Omega), as PyTorch divides a CUDA tensor by a host
     scalar)."""
-    if not _device(acc, "coarse_box"):
+    if not build.on_cuda(acc, "coarse_box"):
         return coarse_box_plain(acc, omega)
     acc = acc.contiguous()
     box = torch.empty(acc.shape, dtype=torch.complex128, device=acc.device)
@@ -111,7 +104,7 @@ def scatter_fine(boxg, table, ng: int) -> torch.Tensor:
     if (table.dtype != torch.int32 or tuple(table.shape) != (ng,)
             or table.device != boxg.device):
         raise ValueError(f"table must be int32 [{ng}] on the device of boxg")
-    if not _device(boxg, "scatter_fine"):
+    if not build.on_cuda(boxg, "scatter_fine"):
         return scatter_fine_plain(boxg, table, ng)
     boxg = boxg.contiguous()
     ns, nbox = boxg.shape

@@ -1,7 +1,7 @@
 """chip_smoke.py off the card: without CUDA it exits non-zero and prints no
 result, and its kernel and parity phases run end to end on the CPU at the
 small decks, norm-conserving, ultrasoft + symmetry, Gamma-only, the
-collinear GGA decks, SCAN and non-collinear spin (every wrapper then takes
+collinear GGA decks, SCAN, the potential's passes and non-collinear spin (every wrapper then takes
 its plain version,
 so the checks compare the plain versions with themselves and no launch is
 counted). Its launch checks are held to what each band-solve path
@@ -55,6 +55,14 @@ FUSED_CHECKED = ("fermi", "mixer.gram", "mixer.update", "scf_record")
 # K16a, K16b and K18 (check_density_hdiag_kernels)
 SCATTER_CHECKED = ("density_scatter.coarse_box",
                    "density_scatter.scatter_fine", "h_diag")
+# K17a-K17d (check_potential_kernels): every pass polarized at 16 and 54
+# atoms, and the 16-atom records of the unpolarized X + PZ passes
+K17 = ("potential_passes.xc_inputs", "potential_passes.xc_outputs",
+       "potential_passes.hartree_veff", "potential_passes.gga_inputs",
+       "potential_passes.coarse_fill", "potential_passes.coarse_stack")
+GGA_INPUTS = "potential_passes.gga_inputs"
+POTENTIAL_CHECKED = K17 + tuple(k + ".54" for k in K17) + tuple(
+    k + ".unpolarized" for k in K17 if k != GGA_INPUTS)
 
 
 def reference_tool():
@@ -90,7 +98,8 @@ def test_phases_run_on_cpu(monkeypatch, capsys):
     assert (sorted(NC_CHECKED + US_CHECKED + GAMMA_CHECKED + ("beta_chunk",)
                   + XC_CHECKED + ("symmetrize_pw.axial",) + TAU_CHECKED
                   + SPINOR_CHECKED + AUG54_CHECKED + FP32_CHECKED
-                  + STRAINED_CHECKED + FUSED_CHECKED + SCATTER_CHECKED)
+                  + STRAINED_CHECKED + FUSED_CHECKED + SCATTER_CHECKED
+                  + POTENTIAL_CHECKED)
             == sorted(chip_smoke.SOURCE))
     for rec in recs.values():
         assert rec["max_rel_err"] <= rec["tol_rel"]
@@ -1129,6 +1138,94 @@ def test_density_hdiag_phases_run_on_cpu(monkeypatch, capsys):
     assert len(edges["bitwise"]) == 12 and all(edges["bitwise"].values())
     # every SCF path launches K16a, K16b and K18
     assert set(chip_smoke.EVERY_PATH) == set(SCATTER_CHECKED)
+
+
+def test_potential_phases_run_on_cpu(monkeypatch, capsys):
+    # K17a-K17d against their plain versions at a deck's shapes,
+    # unpolarized and polarized, and at their edges (off the card each
+    # wrapper is its plain version); each record names its source and the
+    # JAX line it replaces
+    monkeypatch.setattr(chip_smoke, "time_ms", lambda fn, **kw: (fn(), 0.0)[1])
+    ctx = chip_smoke.make_context(SMALL, chip_smoke.TIGHT, chip_smoke.US_SYM)
+    cpu = torch.device("cpu")
+    recs = chip_smoke.check_potential_kernels("small_us_sym", ctx, cpu, "cpu",
+                                              False, ".unpolarized")
+    recs.update(chip_smoke.check_potential_kernels(
+        "small_us_sym", ctx, cpu, "cpu", True))
+    assert sorted(recs) == sorted(k for k in POTENTIAL_CHECKED
+                                  if not k.endswith(".54"))
+    for name, rec in recs.items():
+        assert rec["bitwise"] and rec["max_rel_err"] == 0.0
+        assert rec["bound_ms"] > 0 and rec["bound_by"] == "bytes"
+        # one PyTorch call computes the unpolarized stack alone of these
+        if name == "potential_passes.coarse_stack.unpolarized":
+            assert rec["library_ms"] == 0.0
+        else:
+            assert rec["library_ms"] is None
+        assert chip_smoke.SOURCE[name] == (
+            "sirius_tpu_torch/csrc/potential_passes.cu")
+        path, line = chip_smoke.REPLACES[name].split(":")
+        assert os.path.exists(os.path.join(ROOT, path)) and int(line) > 0
+    chip_smoke.check_potential_edges(cpu, "cpu")
+    lines = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
+    edges = [r for r in lines if r.get("phase") == "potential_edges"][0]
+    assert len(edges["bitwise"]) == 28 and all(edges["bitwise"].values())
+    assert all(chip_smoke.read_launches()[k] == 0 for k in K17)
+
+
+def test_potential_kernels_are_required_on_every_collinear_path():
+    # every collinear SCF path launches K17a, K17b, K17c (i) and K17d; a
+    # polarized GGA or SCAN deck K17c (ii) too; the spinor path K17c (i)
+    # and K17d's fill
+    cs = chip_smoke
+    unpolarized = tuple(k for k in K17 if k != GGA_INPUTS)
+    collinear = [cs.NC_KERNELS, cs.US_KERNELS, cs.NC_FUSED, cs.US_FUSED,
+                 cs.GAMMA_KERNELS, cs.GAMMA_US_KERNELS, cs.CHUNKED_US_KERNELS,
+                 cs.FULL_SCAN_KERNELS, cs.FULL_GAMMA_PBE_FM_KERNELS,
+                 cs.FP32_US_KERNELS, cs.FP32_US_FUSED,
+                 cs.FP32_GAMMA_US_KERNELS, cs.FP32_CHUNKED_US_KERNELS,
+                 cs.FP32_SCAN_KERNELS]
+    collinear += [req for _, req in cs.SINGLE_K_PATH.values()]
+    collinear += [req for _, req in cs.XC_DECK_PATH.values()]
+    collinear += [req for _, req, _ in cs.FORCES_DECK_PATH.values()]
+    collinear += [req for path, req in cs.FP32_DECK_PATH.values()
+                  if path != "kset_nc"]
+    for required in collinear:
+        assert set(unpolarized) <= set(required), required
+    polarized_gga = [cs.XC_DECK_PATH["gamma_pbe_us_sym_fm"][1],
+                     cs.XC_DECK_PATH["scan_us_sym_fm"][1],
+                     cs.FULL_GAMMA_PBE_FM_KERNELS,
+                     cs.FORCES_DECK_PATH["forces_gamma_pbe_fm"][1]]
+    for required in polarized_gga:
+        assert GGA_INPUTS in required
+    for deck in ("pbe_us_sym", "gamma_nc_pbesol", "scan_us_sym",
+                 "pw_us_sym_afm"):
+        assert GGA_INPUTS not in cs.XC_DECK_PATH[deck][1], deck
+    # polarized, not the symmetry of axial fields, asks for K17c (ii)
+    assert GGA_INPUTS in cs.xc_kernels(cs.US_KERNELS, True, False,
+                                       polarized=True)
+    assert GGA_INPUTS not in cs.xc_kernels(cs.US_KERNELS, True, True)
+    spinor = [cs.SPINOR_KERNELS, cs.SPINOR_SYM_KERNELS,
+              cs.FP32_SPINOR_SYM_KERNELS, cs.FP32_DECK_PATH[
+                  "small_spinor_pbe_us_sym_fp32"][1]]
+    spinor += list(cs.SPINOR_DECK_PATH.values()) + list(
+        cs.SO_DECK_PATH.values())
+    nc = {"potential_passes.hartree_veff", "potential_passes.coarse_fill"}
+    for required in spinor:
+        assert nc <= set(required), required
+        assert not set(required) & (set(K17) - nc), required
+    # on the card a K17 pass that never launched fails the phase
+    cuda = torch.device("cuda")
+    launches = {name: 1 for name in cs.SOURCE}
+    for name in unpolarized:
+        launches[name] = 0
+        with pytest.raises(AssertionError, match=name):
+            cs.check_launched("kset", cuda, launches, cs.US_KERNELS)
+        launches[name] = 1
+    launches[GGA_INPUTS] = 0
+    with pytest.raises(AssertionError, match=GGA_INPUTS):
+        cs.check_launched("gamma_fm", cuda, launches,
+                          cs.FULL_GAMMA_PBE_FM_KERNELS)
 
 
 def test_checkpoint_and_recovery_phases_run_on_cpu(capsys):

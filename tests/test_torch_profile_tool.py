@@ -83,3 +83,30 @@ def test_eigh_kernels_count_as_cusolver(name):
     # the Jacobi kernels cuSOLVER runs for float32 eigh (the fp32 Gamma
     # path's Rayleigh-Ritz) are eigh time, as the tridiagonal ones are
     assert tool().category(name) == "cusolver eigh"
+
+
+def test_range_launches_count_the_potentials_device_work():
+    # two annotated potentials: the launches inside them and the device
+    # operations those started (by correlation id); launches outside the
+    # ranges and non-launch calls do not count
+    def launch(name, ts, corr):
+        return {"cat": "cuda_runtime", "name": name, "ts": ts, "dur": 1,
+                "args": {"correlation": corr}}
+
+    def op(name, cat, corr):
+        return {"cat": cat, "name": name, "ts": 100, "dur": 1,
+                "args": {"correlation": corr}}
+
+    rng = {"cat": "user_annotation", "name": "generate_potential"}
+    events = [dict(rng, ts=0, dur=10), dict(rng, ts=20, dur=10),
+              launch("cudaLaunchKernel", 2, 1), launch("cudaMemsetAsync", 4, 2),
+              launch("cudaLaunchKernelExC", 22, 3),
+              launch("cudaLaunchKernel", 15, 4),
+              launch("cudaStreamSynchronize", 25, 5),
+              op("xc_inputs_kernel", "kernel", 1), op("Memset", "gpu_memset", 2),
+              op("xc_inputs_kernel", "kernel", 3), op("other", "kernel", 4)]
+    got = tool().range_launches(events, "generate_potential")
+    assert got["ranges"] == 2 and got["launch_calls"] == 3
+    assert got["device_ops"] == 3
+    assert got["device_ops_by_name"] == {"xc_inputs_kernel": 2, "Memset": 1}
+    assert tool().category("xc_inputs_kernel") == "hand kernels"

@@ -32,7 +32,11 @@ iterations and the device's busy share of it. The decks:
 
 It also counts the host syncs of the profiled iterations (PyTorch's
 set_sync_debug_mode("warn"), explicit synchronizes included) and prints
-them an iteration (syncs_per_iteration).
+them an iteration (syncs_per_iteration), the host's launches an iteration
+(launches_per_iteration: kernels, memsets and copies put on the device),
+and the launches of the window's potential generations
+(potential_launches: each generate_potential call is a profiler range;
+its launch calls, and the device operations they started by name).
 
 The device's idle time (the profiled window less the union of its kernel,
 copy and memset intervals in the exported trace) is split by what the host
@@ -71,7 +75,11 @@ HAND_KERNELS = ("scatter_valid", "gather_hpsi", "residual_rows",
                 "gga_xc_polarized", "gga_xc_unpolarized", "gradient_scatter",
                 "divergence_gather", "mgga_xc_polarized",
                 "mgga_xc_unpolarized", "grad_scatter", "grad_gather",
-                "spinor_veff_kernel", "symmetrize_vector_kernel")
+                "spinor_veff_kernel", "symmetrize_vector_kernel",
+                "coarse_box_kernel", "scatter_fine_kernel", "h_diag_kernel",
+                "xc_inputs_kernel", "xc_outputs_kernel",
+                "hartree_veff_kernel", "gga_inputs_kernel",
+                "coarse_fill_kernel", "coarse_stack_kernel")
 # the band-solve entry point of each path, as dft/scf.py (and, for the
 # spinor path, dft/scf_nc.py) calls it
 SOLVES = ("davidson_kset", "davidson_kset_mgga", "davidson_gamma", "davidson")
@@ -169,6 +177,39 @@ def idle_breakdown(events) -> dict:
         left = _subtract(left, calls)
     out["host_ms"] = sum(b - a for a, b in left) / 1e3
     return out
+
+
+# host calls that put one piece of work on the device
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx", "cudaMemsetAsync", "cudaMemcpyAsync")
+# the range the run's potential generations are annotated with
+POTENTIAL_RANGE = "generate_potential"
+
+
+def range_launches(events, range_name: str) -> dict:
+    """The device work launched inside host ranges named range_name
+    (Chrome trace events, as idle_breakdown): the ranges' count, the host
+    launch calls inside them (LAUNCH_CALLS), and the device operations
+    they started (kernels, memsets, copies, matched by correlation id) by
+    name."""
+    ranges = [(e["ts"], e["ts"] + e.get("dur", 0.0)) for e in events
+              if e.get("name") == range_name
+              and e.get("cat") in ("user_annotation", "cpu_op")]
+    inside = [e for e in events
+              if e.get("cat") in ("cuda_runtime", "cuda_driver")
+              and e.get("name", "").startswith(LAUNCH_CALLS)
+              and any(a <= e["ts"] < b for a, b in ranges)]
+    corr = {e.get("args", {}).get("correlation") for e in inside}
+    names: dict[str, int] = {}
+    for e in events:
+        if (e.get("cat") in DEVICE_CATS
+                and e.get("args", {}).get("correlation") in corr):
+            key = e.get("name", "")[:120]
+            names[key] = names.get(key, 0) + 1
+    return {"ranges": len(ranges), "launch_calls": len(inside),
+            "device_ops": sum(names.values()),
+            "device_ops_by_name": dict(sorted(names.items(),
+                                              key=lambda kv: -kv[1]))}
 
 
 def category(name: str) -> str:
@@ -321,9 +362,23 @@ def main(argv=None) -> int:
         state["fermi"] += 1
         return orig["find_fermi"](*a, **kw)
 
+    # every potential generation of the run as a host range: the
+    # launches it makes are counted from the trace (potential_launches)
+    from sirius_tpu_torch.dft import fused as fused_mod
+
+    orig_pot = {m: m.generate_potential for m in (scf_mod, fused_mod)}
+
+    def annotated(fn):
+        def generate_potential(*a, **kw):
+            with torch.profiler.record_function(POTENTIAL_RANGE):
+                return fn(*a, **kw)
+        return generate_potential
+
     for name in solves:
         setattr(mod, name, hooked(name))
     mod.find_fermi = hooked_fermi
+    for m, fn in orig_pot.items():
+        m.generate_potential = annotated(fn)
     try:
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
@@ -340,6 +395,8 @@ def main(argv=None) -> int:
         torch.cuda.set_sync_debug_mode(0)
         for name, fn in orig.items():
             setattr(mod, name, fn)
+        for m, fn in orig_pot.items():
+            m.generate_potential = fn
     profiled = list(range(first, res["num_scf_iterations"]))
     # the profiled iterations' own host-clock times (each starts after a
     # synchronize): the end-of-run report after the loop is not in them
@@ -366,9 +423,15 @@ def main(argv=None) -> int:
         prof.export_chrome_trace(path)
         with open(path) as f:
             trace = json.load(f)
-    idle = idle_breakdown(trace.get("traceEvents", trace)
-                          if isinstance(trace, dict) else trace)
-    del trace
+    events = (trace.get("traceEvents", trace) if isinstance(trace, dict)
+              else trace)
+    idle = idle_breakdown(events)
+    launches = range_launches(events, POTENTIAL_RANGE)
+    # every host launch of the window, an iteration
+    window_launches = sum(
+        1 for e in events if e.get("cat") in ("cuda_runtime", "cuda_driver")
+        and e.get("name", "").startswith(LAUNCH_CALLS))
+    del trace, events
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True, timeout=60).stdout.strip()
@@ -388,6 +451,10 @@ def main(argv=None) -> int:
         # the device's idle time in the traced window by the host's
         # activity; host_ms is the host's own share (Python, numpy)
         "idle_breakdown_ms": idle,
+        # host launches an iteration, and those of the potential
+        # generations in the window (each one's device work by name)
+        "launches_per_iteration": window_launches / len(profiled),
+        "potential_launches": launches,
         "top_kernels": kernels[:25],
         "iteration_seconds": res["iteration_seconds"],
         "band_solve_seconds": res["band_solve_seconds"],
